@@ -1,0 +1,248 @@
+"""DiT building blocks: embedders, adaLN-single modulation, attention layers.
+
+Port of pixart_sigma_tpu/models/layers.py. Parameter names follow the
+upstream PixArt `.pth` checkpoints (`attn.qkv`, `attn.sr`, `attn.norm`,
+`t_embedder.mlp.0`, ...), the names `utils.checkpoint.state_dict_from_jax`
+emits. Token tensors are [B, N, C]; latents NHWC.
+
+LayerNorms use eps 1e-6 as the JAX package does (flax's default; torch's is
+1e-5). The KV-compression conv is depthwise, stride sr, no padding, and one
+conv serves both K and V.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pixart_sigma_tpu_torch.ops.attention import attention
+
+
+def t2i_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
+    """adaLN-single modulation: x * (1 + scale) + shift (broadcast over tokens)."""
+    return x * (1 + scale) + shift
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+class Mlp(nn.Module):
+    """fc1 -> gelu(tanh) -> fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def forward(self, x):
+        return self.fc2(gelu_tanh(self.fc1(x)))
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal features, [B] -> [B, dim] float32; cos first."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal(256) -> Linear -> SiLU -> Linear."""
+
+    def __init__(self, hidden_size: int, freq_embed_size: int = 256):
+        super().__init__()
+        self.freq_embed_size = freq_embed_size
+        self.mlp = nn.Sequential(
+            nn.Linear(freq_embed_size, hidden_size), nn.SiLU(),
+            nn.Linear(hidden_size, hidden_size),
+        )
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        x = timestep_embedding(t, self.freq_embed_size)
+        return self.mlp(x.to(self.mlp[0].weight.dtype))
+
+
+class SizeEmbedder(TimestepEmbedder):
+    """Embed per-sample size scalars; [B, d] -> [B, d * hidden_size]."""
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        if s.ndim == 1:
+            s = s[:, None]
+        b, dims = s.shape
+        return super().forward(s.reshape(-1)).reshape(b, -1)
+
+
+class CaptionEmbedder(nn.Module):
+    """Project caption features to the hidden size (inference).
+
+    `y_embedding` is the learned null caption; `force_drop_ids == 1` swaps a
+    sample's caption for it. Random caption dropout is a training feature and
+    is not ported yet.
+    """
+
+    def __init__(self, in_channels: int, hidden_size: int, token_num: int = 120):
+        super().__init__()
+        self.y_embedding = nn.Parameter(torch.randn(token_num, in_channels) / in_channels**0.5)
+        self.y_proj = Mlp(in_channels, hidden_size, hidden_size)
+
+    def forward(self, caption: torch.Tensor, force_drop_ids: Optional[torch.Tensor] = None):
+        if force_drop_ids is not None:
+            drop = (force_drop_ids == 1)[:, None, None]
+            caption = torch.where(drop, self.y_embedding.to(caption.dtype), caption)
+        return self.y_proj(caption.to(self.y_proj.fc1.weight.dtype))
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear: [B, H, W, C] -> [B, H/p * W/p, D] (a stride-p conv)."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        p = self.patch_size
+        if H % p or W % p:
+            raise ValueError(f"{(H, W)} not divisible by patch size {p}")
+        x = x.to(self.proj.weight.dtype).permute(0, 3, 1, 2)
+        return self.proj(x).flatten(2).transpose(1, 2)
+
+
+class SelfAttentionKVCompress(nn.Module):
+    """Self-attention with optional Sigma KV token compression and QK-norm.
+
+    KV compression downsamples K and V spatially by sr_ratio before attention:
+    'conv' (depthwise conv k = s = sr, then a learned LayerNorm), 'ave' /
+    'uniform' (strided subsample), 'uniform_every' (every sr-th token).
+    QK-norm is a LayerNorm over the full model dim before the head split.
+    """
+
+    def __init__(self, dim: int, num_heads: int, sampling: Optional[str] = None,
+                 sr_ratio: int = 1, qk_norm: bool = False, attn_impl: str = "auto"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sampling = sampling
+        self.sr_ratio = sr_ratio
+        self.attn_impl = attn_impl
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        if qk_norm:
+            self.q_norm = nn.LayerNorm(dim, eps=1e-6)
+            self.k_norm = nn.LayerNorm(dim, eps=1e-6)
+        self.compress = sr_ratio > 1 and sampling is not None
+        if self.compress and sampling == "conv":
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio, groups=dim)
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+        elif self.compress and sampling not in ("ave", "uniform", "uniform_every"):
+            raise ValueError(f"unknown sampling {sampling}")
+
+    def _downsample(self, t: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """[B, N, C] -> [B, N / sr^2, C]."""
+        sr = self.sr_ratio
+        B, N, C = t.shape
+        if self.sampling == "uniform_every":
+            return t[:, ::sr]
+        t = t.reshape(B, H, W, C)
+        if self.sampling in ("ave", "uniform"):
+            return t[:, ::sr, ::sr, :].reshape(B, -1, C)
+        t = self.sr(t.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        return self.norm(t)
+
+    def forward(self, x: torch.Tensor, hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        B, N, C = x.shape
+        H, W = hw if hw is not None else (int(N**0.5), int(N**0.5))
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        if hasattr(self, "q_norm"):
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.compress:
+            k, v = self._downsample(k, H, W), self._downsample(v, H, W)
+        heads = lambda t: t.unflatten(-1, (self.num_heads, C // self.num_heads))
+        out = attention(heads(q), heads(k), heads(v), impl=self.attn_impl)
+        return self.proj(out.reshape(B, N, C))
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Image queries attend to padded caption keys / values.
+
+    `kv` [B, L, 2C]: caption K/V computed once per trajectory
+    (`models.pixart.precompute_cross_kv`); `proj` starts at zero.
+    """
+
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_impl = attn_impl
+        self.q_linear = nn.Linear(dim, dim)
+        self.kv_linear = nn.Linear(dim, 2 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, cond, mask=None, kv=None):
+        B, N, C = x.shape
+        q = self.q_linear(x)
+        kv = self.kv_linear(cond) if kv is None else kv.to(q.dtype)
+        k, v = kv.chunk(2, dim=-1)
+        heads = lambda t: t.unflatten(-1, (self.num_heads, C // self.num_heads))
+        out = attention(
+            heads(q), heads(k), heads(v),
+            key_mask=None if mask is None else mask.bool(), impl=self.attn_impl,
+        )
+        return self.proj(out.reshape(B, N, C))
+
+
+class T2IFinalLayer(nn.Module):
+    """Final LN + 2-way scale/shift from the t-embedding + projection."""
+
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+        super().__init__()
+        self.scale_shift_table = nn.Parameter(torch.randn(2, hidden_size) / hidden_size**0.5)
+        self.norm_final = nn.LayerNorm(hidden_size, elementwise_affine=False, eps=1e-6)
+        self.linear = nn.Linear(hidden_size, patch_size**2 * out_channels)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        ss = self.scale_shift_table[None] + t[:, None].to(x.dtype)
+        shift, scale = ss[:, 0:1], ss[:, 1:2]
+        return self.linear(t2i_modulate(self.norm_final(x), shift, scale))
+
+
+class PixArtBlock(nn.Module):
+    """DiT block: adaLN-single self-attn + caption cross-attn + MLP."""
+
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
+                 sampling: Optional[str] = None, sr_ratio: int = 1,
+                 qk_norm: bool = False, attn_impl: str = "auto"):
+        super().__init__()
+        D = hidden_size
+        self.norm1 = nn.LayerNorm(D, elementwise_affine=False, eps=1e-6)
+        self.attn = SelfAttentionKVCompress(D, num_heads, sampling, sr_ratio, qk_norm, attn_impl)
+        self.cross_attn = MultiHeadCrossAttention(D, num_heads, attn_impl)
+        self.norm2 = nn.LayerNorm(D, elementwise_affine=False, eps=1e-6)
+        self.mlp = Mlp(D, int(D * mlp_ratio), D)
+        self.scale_shift_table = nn.Parameter(torch.randn(6, D) / D**0.5)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, D]
+        y: torch.Tensor,  # [B, L, D]
+        t0: torch.Tensor,  # [B, 6 * D]
+        y_mask: Optional[torch.Tensor] = None,  # [B, L]
+        cross_kv: Optional[torch.Tensor] = None,  # [B, L, 2D] hoisted K/V
+        hw: Optional[Tuple[int, int]] = None,
+    ) -> torch.Tensor:
+        B, N, D = x.shape
+        mods = self.scale_shift_table[None] + t0.reshape(B, 6, D).to(x.dtype)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.split(1, dim=1)
+        x = x + gate_msa * self.attn(t2i_modulate(self.norm1(x), shift_msa, scale_msa), hw)
+        x = x + self.cross_attn(x, y, y_mask, kv=cross_kv)
+        return x + gate_mlp * self.mlp(t2i_modulate(self.norm2(x), shift_mlp, scale_mlp))
