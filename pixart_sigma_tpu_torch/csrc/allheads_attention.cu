@@ -71,7 +71,7 @@ __global__ void __launch_bounds__(kAllheadsThreads) allheads_kernel(Params<T> p)
     attend_tile(st, qa, sK + key0 * kPitch, sV + key0 * kPitch, key0, p.M, madd, p.scale, p.dh,
                 lane);
   }
-  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane);
+  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, p.M, nullptr);
 }
 
 template <typename T>
@@ -80,7 +80,7 @@ cudaError_t launch_allheads(const void* q, const void* k, const void* v, const f
                             const Strides& ks, const Strides& vs, const Strides& os, float scale,
                             cudaStream_t stream) {
   const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), madd, static_cast<T*>(o), qs, ks, vs, os,
+                    static_cast<const T*>(v), madd, static_cast<T*>(o), nullptr, qs, ks, vs, os,
                     B, H, N, M, dh, scale};
   cudaError_t err = cudaFuncSetAttribute(allheads_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

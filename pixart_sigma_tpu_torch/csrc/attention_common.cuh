@@ -156,8 +156,8 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[kHeadPad / 16][4], c
 
 // One online-softmax step over keys [key0, key0 + 64) held in sK / sV.
 // Logit = q.k * scale + bias, bias = madd[key] (0 or -1e30, the key mask) for
-// key < M and -inf past the last key, so the tile tail never counts while a
-// fully masked row still averages its M values, as the plain version does.
+// key < M and -inf past the last key; store_rows adds the padded tail of the
+// TPU kernels back, so a fully masked row gives sum(V) / pad128(M) as they do.
 __device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[kHeadPad / 16][4],
                                             const bf16* sK, const bf16* sV, int key0, int M,
                                             const float* madd, float scale, int dh, int lane) {
@@ -238,18 +238,34 @@ __device__ __forceinline__ void store_pair(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
 }
 
-// out[row] = acc / l for the warp's rows row0 + g and row0 + g + 8 below nrows.
+constexpr float kMaskedLogit = -1e30f;  // a masked key's logit, as in the TPU kernels
+
+// Keys in [M, pad128(M)): the TPU kernels pad K/V to a multiple of 128 keys
+// with zero values and the logit -1e30. They add nothing to a row with a
+// valid key, but a row whose keys are all masked (max logit -1e30) counts
+// each of them once in its denominator.
+__device__ __forceinline__ int padded_tail_keys(int M) { return (M + 127) / 128 * 128 - M; }
+
+// out[row] = acc / l for the warp's rows row0 + g and row0 + g + 8 below
+// nrows, and, when `lse` is not null, lse[row] = m + log2(l) (log2 units).
 template <typename T>
 __device__ __forceinline__ void store_rows(RowState& st, T* o, long long stride, int row0,
-                                           int nrows, int dh, int lane) {
+                                           int nrows, int dh, int lane, int M, float* lse) {
   const int g = lane >> 2, t = lane & 3;
   float l0 = st.l[0], l1 = st.l[1];
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float tail = static_cast<float>(padded_tail_keys(M));
+  l0 += tail * fast_exp2(kMaskedLogit - st.m[0]);
+  l1 += tail * fast_exp2(kMaskedLogit - st.m[1]);
   const float i0 = 1.f / l0, i1 = 1.f / l1;
   const int r0 = row0 + g, r1 = row0 + g + 8;
+  if (lse != nullptr && t == 0) {
+    if (r0 < nrows) lse[r0] = st.m[0] + log2f(l0);
+    if (r1 < nrows) lse[r1] = st.m[1] + log2f(l1);
+  }
 #pragma unroll
   for (int dn = 0; dn < kHeadPad / 8; ++dn) {
     if (dn * 8 < dh) {
@@ -273,6 +289,7 @@ struct Params {
   const T* v;
   const float* madd;  // [B, M] additive key mask (0 / -1e30) or null
   T* o;
+  float* lse;  // [B * H, N] row logsumexp in log2 units, or null (inference)
   Strides qs, ks, vs, os;
   int B, H, N, M, dh;
   float scale;  // dh^-0.5 * log2(e)

@@ -77,16 +77,17 @@ __global__ void __launch_bounds__(kOnepassThreads) onepass_kernel(Params<T> p) {
     attend_tile(st, qa, sK + cur, sV + cur, j * kKeyTile, p.M, madd, p.scale, p.dh, lane);
     __syncthreads();  // the next prefetch overwrites this buffer
   }
-  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane);
+  float* lse = p.lse ? p.lse + static_cast<long long>(blockIdx.y) * p.N : nullptr;
+  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, p.M, lse);
 }
 
 template <typename T>
 cudaError_t launch_onepass(const void* q, const void* k, const void* v, const float* madd,
-                           void* o, int B, int H, int N, int M, int dh, const Strides& qs,
-                           const Strides& ks, const Strides& vs, const Strides& os, float scale,
-                           cudaStream_t stream) {
+                           void* o, float* lse, int B, int H, int N, int M, int dh,
+                           const Strides& qs, const Strides& ks, const Strides& vs,
+                           const Strides& os, float scale, cudaStream_t stream) {
   const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), madd, static_cast<T*>(o), qs, ks, vs, os,
+                    static_cast<const T*>(v), madd, static_cast<T*>(o), lse, qs, ks, vs, os,
                     B, H, N, M, dh, scale};
   cudaError_t err = cudaFuncSetAttribute(onepass_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -99,10 +100,12 @@ cudaError_t launch_onepass(const void* q, const void* k, const void* v, const fl
 
 }  // namespace attn
 
-// q/k/v/o are bf16, or f32 when `f32` is non-zero.
+// q/k/v/o are bf16, or f32 when `f32` is non-zero. `lse` is null for
+// inference, or a [B * H, N] f32 buffer for the row logsumexp (log2 units)
+// that the backward kernels (flash_backward.cu) read.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int onepass_attention(const void* q, const void* k, const void* v, const float* madd,
-                                 void* o, int f32, int B, int H, int N, int M, int dh,
+                                 void* o, float* lse, int f32, int B, int H, int N, int M, int dh,
                                  long long q_sb, long long q_sn, long long q_sh, long long k_sb,
                                  long long k_sn, long long k_sh, long long v_sb, long long v_sn,
                                  long long v_sh, long long o_sb, long long o_sn, long long o_sh,
@@ -112,8 +115,8 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
       os{o_sb, o_sn, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      f32 ? launch_onepass<float>(q, k, v, madd, o, B, H, N, M, dh, qs, ks, vs, os, scale, s)
-          : launch_onepass<bf16>(q, k, v, madd, o, B, H, N, M, dh, qs, ks, vs, os, scale, s);
+      f32 ? launch_onepass<float>(q, k, v, madd, o, lse, B, H, N, M, dh, qs, ks, vs, os, scale, s)
+          : launch_onepass<bf16>(q, k, v, madd, o, lse, B, H, N, M, dh, qs, ks, vs, os, scale, s);
   return static_cast<int>(err);
 }
 

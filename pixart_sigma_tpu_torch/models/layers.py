@@ -8,6 +8,13 @@ emits. Token tensors are [B, N, C]; latents NHWC.
 LayerNorms use eps 1e-6 as the JAX package does (flax's default; torch's is
 1e-5). The KV-compression conv is depthwise, stride sr, no padding, and one
 conv serves both K and V.
+
+Every layer computes in the dtype of its input and casts its weights to it
+at use (`Linear`, `Conv2d`, `LayerNorm`), as flax's `Dense(dtype=bf16)` uses
+f32 params in bf16: a training model keeps f32 master weights and receives
+f32 gradients, and for an inference model cast to bf16 the casts are no-ops.
+The embedders that take raw inputs cast them to `dtype` (default: their
+weights' dtype).
 """
 
 from __future__ import annotations
@@ -20,6 +27,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixart_sigma_tpu_torch.ops.attention import attention
+
+
+class Linear(nn.Linear):
+    """nn.Linear in its input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm in its input's dtype."""
+
+    def forward(self, x):
+        cast = lambda p: None if p is None else p.to(x.dtype)
+        return F.layer_norm(x, self.normalized_shape, cast(self.weight), cast(self.bias),
+                            self.eps)
 
 
 def t2i_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
@@ -36,8 +68,8 @@ class Mlp(nn.Module):
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
 
     def forward(self, x):
         return self.fc2(gelu_tanh(self.fc1(x)))
@@ -60,17 +92,19 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
 class TimestepEmbedder(nn.Module):
     """Sinusoidal(256) -> Linear -> SiLU -> Linear."""
 
-    def __init__(self, hidden_size: int, freq_embed_size: int = 256):
+    def __init__(self, hidden_size: int, freq_embed_size: int = 256,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.freq_embed_size = freq_embed_size
+        self.dtype = dtype
         self.mlp = nn.Sequential(
-            nn.Linear(freq_embed_size, hidden_size), nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size),
+            Linear(freq_embed_size, hidden_size), nn.SiLU(),
+            Linear(hidden_size, hidden_size),
         )
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x = timestep_embedding(t, self.freq_embed_size)
-        return self.mlp(x.to(self.mlp[0].weight.dtype))
+        return self.mlp(x.to(self.dtype or self.mlp[0].weight.dtype))
 
 
 class SizeEmbedder(TimestepEmbedder):
@@ -84,39 +118,54 @@ class SizeEmbedder(TimestepEmbedder):
 
 
 class CaptionEmbedder(nn.Module):
-    """Project caption features to the hidden size (inference).
+    """Project caption features to the hidden size, with classifier-free
+    caption dropout.
 
-    `y_embedding` is the learned null caption; `force_drop_ids == 1` swaps a
-    sample's caption for it. Random caption dropout is a training feature and
-    is not ported yet.
+    `y_embedding` is the learned null caption. `force_drop_ids == 1` swaps a
+    sample's caption for it; in training, without `force_drop_ids`, each
+    sample is swapped with probability `uncond_prob`, drawn from `generator`
+    (the JAX package draws from its 'caption_drop' rng stream, so the two
+    drop different samples for the same seed).
     """
 
-    def __init__(self, in_channels: int, hidden_size: int, token_num: int = 120):
+    def __init__(self, in_channels: int, hidden_size: int, token_num: int = 120,
+                 uncond_prob: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.uncond_prob = uncond_prob
+        self.dtype = dtype
         self.y_embedding = nn.Parameter(torch.randn(token_num, in_channels) / in_channels**0.5)
         self.y_proj = Mlp(in_channels, hidden_size, hidden_size)
 
-    def forward(self, caption: torch.Tensor, force_drop_ids: Optional[torch.Tensor] = None):
+    def forward(self, caption: torch.Tensor, force_drop_ids: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        drop = None
         if force_drop_ids is not None:
-            drop = (force_drop_ids == 1)[:, None, None]
-            caption = torch.where(drop, self.y_embedding.to(caption.dtype), caption)
-        return self.y_proj(caption.to(self.y_proj.fc1.weight.dtype))
+            drop = force_drop_ids == 1
+        elif train and self.uncond_prob > 0:
+            dev = generator.device if generator is not None else caption.device
+            u = torch.rand((caption.shape[0],), generator=generator, device=dev)
+            drop = (u < self.uncond_prob).to(caption.device)
+        if drop is not None:
+            caption = torch.where(drop[:, None, None], self.y_embedding.to(caption.dtype), caption)
+        return self.y_proj(caption.to(self.dtype or self.y_proj.fc1.weight.dtype))
 
 
 class PatchEmbed(nn.Module):
     """Patchify + linear: [B, H, W, C] -> [B, H/p * W/p, D] (a stride-p conv)."""
 
-    def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+        self.dtype = dtype
+        self.proj = Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         p = self.patch_size
         if H % p or W % p:
             raise ValueError(f"{(H, W)} not divisible by patch size {p}")
-        x = x.to(self.proj.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.dtype or self.proj.weight.dtype).permute(0, 3, 1, 2)
         return self.proj(x).flatten(2).transpose(1, 2)
 
 
@@ -136,15 +185,15 @@ class SelfAttentionKVCompress(nn.Module):
         self.sampling = sampling
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         if qk_norm:
-            self.q_norm = nn.LayerNorm(dim, eps=1e-6)
-            self.k_norm = nn.LayerNorm(dim, eps=1e-6)
+            self.q_norm = LayerNorm(dim, eps=1e-6)
+            self.k_norm = LayerNorm(dim, eps=1e-6)
         self.compress = sr_ratio > 1 and sampling is not None
         if self.compress and sampling == "conv":
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio, groups=dim)
-            self.norm = nn.LayerNorm(dim, eps=1e-6)
+            self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio, groups=dim)
+            self.norm = LayerNorm(dim, eps=1e-6)
         elif self.compress and sampling not in ("ave", "uniform", "uniform_every"):
             raise ValueError(f"unknown sampling {sampling}")
 
@@ -184,9 +233,9 @@ class MultiHeadCrossAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.q_linear = nn.Linear(dim, dim)
-        self.kv_linear = nn.Linear(dim, 2 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.q_linear = Linear(dim, dim)
+        self.kv_linear = Linear(dim, 2 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x, cond, mask=None, kv=None):
         B, N, C = x.shape
@@ -208,10 +257,10 @@ class T2IFinalLayer(nn.Module):
         super().__init__()
         self.scale_shift_table = nn.Parameter(torch.randn(2, hidden_size) / hidden_size**0.5)
         self.norm_final = nn.LayerNorm(hidden_size, elementwise_affine=False, eps=1e-6)
-        self.linear = nn.Linear(hidden_size, patch_size**2 * out_channels)
+        self.linear = Linear(hidden_size, patch_size**2 * out_channels)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        ss = self.scale_shift_table[None] + t[:, None].to(x.dtype)
+        ss = self.scale_shift_table[None].to(x.dtype) + t[:, None].to(x.dtype)
         shift, scale = ss[:, 0:1], ss[:, 1:2]
         return self.linear(t2i_modulate(self.norm_final(x), shift, scale))
 
@@ -241,7 +290,7 @@ class PixArtBlock(nn.Module):
         hw: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         B, N, D = x.shape
-        mods = self.scale_shift_table[None] + t0.reshape(B, 6, D).to(x.dtype)
+        mods = self.scale_shift_table[None].to(x.dtype) + t0.reshape(B, 6, D).to(x.dtype)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.split(1, dim=1)
         x = x + gate_msa * self.attn(t2i_modulate(self.norm1(x), shift_msa, scale_msa), hw)
         x = x + self.cross_attn(x, y, y_mask, kv=cross_kv)

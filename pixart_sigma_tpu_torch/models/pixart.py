@@ -1,10 +1,15 @@
-"""PixArt / PixArtMS diffusion transformers (inference forward).
+"""PixArt / PixArtMS diffusion transformers.
 
 Port of pixart_sigma_tpu/models/pixart.py: the same config fields, NHWC
 latents in and an f32 NHWC prediction out, the blocks unrolled in an
-`nn.ModuleList` (`blocks.<i>`, the upstream `.pth` names). Not ported yet:
-masked-token training, block caching, int8 matmuls and rematerialisation;
-a config that asks for them raises.
+`nn.ModuleList` (`blocks.<i>`, the upstream `.pth` names). The model
+computes in `cfg.dtype` whatever its weights' dtype: an inference model is
+cast to it, a training model keeps f32 master weights (`train=True` in the
+builders), as the JAX package's flax modules keep f32 params under a bf16
+compute dtype. `grad_checkpointing` recomputes each block in the backward
+(`torch.utils.checkpoint`, the JAX `remat_policy="nothing"`). Not ported
+yet: masked-token training, the other remat policies, block caching and
+int8 matmuls; a config that asks for them raises.
 """
 
 from __future__ import annotations
@@ -14,9 +19,11 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pixart_sigma_tpu_torch.models.layers import (
     CaptionEmbedder,
+    Linear,
     PatchEmbed,
     PixArtBlock,
     SizeEmbedder,
@@ -87,10 +94,7 @@ class PixArtConfig:
         return groups
 
 
-_NOT_PORTED = {
-    "mask_ratio": 0.0, "quant_int8": False, "grad_checkpointing": False,
-    "cache_span": None,
-}
+_NOT_PORTED = {"mask_ratio": 0.0, "quant_int8": False, "cache_span": None}
 
 
 class PixArt(nn.Module):
@@ -102,15 +106,20 @@ class PixArt(nn.Module):
             if getattr(cfg, name) != default:
                 raise NotImplementedError(
                     f"PixArtConfig.{name} is not ported yet (ROADMAP.md, Queue 1)")
+        if cfg.grad_checkpointing and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported yet; only 'nothing' "
+                "(recompute every block) is (ROADMAP.md, Queue 1)")
         self.cfg = cfg
-        D = cfg.hidden_size
-        self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D)
-        self.t_embedder = TimestepEmbedder(D)
+        D, dt = cfg.hidden_size, cfg.dtype
+        self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D, dtype=dt)
+        self.t_embedder = TimestepEmbedder(D, dtype=dt)
         if cfg.micro_condition:
-            self.csize_embedder = SizeEmbedder(D // 3)
-            self.ar_embedder = SizeEmbedder(D // 3)
-        self.t_block = nn.Sequential(nn.SiLU(), nn.Linear(D, 6 * D))
-        self.y_embedder = CaptionEmbedder(cfg.caption_channels, D, cfg.model_max_length)
+            self.csize_embedder = SizeEmbedder(D // 3, dtype=dt)
+            self.ar_embedder = SizeEmbedder(D // 3, dtype=dt)
+        self.t_block = nn.Sequential(nn.SiLU(), Linear(D, 6 * D))
+        self.y_embedder = CaptionEmbedder(cfg.caption_channels, D, cfg.model_max_length,
+                                          uncond_prob=cfg.class_dropout_prob, dtype=dt)
         self.blocks = nn.ModuleList(
             PixArtBlock(
                 D, cfg.num_heads, cfg.mlp_ratio, sampling=cfg.kv_compress_sampling,
@@ -130,17 +139,22 @@ class PixArt(nn.Module):
         aspect_ratio: Optional[torch.Tensor] = None,  # [B, 1]
         force_drop_ids: Optional[torch.Tensor] = None,
         cross_kv: Optional[Sequence[torch.Tensor]] = None,  # per layer [B, L, 2D]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """`cross_kv` (from `precompute_cross_kv`) replaces the caption
         embedder and every block's kv_linear, which depend on the captions
-        only and so are paid once per trajectory."""
+        only and so are paid once per trajectory. `train` turns on random
+        caption dropout, drawn from `generator`."""
         cfg = self.cfg
         B, H, W, _ = x.shape
         p = cfg.patch_size
         h, w = H // p, W // p
         if not cfg.multi_scale and h != w:
             raise ValueError("fixed-resolution PixArt expects a square grid")
-        dtype = self.final_layer.linear.weight.dtype
+        if train and cross_kv is not None:
+            raise ValueError("cross_kv hoisting is an inference-only path")
+        dtype = cfg.dtype
         pos = get_2d_sincos_pos_embed(
             cfg.hidden_size, h, w, pe_interpolation=cfg.pe_interpolation,
             base_size=cfg.base_size,
@@ -155,12 +169,17 @@ class PixArt(nn.Module):
             t = t + torch.cat([csize, ar], dim=1)
         t0 = self.t_block(t)
         if cross_kv is None:
-            y = self.y_embedder(y, force_drop_ids)
+            y = self.y_embedder(y, force_drop_ids, train=train, generator=generator)
         if y_mask is None:
             y_mask = torch.ones(y.shape[:2], dtype=torch.int32, device=y.device)
+        remat = cfg.grad_checkpointing and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             kv = None if cross_kv is None else cross_kv[i]
-            x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
+            if remat:  # keep only the block's inputs; recompute it in the backward
+                x = checkpoint(block, x, y, t0, y_mask, kv, (h, w), use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
         x = self.final_layer(x, t)
         return self.unpatchify(x, h, w).float()
 
@@ -178,7 +197,7 @@ class PixArt(nn.Module):
 def precompute_cross_kv(model: PixArt, y: torch.Tensor) -> list:
     """Caption K/V of every block, [B, L, 2D] each, once per trajectory:
     y -> y_proj MLP -> each block's kv_linear. Inference only."""
-    emb = model.y_embedder.y_proj(y.to(model.final_layer.linear.weight.dtype))
+    emb = model.y_embedder.y_proj(y.to(model.cfg.dtype))
     return [block.cross_attn.kv_linear(emb) for block in model.blocks]
 
 
@@ -215,25 +234,31 @@ def init_weights(model: PixArt, generator: torch.Generator) -> PixArt:
     return model
 
 
-def _build(overrides: dict, device: Union[str, torch.device]) -> PixArt:
+def _build(overrides: dict, device: Union[str, torch.device], train: bool) -> PixArt:
+    """An inference model (weights cast to cfg.dtype, frozen) or, with
+    `train`, a training model (f32 master weights that take gradients)."""
     dev = resolve_device(device)
     cfg = PixArtConfig(**overrides)
     with dev:
         model = PixArt(cfg)
+    if train:
+        return model.float().train().requires_grad_(True)
     return model.to(cfg.dtype).eval().requires_grad_(False)
 
 
-def PixArt_XL_2(device: Union[str, torch.device] = "cuda", **overrides) -> PixArt:
+def PixArt_XL_2(device: Union[str, torch.device] = "cuda", train: bool = False,
+                **overrides) -> PixArt:
     """0.6B fixed-resolution model."""
     overrides.setdefault("multi_scale", False)
     kw = dict(depth=28, hidden_size=1152, patch_size=2, num_heads=16)
     kw.update(overrides)
-    return _build(kw, device)
+    return _build(kw, device, train)
 
 
-def PixArtMS_XL_2(device: Union[str, torch.device] = "cuda", **overrides) -> PixArt:
+def PixArtMS_XL_2(device: Union[str, torch.device] = "cuda", train: bool = False,
+                  **overrides) -> PixArt:
     """0.6B multi-scale model."""
     overrides.setdefault("multi_scale", True)
     kw = dict(depth=28, hidden_size=1152, patch_size=2, num_heads=16)
     kw.update(overrides)
-    return _build(kw, device)
+    return _build(kw, device, train)

@@ -13,6 +13,10 @@ impl:
   the same choice the TPU dispatch makes at 1024px; longer key sequences
   need the flash kernel, which is not ported yet, and raise. On a CPU tensor
   "auto" runs "reference".
+
+Every choice is differentiable: "onepass" and "allheads" through their
+autograd Functions, whose backward runs the flash backward kernels, and
+"reference" through torch's own autograd of the plain math.
 """
 
 from __future__ import annotations

@@ -6,11 +6,14 @@
 - `vae_state_dict_from_jax`: the JAX AutoencoderKL param tree -> diffusers
   AutoencoderKL names (the port's VAE module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
+- `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
+  "state_dict_ema", "optimizer", "step", "epoch"}), which `load_pth` reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -174,3 +177,20 @@ def load_pth(model: nn.Module, path: str) -> nn.Module:
     sd = {k: v for k, v in sd.items() if k not in _DROPPED}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_pth(path: str, state_dict: Dict[str, torch.Tensor],
+             state_dict_ema: Optional[Dict[str, torch.Tensor]] = None,
+             optimizer: Optional[dict] = None, **extra) -> str:
+    """Write a training checkpoint under the upstream `.pth` keys; tensors
+    are moved to the CPU first. Returns `path`."""
+    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}
+    ckpt: Dict[str, Any] = {"state_dict": cpu(state_dict)}
+    if state_dict_ema is not None:
+        ckpt["state_dict_ema"] = cpu(state_dict_ema)
+    if optimizer is not None:
+        ckpt["optimizer"] = optimizer
+    ckpt.update(extra)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(ckpt, path)
+    return path

@@ -3,8 +3,9 @@
 On a CPU tensor the kernel wrappers run their plain PyTorch versions; here
 they are held against the JAX Pallas kernels run in interpret mode (as the
 JAX package's own kernel tests run them) and against the JAX einsum path.
-Rows compared always have at least one valid key: the JAX einsum path masks
-with -inf and turns a fully masked row into NaN, where the kernels average.
+Rows compared with the JAX einsum path always have at least one valid key:
+it masks with -inf and turns a fully masked row into NaN, where the Pallas
+kernels give sum(V) / pad128(M), which the port matches.
 
 Tolerances: float32 2e-5, bfloat16 2e-2 (the JAX kernel tests' own).
 """
@@ -96,12 +97,21 @@ def test_dispatcher_matches_jax_einsum_path(impl):
 
 
 def test_fully_masked_rows_average_the_values():
-    """-1e30, not -inf: a row with no valid key is finite, the mean of V."""
-    q, k, v = _qkv(1, 8, 5, 1, 8, seed=3)
-    got = tfa.onepass_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                                torch.zeros((1, 5), dtype=torch.bool))
-    want = np.broadcast_to(v.mean(axis=1, keepdims=True), got.shape)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    """-1e30, not -inf: a row with no valid key is finite and is what the TPU
+    kernels give, sum(V[:M]) / pad128(M) (their padded keys share the logit
+    -1e30 and carry zero values)."""
+    B, N, M, H, Dh = 2, 8, 5, 2, 72
+    q, k, v = _qkv(B, N, M, H, Dh, seed=3)
+    mask = _mask((5, 0), M)
+    with pltpu.force_tpu_interpret_mode():
+        want_one = jfa.onepass_attention(*map(jnp.asarray, (q, k, v, mask)), block_q=128)
+        want_all = jfa.crossattn_allheads(*map(jnp.asarray, (q, k, v, mask)), block_q=128)
+    np.testing.assert_allclose(np.asarray(want_one)[1], np.broadcast_to(
+        v[1].sum(axis=0) / 128, (N, H, Dh)), atol=1e-6)
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    _close(tfa.onepass_attention(tq, tk, tv, tm), want_one, bf16=False)
+    got = tfa.crossattn_allheads(tq.flatten(2), tk.flatten(2), tv.flatten(2), tm, H)
+    _close(got.unflatten(-1, (H, Dh)), want_all, bf16=False)
 
 
 def test_dispatcher_rejects_unknown_impl_and_shapes():

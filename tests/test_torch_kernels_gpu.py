@@ -1,4 +1,5 @@
-"""The CUDA attention kernels against their plain PyTorch versions, on the card.
+"""The CUDA attention kernels (forward, with the logsumexp, and backward)
+against their plain PyTorch versions, on the card.
 
 Marked `gpu`; each test skips without a card. The file imports no JAX, so it
 also runs where JAX is not installed:
@@ -20,8 +21,14 @@ import torch
 
 from pixart_sigma_tpu_torch.ops.attention import attention
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    _onepass_forward,
+    _plain_forward,
     attention_reference,
     crossattn_allheads,
+    flash_backward_reference,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    mask_bias,
     onepass_attention,
 )
 
@@ -52,8 +59,8 @@ def _assert_close(got, want):
     dims = tuple(range(1, w.dim()))
     err = g - w
     rms = w.pow(2).mean(dims, keepdim=True).sqrt()
-    elem = float((err.abs() / (w.abs() + rms)).max())
-    l2 = float((err.pow(2).sum(dims).sqrt() / w.pow(2).sum(dims).sqrt()).max())
+    elem = float((err.abs() / (w.abs() + rms).clamp_min(1e-30)).max())
+    l2 = float((err.pow(2).sum(dims).sqrt() / w.pow(2).sum(dims).sqrt().clamp_min(1e-30)).max())
     assert elem <= ELEM_TOL and l2 <= L2_TOL, (elem, l2)
 
 
@@ -137,3 +144,67 @@ def test_kernels_refuse_other_dtypes(cuda):
         onepass_attention(q, q, q)
     with pytest.raises(TypeError):
         onepass_attention(q.bfloat16(), q.float(), q.float())
+
+
+# ---------------------------------------------------------------- training
+
+LSE_TOL = 2**-10  # log2 units, as chip_smoke.py
+
+
+def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
+    rng = np.random.RandomState(seed)
+    t = lambda shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    q, k, v, do = t((B, N, H, Dh)), t((B, M, H, Dh)), t((B, M, H, Dh)), t((B, N, H, Dh))
+    madd = None if lengths is None else mask_bias(_lengths_mask(lengths, M, dev))
+    return q, k, v, do, madd
+
+
+@pytest.mark.parametrize("B,N,M,H,Dh,lengths,dtype", [
+    (1, 256, 256, 2, 72, None, torch.bfloat16),
+    (2, 1000, 1008, 3, 72, None, torch.bfloat16),    # unaligned tails
+    (2, 300, 300, 2, 72, (300, 17), torch.bfloat16),  # ragged key mask
+    (1, 200, 77, 1, 64, None, torch.bfloat16),       # a head dim below the padding
+    (2, 333, 77, 2, 72, (77, 0), torch.float32),     # f32, one row with no valid key
+])
+def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
+    """f32 inputs: the plain version gets q, k, v and dO rounded to bf16, as
+    the kernels multiply them."""
+    q, k, v, do, madd = _backward_case(cuda, B, N, M, H, Dh, lengths, dtype)
+    pq, pk, pv, pdo = (x.to(torch.bfloat16).to(dtype) for x in (q, k, v, do))
+    out, lse = _onepass_forward(q, k, v, madd, with_lse=True)
+    out_p, lse_p = _plain_forward(pq, pk, pv, madd)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, N) and float((lse - lse_p).abs().max()) <= LSE_TOL
+    _assert_close(out, out_p)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    madd_b = None if madd is None else madd.to(dtype).float()
+    dkv, dq = flash_bwd_dkv.launches, flash_bwd_dq.launches
+    dk, dv = flash_bwd_dkv(q, k, v, do, madd_b, lse, delta)
+    got_dq = flash_bwd_dq(q, k, v, do, madd_b, lse, delta)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == (dkv + 1, dq + 1)
+    want = flash_backward_reference(pq, pk, pv, madd_b, lse, delta, pdo)
+    for got, w in zip((got_dq, dk, dv), want):
+        _assert_close(got, w)
+
+
+def test_autograd_runs_the_kernels(cuda):
+    """Gradients through both forward kernels' autograd Functions on the card
+    against torch's autograd of the plain math (f32 inputs, the kernels round
+    them to bf16)."""
+    rng = np.random.RandomState(6)
+    B, N, M, H, Dh = 2, 200, 77, 2, 72
+    f32 = lambda shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    q, k, v, g = f32((B, N, H, Dh)), f32((B, M, H, Dh)), f32((B, M, H, Dh)), f32((B, N, H, Dh))
+    mask = _lengths_mask((77, 30), M, cuda)
+    for fn in (lambda q, k, v: onepass_attention(q, k, v, mask),
+               lambda q, k, v: crossattn_allheads(q.flatten(2), k.flatten(2), v.flatten(2),
+                                                  mask, H).unflatten(-1, (H, Dh))):
+        before = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
+        args = [x.clone().requires_grad_() for x in (q, k, v)]
+        fn(*args).backward(g)
+        ref = [x.clone().requires_grad_() for x in (q, k, v)]
+        attention_reference(*ref, mask).backward(g)
+        assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+        for a, r in zip(args, ref):
+            _assert_close(a.grad, r.grad)
