@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 1024px sampling and training paths on one CUDA card.
+"""Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px training
+paths on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -7,25 +8,43 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: the three CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
+2. build: the five CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, with ptxas register, spill and shared-memory use;
 3. kernels against their plain PyTorch versions at the path's shapes and at
    unaligned ones (bf16, seeded inputs; f32 at the unaligned ones), with the
    stated tolerance, and the same check applied to plain outputs with a
-   planted fault, which it must reject: the two forward kernels, then the
-   onepass kernel's logsumexp output and the two backward kernels
-   (flash_bwd_dkv, flash_bwd_dq) at the training shapes;
-4. the sampling path through PixArtPipeline: PixArt-Sigma-XL-2 at full width
-   and depth (28 blocks, 1152 wide, KV compression conv x2 on layers 14-27),
-   seeded random weights, pseudo-T5 captions padded to 300 tokens, 20-step
-   DPM-Solver++ with CFG 4.5 and hoisted caption K/V, SDXL-VAE decode to
-   1024px; then one 1152x896 call to latents (unaligned token counts), and a
-   256px trajectory held against the same model with plain attention;
-5. sampling times from CUDA events: each forward kernel (and the onepass
+   planted fault, which it must reject: the onepass and allheads forward
+   kernels; the flash kernel at the 2K path shape (compared on picked heads
+   and query rows), in the 2048-key block regime with a ragged tail, and
+   masked, each with "spike" inputs that make single key tiles visible, its
+   lse and a gradient through its autograd Function; the headsmajor kernel;
+   then the onepass logsumexp and the two backward kernels (flash_bwd_dkv,
+   flash_bwd_dq) at the training shapes;
+4. the 1024px sampling path through PixArtPipeline: PixArt-Sigma-XL-2 at full
+   width and depth (28 blocks, 1152 wide, KV compression conv x2 on layers
+   14-27), seeded random weights, pseudo-T5 captions padded to 300 tokens,
+   20-step DPM-Solver++ with CFG 4.5 and hoisted caption K/V, SDXL-VAE decode
+   to 1024px; then one 1152x896 call to latents (unaligned token counts), a
+   256px trajectory held against the same model with plain attention, and
+   the cross-attention forced to the headsmajor kernel
+   (PIXART_CROSSATTN_IMPL=headsmajor): a 20-step trajectory and the 256px one;
+5. 1024px times from CUDA events: each forward kernel (and the onepass
    launch that writes the lse), its plain version, the library attention call
    (`scaled_dot_product_attention`, timed only) and the bound; sampler and
    decode seconds per image, peak memory and a torch.profiler breakdown;
-6. the training path through the port's Trainer at the config's operating
+6. the 2K path: the model of configs/pixart_sigma_config/
+   PixArt_sigma_xl2_img2K_internalms_kvcompress.py (input 256, pe
+   interpolation 4, KV compression on layers 14-27) with seeded random
+   weights, one prompt with CFG, 20 steps, tiled decode to 2048x2048 (25
+   tiles); launches of each kernel against the count reckoned from the code,
+   sampler and decode seconds, peak memory and a torch.profiler breakdown;
+7. the 4K path: the same model through PixArtPipeline(base_resolution=2880)
+   to 4096x4096 (a 512x512 latent, 65536 tokens), 2 steps, tiled decode (121
+   tiles); launches, seconds per step of that first call and of a second,
+   warm one, and decode seconds;
+8. the flash kernel's times at the 2K and 4K shapes beside its plain version
+   (on a subset of the rows), `scaled_dot_product_attention` and the bound;
+9. the training path through the port's Trainer at the config's operating
    point (configs/pixart_sigma_config/
    PixArt_sigma_xl2_img1024_internalms_kvcompress.py: batch 4, CAME, clip
    0.01, EMA, grad checkpointing, bf16 compute over f32 weights) with seeded
@@ -33,9 +52,9 @@ Phases, each printing its own lines:
    directory (two aspect buckets); kernel launches against the count reckoned
    from the code, seconds per step and images per second per bucket, peak
    memory and a torch.profiler breakdown of one step;
-7. one training step's gradients at 256px through the kernels, held against
+10. one training step's gradients at 256px through the kernels, held against
    the same step through plain attention;
-8. backward times: each backward kernel, its plain version, the backward of
+11. backward times: each backward kernel, its plain version, the backward of
    `scaled_dot_product_attention` (timed only) and the bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -75,6 +94,8 @@ PATH_REL_TOL = 3e-2  # 256px trajectory, kernels vs plain attention, relative L2
 # L2 over all parameters and of the worst parameter (readings 1.9e-3, 5.2e-3)
 GRAD_REL_TOL = 2e-2
 TRAIN_CONFIG = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_internalms_kvcompress.py"
+CONFIG_2K = "configs/pixart_sigma_config/PixArt_sigma_xl2_img2K_internalms_kvcompress.py"
+STEPS_4K = 2
 TRAIN_STEPS = 4
 
 
@@ -255,7 +276,133 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     return errs, ok
 
 
+# ---- the long-sequence kernels (flash, headsmajor) against their plain versions
+
+
+def add_spike(q, k, rows, keys, amp=1.1, seed=0) -> None:
+    """In place: query rows `rows` and keys `keys` of every (batch, head) get
+    amp * u_h for one random direction u_h per head, which raises their
+    logits by ~8.5 amp^2 (natural units) over the rest, so those rows put
+    most of their weight on those keys and a fault there shows."""
+    torch_ = sys.modules["torch"]
+    gen = torch_.Generator(device=q.device).manual_seed(seed)
+    u = torch_.randn(q.shape[2], q.shape[3], generator=gen, device=q.device) * amp
+    q[:, rows] += u.to(q.dtype)
+    k[:, keys] += u.to(k.dtype)
+
+
+def pick_rows(x, picks):
+    """[S, n, 1, Dh] stack of x[b, rows, h] for (b, h, rows) in picks."""
+    torch_ = sys.modules["torch"]
+    return torch_.stack([x[b, rows, h : h + 1] for b, h, rows in picks])
+
+
+def flash_plain(fa, qs, k, v, madd, s=None):
+    """The plain flash function on pre-scaled q (or on logits s): (out, lse)."""
+    s = fa._logits(qs, k, madd, scale=1.0) if s is None else s
+    return fa._softmax_pv(s, v, fa._flash_tail(k.shape[1], None), qs.dtype)
+
+
+def flash_plain_faults(fa, qs, k, v, madd, tile: int, tail0: int) -> dict:
+    """The plain flash output of a [S, n, 1, Dh] subset with one fault
+    planted in each: the 64-key tile `tile` skipped, the online-softmax
+    rescale dropped where that tile arrives (earlier keys keep the old max),
+    the ragged tail keys [tail0, M) lost, and the logit scale 80^-0.5."""
+    torch_ = sys.modules["torch"]
+    M = k.shape[1]
+    s = fa._logits(qs, k, madd, scale=1.0)
+    keys = torch_.arange(M, device=qs.device)
+    t0 = tile * 64
+    run = s[..., : M // 64 * 64].unflatten(-1, (-1, 64)).amax(-1).cummax(-1).values
+    run = run.clamp_min(fa.NEG_INF)  # the running max starts from -1e30
+    jump = (run[..., tile] - run[..., tile - 1])[..., None]
+    logits = {
+        f"key tile [{t0}, {t0 + 64}) skipped":
+            s.masked_fill((keys >= t0) & (keys < t0 + 64), float("-inf")),
+        "rescale dropped at that tile": s + torch_.where(keys < t0, jump, 0.0),
+    }
+    if tail0 < M:
+        logits[f"ragged tail [{tail0}, {M}) lost"] = s.masked_fill(keys >= tail0, float("-inf"))
+    out = {name: flash_plain(fa, qs, k, v, madd, x)[0] for name, x in logits.items()}
+    scaled = (qs.float() * (qs.shape[-1] / 80) ** 0.5).to(qs.dtype)
+    out["logit scale 80^-0.5"] = flash_plain(fa, scaled, k, v, madd)[0]
+    return out
+
+
+def check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile, H=16, Dh=72):
+    """flash_attention on the whole input (with the lse, as the training
+    launch), held against its plain version on the (b, h, rows) picks, with
+    the planted faults of `flash_plain_faults`. Query rows [0, 64) attend
+    mainly to key tile `tile`; rows [64, 128) to the ragged tail, if any.
+    Returns (max |err|, ok)."""
+    torch_ = sys.modules["torch"]
+    q, k, v = cases.onepass(B, N, M, H, Dh, dtype=dtype)
+    tail0 = M // 64 * 64
+    add_spike(q, k, slice(0, 64), slice(tile * 64, tile * 64 + 64))
+    if tail0 < M:
+        add_spike(q, k, slice(64, 128), slice(tail0, M), seed=1)
+    mask = None if lengths is None else cases.lengths_mask(lengths, M)
+    qs, madd = fa._flash_scale_q(q), fa._flash_madd(mask, dtype)
+    out, lse = fa._flash_forward(qs, k, v, madd, fa._flash_tail(M, None), with_lse=True)
+    torch_.cuda.synchronize()
+    whole = [(b, h, slice(None)) for b, h, _ in picks]
+    qp, kp, vp = pick_rows(qs, picks), pick_rows(k, whole), pick_rows(v, whole)
+    mp = None if madd is None else torch_.stack([madd[b] for b, _, _ in picks])
+    if dtype == torch_.float32:  # the kernel rounds them to bf16 (ROADMAP Queue 3)
+        qp, kp, vp = (x.to(torch_.bfloat16).float() for x in (qp, kp, vp))
+    want, lse_want = flash_plain(fa, qp, kp, vp, mp)
+    got = pick_rows(out, picks)
+    lse_got = torch_.stack([lse[b, h : h + 1, rows] for b, h, rows in picks])
+    err, ok = compare(label, got, want, flash_plain_faults(fa, qp, kp, vp, mp, tile, tail0))
+    finite = torch_.isfinite(lse_want)
+    ok &= bool(torch_.equal(finite, torch_.isfinite(lse_got)))
+    ok &= check_lse(label, lse_got[finite], lse_want[finite])
+    return err, ok
+
+
+def check_flash_grad(fa, cases, B, N, M, lengths, H=16, Dh=72) -> tuple[dict, bool]:
+    """A gradient through the flash autograd Function (bf16) against the plain
+    backward on the kernel's own lse, with the faults of check_backward: a
+    query tile skipped, and the lse off by one log2 unit."""
+    torch_ = sys.modules["torch"]
+    q, k, v = cases.onepass(B, N, M, H, Dh)
+    mask = cases.lengths_mask(lengths, M)
+    do = cases.randn(B, N, H, Dh)
+    args = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    counts = (fa.flash_attention.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    fa.flash_attention(*args, key_mask=mask).backward(do)
+    torch_.cuda.synchronize()
+    launched = (fa.flash_attention.launches - counts[0], fa.flash_bwd_dkv.launches - counts[1],
+                fa.flash_bwd_dq.launches - counts[2])
+    qs, madd, tail = fa._flash_scale_q(q), fa._flash_madd(mask, q.dtype), fa._flash_tail(M, None)
+    out, lse = fa._flash_forward(qs, k, v, madd, tail, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    c = fa._flash_q_scale(Dh, q.dtype, q.device)
+
+    def plain(l):
+        dqs, dk, dv = fa.flash_backward_reference(qs, k, v, madd, l, delta, do, 1.0, fa.LN2)
+        return dqs * c, dk, dv
+
+    want = plain(lse)
+    skipped = lse.clone()
+    skipped[:, :, 64:128] = float("inf")
+    faults = {"query tile [64, 128) skipped": plain(skipped), "lse + 1": plain(lse + 1)}
+    label = f"flash grad B*H={B * H} N={N} M={M} valid={lengths}"
+    log(f"  {label}: one backward launched flash/dkv/dq {launched} (expected (1, 1, 1))")
+    ok = launched == (1, 1, 1)
+    errs = {}
+    for name, got, idx in (("dkv", args[1].grad, 1), ("dkv", args[2].grad, 2),
+                           ("dq", args[0].grad, 0)):
+        err, good = compare(f"{label} d{'qkv'[idx]}", got, want[idx],
+                            {f: o[idx] for f, o in faults.items()})
+        errs[name] = max(errs.get(name, 0.0), err)
+        ok &= good
+    return errs, ok
+
+
 KERNEL_GROUPS = (  # kernel-name substrings -> the layer they belong to
+    ("flash_fwd_kernel", "flash attention kernel"),
+    ("headsmajor_kernel", "headsmajor attention kernel"),
     ("onepass_kernel", "onepass attention kernel"),
     ("allheads_kernel", "allheads attention kernel"),
     ("dkv_kernel", "flash backward dK/dV kernel"),
@@ -317,9 +464,11 @@ def attention_launches_per_step(depth: int) -> dict:
     once recomputed in the backward); each self-attention forward launches
     onepass and each cross-attention forward allheads; each backward launches
     dkv and dq once, and the cross-attention backward first recomputes out
-    and lse with one onepass launch."""
+    and lse with one onepass launch. The 1024px keys fit the onepass gate, so
+    flash never runs, and headsmajor, forward-only, never does in training."""
     return {"onepass": 3 * depth, "allheads": 2 * depth,
-            "flash_bwd_dkv": 2 * depth, "flash_bwd_dq": 2 * depth}
+            "flash_bwd_dkv": 2 * depth, "flash_bwd_dq": 2 * depth,
+            "flash_forward": 0, "headsmajor": 0}
 
 
 def perturb_zero_leaves(model, gen) -> None:
@@ -368,7 +517,8 @@ def run_training(dev, card, fa) -> dict:
         perturb_zero_leaves(trainer.model, torch.Generator(device=dev).manual_seed(0))
         before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
         counters = {"onepass": fa.onepass_attention, "allheads": fa.crossattn_allheads,
-                    "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
+                    "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq,
+                    "flash_forward": fa.flash_attention, "headsmajor": fa.crossattn_headsmajor}
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -519,6 +669,160 @@ def backward_times(cases, fa, card, launches: dict, errs: dict) -> list:
     return entries
 
 
+FORWARD_KERNELS = {"onepass": "onepass_attention", "allheads": "crossattn_allheads",
+                   "flash": "flash_attention", "headsmajor": "crossattn_headsmajor"}
+
+
+def reset_forward_counts(fa) -> None:
+    for attr in FORWARD_KERNELS.values():
+        getattr(fa, attr).launches = 0
+
+
+def forward_counts(fa) -> dict:
+    return {name: getattr(fa, attr).launches for name, attr in FORWARD_KERNELS.items()}
+
+
+def hires_launches(depth: int, compressed: int, steps: int, compressed_is_flash: bool) -> dict:
+    """Forward launches of a 2K/4K trajectory, reckoned from the code: one
+    model call per step; each block runs one cross-attention (allheads) and
+    one self-attention, flash over the full token count, and onepass or flash
+    over the KV-compressed keys (onepass while they fit its 4096-key gate)."""
+    full = depth - compressed
+    return {"onepass": 0 if compressed_is_flash else compressed * steps,
+            "allheads": depth * steps, "headsmajor": 0,
+            "flash": (full + (compressed if compressed_is_flash else 0)) * steps}
+
+
+def check_images(imgs, side: int, what: str) -> None:
+    import numpy as np
+
+    if imgs.shape != (1, side, side, 3) or imgs.dtype != np.uint8:
+        raise SystemExit(f"{what} images: {imgs.shape} {imgs.dtype}")
+    if imgs.min() == imgs.max() or imgs.std() == 0:
+        raise SystemExit(f"{what} images are constant")
+
+
+def run_hires(dev, card, fa, cases, t5, vae, prompt, negative, max_err) -> dict:
+    """Phases 6-8: the 2K path (20 steps, tiled decode to 2048px), the 4K
+    path (the 2880 bucket table's 4096px square, STEPS_4K steps), and the
+    flash kernel's times. Returns its JSON entry."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.pixart import init_weights
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+
+    cfg = read_config(CONFIG_2K)
+    model = build_model_from_config(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    init_weights(model, gen)
+    perturb_zero_leaves(model, gen)
+    mc = model.cfg
+    n_comp = len(mc.kv_compress_layers)
+    log(f"[2k] {CONFIG_2K}: PixArtMS_XL_2 {mc.depth} blocks x {mc.hidden_size}, input "
+        f"{mc.input_size}, pe_interpolation {mc.pe_interpolation}, kv-compress "
+        f"{mc.kv_compress_sampling} x{mc.kv_compress_scale} on layers "
+        f"{mc.kv_compress_layers[0]}-{mc.kv_compress_layers[-1]}, bf16, seeded random weights")
+    call = dict(guidance_scale=4.5, negative_prompt=negative, seed=0, return_latents=True)
+
+    def run(pipe, steps):
+        reset_forward_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = pipe([prompt], num_inference_steps=steps, **call)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        imgs = pipe._latents_to_images(torch.from_numpy(lat).to(dev))
+        torch.cuda.synchronize()
+        return lat, imgs, forward_counts(fa), t1 - t0, time.perf_counter() - t1
+
+    # ---- 6. 2K
+    pipe = PixArtPipeline(model, t5=t5, vae=vae, base_resolution=2048, device=dev)
+    pipe([prompt], num_inference_steps=2, **call)  # warm the 2K shapes
+    pipe._latents_to_images(torch.zeros((1, 64, 64, 4), device=dev))  # and the tile's
+    torch.cuda.reset_peak_memory_stats()
+    lat, imgs, counts, t_sample, t_decode = run(pipe, 20)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = hires_launches(mc.depth, n_comp, 20, compressed_is_flash=False)
+    log(f"[2k] 20 steps, CFG 4.5: latents {tuple(lat.shape)}, images {imgs.shape} {imgs.dtype} "
+        f"(25 tiles of 64 latents, overlap 16); launches {counts}, reckoned {expect}")
+    if not np.isfinite(lat).all():
+        raise SystemExit("2K latents are not finite")
+    check_images(imgs, 2048, "2K")
+    if counts != expect:
+        raise SystemExit(f"2K launches {counts} != {expect}")
+    launches = counts["flash"]
+    log(f"[time] {card}: 2K sampler {t_sample:.4f} s/img, tiled decode {t_decode:.4f} s/img "
+        f"(1 image, CFG batch 2, 20 steps), peak memory {peak:.2f} GiB")
+    trace(lambda: pipe([prompt], num_inference_steps=20, **call),
+          "2K 20-step trajectory (1 image, CFG batch 2)", card)
+
+    # ---- 7. 4K through the 2880 table
+    # the 2K phase built and warmed every kernel and the decode's tile shape;
+    # the first call at 4K still sets up its own shapes, so a second call
+    # after it times warm steps
+    pipe = PixArtPipeline(model, t5=t5, vae=vae, base_resolution=2880, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    lat, imgs, counts, t_sample, t_decode = run(pipe, STEPS_4K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe([prompt], num_inference_steps=STEPS_4K, **call)
+    torch.cuda.synchronize()
+    t_warm = (time.perf_counter() - t0) / STEPS_4K
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = hires_launches(mc.depth, n_comp, STEPS_4K, compressed_is_flash=True)
+    log(f"[4k] base_resolution 2880, {STEPS_4K} steps: latents {tuple(lat.shape)} "
+        f"({lat.shape[1] // 2}x{lat.shape[2] // 2} tokens), images {imgs.shape} {imgs.dtype} "
+        f"(121 tiles); launches {counts}, reckoned {expect}")
+    if lat.shape != (1, 512, 512, 4) or not np.isfinite(lat).all():
+        raise SystemExit("4K latents are wrong or not finite")
+    check_images(imgs, 4096, "4K")
+    if counts != expect:
+        raise SystemExit(f"4K launches {counts} != {expect}")
+    log(f"[time] {card}: 4K sampler, warm: {t_warm:.4f} s/step (a second {STEPS_4K}-step "
+        f"call); first call, cold: {t_sample / STEPS_4K:.4f} s/step ({STEPS_4K} steps, "
+        f"{t_sample:.4f} s); tiled decode {t_decode:.4f} s/img, peak memory {peak:.2f} GiB")
+    del pipe, model, lat, imgs
+    torch.cuda.empty_cache()
+
+    # ---- 8. the flash kernel's times at the path shapes
+    B, H, Dh = 2, 16, 72
+    rows = []
+    for N, M, iters in ((16384, 16384, 20), (65536, 65536, 3), (65536, 16384, 5)):
+        q, k, v = cases.onepass(B, N, M)
+        kern = lambda: fa.flash_attention(q, k, v)
+        sub = 1024  # the plain version holds [H, rows, M] f32 logits
+        plain = lambda: fa.flash_reference_with_lse(q[:1, :sub], k[:1], v[:1])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        ms = cuda_ms(kern, iters=iters, warmup=1)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        lib_ms = cuda_ms(library, iters=iters, warmup=1)
+        flops = 4.0 * B * H * N * M * Dh
+        nbytes = 2.0 * (2 * B * N * H * Dh + 2 * B * M * H * Dh)
+        b_ms, by = bound_ms(flops, nbytes)
+        log(f"[time] {card}: flash B*H={B * H} N={N} M={M}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms on {sub} of the {B * N} query rows (1 batch element, all heads), "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {flops / 1e12:.3f} TFLOP, "
+            f"{nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}")
+        rows.append(dict(N=N, M=M, ms=ms, plain_ms=plain_ms, plain_rows=sub, bound_ms=b_ms,
+                         bound_by=by, library_ms=lib_ms))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    head = rows[0]
+    return {
+        "name": "flash_forward", "route": "cuda",
+        "source": "pixart_sigma_tpu_torch/csrc/flash_forward.cu",
+        "replaces": "pixart_sigma_tpu/ops/flash_attention.py:64",
+        "launches": launches, "launches_4k": counts["flash"], "max_abs_err": max_err,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rows,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -538,6 +842,7 @@ def main() -> int:
 
     from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
     from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV
     from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
     from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
 
@@ -569,9 +874,12 @@ def main() -> int:
     smem_onepass = _build.load("onepass_attention").onepass_attention_smem_bytes()
     smem_allheads = _build.load("allheads_attention").allheads_attention_smem_bytes(300)
     bwd = _build.load("flash_backward")
+    smem_flash = _build.load("flash_forward").flash_forward_smem_bytes()
+    smem_heads = _build.load("headsmajor_attention").headsmajor_attention_smem_bytes(300)
     log(f"  dynamic shared memory per block: onepass {smem_onepass} B, "
         f"allheads {smem_allheads} B (M=300), dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
-        f"dq {bwd.flash_bwd_dq_smem_bytes()} B")
+        f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B, "
+        f"headsmajor {smem_heads} B (M=300)")
 
     # ---- 3. kernels against their plain versions ------------------------
     log("[kernels] seeded inputs at the path shapes (B = 2 prompts x CFG), bf16 "
@@ -604,6 +912,43 @@ def main() -> int:
         errs["allheads"].append(err)
         all_ok &= ok
     del q, k, v, got, want
+    log("[kernels] long sequences: flash_attention (the 2K/4K self-attention; launched "
+        "whole, compared on picked (batch, head, query rows)) and crossattn_headsmajor")
+    errs.update(flash_forward=[], headsmajor=[])
+    halves = (slice(0, 512), slice(9000, 9512))
+    for label, B, N, M, lengths, dtype, picks, tile in (
+        ("flash 2K path B*H=32 N=M=16384, heads 0/9/15, rows [0, 512) and [9000, 9512)",
+         2, 16384, 16384, None, torch.bfloat16,
+         [(b, h, r) for b in (0, 1) for h in (0, 9, 15) for r in halves], 100),
+        ("flash B*H=32 N=1000 M=8200", 2, 1000, 8200, None, torch.bfloat16,
+         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 50),
+        ("flash B*H=32 N=1000 M=8200 f32", 2, 1000, 8200, None, torch.float32,
+         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 50),
+        ("flash masked B*H=48 N=9000 M=2500 valid=(2500, 1100, 0), heads 0/5/15", 3, 9000,
+         2500, (2500, 1100, 0), torch.bfloat16,
+         [(b, h, slice(None)) for b in range(3) for h in (0, 5, 15)], 10),
+    ):
+        err, ok = check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile)
+        errs["flash_forward"].append(err)
+        all_ok &= ok
+        torch.cuda.empty_cache()
+    grad_errs, ok = check_flash_grad(fa, cases, 2, 2048, 8200, (8200, 3000))
+    errs["flash_forward"].append(max(grad_errs.values()))
+    all_ok &= ok
+    torch.cuda.empty_cache()
+    for N, M, lengths, dtype in ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
+                                 (1000, 77, (77, 40, 5, 1), torch.float32)):
+        q, k, v, mask, H = cases.allheads(4, N, M, lengths, dtype=dtype)
+        q, k, v = (x.unflatten(-1, (H, 72)) for x in (q, k, v))
+        got = fa.crossattn_headsmajor(q, k, v, mask)
+        torch.cuda.synchronize()
+        err, ok = compare(
+            f"headsmajor B=4 N={N} M={M} H=16 valid={lengths}"
+            f"{' f32' if dtype == torch.float32 else ''}",
+            got, fa.headsmajor_reference(q, k, v, mask), planted_faults(q, k, v, mask))
+        errs["headsmajor"].append(err)
+        all_ok &= ok
+    del q, k, v, got
     log("[kernels] training: the onepass lse, then flash_bwd_dkv and flash_bwd_dq, at "
         "the training shapes (B = 4, no CFG doubling)")
     errs.update(dkv=[], dq=[])
@@ -649,21 +994,23 @@ def main() -> int:
     negative = "blurry, low quality"
     call = dict(num_inference_steps=20, guidance_scale=4.5, negative_prompt=negative, seed=0)
 
-    def run_path(ps, decode=True):
-        fa.onepass_attention.launches = 0
-        fa.crossattn_allheads.launches = 0
+    def run_path(ps, decode=True, p=None, **kw):
+        p = p or pipe
+        reset_forward_counts(fa)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lat = pipe(ps, return_latents=True, **call)
+        lat = p(ps, return_latents=True, **dict(call, **kw))
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
-        imgs = pipe._latents_to_images(torch.from_numpy(lat).to(dev)) if decode else None
+        imgs = p._latents_to_images(torch.from_numpy(lat).to(dev)) if decode else None
+        torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = (fa.onepass_attention.launches, fa.crossattn_allheads.launches)
-        return lat, imgs, counts, t1 - t0, t2 - t1
+        return lat, imgs, forward_counts(fa), t1 - t0, t2 - t1
 
     torch.cuda.reset_peak_memory_stats()
     lat, imgs, counts, _, _ = run_path(prompts)
-    launches = {"onepass": counts[0], "allheads": counts[1]}
+    launches = dict(counts)
+    counts = (counts["onepass"], counts["allheads"])
     expect = 28 * 20
     log(f"[path] 1024px: latents {tuple(lat.shape)} images {imgs.shape} {imgs.dtype}; "
         f"launches onepass={counts[0]} allheads={counts[1]} (expected {expect} each)")
@@ -675,11 +1022,12 @@ def main() -> int:
         raise SystemExit(f"1024px images: {imgs.shape} {imgs.dtype}")
     if imgs.min() == imgs.max() or any(im.std() == 0 for im in imgs):
         raise SystemExit("1024px images are constant")
-    if counts != (expect, expect):
-        raise SystemExit(f"kernel launches {counts} != {(expect, expect)}")
+    if counts != (expect, expect) or launches["flash"] or launches["headsmajor"]:
+        raise SystemExit(f"kernel launches {launches}, expected onepass and allheads {expect}")
 
-    # latents only: beyond 128 latent rows the decode is the tiled one, not ported yet
+    # latents only: the tiled decode runs in the 2K and 4K phases
     lat_hw, _, counts_hw, _, _ = run_path(["a red fox in the snow --hw 1152:896"], decode=False)
+    counts_hw = (counts_hw["onepass"], counts_hw["allheads"])
     log(f"[path] 1152x896: latents {tuple(lat_hw.shape)}; tokens 72x56 = 4032, "
         f"compressed 36x28 = 1008; launches onepass={counts_hw[0]} allheads={counts_hw[1]}")
     if lat_hw.shape != (1, 144, 112, 4) or not np.isfinite(lat_hw).all():
@@ -698,6 +1046,30 @@ def main() -> int:
     if not np.isfinite(lat_k).all() or rel > PATH_REL_TOL:
         raise SystemExit("256px trajectory disagrees with plain attention")
 
+    # the cross-attention forced to the headsmajor kernel, as JAX's override
+    os.environ[CROSSATTN_ENV] = "headsmajor"
+    try:
+        lat_h, _, counts_h, _, _ = run_path(prompts, decode=False)
+        reset_forward_counts(fa)
+        lat_hk = pipe(prompts, **small)
+        counts_hk = forward_counts(fa)
+    finally:
+        del os.environ[CROSSATTN_ENV]
+    rel_h = float(np.linalg.norm(lat_hk - lat_r) / np.linalg.norm(lat_r))
+    log(f"[path] {CROSSATTN_ENV}=headsmajor: 1024px 20-step latents {tuple(lat_h.shape)}, "
+        f"launches {counts_h} (expected headsmajor {expect}, allheads 0, onepass {expect}); "
+        f"256px trajectory, launches {counts_hk}, vs plain attention: relative L2 {rel_h:.3e} "
+        f"(tol {PATH_REL_TOL})")
+    launches["headsmajor"] = counts_h["headsmajor"]
+    if not np.isfinite(lat_h).all() or lat_h.std() == 0:
+        raise SystemExit("headsmajor trajectory latents are not finite or constant")
+    if counts_h != {"onepass": expect, "allheads": 0, "headsmajor": expect, "flash": 0}:
+        raise SystemExit(f"headsmajor trajectory launches {counts_h}")
+    if counts_hk["headsmajor"] != expect or counts_hk["allheads"]:
+        raise SystemExit(f"256px headsmajor trajectory launches {counts_hk}")
+    if not np.isfinite(lat_hk).all() or rel_h > PATH_REL_TOL:
+        raise SystemExit("256px headsmajor trajectory disagrees with plain attention")
+
     # ---- 5. times --------------------------------------------------------
     _, _, _, t_sample, t_decode = run_path(prompts)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -712,6 +1084,7 @@ def main() -> int:
     for name, shapes in (
         ("onepass", ((4096, 4096), (4096, 1024))),
         ("allheads", ((4096, 300),)),
+        ("headsmajor", ((4096, 300),)),
     ):
         rows = []
         for N, M in shapes:
@@ -725,10 +1098,14 @@ def main() -> int:
             else:
                 qf, kf, vf, _, _ = cases.allheads(B, N, M, (M,) * B)
                 mask = mask_path
-                kern = lambda: fa.crossattn_allheads(qf, kf, vf, mask, H)
                 split = lambda x: x.unflatten(-1, (H, Dh))
                 q, k, v = split(qf), split(kf), split(vf)
-                plain = lambda: fa.attention_reference(q, k, v, mask)
+                if name == "allheads":
+                    kern = lambda: fa.crossattn_allheads(qf, kf, vf, mask, H)
+                    plain = lambda: fa.attention_reference(q, k, v, mask)
+                else:
+                    kern = lambda: fa.crossattn_headsmajor(q, k, v, mask)
+                    plain = lambda: fa.headsmajor_reference(q, k, v, mask)
                 valid = int(mask.sum())
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             am = None if mask is None else mask[:, None, None, :]
@@ -756,26 +1133,32 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": f"pixart_sigma_tpu_torch/csrc/{name}_attention.cu",
-            "replaces": ("pixart_sigma_tpu/ops/flash_attention.py:179" if name == "onepass"
-                         else "pixart_sigma_tpu/ops/flash_attention.py:587"),
+            "replaces": "pixart_sigma_tpu/ops/flash_attention.py:"
+                        + {"onepass": "179", "allheads": "587", "headsmajor": "646"}[name],
             "launches": launches[name],
             "max_abs_err": max(errs[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": rows,
         })
-    del pipe, model, vae, t5
+    del pipe, model
     torch.cuda.empty_cache()
 
-    # ---- 6. the training path ---------------------------------------------
+    # ---- 6.-8. the 2K and 4K paths, the flash kernel's times ----------------
+    entries.append(run_hires(dev, card, fa, cases, t5, vae, prompts[0], negative,
+                             max(errs["flash_forward"])))
+    del vae, t5
+    torch.cuda.empty_cache()
+
+    # ---- 9. the training path ---------------------------------------------
     launches_train = run_training(dev, card, fa)
     for entry in entries:
         entry["launches_training"] = launches_train[entry["name"]]
 
-    # ---- 7. gradients through the kernels against plain attention -----------
+    # ---- 10. gradients through the kernels against plain attention ----------
     gradient_check(dev)
 
-    # ---- 8. backward kernel times -------------------------------------------
+    # ---- 11. backward kernel times ------------------------------------------
     entries += backward_times(cases, fa, card, launches_train, errs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)

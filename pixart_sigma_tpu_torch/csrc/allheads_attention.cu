@@ -71,7 +71,8 @@ __global__ void __launch_bounds__(kAllheadsThreads) allheads_kernel(Params<T> p)
     attend_tile(st, qa, sK + key0 * kPitch, sV + key0 * kPitch, key0, p.M, madd, p.scale, p.dh,
                 lane);
   }
-  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, p.M, nullptr);
+  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, padded_tail_keys(p.M),
+             nullptr);
 }
 
 template <typename T>

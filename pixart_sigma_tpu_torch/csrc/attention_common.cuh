@@ -1,5 +1,6 @@
-// Warp-level pieces shared by the two attention kernels
-// (onepass_attention.cu, allheads_attention.cu).
+// Warp-level pieces shared by the forward attention kernels
+// (onepass_attention.cu, allheads_attention.cu, flash_forward.cu,
+// headsmajor_attention.cu).
 //
 // Each warp owns 16 query rows. Logits come from bf16 mma.sync m16n8k16 with
 // f32 accumulation, the softmax runs in f32 in the log2 domain (exp2), and the
@@ -132,8 +133,11 @@ struct RowState {
   float l[2];  // this thread's share of the running denominators
   float acc[kHeadPad / 8][4];
 
-  __device__ __forceinline__ void init() {
-    m[0] = m[1] = -CUDART_INF_F;
+  __device__ __forceinline__ void init() { init(-CUDART_INF_F); }
+
+  // m0: the max before any key; the TPU `_fwd_kernel` starts from -1e30
+  __device__ __forceinline__ void init(float m0) {
+    m[0] = m[1] = m0;
     l[0] = l[1] = 0.f;
 #pragma unroll
     for (int i = 0; i < kHeadPad / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -154,15 +158,15 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[kHeadPad / 16][4], c
   }
 }
 
-// One online-softmax step over keys [key0, key0 + 64) held in sK / sV.
-// Logit = q.k * scale + bias, bias = madd[key] (0 or -1e30, the key mask) for
-// key < M and -inf past the last key; store_rows adds the padded tail of the
-// TPU kernels back, so a fully masked row gives sum(V) / pad128(M) as they do.
-__device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[kHeadPad / 16][4],
-                                            const bf16* sK, const bf16* sV, int key0, int M,
-                                            const float* madd, float scale, int dh, int lane) {
+// Logits of the warp's 16 rows against keys [key0, key0 + 64) held in sK, in
+// the C-fragment layout: s = q.k * scale + bias, bias = madd[key] (0 or
+// -1e30, the key mask) for key < M and -inf past the last key. store_rows
+// adds the padded tail of the TPU kernels back.
+__device__ __forceinline__ void tile_logits(float (&s)[8][4],
+                                            const uint32_t (&qa)[kHeadPad / 16][4],
+                                            const bf16* sK, int key0, int M, const float* madd,
+                                            float scale, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  float s[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -172,7 +176,6 @@ __device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[k
       mma_16816(s[nt], qa[kt], ld_u32(kp), ld_u32(kp + 8));
     }
   }
-  float mx0 = st.m[0], mx1 = st.m[1];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -182,38 +185,39 @@ __device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[k
       if (key < M) bias = madd ? __ldg(madd + key) : 0.f;
       s[nt][e] = s[nt][e] * scale + bias;
       s[nt][e + 2] = s[nt][e + 2] * scale + bias;
-      mx0 = fmaxf(mx0, s[nt][e]);
-      mx1 = fmaxf(mx1, s[nt][e + 2]);
     }
+  }
+}
+
+// mx0 / mx1 = max(mx0 / mx1, the tile's logits of rows g / g + 8), taken
+// over the four lanes that share a row.
+__device__ __forceinline__ void tile_row_max(const float (&s)[8][4], float& mx0, float& mx1) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
   }
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  // key0 < M on every step, so the max is finite from the first step on
-  const float a0 = fast_exp2(st.m[0] - mx0);
-  const float a1 = fast_exp2(st.m[1] - mx1);
-  st.m[0] = mx0;
-  st.m[1] = mx1;
-  st.l[0] *= a0;
-  st.l[1] *= a1;
-#pragma unroll
-  for (int dn = 0; dn < kHeadPad / 8; ++dn) {
-    st.acc[dn][0] *= a0;
-    st.acc[dn][1] *= a0;
-    st.acc[dn][2] *= a1;
-    st.acc[dn][3] *= a1;
-  }
+}
+
+// p = exp2(s - m) against the rows' current max st.m: the f32 p enter the
+// denominator unrounded, and, rounded to bf16, the product acc += P.V with
+// the tile's values in sV.
+__device__ __forceinline__ void accumulate_tile(RowState& st, const float (&s)[8][4],
+                                                const bf16* sV, int dh, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {  // 16 keys per P.V step
     float p[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int nt = 2 * kk + h;
-      p[h][0] = fast_exp2(s[nt][0] - mx0);
-      p[h][1] = fast_exp2(s[nt][1] - mx0);
-      p[h][2] = fast_exp2(s[nt][2] - mx1);
-      p[h][3] = fast_exp2(s[nt][3] - mx1);
+      p[h][0] = fast_exp2(s[nt][0] - st.m[0]);
+      p[h][1] = fast_exp2(s[nt][1] - st.m[0]);
+      p[h][2] = fast_exp2(s[nt][2] - st.m[1]);
+      p[h][3] = fast_exp2(s[nt][3] - st.m[1]);
       st.l[0] += p[h][0] + p[h][1];
       st.l[1] += p[h][2] + p[h][3];
     }
@@ -228,6 +232,33 @@ __device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[k
       }
     }
   }
+}
+
+// One online-softmax step over keys [key0, key0 + 64) held in sK / sV: the
+// running max moves to the tile's, the denominator and accumulator are
+// rescaled by exp2(m_old - m_new), then the tile is accumulated.
+__device__ __forceinline__ void attend_tile(RowState& st, const uint32_t (&qa)[kHeadPad / 16][4],
+                                            const bf16* sK, const bf16* sV, int key0, int M,
+                                            const float* madd, float scale, int dh, int lane) {
+  float s[8][4];
+  tile_logits(s, qa, sK, key0, M, madd, scale, lane);
+  float mx0 = st.m[0], mx1 = st.m[1];
+  tile_row_max(s, mx0, mx1);
+  // key0 < M on every step, so the max is finite from the first step on
+  const float a0 = fast_exp2(st.m[0] - mx0);
+  const float a1 = fast_exp2(st.m[1] - mx1);
+  st.m[0] = mx0;
+  st.m[1] = mx1;
+  st.l[0] *= a0;
+  st.l[1] *= a1;
+#pragma unroll
+  for (int dn = 0; dn < kHeadPad / 8; ++dn) {
+    st.acc[dn][0] *= a0;
+    st.acc[dn][1] *= a0;
+    st.acc[dn][2] *= a1;
+    st.acc[dn][3] *= a1;
+  }
+  accumulate_tile(st, s, sV, dh, lane);
 }
 
 __device__ __forceinline__ void store_pair(bf16* o, float a, float b) {
@@ -248,18 +279,18 @@ __device__ __forceinline__ int padded_tail_keys(int M) { return (M + 127) / 128 
 
 // out[row] = acc / l for the warp's rows row0 + g and row0 + g + 8 below
 // nrows, and, when `lse` is not null, lse[row] = m + log2(l) (log2 units).
+// `tail` padded keys (logit -1e30, zero values) join the denominator first.
 template <typename T>
 __device__ __forceinline__ void store_rows(RowState& st, T* o, long long stride, int row0,
-                                           int nrows, int dh, int lane, int M, float* lse) {
+                                           int nrows, int dh, int lane, int tail, float* lse) {
   const int g = lane >> 2, t = lane & 3;
   float l0 = st.l[0], l1 = st.l[1];
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float tail = static_cast<float>(padded_tail_keys(M));
-  l0 += tail * fast_exp2(kMaskedLogit - st.m[0]);
-  l1 += tail * fast_exp2(kMaskedLogit - st.m[1]);
+  l0 += static_cast<float>(tail) * fast_exp2(kMaskedLogit - st.m[0]);
+  l1 += static_cast<float>(tail) * fast_exp2(kMaskedLogit - st.m[1]);
   const float i0 = 1.f / l0, i1 = 1.f / l1;
   const int r0 = row0 + g, r1 = row0 + g + 8;
   if (lse != nullptr && t == 0) {
@@ -294,5 +325,81 @@ struct Params {
   int B, H, N, M, dh;
   float scale;  // dh^-0.5 * log2(e)
 };
+
+// The streamed forward that onepass_attention.cu and flash_forward.cu share:
+// one block of 8 warps per (128 query rows, batch * head), query tiles
+// fastest (blockIdx.x) so the blocks in flight share a head's K/V in L2, K/V
+// tiles of 64 keys double-buffered in shared memory with cp.async, and the
+// online softmax in registers. Logits never reach device memory.
+constexpr int kStreamRows = 128;  // query rows per block: 8 warps x 16
+constexpr int kStreamThreads = 256;
+constexpr int kStreamSmem = (kStreamRows + 4 * kKeyTile) * kPitch * 2;  // Q + 2 x (K, V)
+
+// The block's body. `m0` is the running max before any key and `tail` the
+// padded keys (logit -1e30, zero values) that join each row's denominator:
+// the two places where the onepass and flash functions differ.
+template <typename T>
+__device__ __forceinline__ void stream_attention(const Params<T>& p, float m0, int tail) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kStreamRows * kPitch;  // two buffers of kKeyTile rows
+  bf16* sV = sK + 2 * kKeyTile * kPitch;
+
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y - b * p.H;
+  const int q0 = blockIdx.x * kStreamRows;
+  const T* q = p.q + b * p.qs.sb + h * p.qs.sh;
+  const T* k = p.k + b * p.ks.sb + h * p.ks.sh;
+  const T* v = p.v + b * p.vs.sb + h * p.vs.sh;
+  T* o = p.o + b * p.os.sb + h * p.os.sh;
+  const float* madd = p.madd ? p.madd + static_cast<long long>(b) * p.M : nullptr;
+
+  if (p.dh < kHeadPad) {
+    zero_pad_cols(sQ, kStreamRows, p.dh);
+    zero_pad_cols(sK, 2 * kKeyTile, p.dh);
+  }
+  load_rows(sQ, q, p.qs.sn, q0, kStreamRows, p.N, p.dh);
+  load_rows(sK, k, p.ks.sn, 0, kKeyTile, p.M, p.dh);
+  load_rows(sV, v, p.vs.sn, 0, kKeyTile, p.M, p.dh);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  RowState st;
+  st.init(m0);
+  uint32_t qa[kHeadPad / 16][4];
+  const int ntiles = (p.M + kKeyTile - 1) / kKeyTile;
+  for (int j = 0; j < ntiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
+      const int nxt = (buf ^ 1) * kKeyTile * kPitch;
+      load_rows(sK + nxt, k, p.ks.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
+      load_rows(sV + nxt, v, p.vs.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) load_q_frags(qa, sQ + warp * 16 * kPitch, lane);
+    const int cur = buf * kKeyTile * kPitch;
+    attend_tile(st, qa, sK + cur, sV + cur, j * kKeyTile, p.M, madd, p.scale, p.dh, lane);
+    __syncthreads();  // the next prefetch overwrites this buffer
+  }
+  float* lse = p.lse ? p.lse + static_cast<long long>(blockIdx.y) * p.N : nullptr;
+  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, tail, lse);
+}
+
+// Launches a streamed-forward kernel over the (query tile, batch * head) grid.
+template <typename T, typename... Args>
+cudaError_t launch_stream(void (*kernel)(Params<T>, Args...), const Params<T>& p,
+                          cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStreamSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + kStreamRows - 1) / kStreamRows, p.B * p.H);
+  kernel<<<grid, kStreamThreads, kStreamSmem, stream>>>(p, args...);
+  return cudaGetLastError();
+}
 
 }  // namespace attn

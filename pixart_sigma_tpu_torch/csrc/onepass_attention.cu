@@ -8,7 +8,8 @@
 // use, so this kernel streams K/V instead: one block of 8 warps per
 // (128 query rows, batch * head), K/V tiles of 64 keys double-buffered in
 // shared memory with cp.async, and an online softmax in registers
-// (attention_common.cuh). Logits never reach device memory.
+// (`stream_attention` in attention_common.cuh, which flash_forward.cu shares).
+// Logits never reach device memory.
 //
 // Bound on the card: at the 1024px path (B*H = 64, N = M = 4096, dh = 72) the
 // work is 4 N M dh flops per head, 309 GFLOP, against 151 MB of q/k/v/out, so
@@ -25,60 +26,9 @@
 
 namespace attn {
 
-constexpr int kOnepassRows = 128;  // query rows per block: 8 warps x 16
-constexpr int kOnepassThreads = 256;
-constexpr int kOnepassSmem = (kOnepassRows + 4 * kKeyTile) * kPitch * 2;  // Q + 2 x (K, V)
-
 template <typename T>
-__global__ void __launch_bounds__(kOnepassThreads) onepass_kernel(Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kOnepassRows * kPitch;  // two buffers of kKeyTile rows
-  bf16* sV = sK + 2 * kKeyTile * kPitch;
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int q0 = blockIdx.x * kOnepassRows;
-  const T* q = p.q + b * p.qs.sb + h * p.qs.sh;
-  const T* k = p.k + b * p.ks.sb + h * p.ks.sh;
-  const T* v = p.v + b * p.vs.sb + h * p.vs.sh;
-  T* o = p.o + b * p.os.sb + h * p.os.sh;
-  const float* madd = p.madd ? p.madd + static_cast<long long>(b) * p.M : nullptr;
-
-  if (p.dh < kHeadPad) {
-    zero_pad_cols(sQ, kOnepassRows, p.dh);
-    zero_pad_cols(sK, 2 * kKeyTile, p.dh);
-  }
-  load_rows(sQ, q, p.qs.sn, q0, kOnepassRows, p.N, p.dh);
-  load_rows(sK, k, p.ks.sn, 0, kKeyTile, p.M, p.dh);
-  load_rows(sV, v, p.vs.sn, 0, kKeyTile, p.M, p.dh);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  RowState st;
-  st.init();
-  uint32_t qa[kHeadPad / 16][4];
-  const int ntiles = (p.M + kKeyTile - 1) / kKeyTile;
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      const int nxt = (buf ^ 1) * kKeyTile * kPitch;
-      load_rows(sK + nxt, k, p.ks.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
-      load_rows(sV + nxt, v, p.vs.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) load_q_frags(qa, sQ + warp * 16 * kPitch, lane);
-    const int cur = buf * kKeyTile * kPitch;
-    attend_tile(st, qa, sK + cur, sV + cur, j * kKeyTile, p.M, madd, p.scale, p.dh, lane);
-    __syncthreads();  // the next prefetch overwrites this buffer
-  }
-  float* lse = p.lse ? p.lse + static_cast<long long>(blockIdx.y) * p.N : nullptr;
-  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, p.M, lse);
+__global__ void __launch_bounds__(kStreamThreads) onepass_kernel(Params<T> p) {
+  stream_attention(p, -CUDART_INF_F, padded_tail_keys(p.M));
 }
 
 template <typename T>
@@ -89,13 +39,7 @@ cudaError_t launch_onepass(const void* q, const void* k, const void* v, const fl
   const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), madd, static_cast<T*>(o), lse, qs, ks, vs, os,
                     B, H, N, M, dh, scale};
-  cudaError_t err = cudaFuncSetAttribute(onepass_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kOnepassSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kOnepassRows - 1) / kOnepassRows, B * H);
-  onepass_kernel<T><<<grid, kOnepassThreads, kOnepassSmem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_stream(onepass_kernel<T>, p, stream);
 }
 
 }  // namespace attn
@@ -121,4 +65,4 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
 }
 
 // Dynamic shared memory of one block (bytes).
-extern "C" int onepass_attention_smem_bytes() { return attn::kOnepassSmem; }
+extern "C" int onepass_attention_smem_bytes() { return attn::kStreamSmem; }

@@ -111,6 +111,7 @@ class PixArt(nn.Module):
                 f"remat_policy {cfg.remat_policy!r} is not ported yet; only 'nothing' "
                 "(recompute every block) is (ROADMAP.md, Queue 1)")
         self.cfg = cfg
+        self._pos_cache: dict = {}
         D, dt = cfg.hidden_size, cfg.dtype
         self.x_embedder = PatchEmbed(cfg.patch_size, cfg.in_channels, D, dtype=dt)
         self.t_embedder = TimestepEmbedder(D, dtype=dt)
@@ -154,12 +155,7 @@ class PixArt(nn.Module):
             raise ValueError("fixed-resolution PixArt expects a square grid")
         if train and cross_kv is not None:
             raise ValueError("cross_kv hoisting is an inference-only path")
-        dtype = cfg.dtype
-        pos = get_2d_sincos_pos_embed(
-            cfg.hidden_size, h, w, pe_interpolation=cfg.pe_interpolation,
-            base_size=cfg.base_size,
-        )
-        x = self.x_embedder(x) + torch.from_numpy(pos).to(x.device, dtype)[None]
+        x = self.x_embedder(x) + self.pos_embed(h, w, x.device)[None]
         t = self.t_embedder(timestep)  # [B, D]
         if cfg.micro_condition:
             if img_hw is None or aspect_ratio is None:
@@ -182,6 +178,19 @@ class PixArt(nn.Module):
                 x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
         x = self.final_layer(x, t)
         return self.unpatchify(x, h, w).float()
+
+    def pos_embed(self, h: int, w: int, device: torch.device) -> torch.Tensor:
+        """[h * w, D] sin-cos positional embedding in cfg.dtype on `device`,
+        converted and copied once per (h, w, dtype, device) and kept (75 MB of
+        f32 host data per call at 2K, 302 MB at 4K)."""
+        cfg = self.cfg
+        key = (h, w, cfg.dtype, torch.device(device))
+        if key not in self._pos_cache:
+            pos = get_2d_sincos_pos_embed(cfg.hidden_size, h, w,
+                                          pe_interpolation=cfg.pe_interpolation,
+                                          base_size=cfg.base_size)
+            self._pos_cache[key] = torch.from_numpy(pos).to(device, cfg.dtype)
+        return self._pos_cache[key]
 
     def unpatchify(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """[B, h*w, p*p*C] -> [B, h*p, w*p, C] (token vector order (p, q, c))."""

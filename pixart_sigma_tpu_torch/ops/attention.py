@@ -5,22 +5,24 @@ captions ride a [B, M] key mask (True = valid key).
 
 impl:
 - "reference": the plain einsum-softmax math (f32 softmax, masked keys at
-  -1e30), the same function as the kernels' plain version;
+  -1e30), the same function as the onepass and allheads kernels' plain
+  version;
 - "onepass": the self-attention kernel (`onepass_attention`);
 - "allheads": the flat-layout masked cross-attention kernel;
-- "auto": on a CUDA tensor, "allheads" for masked attention over <= 512
-  padded keys, else "onepass" while its gate holds (<= 4096 padded keys),
-  the same choice the TPU dispatch makes at 1024px; longer key sequences
-  need the flash kernel, which is not ported yet, and raise. On a CPU tensor
-  "auto" runs "reference".
+- "flash": the long-sequence kernel (`flash_attention`, the JAX
+  `flash_attention`'s function);
+- "headsmajor": the forward-only masked cross-attention kernel
+  (`crossattn_headsmajor`);
+- "auto": on a CUDA tensor, `choose_impl`; on a CPU tensor, "reference".
 
-Every choice is differentiable: "onepass" and "allheads" through their
+Every choice but "headsmajor" is differentiable: the kernels through their
 autograd Functions, whose backward runs the flash backward kernels, and
 "reference" through torch's own autograd of the plain math.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -29,11 +31,15 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     allheads_supported,
     attention_reference,
     crossattn_allheads,
+    crossattn_headsmajor,
+    flash_attention,
     onepass_attention,
     onepass_supported,
 )
 
-IMPLS = ("auto", "reference", "onepass", "allheads")
+KERNEL_IMPLS = ("onepass", "allheads", "flash", "headsmajor")
+IMPLS = ("auto", "reference") + KERNEL_IMPLS
+CROSSATTN_ENV = "PIXART_CROSSATTN_IMPL"
 
 
 def attention(
@@ -45,7 +51,7 @@ def attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh) + mask) v -> [B, N, H, Dh]."""
-    choice = _dispatch(q, k, key_mask) if impl == "auto" else impl
+    choice = _dispatch(q, k, v, key_mask) if impl == "auto" else impl
     if choice == "reference":
         return attention_reference(q, k, v, key_mask)
     if choice == "onepass":
@@ -55,18 +61,38 @@ def attention(
         out = crossattn_allheads(
             q.flatten(2), k.flatten(2), v.flatten(2), key_mask, H)
         return out.unflatten(-1, (H, Dh))
-    raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")
+    if choice == "flash":
+        return flash_attention(q, k, v, key_mask=key_mask)
+    if choice == "headsmajor":
+        return crossattn_headsmajor(q, k, v, key_mask)
+    raise ValueError(f"unknown attention impl {choice!r}; expected one of {IMPLS}")
 
 
-def _dispatch(q: torch.Tensor, k: torch.Tensor, key_mask) -> str:
+def choose_impl(n: int, m: int, dh: int, masked: bool, needs_grad: bool = False) -> str:
+    """The kernel "auto" takes on a CUDA tensor. Masked attention within the
+    onepass gate honours `PIXART_CROSSATTN_IMPL` first, as the JAX dispatch
+    does: it must name a kernel, and a forced "headsmajor" gives way to the
+    differentiable kernels when a gradient is needed, as JAX training falls
+    back to allheads. Then "allheads" (masked, <= 512 padded keys), "onepass"
+    (<= 4096 padded keys), and "flash" for everything longer, masked or not.
+    The TPU gates would pick XLA for short sequences; the port has no XLA and
+    runs the kernels there too."""
+    if masked and onepass_supported(n, m, dh):
+        forced = os.environ.get(CROSSATTN_ENV)
+        if forced and forced not in KERNEL_IMPLS:
+            raise ValueError(f"unknown attention impl {forced!r} in {CROSSATTN_ENV}; "
+                             f"expected one of {KERNEL_IMPLS}")
+        if forced and not (forced == "headsmajor" and needs_grad):
+            return forced
+    if allheads_supported(n, m, True if masked else None):
+        return "allheads"
+    if onepass_supported(n, m, dh):
+        return "onepass"
+    return "flash"
+
+
+def _dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask) -> str:
     if q.device.type != "cuda":
         return "reference"
-    N, M, Dh = q.shape[1], k.shape[1], q.shape[-1]
-    if allheads_supported(N, M, key_mask):
-        return "allheads"
-    if onepass_supported(N, M, Dh):
-        return "onepass"
-    raise NotImplementedError(
-        f"attention over {M} keys needs the flash kernel (_fwd_kernel), which "
-        "is not ported yet (ROADMAP.md, Queue 1: 2K/4K sampling)"
-    )
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return choose_impl(q.shape[1], k.shape[1], q.shape[-1], key_mask is not None, needs_grad)

@@ -8,6 +8,13 @@ plain version.
 - `crossattn_allheads` (masked caption cross-attention on the flat [B, N, C]
   layout) runs `csrc/allheads_attention.cu`, the counterpart of
   `_allheads_kernel`.
+- `flash_attention` (long sequences, [B, N, H, Dh]) runs
+  `csrc/flash_forward.cu`, the counterpart of `_fwd_kernel`, with the JAX
+  `flash_attention`'s function (q scaled in its dtype, the mask in K's dtype,
+  the key-block tail; see its docstring).
+- `crossattn_headsmajor` (masked cross-attention, [B, N, H, Dh], forward
+  only) runs `csrc/headsmajor_attention.cu`, the counterpart of
+  `_headsmajor_kernel`.
 - Their gradients run `csrc/flash_backward.cu`: `flash_bwd_dkv` and
   `flash_bwd_dq`, the counterparts of `_bwd_dkv_kernel` and `_bwd_dq_kernel`.
   As in the JAX package, the backward of `crossattn_allheads` recomputes the
@@ -16,15 +23,17 @@ plain version.
 
 All compute softmax(q k^T / sqrt(Dh) + mask) v with an f32 softmax in log2
 units; masked keys get the finite logit -1e30, as in the TPU kernels, and the
-TPU kernels' padding of K/V to a multiple of 128 keys (zero values, logit
--1e30) is accounted for, so a row whose keys are all masked gives
-sum(V) / pad128(M) as they do. They take bf16 or f32 and return the input
+TPU kernels' padding of K/V (zero values, logit -1e30; to a multiple of 128
+keys, or of the key block for `flash_attention`) is accounted for, so a row
+whose keys are all masked gives what they give: sum(V) / pad128(M) for
+onepass, allheads and headsmajor. They take bf16 or f32 and return the input
 dtype; f32 inputs are rounded to bf16 for the tensor-core products (the
 precision of an f32 dot at default precision on the TPU), while the softmax
 and accumulation stay f32. On a CPU tensor each wrapper runs its plain
-PyTorch version (`onepass_reference_with_lse`, `flash_backward_reference`);
-on a CUDA tensor it launches its kernel or raises. Each wrapper counts its
-launches in `<wrapper>.launches`.
+PyTorch version (`onepass_reference_with_lse`, `flash_reference_with_lse`,
+`headsmajor_reference`, `flash_backward_reference`); on a CUDA tensor it
+launches its kernel or raises. Each wrapper counts its launches in
+`<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -39,8 +48,11 @@ from pixart_sigma_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # finite stand-in for -inf, as in the TPU kernels
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 ONEPASS_MAX_KV = 4096  # padded keys, as the TPU gate (onepass_supported)
 ALLHEADS_MAX_KV = 512  # keys the allheads kernel keeps in shared memory
+HEADSMAJOR_MAX_KV = 512  # keys the headsmajor kernel keeps in shared memory
+HEADSMAJOR_ROWS = 128  # query rows of the headsmajor kernel's sub-tile
 MAX_HEAD_DIM = 80  # the kernels pad the head dim to 80 in shared memory
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -60,16 +72,37 @@ def allheads_supported(n: int, m: int, key_mask) -> bool:
     return key_mask is not None and _pad128(m) <= ALLHEADS_MAX_KV
 
 
+def headsmajor_supported(n: int, m: int, key_mask) -> bool:
+    """The TPU gate: masked attention, >= 512 queries, <= 512 padded keys."""
+    return key_mask is not None and n >= 512 and _pad128(m) <= HEADSMAJOR_MAX_KV
+
+
 def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """[B, M] bool / int key mask -> f32 additive bias, 0 or -1e30."""
     bias = torch.zeros(key_mask.shape, dtype=torch.float32, device=key_mask.device)
     return bias.masked_fill_(~key_mask.bool(), NEG_INF)
 
 
-def _logits(q, k, madd):
-    """[B, H, N, M] f32 logits in log2 units: q.k * Dh^-0.5 * log2(e) + madd."""
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * (q.shape[-1] ** -0.5 * LOG2E)
+def _logits(q, k, madd, scale: Optional[float] = None):
+    """[B, H, N, M] f32 logits in log2 units: q.k * scale + madd, scale
+    Dh^-0.5 * log2(e) unless given."""
+    scale = q.shape[-1] ** -0.5 * LOG2E if scale is None else scale
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     return s if madd is None else s + madd[:, None, None, :]
+
+
+def _softmax_pv(s, v, tail: int, dtype):
+    """The arithmetic of the flash and headsmajor kernels on logits s
+    [B, H, N, M] (f32, log2 units): (out [B, N, H, Dh] in `dtype`, lse
+    [B, H, N] f32). `tail` more keys sit at logit -1e30 with zero values. The
+    row max starts from -1e30; the f32 p enter the denominator unrounded and
+    are rounded to v's dtype for P.V, which is normalised after."""
+    m = s.amax(-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True) + tail * torch.exp2(NEG_INF - m)
+    acc = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
+    out = (acc / l.transpose(1, 2)).to(dtype)
+    return out, (m + torch.log2(l)).squeeze(-1)
 
 
 def _plain_forward(q, k, v, madd) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,18 +132,60 @@ def attention_reference(q, k, v, key_mask: Optional[torch.Tensor] = None):
     return onepass_reference_with_lse(q, k, v, key_mask)[0]
 
 
-def flash_backward_reference(q, k, v, madd, lse, delta, do):
+def _flash_tail(m: int, block_k: Optional[int]) -> int:
+    """Keys the TPU `flash_attention` pads K/V with past M: up to a multiple
+    of its key block, 512, or 2048 once M >= 8192, at most pad128(M)."""
+    bk = min(block_k or (2048 if m >= 8192 else 512), _pad128(m))
+    return -(-m // bk) * bk - m
+
+
+def _flash_q_scale(dh: int, dtype, device) -> torch.Tensor:
+    """Dh^-0.5 * log2(e) rounded to the inputs' dtype, a 0-dim tensor."""
+    return torch.tensor(dh**-0.5 * LOG2E, dtype=dtype, device=device)
+
+
+def _flash_scale_q(q: torch.Tensor) -> torch.Tensor:
+    """q * Dh^-0.5 * log2(e) in q's dtype (the constant rounded to it too), as
+    the JAX `flash_attention` folds the softmax scale into q."""
+    return q * _flash_q_scale(q.shape[-1], q.dtype, q.device)
+
+
+def _flash_madd(key_mask: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """The mask bias rounded to the inputs' dtype, as the TPU kernel carries
+    it in a spare lane of K (bf16(-1e30) < -1e30)."""
+    return None if key_mask is None else mask_bias(key_mask).to(dtype).float()
+
+
+def flash_reference_with_lse(q, k, v, key_mask: Optional[torch.Tensor] = None,
+                             block_k: Optional[int] = None):
+    """Plain version of `flash_attention` with its logsumexp:
+    (out [B, N, H, Dh], lse [B, H, N] f32, log2 units)."""
+    s = _logits(_flash_scale_q(q), k, _flash_madd(key_mask, k.dtype), scale=1.0)
+    return _softmax_pv(s, v, _flash_tail(k.shape[1], block_k), q.dtype)
+
+
+def headsmajor_reference(q, k, v, key_mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of `crossattn_headsmajor` over [B, N, H, Dh]."""
+    s = _logits(q, k, mask_bias(key_mask))
+    return _softmax_pv(s, v, _pad128(k.shape[1]) - k.shape[1], q.dtype)[0]
+
+
+def flash_backward_reference(q, k, v, madd, lse, delta, do, scale: Optional[float] = None,
+                             ds_scale: Optional[float] = None):
     """Plain version of both backward kernels: (dq, dk, dv) in q's dtype.
 
-    Recomputes P = exp2(s - lse) from the forward's logsumexp (lse and
-    delta = rowsum(dO * O) are [B, H, N] f32); P and dS are rounded to the
-    input dtype before their products, as the TPU kernels round them.
+    Recomputes P = exp2(q.k * scale + madd - lse) from the forward's
+    logsumexp (lse and delta = rowsum(dO * O) are [B, H, N] f32); P and dS
+    are rounded to the input dtype before their products, as the TPU kernels
+    round them. scale defaults to Dh^-0.5 * log2(e) and ds_scale, the chain
+    factor of dS, to ln(2) * scale = Dh^-0.5.
     """
     dt = q.dtype
-    p = torch.exp2(_logits(q, k, madd) - lse[..., None])
+    ds_scale = q.shape[-1] ** -0.5 if ds_scale is None else ds_scale
+    p = torch.exp2(_logits(q, k, madd, scale) - lse[..., None])
     dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), do.float())
     dp = torch.einsum("bnhd,bmhd->bhnm", do.float(), v.float())
-    ds = (p * (dp - delta[..., None]) * q.shape[-1] ** -0.5).to(dt).float()
+    ds = (p * (dp - delta[..., None]) * ds_scale).to(dt).float()
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float())
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
@@ -168,6 +243,22 @@ def _allheads_lib() -> ctypes.CDLL:
     lib = _build.load("allheads_attention")
     lib.allheads_attention.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 8 + [_F, _P]
     lib.allheads_attention.restype = _I
+    return lib
+
+
+@functools.cache
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_forward")
+    lib.flash_forward.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _P]
+    lib.flash_forward.restype = _I
+    return lib
+
+
+@functools.cache
+def _headsmajor_lib() -> ctypes.CDLL:
+    lib = _build.load("headsmajor_attention")
+    lib.headsmajor_attention.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _P]
+    lib.headsmajor_attention.restype = _I
     return lib
 
 
@@ -319,11 +410,20 @@ def _strides(*tensors) -> ctypes.Array:
     return (_L * len(vals))(*vals)
 
 
-def flash_bwd_dkv(q, k, v, do, madd, lse, delta):
+def _backward_scales(dh: int, scale, ds_scale) -> Tuple[float, float]:
+    """The logit scale and the chain factor of dS (defaults: the unscaled-q
+    kernels' Dh^-0.5 * log2(e) and Dh^-0.5)."""
+    return (dh**-0.5 * LOG2E if scale is None else scale,
+            dh**-0.5 if ds_scale is None else ds_scale)
+
+
+def flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
+                  ds_scale: Optional[float] = None):
     """(dk, dv) [B, M, H, Dh] of attention with forward logsumexp `lse` and
-    delta = rowsum(dO * O) ([B, H, N] f32 each); madd is [B, M] f32 or None."""
+    delta = rowsum(dO * O) ([B, H, N] f32 each); madd is [B, M] f32 or None.
+    scale and ds_scale as in `flash_backward_reference`."""
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, madd, lse, delta, do)[1:]
+        return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[1:]
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dkv", q, k, v, do, madd, lse,
                                                      delta)
     B, N, H, Dh = q.shape
@@ -333,8 +433,8 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta):
     err = _backward_lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.dtype == torch.float32,
-        B, H, N, M, Dh, _strides(q, k, v, do, None, dk, dv), Dh**-0.5 * LOG2E, Dh**-0.5,
-        _stream(q),
+        B, H, N, M, Dh, _strides(q, k, v, do, None, dk, dv),
+        *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
@@ -345,10 +445,11 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta):
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd_dq(q, k, v, do, madd, lse, delta):
+def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
+                 ds_scale: Optional[float] = None):
     """dq [B, N, H, Dh]; the arguments of `flash_bwd_dkv`."""
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, madd, lse, delta, do)[0]
+        return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[0]
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dq", q, k, v, do, madd, lse,
                                                      delta)
     B, N, H, Dh = q.shape
@@ -357,8 +458,8 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta):
     err = _backward_lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), q.dtype == torch.float32,
-        B, H, N, M, Dh, _strides(q, k, v, do, dq, None, None), Dh**-0.5 * LOG2E, Dh**-0.5,
-        _stream(q),
+        B, H, N, M, Dh, _strides(q, k, v, do, dq, None, None),
+        *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
@@ -369,7 +470,7 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta):
 flash_bwd_dq.launches = 0
 
 
-def _flash_backward(q, k, v, madd, out, lse, do):
+def _flash_backward(q, k, v, madd, out, lse, do, scale=None, ds_scale=None):
     """(dq, dk, dv) from the forward's out and lse, as the TPU `_flash_bwd`.
 
     The mask bias is rounded to q's dtype first: the TPU backward carries it
@@ -378,8 +479,8 @@ def _flash_backward(q, k, v, madd, out, lse, do):
     """
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, N]
     madd = None if madd is None else madd.to(q.dtype).float()
-    dk, dv = flash_bwd_dkv(q, k, v, do, madd, lse, delta)
-    return flash_bwd_dq(q, k, v, do, madd, lse, delta), dk, dv
+    dk, dv = flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale, ds_scale)
+    return flash_bwd_dq(q, k, v, do, madd, lse, delta, scale, ds_scale), dk, dv
 
 
 class _OnepassAttention(torch.autograd.Function):
@@ -410,3 +511,141 @@ class _AllheadsAttention(torch.autograd.Function):
         out, lse = _onepass_forward(q4, k4, v4, madd, with_lse=True)
         dq, dk, dv = _flash_backward(q4, k4, v4, madd, out, lse, do4)
         return dq.flatten(2), dk.flatten(2), dv.flatten(2), None, None
+
+
+# ---------------------------------------------------------------- flash
+
+
+def _flash_forward(q, k, v, madd, tail: int, with_lse: bool):
+    """(out, lse or None) of the flash kernel on pre-scaled q, or of its plain
+    version on CPU tensors (which always gives the lse)."""
+    if q.device.type == "cpu":
+        return _softmax_pv(_logits(q, k, madd, scale=1.0), v, tail, q.dtype)
+    B, N, H, Dh = q.shape
+    M = k.shape[1]
+    _check_cuda("flash_attention", q, k, v)
+    _check_head_dim("flash_attention", Dh)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    madd = _f32_rows(madd, (B, M), "flash_attention madd")
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
+    err = _flash_lib().flash_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
+        q.dtype == torch.float32, B, H, N, M, Dh, tail, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q),
+    )
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, N, H, Dh]
+    k: torch.Tensor,  # [B, M, H, Dh]
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,  # [B, M], True = valid
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention over any number of keys -> contiguous [B, N, H, Dh]; the
+    function of the JAX `flash_attention`, not that of `onepass_attention`:
+
+    - q is multiplied by Dh^-0.5 * log2(e) in its own dtype before the logits;
+    - the key mask is rounded to K's dtype (bf16(-1e30) < -1e30);
+    - K/V are padded past M to a multiple of the key block (block_k, by
+      default 512, or 2048 once M >= 8192; at most pad128(M)) with zero
+      values at logit -1e30, and the running max starts from -1e30. A row
+      with a valid key never sees the tail. A row whose keys are all masked
+      gives sum(V) / M_pad in f32, 0 in bf16 when there is a tail, and NaN in
+      bf16 when M fills its last key block, as the TPU kernel gives.
+
+    The kernel's query tile is its own (128 rows); `block_q` is accepted as in
+    the JAX signature and changes nothing. A dense `bias` is refused, as the
+    JAX kernel refuses it. Differentiable: the backward runs `flash_bwd_dkv`
+    and `flash_bwd_dq` at logit scale 1 with the ln(2) chain factor, and
+    autograd carries the gradient through the scaling of q.
+    """
+    if bias is not None:
+        raise ValueError("flash_attention: a dense bias is not supported; use impl='reference'")
+    B, N, H, Dh = q.shape
+    M = k.shape[1]
+    if k.shape != (B, M, H, Dh) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {q.shape}, k {k.shape}, v {v.shape}")
+    if key_mask is not None and key_mask.shape != (B, M):
+        raise ValueError(f"flash_attention: key_mask {key_mask.shape} != {(B, M)}")
+    tail = _flash_tail(M, block_k)
+    madd = _flash_madd(key_mask, k.dtype)
+    qs = _flash_scale_q(q)
+    if _grad_needed(q, k, v):
+        return _FlashAttention.apply(qs, k, v, madd, tail)
+    return _flash_forward(qs, k, v, madd, tail, with_lse=False)[0]
+
+
+flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qs, k, v, madd, tail):
+        out, lse = _flash_forward(qs, k, v, madd, tail, with_lse=True)
+        ctx.save_for_backward(qs, k, v, madd, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, madd, out, lse = ctx.saved_tensors
+        return (*_flash_backward(qs, k, v, madd, out, lse, do, scale=1.0, ds_scale=LN2),
+                None, None)
+
+
+# ---------------------------------------------------------------- headsmajor
+
+
+def crossattn_headsmajor(
+    q: torch.Tensor,  # [B, N, H, Dh]
+    k: torch.Tensor,  # [B, M, H, Dh]
+    v: torch.Tensor,
+    key_mask: torch.Tensor,  # [B, M], True = valid
+    block_q: int = 256,
+) -> torch.Tensor:
+    """Masked cross-attention over at most 512 keys -> contiguous
+    [B, N, H, Dh]: exact row max, one exp sweep, the TPU kernel's function
+    (f32 logit scale, K/V padded to pad128(M)). Each kernel block keeps one
+    head's K/V resident for `block_q` query rows (a multiple of 128).
+    Forward only, as in the JAX package, which gives it no VJP: under
+    autograd it raises."""
+    B, N, H, Dh = q.shape
+    M = k.shape[1]
+    if k.shape != (B, M, H, Dh) or v.shape != k.shape:
+        raise ValueError(f"crossattn_headsmajor: q {q.shape}, k {k.shape}, v {v.shape}")
+    if key_mask is None or key_mask.shape != (B, M):
+        raise ValueError(f"crossattn_headsmajor: needs a [B, M] key_mask, got {key_mask}")
+    if block_q < HEADSMAJOR_ROWS or block_q % HEADSMAJOR_ROWS:
+        raise ValueError(f"crossattn_headsmajor: block_q {block_q} is not a multiple of 128")
+    if _grad_needed(q, k, v):
+        raise RuntimeError("crossattn_headsmajor is forward-only (the JAX package gives it no "
+                           "VJP); use impl='allheads' or 'onepass' for gradients")
+    if q.device.type == "cpu":
+        return headsmajor_reference(q, k, v, key_mask)
+    _check_cuda("crossattn_headsmajor", q, k, v)
+    _check_head_dim("crossattn_headsmajor", Dh)
+    if M > HEADSMAJOR_MAX_KV:
+        raise ValueError(f"crossattn_headsmajor: {M} keys > {HEADSMAJOR_MAX_KV}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    madd = _f32_rows(mask_bias(key_mask), (B, M), "crossattn_headsmajor madd")
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    rows = min(block_q, -(-N // HEADSMAJOR_ROWS) * HEADSMAJOR_ROWS)
+    err = _headsmajor_lib().headsmajor_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), madd.data_ptr(), out.data_ptr(),
+        q.dtype == torch.float32, B, H, N, M, Dh, rows, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
+    )
+    if err:
+        raise RuntimeError(f"crossattn_headsmajor kernel launch failed: CUDA error {err}")
+    crossattn_headsmajor.launches += 1
+    return out
+
+
+crossattn_headsmajor.launches = 0

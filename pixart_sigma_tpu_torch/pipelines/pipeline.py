@@ -3,8 +3,10 @@
 Port of pixart_sigma_tpu/pipelines/pipeline.py for `sampler="dpm-solver"`:
 the caption K/V are computed once per trajectory for the CFG batch
 [uncond, cond], every step runs the model once on the 2B batch, and the VAE
-decodes one image at a time. The other samplers, block caching and the tiled
-decode beyond 1024px are not ported yet and raise.
+decodes one image at a time up to 128 x 128 latents (1024px) and tile by
+tile beyond (`models.vae.tiled_decode`: 2048px, or 4096px through the 2880
+bucket table). The other samplers and block caching are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from pixart_sigma_tpu_torch.diffusion.dpm_solver import (
 )
 from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 from pixart_sigma_tpu_torch.models.pixart import precompute_cross_kv
+from pixart_sigma_tpu_torch.models.vae import tiled_decode
 from pixart_sigma_tpu_torch.utils.device import resolve_device
 from pixart_sigma_tpu_torch.utils.prompt import prepare_prompt_ar
 
@@ -65,15 +68,14 @@ class PixArtPipeline:
     def _latents_to_images(self, latents: torch.Tensor) -> np.ndarray:
         if self.vae is None:
             return latents.cpu().numpy()
-        if latents.shape[1] > 128 or latents.shape[2] > 128:
-            raise NotImplementedError(
-                "tiled VAE decode beyond 1024px is not ported yet "
-                "(ROADMAP.md, Queue 1: 2K/4K sampling)")
         z = latents / self.scale_factor
-        # one image at a time: the mid-block attention over 128 x 128 tokens
-        # holds a 1 GiB f32 logit matrix per image
-        imgs = [self.vae.decode(z[i : i + 1]) for i in range(z.shape[0])]
-        img = torch.clamp((torch.cat(imgs).float() + 1.0) / 2.0, 0.0, 1.0)
+        if z.shape[1] > 128 or z.shape[2] > 128:  # beyond 1024px: tile
+            img = tiled_decode(self.vae.decode, z)
+        else:
+            # one image at a time: the mid-block attention over 128 x 128
+            # tokens holds a 1 GiB f32 logit matrix per image
+            img = torch.cat([self.vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
+        img = torch.clamp((img.float() + 1.0) / 2.0, 0.0, 1.0)
         return (img * 255).round().to(torch.uint8).cpu().numpy()
 
     @torch.no_grad()

@@ -19,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pixart_sigma_tpu.ops import flash_attention as jfa
 from pixart_sigma_tpu.ops.attention import attention as jax_attention
 from pixart_sigma_tpu_torch.ops import flash_attention as tfa
-from pixart_sigma_tpu_torch.ops.attention import attention
+from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV, attention, choose_impl
 
 TOL = {np.float32: dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
 
@@ -85,7 +85,8 @@ def test_allheads_plain_matches_jax_kernel(B, N, M, H, lengths, bf16):
     _close(got.unflatten(-1, (H, Dh)), want, bf16)
 
 
-@pytest.mark.parametrize("impl", ["auto", "reference", "onepass", "allheads"])
+@pytest.mark.parametrize("impl", ["auto", "reference", "onepass", "allheads", "flash",
+                                  "headsmajor"])
 def test_dispatcher_matches_jax_einsum_path(impl):
     q, k, v = _qkv(2, 64, 40, 2, 72, seed=2)
     mask = _mask((40, 9), 40)
@@ -153,3 +154,59 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build(["onepass_attention"])
     assert _build.library_path("onepass_attention").parent == tmp_path
     assert _build.library_path("onepass_attention") != _build.library_path("allheads_attention")
+
+
+def test_cuda_dispatch_picks_by_length(monkeypatch):
+    """Where "auto" goes on a CUDA tensor: allheads for captions, onepass up to
+    4096 padded keys, flash beyond (the 2K/4K self-attention), masked or not."""
+    monkeypatch.delenv(CROSSATTN_ENV, raising=False)
+    assert choose_impl(4096, 300, 72, True) == "allheads"
+    assert choose_impl(16384, 300, 72, True) == "allheads"
+    assert choose_impl(4096, 4096, 72, False) == "onepass"
+    assert choose_impl(16384, 4096, 72, False) == "onepass"   # 2K, compressed layers
+    assert choose_impl(4096, 1000, 72, True) == "onepass"
+    assert choose_impl(16384, 16384, 72, False) == "flash"    # 2K self-attention
+    assert choose_impl(65536, 16384, 72, False) == "flash"    # 4K, compressed layers
+    assert choose_impl(65536, 65536, 72, False) == "flash"
+    assert choose_impl(9000, 5000, 72, True) == "flash"
+
+
+def test_crossattn_env_override_and_unknown_impls(monkeypatch):
+    """PIXART_CROSSATTN_IMPL forces the masked attention within the onepass
+    gate, as in the JAX dispatch; self-attention and longer keys ignore it,
+    and an unknown name raises instead of falling through."""
+    monkeypatch.setenv(CROSSATTN_ENV, "headsmajor")
+    assert choose_impl(4096, 300, 72, True) == "headsmajor"
+    assert choose_impl(4096, 4096, 72, False) == "onepass"
+    assert choose_impl(9000, 5000, 72, True) == "flash"
+    monkeypatch.setenv(CROSSATTN_ENV, "onepass")
+    assert choose_impl(4096, 300, 72, True) == "onepass"
+    monkeypatch.setenv(CROSSATTN_ENV, "headsmjaor")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        choose_impl(4096, 300, 72, True)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 512, 300, 2, 72, seed=4))
+    mask = torch.from_numpy(_mask((200,), 300))
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attention(q, k, v, key_mask=mask, impl="headsmjaor")
+    want = attention(q, k, v, key_mask=mask, impl="reference")
+    np.testing.assert_allclose(attention(q, k, v, key_mask=mask, impl="headsmajor").numpy(),
+                               want.numpy(), **TOL[np.float32])
+
+
+@pytest.mark.parametrize("forced", ["reference", "auto", "xla"])
+def test_crossattn_env_must_name_a_kernel(monkeypatch, forced):
+    """The override never sends CUDA attention to plain PyTorch or elsewhere."""
+    monkeypatch.setenv(CROSSATTN_ENV, forced)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        choose_impl(4096, 300, 72, True)
+
+
+def test_forced_headsmajor_gives_way_to_allheads_for_gradients(monkeypatch):
+    """headsmajor is forward-only; as JAX training falls back to allheads, a
+    step that needs a gradient takes the differentiable kernels instead."""
+    monkeypatch.setenv(CROSSATTN_ENV, "headsmajor")
+    assert choose_impl(4096, 300, 72, True, needs_grad=True) == "allheads"
+    assert choose_impl(4096, 1000, 72, True, needs_grad=True) == "onepass"
+    assert choose_impl(4096, 300, 72, True, needs_grad=False) == "headsmajor"
+    monkeypatch.setenv(CROSSATTN_ENV, "onepass")
+    assert choose_impl(4096, 300, 72, True, needs_grad=True) == "onepass"

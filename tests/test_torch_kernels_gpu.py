@@ -1,5 +1,6 @@
-"""The CUDA attention kernels (forward, with the logsumexp, and backward)
-against their plain PyTorch versions, on the card.
+"""The CUDA attention kernels (forward, with the logsumexp, and backward;
+flash and headsmajor included) against their plain PyTorch versions, on the
+card.
 
 Marked `gpu`; each test skips without a card. The file imports no JAX, so it
 also runs where JAX is not installed:
@@ -19,15 +20,23 @@ import numpy as np
 import pytest
 import torch
 
-from pixart_sigma_tpu_torch.ops.attention import attention
+from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV, attention
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    _flash_forward,
+    _flash_madd,
+    _flash_scale_q,
+    _flash_tail,
     _onepass_forward,
     _plain_forward,
     attention_reference,
     crossattn_allheads,
+    crossattn_headsmajor,
+    flash_attention,
     flash_backward_reference,
     flash_bwd_dkv,
     flash_bwd_dq,
+    flash_reference_with_lse,
+    headsmajor_reference,
     mask_bias,
     onepass_attention,
 )
@@ -208,3 +217,108 @@ def test_autograd_runs_the_kernels(cuda):
         assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
         for a, r in zip(args, ref):
             _assert_close(a.grad, r.grad)
+
+
+# ---------------------------------------------------------------- 2K / 4K
+
+
+@pytest.mark.parametrize("B,N,M,H,Dh,lengths,dtype", [
+    (1, 256, 256, 2, 72, None, torch.bfloat16),
+    (2, 1000, 8200, 2, 72, None, torch.bfloat16),          # 2048-key blocks, ragged tail
+    (2, 1000, 8200, 1, 72, None, torch.float32),
+    (2, 900, 2500, 2, 72, (2500, 0), torch.bfloat16),      # a masked row with a tail: 0
+    (2, 900, 2500, 1, 72, (1700, 0), torch.float32),       # f32: sum(V) / 2560
+    (1, 200, 77, 1, 64, None, torch.bfloat16),             # a head dim below the padding
+])
+def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
+    rng = np.random.RandomState(7)
+    t = lambda shape, scale=1.0: torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(cuda, dtype)
+    q, k, v = t((B, N, H, Dh), 2.0), t((B, M, H, Dh)), t((B, M, H, Dh))
+    mask = None if lengths is None else _lengths_mask(lengths, M, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, key_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, lse_want = flash_reference_with_lse(q, k, v, mask)
+    _assert_close(got, want)
+    if dtype == torch.bfloat16:  # f32: the kernel rounds the scaled q to bf16
+        _, lse = _flash_forward(_flash_scale_q(q), k, v, _flash_madd(mask, dtype),
+                                _flash_tail(M, None), with_lse=True)
+        finite = torch.isfinite(lse_want)
+        assert torch.equal(finite, torch.isfinite(lse))
+        assert float((lse - lse_want)[finite].abs().max()) <= LSE_TOL
+
+
+def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
+    """q/k/v as column slices of one qkv projection output, 16 heads."""
+    rng = np.random.RandomState(8)
+    B, N, H, Dh = 1, 4608, 16, 72
+    qkv = _randn(rng, (B, N, 3 * H * Dh), cuda)
+    q, k, v = (x.unflatten(-1, (H, Dh)) for x in qkv.chunk(3, dim=-1))
+    got = flash_attention(q, k, v)
+    rows = slice(1000, 1300)
+    _assert_close(got[:, rows], flash_reference_with_lse(q[:, rows], k, v)[0])
+
+
+def test_flash_autograd_runs_the_kernels(cuda):
+    """Gradients through the flash Function on the card against torch's
+    autograd of the plain version (f32 inputs, rounded to bf16 inside)."""
+    rng = np.random.RandomState(9)
+    B, N, M, H, Dh = 2, 200, 300, 2, 72
+    f32 = lambda shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+    q, k, v, g = f32((B, N, H, Dh)), f32((B, M, H, Dh)), f32((B, M, H, Dh)), f32((B, N, H, Dh))
+    mask = _lengths_mask((300, 30), M, cuda)
+    before = (flash_attention.launches, flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    args = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*args, key_mask=mask).backward(g)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_reference_with_lse(*ref, mask)[0].backward(g)
+    after = (flash_attention.launches, flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    assert after == tuple(b + 1 for b in before)
+    for a, r in zip(args, ref):
+        _assert_close(a.grad, r.grad)
+
+
+@pytest.mark.parametrize("B,N,M,H,lengths,dtype,block_q", [
+    (4, 4096, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # the 1024px path
+    (4, 1000, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # ragged query tail
+    (2, 130, 77, 2, (40, 0), torch.bfloat16, 128),  # a row with no valid key averages V
+    (2, 333, 77, 2, (77, 5), torch.float32, 512),
+])
+def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q):
+    rng = np.random.RandomState(10)
+    Dh = 72
+    C = H * Dh
+    t = lambda shape, scale=1.0: torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(cuda, dtype)
+    q = t((B, N, H, Dh), 2.0)
+    kv = t((B, M, 2 * C))  # hoisted K/V: column slices
+    k, v = kv[..., :C].unflatten(-1, (H, Dh)), kv[..., C:].unflatten(-1, (H, Dh))
+    mask = _lengths_mask(lengths, M, cuda)
+    before = crossattn_headsmajor.launches
+    got = crossattn_headsmajor(q, k, v, mask, block_q=block_q)
+    torch.cuda.synchronize()
+    assert crossattn_headsmajor.launches == before + 1
+    _assert_close(got, headsmajor_reference(q, k, v, mask))
+
+
+def test_auto_dispatch_takes_flash_and_the_crossattn_override(cuda, monkeypatch):
+    rng = np.random.RandomState(11)
+    q = _randn(rng, (1, 256, 2, 72), cuda)
+    kv = _randn(rng, (1, 5000, 2, 72), cuda)
+    cap = _randn(rng, (1, 300, 2, 72), cuda)
+    mask = _lengths_mask((100,), 300, cuda)
+    monkeypatch.delenv(CROSSATTN_ENV, raising=False)
+    flash, heads = flash_attention.launches, crossattn_headsmajor.launches
+    attention(q, kv, kv)
+    assert flash_attention.launches == flash + 1
+    monkeypatch.setenv(CROSSATTN_ENV, "headsmajor")
+    attention(q, cap, cap, key_mask=mask)
+    assert crossattn_headsmajor.launches == heads + 1
+    with pytest.raises(RuntimeError, match="forward-only"):
+        crossattn_headsmajor(q.float().requires_grad_(), cap.float(), cap.float(), mask)
+    allheads = crossattn_allheads.launches  # a gradient takes the differentiable kernel
+    attention(q.float().requires_grad_(), cap.float(), cap.float(), key_mask=mask).sum().backward()
+    assert crossattn_allheads.launches == allheads + 1
+    assert crossattn_headsmajor.launches == heads + 1

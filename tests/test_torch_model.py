@@ -246,6 +246,26 @@ def test_precompute_cross_kv_matches_jax_and_the_plain_forward(toy_f32):
     _close(hoisted, plain.numpy(), F32)
 
 
+def test_pos_embed_is_converted_once_and_equals_a_fresh_one(toy_f32):
+    """The model keeps its positional embedding on the device per
+    (h, w, dtype, device): the kept tensor is the fresh host conversion, and a
+    second forward reuses it with the same output."""
+    _, _, tm = toy_f32
+    x, t, y, mask = _inputs()
+    tm._pos_cache.clear()
+    with torch.no_grad():
+        first = tm(_t(x), _t(t), _t(y), torch.from_numpy(mask))
+        kept = tm.pos_embed(8, 8, torch.device("cpu"))
+        second = tm(_t(x), _t(t), _t(y), torch.from_numpy(mask))
+    fresh = torch.from_numpy(get_2d_sincos_pos_embed(
+        144, 8, 8, pe_interpolation=tm.cfg.pe_interpolation, base_size=tm.cfg.base_size))
+    assert list(tm._pos_cache) == [(8, 8, torch.float32, torch.device("cpu"))]
+    assert tm.pos_embed(8, 8, torch.device("cpu")) is kept
+    assert torch.equal(kept, fresh.to(torch.float32))
+    assert torch.equal(first, second)
+    assert tm.pos_embed(4, 6, torch.device("cpu")).shape == (24, 144)
+
+
 def test_toy_model_bf16_matches_jax():
     jm, p, tm = _toy(jnp.bfloat16)
     assert next(tm.parameters()).dtype == torch.bfloat16

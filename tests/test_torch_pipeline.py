@@ -4,8 +4,10 @@ A 20-step DPM-Solver++ CFG trajectory of a toy PixArt (depth 4, hidden 144,
 2 heads, a 16x16 latent, KV compression conv x2 on layers 2-3, padded
 12-token captions) runs through both pipelines from the same initial
 `latents=`, both in float32: latents agree to atol 1e-3, and the uint8 images
-through the same small VAE to within 1 level. The host-side schedule, time
-grid, prompt and bucket helpers agree exactly.
+through the same small VAE to within 1 level, beyond 1024px through the tiled
+decode. A toy trajectory through the flash kernels in both packages agrees
+the same way. The host-side schedule, time grid, prompt and bucket helpers
+(the 2880 grid included) agree exactly.
 """
 
 import dataclasses
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from pixart_sigma_tpu.data import aspect as jaspect
 from pixart_sigma_tpu.diffusion import dpm_solver as jdpm
@@ -24,6 +27,7 @@ from pixart_sigma_tpu.models.pixart import PixArtConfig as JaxConfig
 from pixart_sigma_tpu.models.t5 import PseudoT5Embedder as JaxPseudoT5
 from pixart_sigma_tpu.models.vae import AutoencoderKL as JaxVAE
 from pixart_sigma_tpu.models.vae import VAEConfig as JaxVAEConfig
+from pixart_sigma_tpu.models.vae import make_tiled_decode as jax_make_tiled_decode
 from pixart_sigma_tpu.pipelines import PixArtPipeline as JaxPipeline
 from pixart_sigma_tpu.utils.prompt import prepare_prompt_ar as jax_prepare_prompt_ar
 from pixart_sigma_tpu_torch.data import aspect
@@ -31,7 +35,8 @@ from pixart_sigma_tpu_torch.diffusion import dpm_solver as tdpm
 from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 from pixart_sigma_tpu_torch.models.pixart import PixArtConfig, PixArtMS_XL_2
 from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
-from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae, tiled_decode
+from pixart_sigma_tpu_torch.ops import attention as tattention
 from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
 from pixart_sigma_tpu_torch.utils.checkpoint import state_dict_from_jax, vae_state_dict_from_jax
 from pixart_sigma_tpu_torch.utils.prompt import prepare_prompt_ar
@@ -158,3 +163,72 @@ def test_prompt_buckets_and_pseudo_t5_match_jax():
     jy, jmask = JaxPseudoT5(16, 4).get_text_embeddings(texts)
     np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+
+
+def test_aspect_tables_match_jax_for_every_base_resolution():
+    """The hand-tuned 2880 grid and its test table, whose square bucket is
+    4096 x 4096, beside the scaled tables and the single-bucket fallback."""
+    for base in (256, 512, 1024, 2048, 2880, 128, 4096):
+        for test in (False, True):
+            assert aspect.aspect_ratio_table(base, test) == jaspect.aspect_ratio_table(base, test)
+    assert aspect.aspect_ratio_table(2880, True)["1.0"] == [4096, 4096]
+    assert aspect.aspect_ratio_table(2880)["1.0"] == [2880.0, 2880.0]
+
+
+def test_latents_beyond_1024px_take_the_tiled_decode(pipelines):
+    """136 x 144 latents: both pipelines decode tile by tile (64 latents,
+    overlap 16: 3 x 3 tiles) to the same uint8 images within 1 level."""
+    jpipe, tpipe = pipelines
+    z = np.random.RandomState(5).randn(1, 136, 144, 4).astype(np.float32) * 0.5
+    want = jpipe._latents_to_images(jnp.asarray(z))
+    got = tpipe._latents_to_images(torch.from_numpy(z))
+    assert got.dtype == np.uint8 and got.shape == want.shape == (1, 272, 288, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_flash_trajectory_matches_jax(monkeypatch):
+    """A toy PixArtMS (2 blocks, 2 heads of 72, KV compression on layer 1)
+    with attn_impl="flash" in both packages (the JAX flash kernel in
+    interpret mode): a 4-step CFG trajectory to latents, then the tiled
+    decode of those latents with tile 8 and overlap 2, float32 throughout.
+    Latents within 1e-3, images within 1 level."""
+    toy = dict(TOY, depth=2, kv_compress_layers=(1,), attn_impl="flash")
+    jcfg = JaxConfig(**toy)
+    jm = JaxPixArt(jcfg)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
+                              jnp.zeros((1, 12, 32)), jnp.ones((1, 12), jnp.int32))
+    params = {"params": _perturb(params["params"], 4, 0.05)}
+    jpipe = JaxPipeline(jm, params)
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "dtype"}
+    cfg = PixArtConfig(**kw, dtype=torch.float32)
+    tm = PixArtMS_XL_2(device="cpu", **{f.name: getattr(cfg, f.name)
+                                          for f in dataclasses.fields(cfg)})
+    tm.load_state_dict(state_dict_from_jax(params["params"], cfg))
+    tpipe = PixArtPipeline(tm, device="cpu")
+    y, y_null, mask, x0 = _conditioning(1)
+    call = dict(height=128, width=128, num_inference_steps=4, guidance_scale=4.5,
+                return_latents=True)
+    with pltpu.force_tpu_interpret_mode():
+        want = jpipe(["a", "b"], y=jnp.asarray(y), y_mask=jnp.asarray(mask),
+                     y_null=jnp.asarray(y_null), latents=jnp.asarray(x0), **call)
+    calls = []
+    flash = tattention.flash_attention
+    monkeypatch.setattr(tattention, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or flash(*a, **kw))
+    got = tpipe(["a", "b"], y=torch.from_numpy(y), y_mask=torch.from_numpy(mask),
+                y_null=torch.from_numpy(y_null), latents=torch.from_numpy(x0), **call)
+    assert got.shape == (2, 16, 16, 4) and np.isfinite(got).all()
+    assert len(calls) == 4 * 2 * 2  # steps x blocks x (self, cross)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-3, rtol=1e-3)
+
+    vcfg = JaxVAEConfig.small_test()
+    jvae, vparams = JaxVAE(vcfg), _random_vae_params(vcfg, 6)
+    tvae = build_vae(VAEConfig.small_test(), device="cpu")
+    tvae.load_diffusers_state_dict(vae_state_dict_from_jax(vparams, vcfg))
+    scale = jpipe.scale_factor
+    decode = lambda zz: jvae.apply({"params": vparams}, zz, method=JaxVAE.decode)
+    want_img = jax_make_tiled_decode(decode, tile=8, overlap=2)(jnp.asarray(want) / scale)
+    with torch.no_grad():
+        got_img = tiled_decode(tvae.decode, torch.from_numpy(got) / scale, tile=8, overlap=2)
+    to_u8 = lambda a: (np.clip((np.asarray(a) + 1) / 2, 0, 1) * 255).round().astype(int)
+    assert np.abs(to_u8(got_img.numpy()) - to_u8(want_img)).max() <= 1

@@ -1,8 +1,9 @@
 """The port's VAE decoder against the JAX package, on the CPU.
 
 `VAEConfig.small_test` decode with the same (perturbed) weights agrees to
-float32 atol 1e-4, and `vae_state_dict_from_jax` is the exact inverse of the
-JAX package's `diffusers_vae_to_flax`.
+float32 atol 1e-4, and so does the tiled decode with both JAX tiled
+decoders; `vae_state_dict_from_jax` is the exact inverse of the JAX
+package's `diffusers_vae_to_flax`.
 """
 
 import jax
@@ -13,7 +14,9 @@ import torch
 from pixart_sigma_tpu.models.vae import AutoencoderKL as JaxVAE
 from pixart_sigma_tpu.models.vae import VAEConfig as JaxVAEConfig
 from pixart_sigma_tpu.models.vae import diffusers_vae_to_flax
-from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+from pixart_sigma_tpu.models.vae import make_tiled_decode as jax_make_tiled_decode
+from pixart_sigma_tpu.models.vae import tiled_decode as jax_tiled_decode
+from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae, tiled_decode
 from pixart_sigma_tpu_torch.utils.checkpoint import vae_state_dict_from_jax
 
 
@@ -64,3 +67,30 @@ def test_vae_state_dict_round_trips_through_diffusers_vae_to_flax():
         np.testing.assert_array_equal(np.asarray(back_flat[path]), np.asarray(leaf))
     decoder_keys = {k for k in sd if k.startswith(("decoder.", "post_quant_conv."))}
     assert decoder_keys == set(build_vae(VAEConfig.small_test(), device="cpu").state_dict())
+
+
+def test_tiled_decode_matches_both_jax_tiled_decoders():
+    """Tile 8, overlap 2 over a 21 x 17 latent: neither side a multiple of
+    the stride, so the last tiles are clamped to the edge and overlap more."""
+    jcfg, jvae, params = _jax_vae()
+    z = np.random.RandomState(3).randn(2, 21, 17, 4).astype(np.float32)
+    apply_decode = lambda zz: jvae.apply({"params": params}, zz, method=JaxVAE.decode)
+    want_scan = jax_make_tiled_decode(apply_decode, tile=8, overlap=2)(jnp.asarray(z))
+    want_loop = jax_tiled_decode(jax.jit(apply_decode), jnp.asarray(z), tile=8, overlap=2)
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    vae.load_diffusers_state_dict(vae_state_dict_from_jax(params, jcfg))
+    calls = []
+
+    def decode(zt):
+        calls.append(tuple(zt.shape))
+        return vae.decode(zt)
+
+    with torch.no_grad():
+        got = tiled_decode(decode, torch.from_numpy(z), tile=8, overlap=2)
+        whole = tiled_decode(vae.decode, torch.from_numpy(z[:, :8, :6]), tile=8, overlap=2)
+    assert got.shape == (2, 42, 34, 3) and got.dtype == torch.float32
+    assert calls == [(2, 8, 8, 4)] * 12  # 4 x 3 tiles, each decoding both images
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_scan), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_loop), atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        np.testing.assert_array_equal(whole.numpy(), vae.decode(torch.from_numpy(z[:, :8, :6])))
