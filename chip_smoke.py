@@ -9,7 +9,9 @@ Run from the root of the repository, with no arguments:
 Phases, each printing its own lines:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
 2. build: the five CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
-   (sm_90a), in parallel, with ptxas register, spill and shared-memory use;
+   (sm_90a), in parallel, with ptxas register, spill and shared-memory use
+   and each kernel's keys per tile, which the planted skipped tile and the
+   spike inputs below follow;
 3. kernels against their plain PyTorch versions at the path's shapes and at
    unaligned ones (bf16, seeded inputs; f32 at the unaligned ones), with the
    stated tolerance, and the same check applied to plain outputs with a
@@ -29,7 +31,8 @@ Phases, each printing its own lines:
    the cross-attention forced to the headsmajor kernel
    (PIXART_CROSSATTN_IMPL=headsmajor): a 20-step trajectory and the 256px one;
 5. 1024px times from CUDA events: each forward kernel (and the onepass
-   launch that writes the lse), its plain version, the library attention call
+   launches that write the lse, and that take a key mask), its plain
+   version, the library attention call
    (`scaled_dot_product_attention`, timed only) and the bound; sampler and
    decode seconds per image, peak memory and a torch.profiler breakdown;
 6. the 2K path: the model of configs/pixart_sigma_config/
@@ -190,10 +193,11 @@ def passes(r) -> bool:
     return r[1] <= ELEM_TOL and r[2] <= L2_TOL
 
 
-def planted_faults(q, k, v, mask, n_heads=None) -> dict:
-    """The plain version's output with a fault planted: key tile [64, 128)
-    skipped, or the logits scaled by Dh_pad^-0.5 = 80^-0.5 instead of Dh^-0.5.
-    q/k/v are [B, N, H, Dh], or the flat [B, N, C] layout when n_heads is set."""
+def planted_faults(q, k, v, mask, n_heads=None, tile=64) -> dict:
+    """The plain version's output with a fault planted: the second key tile
+    [tile, 2 tile) skipped (`tile`: the kernel's keys per tile), or the logits
+    scaled by Dh_pad^-0.5 = 80^-0.5 instead of Dh^-0.5. q/k/v are
+    [B, N, H, Dh], or the flat [B, N, C] layout when n_heads is set."""
     from pixart_sigma_tpu_torch.ops.flash_attention import attention_reference as ref
 
     torch_ = sys.modules["torch"]
@@ -201,7 +205,7 @@ def planted_faults(q, k, v, mask, n_heads=None) -> dict:
         q, k, v = (x.unflatten(-1, (n_heads, -1)) for x in (q, k, v))
     B, M, _, Dh = k.shape
     keep = torch_.ones((B, M), dtype=torch_.bool, device=k.device)
-    keep[:, 64:128] = False
+    keep[:, tile:2 * tile] = False
     out = {
         "dropped key tile": ref(q, k, v, keep if mask is None else keep & mask),
         "logit scale 80^-0.5": ref((q.float() * (Dh / 80) ** 0.5).to(q.dtype), k, v, mask),
@@ -238,10 +242,12 @@ def check_lse(name, got, want) -> bool:
 
 
 def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[dict, bool]:
-    """The onepass lse, then dkv and dq, each against its plain version on the
-    same inputs, and the same checks on plain outputs with planted faults: a
-    query tile [64, 128) skipped in the dK/dV sweep (its P set to 0), and the
-    lse off by one log2 unit. Returns ({kernel: max |err|}, ok)."""
+    """The onepass output (masked when `cross`: the launch the allheads
+    backward recomputes through) and lse, then dkv and dq, each against its
+    plain version on the same inputs, and the same checks on plain outputs
+    with planted faults: for the output those of `planted_faults`; for dkv
+    and dq a query tile [64, 128) skipped in the dK/dV sweep (its P set to
+    0), and the lse off by one log2 unit. Returns ({kernel: max |err|}, ok)."""
     torch_ = sys.modules["torch"]
     if cross:
         qf, kf, vf, mask, H = cases.allheads(B, N, M, lengths, dtype=dtype)
@@ -256,7 +262,12 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     pq, pk, pv, pdo = (x.to(torch_.bfloat16).to(dtype) for x in (q, k, v, do))
     out, lse = fa._onepass_forward(q, k, v, madd, with_lse=True)
     torch_.cuda.synchronize()
-    ok = check_lse(label, lse, fa._plain_forward(pq, pk, pv, madd)[1])
+    out_want, lse_want = fa._plain_forward(pq, pk, pv, madd)
+    errs = {}
+    errs["onepass"], ok = compare(f"{label} onepass output", out, out_want,
+                                  planted_faults(pq, pk, pv, mask, tile=fa.KEY_TILE))
+    ok &= check_lse(label, lse, lse_want)
+    del out_want, lse_want
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     madd_b = None if madd is None else madd.to(dtype).float()
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, madd_b, lse, delta)
@@ -267,7 +278,6 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     skipped = lse.clone()
     skipped[:, :, 64:128] = float("inf")
     faults = {"query tile [64, 128) skipped": ref(skipped), "lse + 1": ref(lse + 1)}
-    errs = {}
     for kname, got, idx in (("dkv", dk, 1), ("dkv", dv, 2), ("dq", dq, 0)):
         err, good = compare(f"{label} {kname} d{'qkv'[idx]}", got, want[idx],
                             {f: o[idx] for f, o in faults.items()})
@@ -303,22 +313,23 @@ def flash_plain(fa, qs, k, v, madd, s=None):
     return fa._softmax_pv(s, v, fa._flash_tail(k.shape[1], None), qs.dtype)
 
 
-def flash_plain_faults(fa, qs, k, v, madd, tile: int, tail0: int) -> dict:
+def flash_plain_faults(fa, qs, k, v, madd, tile: int, tail0: int, width: int) -> dict:
     """The plain flash output of a [S, n, 1, Dh] subset with one fault
-    planted in each: the 64-key tile `tile` skipped, the online-softmax
-    rescale dropped where that tile arrives (earlier keys keep the old max),
-    the ragged tail keys [tail0, M) lost, and the logit scale 80^-0.5."""
+    planted in each: the kernel's key tile number `tile` (`width` keys)
+    skipped, the online-softmax rescale dropped where that tile arrives
+    (earlier keys keep the old max), the ragged tail keys [tail0, M) lost,
+    and the logit scale 80^-0.5."""
     torch_ = sys.modules["torch"]
     M = k.shape[1]
     s = fa._logits(qs, k, madd, scale=1.0)
     keys = torch_.arange(M, device=qs.device)
-    t0 = tile * 64
-    run = s[..., : M // 64 * 64].unflatten(-1, (-1, 64)).amax(-1).cummax(-1).values
+    t0 = tile * width
+    run = s[..., : M // width * width].unflatten(-1, (-1, width)).amax(-1).cummax(-1).values
     run = run.clamp_min(fa.NEG_INF)  # the running max starts from -1e30
     jump = (run[..., tile] - run[..., tile - 1])[..., None]
     logits = {
-        f"key tile [{t0}, {t0 + 64}) skipped":
-            s.masked_fill((keys >= t0) & (keys < t0 + 64), float("-inf")),
+        f"key tile [{t0}, {t0 + width}) skipped":
+            s.masked_fill((keys >= t0) & (keys < t0 + width), float("-inf")),
         "rescale dropped at that tile": s + torch_.where(keys < t0, jump, 0.0),
     }
     if tail0 < M:
@@ -329,16 +340,17 @@ def flash_plain_faults(fa, qs, k, v, madd, tile: int, tail0: int) -> dict:
     return out
 
 
-def check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile, H=16, Dh=72):
+def check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile, width,
+                H=16, Dh=72):
     """flash_attention on the whole input (with the lse, as the training
     launch), held against its plain version on the (b, h, rows) picks, with
     the planted faults of `flash_plain_faults`. Query rows [0, 64) attend
-    mainly to key tile `tile`; rows [64, 128) to the ragged tail, if any.
-    Returns (max |err|, ok)."""
+    mainly to the kernel's key tile number `tile` (`width` keys); rows
+    [64, 128) to the ragged tail, if any. Returns (max |err|, ok)."""
     torch_ = sys.modules["torch"]
     q, k, v = cases.onepass(B, N, M, H, Dh, dtype=dtype)
-    tail0 = M // 64 * 64
-    add_spike(q, k, slice(0, 64), slice(tile * 64, tile * 64 + 64))
+    tail0 = M // width * width
+    add_spike(q, k, slice(0, 64), slice(tile * width, (tile + 1) * width))
     if tail0 < M:
         add_spike(q, k, slice(64, 128), slice(tail0, M), seed=1)
     mask = None if lengths is None else cases.lengths_mask(lengths, M)
@@ -353,7 +365,8 @@ def check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile, H=16, Dh
     want, lse_want = flash_plain(fa, qp, kp, vp, mp)
     got = pick_rows(out, picks)
     lse_got = torch_.stack([lse[b, h : h + 1, rows] for b, h, rows in picks])
-    err, ok = compare(label, got, want, flash_plain_faults(fa, qp, kp, vp, mp, tile, tail0))
+    err, ok = compare(label, got, want,
+                      flash_plain_faults(fa, qp, kp, vp, mp, tile, tail0, width))
     finite = torch_.isfinite(lse_want)
     ok &= bool(torch_.equal(finite, torch_.isfinite(lse_got)))
     ok &= check_lse(label, lse_got[finite], lse_want[finite])
@@ -377,7 +390,7 @@ def check_flash_grad(fa, cases, B, N, M, lengths, H=16, Dh=72) -> tuple[dict, bo
     qs, madd, tail = fa._flash_scale_q(q), fa._flash_madd(mask, q.dtype), fa._flash_tail(M, None)
     out, lse = fa._flash_forward(qs, k, v, madd, tail, with_lse=True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    c = fa._flash_q_scale(Dh, q.dtype, q.device)
+    c = fa._flash_q_scale(Dh, q.dtype)
 
     def plain(l):
         dqs, dk, dv = fa.flash_backward_reference(qs, k, v, madd, l, delta, do, 1.0, fa.LN2)
@@ -880,6 +893,10 @@ def main() -> int:
         f"allheads {smem_allheads} B (M=300), dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
         f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B, "
         f"headsmajor {smem_heads} B (M=300)")
+    fa._onepass_lib(), fa._flash_lib()  # each checks its key tile and ring against the wrapper's
+    log(f"  keys per tile: onepass and flash {fa.KEY_TILE} (a ring of {fa.KEY_STAGES} K/V "
+        "stages), allheads and headsmajor 64; the planted skipped tile and the spike inputs "
+        "follow them")
 
     # ---- 3. kernels against their plain versions ------------------------
     log("[kernels] seeded inputs at the path shapes (B = 2 prompts x CFG), bf16 "
@@ -894,7 +911,7 @@ def main() -> int:
         torch.cuda.synchronize()
         err, ok = compare(
             f"onepass B*H=64 N={N} M={M} Dh=72{' f32' if dtype == torch.float32 else ''}",
-            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None))
+            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, tile=fa.KEY_TILE))
         errs["onepass"].append(err)
         all_ok &= ok
     for N, M, lengths, dtype in ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
@@ -916,19 +933,21 @@ def main() -> int:
         "whole, compared on picked (batch, head, query rows)) and crossattn_headsmajor")
     errs.update(flash_forward=[], headsmajor=[])
     halves = (slice(0, 512), slice(9000, 9512))
-    for label, B, N, M, lengths, dtype, picks, tile in (
+    # the spiked key tile is the kernel's tile holding key `spike`
+    for label, B, N, M, lengths, dtype, picks, spike in (
         ("flash 2K path B*H=32 N=M=16384, heads 0/9/15, rows [0, 512) and [9000, 9512)",
          2, 16384, 16384, None, torch.bfloat16,
-         [(b, h, r) for b in (0, 1) for h in (0, 9, 15) for r in halves], 100),
+         [(b, h, r) for b in (0, 1) for h in (0, 9, 15) for r in halves], 6400),
         ("flash B*H=32 N=1000 M=8200", 2, 1000, 8200, None, torch.bfloat16,
-         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 50),
+         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 3200),
         ("flash B*H=32 N=1000 M=8200 f32", 2, 1000, 8200, None, torch.float32,
-         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 50),
+         [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 3200),
         ("flash masked B*H=48 N=9000 M=2500 valid=(2500, 1100, 0), heads 0/5/15", 3, 9000,
          2500, (2500, 1100, 0), torch.bfloat16,
-         [(b, h, slice(None)) for b in range(3) for h in (0, 5, 15)], 10),
+         [(b, h, slice(None)) for b in range(3) for h in (0, 5, 15)], 640),
     ):
-        err, ok = check_flash(fa, cases, label, B, N, M, lengths, dtype, picks, tile)
+        err, ok = check_flash(fa, cases, label, B, N, M, lengths, dtype, picks,
+                              spike // fa.KEY_TILE, fa.KEY_TILE)
         errs["flash_forward"].append(err)
         all_ok &= ok
         torch.cuda.empty_cache()
@@ -949,8 +968,8 @@ def main() -> int:
         errs["headsmajor"].append(err)
         all_ok &= ok
     del q, k, v, got
-    log("[kernels] training: the onepass lse, then flash_bwd_dkv and flash_bwd_dq, at "
-        "the training shapes (B = 4, no CFG doubling)")
+    log("[kernels] training: the onepass output and lse (key-masked for the cross cases), "
+        "then flash_bwd_dkv and flash_bwd_dq, at the training shapes (B = 4, no CFG doubling)")
     errs.update(dkv=[], dq=[])
     for label, N, M, lengths, dtype, cross in (
         ("self B*H=64 N=4096 M=4096", 4096, 4096, None, torch.bfloat16, False),
@@ -1111,9 +1130,13 @@ def main() -> int:
             am = None if mask is None else mask[:, None, None, :]
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
             ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain, iters=5), cuda_ms(library)
-            lse_ms = None
+            lse_ms = masked_ms = None
             if name == "onepass":  # the training launch, which also writes the lse
                 lse_ms = cuda_ms(lambda: fa._onepass_forward(q, k, v, None, with_lse=True))
+                # the masked instantiation (the allheads backward recomputes
+                # through it) on a mask that keeps every key
+                keep = torch.zeros((B, M), device=dev)
+                masked_ms = cuda_ms(lambda: fa._onepass_forward(q, k, v, keep, with_lse=True))
             # the bound counts the work this run's data needs: valid keys only
             flops = 4.0 * H * N * valid * Dh
             nbytes = 2.0 * (2 * B * N * H * Dh + 2 * valid * H * Dh)
@@ -1125,9 +1148,10 @@ def main() -> int:
                 f"({by}; {flops / 1e9:.2f} GFLOP over valid keys, "
                 f"{4.0 * H * N * B * M * Dh / 1e9:.2f} GFLOP over all keys, "
                 f"{nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}"
-                + ("" if lse_ms is None else f"; with the lse output {lse_ms:.4f} ms"))
+                + ("" if lse_ms is None else f"; with the lse output {lse_ms:.4f} ms, "
+                   f"and a key mask too {masked_ms:.4f} ms"))
             rows.append(dict(N=N, M=M, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                             library_ms=lib_ms, lse_ms=lse_ms))
+                             library_ms=lib_ms, lse_ms=lse_ms, masked_ms=masked_ms))
         head = rows[0]
         entries.append({
             "name": name,

@@ -1,6 +1,7 @@
-// Warp-level pieces shared by the forward attention kernels
-// (onepass_attention.cu, allheads_attention.cu, flash_forward.cu,
-// headsmajor_attention.cu).
+// Warp-level pieces shared by the attention kernels that run on mma.sync
+// (allheads_attention.cu, headsmajor_attention.cu, flash_backward.cu); the
+// Hopper body of onepass_attention.cu and flash_forward.cu
+// (hopper_attention.cuh) takes only its small helpers and Strides.
 //
 // Each warp owns 16 query rows. Logits come from bf16 mma.sync m16n8k16 with
 // f32 accumulation, the softmax runs in f32 in the log2 domain (exp2), and the
@@ -325,81 +326,5 @@ struct Params {
   int B, H, N, M, dh;
   float scale;  // dh^-0.5 * log2(e)
 };
-
-// The streamed forward that onepass_attention.cu and flash_forward.cu share:
-// one block of 8 warps per (128 query rows, batch * head), query tiles
-// fastest (blockIdx.x) so the blocks in flight share a head's K/V in L2, K/V
-// tiles of 64 keys double-buffered in shared memory with cp.async, and the
-// online softmax in registers. Logits never reach device memory.
-constexpr int kStreamRows = 128;  // query rows per block: 8 warps x 16
-constexpr int kStreamThreads = 256;
-constexpr int kStreamSmem = (kStreamRows + 4 * kKeyTile) * kPitch * 2;  // Q + 2 x (K, V)
-
-// The block's body. `m0` is the running max before any key and `tail` the
-// padded keys (logit -1e30, zero values) that join each row's denominator:
-// the two places where the onepass and flash functions differ.
-template <typename T>
-__device__ __forceinline__ void stream_attention(const Params<T>& p, float m0, int tail) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kStreamRows * kPitch;  // two buffers of kKeyTile rows
-  bf16* sV = sK + 2 * kKeyTile * kPitch;
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int q0 = blockIdx.x * kStreamRows;
-  const T* q = p.q + b * p.qs.sb + h * p.qs.sh;
-  const T* k = p.k + b * p.ks.sb + h * p.ks.sh;
-  const T* v = p.v + b * p.vs.sb + h * p.vs.sh;
-  T* o = p.o + b * p.os.sb + h * p.os.sh;
-  const float* madd = p.madd ? p.madd + static_cast<long long>(b) * p.M : nullptr;
-
-  if (p.dh < kHeadPad) {
-    zero_pad_cols(sQ, kStreamRows, p.dh);
-    zero_pad_cols(sK, 2 * kKeyTile, p.dh);
-  }
-  load_rows(sQ, q, p.qs.sn, q0, kStreamRows, p.N, p.dh);
-  load_rows(sK, k, p.ks.sn, 0, kKeyTile, p.M, p.dh);
-  load_rows(sV, v, p.vs.sn, 0, kKeyTile, p.M, p.dh);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  RowState st;
-  st.init(m0);
-  uint32_t qa[kHeadPad / 16][4];
-  const int ntiles = (p.M + kKeyTile - 1) / kKeyTile;
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      const int nxt = (buf ^ 1) * kKeyTile * kPitch;
-      load_rows(sK + nxt, k, p.ks.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
-      load_rows(sV + nxt, v, p.vs.sn, (j + 1) * kKeyTile, kKeyTile, p.M, p.dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) load_q_frags(qa, sQ + warp * 16 * kPitch, lane);
-    const int cur = buf * kKeyTile * kPitch;
-    attend_tile(st, qa, sK + cur, sV + cur, j * kKeyTile, p.M, madd, p.scale, p.dh, lane);
-    __syncthreads();  // the next prefetch overwrites this buffer
-  }
-  float* lse = p.lse ? p.lse + static_cast<long long>(blockIdx.y) * p.N : nullptr;
-  store_rows(st, o, p.os.sn, q0 + warp * 16, p.N, p.dh, lane, tail, lse);
-}
-
-// Launches a streamed-forward kernel over the (query tile, batch * head) grid.
-template <typename T, typename... Args>
-cudaError_t launch_stream(void (*kernel)(Params<T>, Args...), const Params<T>& p,
-                          cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStreamSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kStreamRows - 1) / kStreamRows, p.B * p.H);
-  kernel<<<grid, kStreamThreads, kStreamSmem, stream>>>(p, args...);
-  return cudaGetLastError();
-}
 
 }  // namespace attn

@@ -1,16 +1,18 @@
-// Long-sequence attention forward over strided [B, N, H, dh] bf16 or f32
-// views, with an optional additive [B, M] key mask and row logsumexp.
+// Long-sequence attention forward over strided [B, N, H, dh] bf16 views,
+// with an optional additive [B, M] key mask and row logsumexp; bf16 or f32
+// output.
 //
 // Replaces the TPU kernel `_fwd_kernel` (pixart_sigma_tpu/ops/
 // flash_attention.py), the tiled online-softmax forward behind the JAX
 // `flash_attention`: its grid's innermost axis sweeps K/V blocks in order and
 // carries the running max, denominator and output accumulator in VMEM
 // scratch. Hopper blocks run in no order, so here the sweep is a loop inside
-// one block: 8 warps own 128 query rows (16 each), K/V stream through shared
-// memory in 64-key tiles double-buffered with cp.async, and the online-softmax
-// state stays in registers. Logits never reach device memory, so the length
-// of the key sequence costs time, not memory. That body, `stream_attention`
-// in attention_common.cuh, is the onepass kernel's too.
+// one block: the body of hopper_attention.cuh, which onepass_attention.cu
+// shares (a producer warpgroup streams 128-key K/V tiles through a 3-stage
+// TMA/mbarrier ring; two consumer warpgroups of 64 query rows run Q.K^T and
+// P.V on wgmma and keep the online-softmax state in registers). Logits never
+// reach device memory, so the length of the key sequence costs time, not
+// memory.
 //
 // The function is the JAX `flash_attention`'s, which differs from the
 // onepass kernel's in four places, all reproduced here (the first two by the
@@ -28,62 +30,57 @@
 // Bound on the card: at the 2K path (B*H = 32, N = M = 16384, dh = 72) the
 // work is 4 N M dh flops per head, 2.47 TFLOP, 2.50 ms at 989 TFLOP/s,
 // against 302 MB of q/k/v/out (0.09 ms at 3.35 TB/s), so the tensor cores
-// bound it, as they do at 4K (N = 65536). Both products run on mma.sync bf16
-// tensor-core instructions, dh = 72 zero-padded to 80 in shared memory only.
-// The grid keeps the query tiles fastest (blockIdx.x), so the blocks in
-// flight work on one or two heads and share that head's K/V (4.7 MB at 16384
-// keys) in the 50 MB L2 instead of reading it from HBM once per query tile.
+// bound it, as they do at 4K (N = 65536). Both products issue wgmma, dh = 72
+// as 80 columns (64 + 16). The exponential is a second floor close to the
+// first: 32 * 16384^2 = 8.6e9 ex2 take ~2.05 ms on the special-function
+// units (16 per clock per SM, 1.98 GHz), so the softmax of one consumer
+// warpgroup (one FFMA and one ex2 per logit) overlaps the other's wgmma.
+// One block per SM walks the (query tile, head) items with query tiles
+// fastest, so the blocks in flight work on one or two heads and share that
+// head's K/V (4.7 MB at 16384 keys) in the 50 MB L2 instead of reading it
+// from HBM once per query tile.
 //
-// Reads q/k/v in place through their strides. Needs dh % 8 == 0, dh <= 80,
-// 16-byte aligned rows; the Python wrapper checks all of it. f32 tiles are
-// rounded to bf16 as they are staged, with plain loads.
+// Reads bf16 q/k/v in place through their strides; the Python wrapper
+// rounds f32 inputs to bf16 first. Needs dh % 8 == 0, dh <= 80 and 16-byte
+// aligned strides, which TMA requires and the wrapper checks.
 
-#include "attention_common.cuh"
+#include "hopper_attention.cuh"
 
-namespace attn {
-
-template <typename T>
-__global__ void __launch_bounds__(kStreamThreads) flash_fwd_kernel(Params<T> p, int tail) {
-  stream_attention(p, kMaskedLogit, tail);
+template <typename TOut, bool kMask>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
+  hopper::attention_body<TOut, kMask>(maps, a);
 }
 
-template <typename T>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, const float* madd, void* o,
-                         float* lse, int B, int H, int N, int M, int dh, int tail,
-                         const Strides& qs, const Strides& ks, const Strides& vs,
-                         const Strides& os, float scale, cudaStream_t stream) {
-  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), madd, static_cast<T*>(o), lse, qs, ks, vs, os,
-                    B, H, N, M, dh, scale};
-  return launch_stream(flash_fwd_kernel<T>, p, stream, tail);
-}
-
-}  // namespace attn
-
-// q (pre-scaled, so `scale` is 1 on the flash path), k, v and o are bf16, or
-// f32 when `f32` is non-zero. `madd` is null or a [B, M] f32 mask bias
-// already rounded to the inputs' dtype; `tail` counts the padded keys at
-// logit -1e30. `lse` is null, or a [B * H, N] f32 buffer for the row
+// q (pre-scaled, so `scale` is 1 on the flash path), k and v are bf16; o is
+// bf16, or f32 when `f32` is non-zero. `madd` is null or the f32 mask bias,
+// [B, pad128(M)] with -inf past M, already rounded to the inputs' dtype;
+// `tail` counts the padded keys at logit -1e30. `lse` is null, or a [B * H, N] f32 buffer for the row
 // logsumexp (log2 units) that the backward kernels (flash_backward.cu) read.
-// Returns the CUDA error code of the launch (0 on success).
+// Returns 0, a CUDA error code of the launch, or 10000 + the CUresult of a
+// tensor map that could not be encoded.
 extern "C" int flash_forward(const void* q, const void* k, const void* v, const float* madd,
                              void* o, float* lse, int f32, int B, int H, int N, int M, int dh,
                              int tail, long long q_sb, long long q_sn, long long q_sh,
                              long long k_sb, long long k_sn, long long k_sh, long long v_sb,
                              long long v_sn, long long v_sh, long long o_sb, long long o_sn,
                              long long o_sh, float scale, void* stream) {
-  using namespace attn;
-  if (M < 1 || tail < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
-      os{o_sb, o_sn, o_sh};
+  hopper::Launch l;
+  const int err = hopper::prepare(l, q, k, v, madd, o, lse, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+                                  {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh},
+                                  scale, attn::kMaskedLogit, tail);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      f32 ? launch_flash<float>(q, k, v, madd, o, lse, B, H, N, M, dh, tail, qs, ks, vs, os,
-                                scale, s)
-          : launch_flash<bf16>(q, k, v, madd, o, lse, B, H, N, M, dh, tail, qs, ks, vs, os,
-                               scale, s);
-  return static_cast<int>(err);
+  if (f32) {
+    return madd ? hopper::run(flash_fwd_kernel<float, true>, l, s)
+                : hopper::run(flash_fwd_kernel<float, false>, l, s);
+  }
+  return madd ? hopper::run(flash_fwd_kernel<attn::bf16, true>, l, s)
+              : hopper::run(flash_fwd_kernel<attn::bf16, false>, l, s);
 }
 
-// Dynamic shared memory of one block (bytes).
-extern "C" int flash_forward_smem_bytes() { return attn::kStreamSmem; }
+// Dynamic shared memory of one block (bytes), keys per tile and the K/V
+// ring's depth (the wrapper checks the last two against its own).
+extern "C" int flash_forward_smem_bytes() { return hopper::kSmemBytes; }
+extern "C" int flash_forward_key_tile() { return hopper::kKeys; }
+extern "C" int flash_forward_key_stages() { return hopper::kStages; }

@@ -1,68 +1,73 @@
-// Self-attention forward over strided [B, N, H, dh] bf16 or f32 views, with
-// an optional additive [B, M] key mask.
+// Self-attention forward over strided [B, N, H, dh] bf16 views, with an
+// optional additive [B, M] key mask and row logsumexp; bf16 or f32 output.
 //
 // Replaces the TPU kernel `_onepass_kernel` (pixart_sigma_tpu/ops/
 // flash_attention.py), which keeps a head's whole K/V resident in VMEM and
 // takes the exact row max in one sweep. On the H100 a head's K alone is
-// 4096 x 72 x 2 B = 0.6 MB, far above the 227 KB of shared memory a block may
-// use, so this kernel streams K/V instead: one block of 8 warps per
-// (128 query rows, batch * head), K/V tiles of 64 keys double-buffered in
-// shared memory with cp.async, and an online softmax in registers
-// (`stream_attention` in attention_common.cuh, which flash_forward.cu shares).
-// Logits never reach device memory.
+// 4096 x 72 x 2 B = 0.6 MB, above the 227 KB of shared memory a block may
+// use, so this kernel streams K/V with an online softmax instead: the Hopper
+// body of hopper_attention.cuh (TMA ring of 128-key tiles, wgmma for Q.K^T
+// and P.V, two consumer warpgroups taking turns on the tensor cores), which
+// flash_forward.cu shares. Logits never reach device memory. The function
+// is the onepass one: the running max starts from -inf, the logit scale is
+// applied in f32, and the TPU's padding of K/V to a multiple of 128 keys
+// (logit -1e30, zero values) joins each row's denominator.
 //
-// Bound on the card: at the 1024px path (B*H = 64, N = M = 4096, dh = 72) the
-// work is 4 N M dh flops per head, 309 GFLOP, against 151 MB of q/k/v/out, so
-// the tensor cores, not memory, bound it. The design keeps both products on
-// mma.sync bf16 tensor-core instructions and pads dh = 72 to 80 (five k-steps
-// of 16) only in shared memory. The next steps are wgmma and TMA.
+// Bound on the card: at the 1024px path (B*H = 64, N = M = 4096, dh = 72)
+// the work is 4 N M dh flops per head, 309 GFLOP, 0.31 ms at 989 TFLOP/s,
+// against 151 MB of q/k/v/out (0.05 ms at 3.35 TB/s): the tensor cores
+// bound it. Both products issue wgmma; dh = 72 runs as 80 columns (64 + 16,
+// the split TMA layout), 0.9 of the issued products useful. The second
+// floor is the exponential: one ex2 per logit, 1.07e9 at that shape, which
+// the 16 per clock per SM of the special-function units take ~0.26 ms at
+// 1.98 GHz, near the tensor-core bound. So one consumer warpgroup's softmax
+// (one FFMA and one ex2 per logit, the scale and max folded together) runs
+// while the other warpgroup's products, and its own P.V, are in flight.
 //
-// Reads q/k/v in place through their strides, so the qkv projection's output
-// is used without a transpose or copy. Needs dh % 8 == 0, dh <= 80, 16-byte
-// aligned rows; the Python wrapper checks all of it. f32 tiles are staged
-// with plain loads, so only the bf16 instantiation overlaps them with compute.
+// Reads bf16 q/k/v in place through their strides (the qkv projection's
+// output, with no transpose or copy); the Python wrapper rounds f32 inputs
+// to bf16 first, as the tensor cores multiply in bf16 anyway. Needs
+// dh % 8 == 0, dh <= 80 and 16-byte aligned strides, which TMA requires and
+// the wrapper checks.
 
-#include "attention_common.cuh"
+#include <limits>
 
-namespace attn {
+#include "hopper_attention.cuh"
 
-template <typename T>
-__global__ void __launch_bounds__(kStreamThreads) onepass_kernel(Params<T> p) {
-  stream_attention(p, -CUDART_INF_F, padded_tail_keys(p.M));
+template <typename TOut, bool kMask>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+    onepass_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
+  hopper::attention_body<TOut, kMask>(maps, a);
 }
 
-template <typename T>
-cudaError_t launch_onepass(const void* q, const void* k, const void* v, const float* madd,
-                           void* o, float* lse, int B, int H, int N, int M, int dh,
-                           const Strides& qs, const Strides& ks, const Strides& vs,
-                           const Strides& os, float scale, cudaStream_t stream) {
-  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), madd, static_cast<T*>(o), lse, qs, ks, vs, os,
-                    B, H, N, M, dh, scale};
-  return launch_stream(onepass_kernel<T>, p, stream);
-}
-
-}  // namespace attn
-
-// q/k/v/o are bf16, or f32 when `f32` is non-zero. `lse` is null for
+// q/k/v are bf16; o is bf16, or f32 when `f32` is non-zero. `madd` is null
+// or the f32 mask bias, [B, pad128(M)] with -inf past M. `lse` is null for
 // inference, or a [B * H, N] f32 buffer for the row logsumexp (log2 units)
-// that the backward kernels (flash_backward.cu) read.
-// Returns the CUDA error code of the launch (0 on success).
+// that the backward kernels (flash_backward.cu) read. Returns 0, a CUDA error code of the launch, or
+// 10000 + the CUresult of a tensor map that could not be encoded.
 extern "C" int onepass_attention(const void* q, const void* k, const void* v, const float* madd,
                                  void* o, float* lse, int f32, int B, int H, int N, int M, int dh,
                                  long long q_sb, long long q_sn, long long q_sh, long long k_sb,
                                  long long k_sn, long long k_sh, long long v_sb, long long v_sn,
                                  long long v_sh, long long o_sb, long long o_sn, long long o_sh,
                                  float scale, void* stream) {
-  using namespace attn;
-  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
-      os{o_sb, o_sn, o_sh};
+  hopper::Launch l;
+  const int tail = (M + hopper::kKeys - 1) / hopper::kKeys * hopper::kKeys - M;
+  const int err = hopper::prepare(l, q, k, v, madd, o, lse, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+                                  {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh},
+                                  scale, -std::numeric_limits<float>::infinity(), tail);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      f32 ? launch_onepass<float>(q, k, v, madd, o, lse, B, H, N, M, dh, qs, ks, vs, os, scale, s)
-          : launch_onepass<bf16>(q, k, v, madd, o, lse, B, H, N, M, dh, qs, ks, vs, os, scale, s);
-  return static_cast<int>(err);
+  if (f32) {
+    return madd ? hopper::run(onepass_kernel<float, true>, l, s)
+                : hopper::run(onepass_kernel<float, false>, l, s);
+  }
+  return madd ? hopper::run(onepass_kernel<attn::bf16, true>, l, s)
+              : hopper::run(onepass_kernel<attn::bf16, false>, l, s);
 }
 
-// Dynamic shared memory of one block (bytes).
-extern "C" int onepass_attention_smem_bytes() { return attn::kStreamSmem; }
+// Dynamic shared memory of one block (bytes), keys per tile and the K/V
+// ring's depth (the wrapper checks the last two against its own).
+extern "C" int onepass_attention_smem_bytes() { return hopper::kSmemBytes; }
+extern "C" int onepass_attention_key_tile() { return hopper::kKeys; }
+extern "C" int onepass_attention_key_stages() { return hopper::kStages; }

@@ -54,6 +54,8 @@ ALLHEADS_MAX_KV = 512  # keys the allheads kernel keeps in shared memory
 HEADSMAJOR_MAX_KV = 512  # keys the headsmajor kernel keeps in shared memory
 HEADSMAJOR_ROWS = 128  # query rows of the headsmajor kernel's sub-tile
 MAX_HEAD_DIM = 80  # the kernels pad the head dim to 80 in shared memory
+KEY_TILE = 128  # keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
+KEY_STAGES = 3  # depth of their K/V ring; both are checked against the library at load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -139,15 +141,17 @@ def _flash_tail(m: int, block_k: Optional[int]) -> int:
     return -(-m // bk) * bk - m
 
 
-def _flash_q_scale(dh: int, dtype, device) -> torch.Tensor:
-    """Dh^-0.5 * log2(e) rounded to the inputs' dtype, a 0-dim tensor."""
-    return torch.tensor(dh**-0.5 * LOG2E, dtype=dtype, device=device)
+def _flash_q_scale(dh: int, dtype) -> float:
+    """Dh^-0.5 * log2(e) rounded to the inputs' dtype (a host scalar, so no
+    copy to the card waits on its queue)."""
+    return float(torch.tensor(dh**-0.5 * LOG2E, dtype=dtype))
 
 
 def _flash_scale_q(q: torch.Tensor) -> torch.Tensor:
     """q * Dh^-0.5 * log2(e) in q's dtype (the constant rounded to it too), as
-    the JAX `flash_attention` folds the softmax scale into q."""
-    return q * _flash_q_scale(q.shape[-1], q.dtype, q.device)
+    the JAX `flash_attention` folds the softmax scale into q. The product of
+    two values of q's dtype is exact in f32, so it is rounded once, as JAX's."""
+    return q * _flash_q_scale(q.shape[-1], q.dtype)
 
 
 def _flash_madd(key_mask: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -221,6 +225,39 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """q, k or v as the Hopper forward kernels (onepass, flash) read it
+    through TMA: bf16 (f32 is rounded, as the tensor cores multiply in bf16
+    anyway), `_aligned`, and the strides positive and below 2^40 bytes. A
+    view that meets this, such as a column slice of the qkv projection, is
+    used in place."""
+    x = _aligned(x.to(torch.bfloat16))
+    if all(0 < s * 2 < 2**40 for s in x.stride()[:-1]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+TMA_ENCODE_ERROR = 10000  # the Hopper kernels' code base for a failed tensor-map encode
+
+
+def _hopper_error(err: int) -> str:
+    """The return code of the onepass or flash C entry point, in words."""
+    if err >= TMA_ENCODE_ERROR:
+        return f"TMA tensor map encode failed: CUresult {err - TMA_ENCODE_ERROR}"
+    return f"CUDA error {err}"
+
+
+def _tile_bias(madd: Optional[torch.Tensor], B: int, M: int, name: str):
+    """The [B, M] mask bias as the onepass and flash kernels stream it: f32
+    rows padded with -inf to a whole number of KEY_TILE keys, so each tile's
+    biases are one aligned copy and keys past M need no test."""
+    madd = _f32_rows(madd, (B, M), name)
+    if madd is None:
+        return None
+    return torch.nn.functional.pad(madd, (0, -(-M // KEY_TILE) * KEY_TILE - M),
+                                   value=float("-inf"))
+
+
 def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Tensor]:
     """An f32 side input (mask bias, lse, delta) as the kernels read it."""
     if x is None:
@@ -230,9 +267,20 @@ def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Ten
     return x.float().contiguous()
 
 
+def _check_key_geometry(lib, name: str):
+    """`lib` (onepass_attention or flash_forward), once its keys per tile and
+    K/V ring depth are found to be KEY_TILE and KEY_STAGES, by which
+    `_tile_bias` pads the mask and the tests pick their key counts."""
+    got = (getattr(lib, f"{name}_key_tile")(), getattr(lib, f"{name}_key_stages")())
+    if got != (KEY_TILE, KEY_STAGES):
+        raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through {got[1]} "
+                           f"stages, the wrapper expects {KEY_TILE} and {KEY_STAGES}")
+    return lib
+
+
 @functools.cache
 def _onepass_lib() -> ctypes.CDLL:
-    lib = _build.load("onepass_attention")
+    lib = _check_key_geometry(_build.load("onepass_attention"), "onepass_attention")
     lib.onepass_attention.argtypes = [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P]
     lib.onepass_attention.restype = _I
     return lib
@@ -248,7 +296,7 @@ def _allheads_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _flash_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_forward")
+    lib = _check_key_geometry(_build.load("flash_forward"), "flash_forward")
     lib.flash_forward.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _P]
     lib.flash_forward.restype = _I
     return lib
@@ -296,17 +344,17 @@ def _onepass_forward(q, k, v, madd, with_lse: bool):
     M = k.shape[1]
     _check_cuda("onepass_attention", q, k, v)
     _check_head_dim("onepass_attention", Dh)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    madd = _f32_rows(madd, (B, M), "onepass_attention madd")
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    madd = _tile_bias(madd, B, M, "onepass_attention madd")
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     err = _onepass_lib().onepass_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        q.dtype == torch.float32, B, H, N, M, Dh, *q.stride()[:3], *k.stride()[:3],
+        out.dtype == torch.float32, B, H, N, M, Dh, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
     )
     if err:
-        raise RuntimeError(f"onepass_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"onepass_attention kernel launch failed: {_hopper_error(err)}")
     onepass_attention.launches += 1
     return out, lse
 
@@ -525,17 +573,17 @@ def _flash_forward(q, k, v, madd, tail: int, with_lse: bool):
     M = k.shape[1]
     _check_cuda("flash_attention", q, k, v)
     _check_head_dim("flash_attention", Dh)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    madd = _f32_rows(madd, (B, M), "flash_attention madd")
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    madd = _tile_bias(madd, B, M, "flash_attention madd")
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     err = _flash_lib().flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        q.dtype == torch.float32, B, H, N, M, Dh, tail, *q.stride()[:3], *k.stride()[:3],
+        out.dtype == torch.float32, B, H, N, M, Dh, tail, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q),
     )
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {_hopper_error(err)}")
     flash_attention.launches += 1
     return out, lse
 

@@ -1,0 +1,104 @@
+"""The host-side preparation of the Hopper forward kernels' operands
+(`onepass_attention`, `flash_attention`): what `_tma_operand` reads in place,
+what it copies, how a launch error is reported, and the check of a
+library's key tiling against the wrapper's. Runs on the CPU."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from pixart_sigma_tpu_torch.ops.flash_attention import (
+    KEY_STAGES,
+    KEY_TILE,
+    TMA_ENCODE_ERROR,
+    _check_key_geometry,
+    _hopper_error,
+    _tile_bias,
+    _tma_operand,
+    mask_bias,
+)
+
+
+def _rand(*shape, dtype=torch.bfloat16):
+    return torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(dtype)
+
+
+def _tma_readable(x: torch.Tensor) -> bool:
+    return (x.dtype == torch.bfloat16 and x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(0 < s * 2 < 2**40 and s * 2 % 16 == 0 for s in x.stride()[:-1]))
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8)])
+def test_qkv_column_slices_are_read_in_place(heads, dh):
+    """q, k and v sliced from one qkv projection output are no copies: their
+    row stride is 3 H dh and head stride dh elements, multiples of 16 bytes."""
+    qkv = _rand(2, 37, 3 * heads * dh)
+    for x in (t.unflatten(-1, (heads, dh)) for t in qkv.chunk(3, dim=-1)):
+        y = _tma_operand(x)
+        assert y.data_ptr() == x.data_ptr() and y.stride() == x.stride()
+
+
+def test_f32_is_rounded_to_bf16():
+    x = _rand(2, 33, 3, 72, dtype=torch.float32)
+    y = _tma_operand(x)
+    assert y.dtype == torch.bfloat16 and _tma_readable(y)
+    assert torch.equal(y, x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("make", [
+    lambda x: x[:, :, :, 8:],                        # offset 16 B: aligned, kept
+    lambda x: x.flatten(2)[:, :, 1:1 + 3 * 64].unflatten(-1, (3, 64)),  # 2-byte offset
+    lambda x: x[:, :, :2, :],                        # two of three heads: kept
+    lambda x: x[:1].expand(2, 33, 3, 72),            # batch stride 0: copied
+    lambda x: torch.cat([x, x[..., :4]], -1)[..., :72],  # head stride 76 elements (152 B)
+    lambda x: torch.cat([x, x], -1)[..., ::2],       # no unit stride on the head dim
+])
+def test_unreadable_views_are_copied(make):
+    x = make(_rand(2, 33, 3, 72))
+    y = _tma_operand(x)
+    assert torch.equal(y, x) and _tma_readable(y)
+    if _tma_readable(x):
+        assert y.data_ptr() == x.data_ptr()
+    else:
+        assert y.is_contiguous()
+
+
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 300, 1020])
+def test_mask_bias_is_padded_to_whole_key_tiles(M):
+    """Each tile's biases are one 512-byte copy; keys past M read -inf, which
+    drops them from every row as the kernels' bounds test did."""
+    lengths = torch.tensor([M, M // 2, 0])
+    madd = mask_bias(torch.arange(M)[None] < lengths[:, None])
+    got = _tile_bias(madd, 3, M, "test")
+    pad = -(-M // KEY_TILE) * KEY_TILE
+    assert got.shape == (3, pad) and got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got[:, :M], madd)
+    assert bool((got[:, M:] == float("-inf")).all())
+    assert got.data_ptr() % 16 == 0 and got.stride(0) * 4 % 512 == 0
+    assert _tile_bias(None, 3, M, "test") is None
+    with pytest.raises(ValueError):
+        _tile_bias(madd[:, :-1] if M > 1 else madd[:2], 3, M, "test")
+
+
+def test_launch_errors_name_their_cause():
+    assert _hopper_error(1) == "CUDA error 1"
+    assert "tensor map" in _hopper_error(TMA_ENCODE_ERROR + 1)
+    assert _hopper_error(TMA_ENCODE_ERROR + 500).endswith("CUresult 500")
+
+
+@pytest.mark.parametrize("name", ["onepass_attention", "flash_forward"])
+@pytest.mark.parametrize("tile,stages,ok", [
+    (KEY_TILE, KEY_STAGES, True),
+    (KEY_TILE // 2, KEY_STAGES, False),  # the mask bias would be padded to the wrong tile
+    (KEY_TILE, KEY_STAGES + 1, False),
+])
+def test_library_key_geometry_is_checked(name, tile, stages, ok):
+    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
+                                   f"{name}_key_stages": lambda: stages})
+    if ok:
+        assert _check_key_geometry(lib, name) is lib
+    else:
+        with pytest.raises(RuntimeError, match=name):
+            _check_key_geometry(lib, name)

@@ -12,8 +12,9 @@ Tolerance, per batch element b, the limits of `chip_smoke.py`:
 The kernel rounds the unnormalised probabilities to bf16 and the plain
 version the normalised ones, and both round the output to bf16 (f32 inputs:
 the kernel also rounds q/k/v to bf16), so a sound kernel reads at most about
-half the first limit and a third of the second; a skipped 64-key tile or a
-logit scale of 80^-0.5 reads four times the limits or more (PERF.md).
+half the first limit and a third of the second; a skipped key tile or a
+logit scale of 80^-0.5 reads four times the limits or more (PERF.md). The
+onepass and flash logsumexp agree within 2^-10 log2 units.
 """
 
 import numpy as np
@@ -22,12 +23,16 @@ import torch
 
 from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV, attention
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    KEY_STAGES,
+    KEY_TILE,
     _flash_forward,
     _flash_madd,
     _flash_scale_q,
     _flash_tail,
+    _logits,
     _onepass_forward,
     _plain_forward,
+    _softmax_pv,
     attention_reference,
     crossattn_allheads,
     crossattn_headsmajor,
@@ -43,6 +48,7 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
 
 pytestmark = pytest.mark.gpu
 ELEM_TOL, L2_TOL = 2**-4, 1e-2
+LSE_TOL = 2**-10  # log2 units, as chip_smoke.py
 
 
 @pytest.fixture
@@ -73,11 +79,57 @@ def _assert_close(got, want):
     assert elem <= ELEM_TOL and l2 <= L2_TOL, (elem, l2)
 
 
+def _forward(kernel, q, k, v, mask):
+    """(kernel output, kernel lse, plain output, plain lse) of onepass or
+    flash; the plain version gets the bf16-rounded inputs the kernel reads."""
+    pq, pk, pv = (x.to(torch.bfloat16).to(x.dtype) for x in (q, k, v))
+    if kernel == "onepass":
+        madd = None if mask is None else mask_bias(mask)
+        out, lse = _onepass_forward(q, k, v, madd, with_lse=True)
+        want, lse_want = _plain_forward(pq, pk, pv, madd)
+    else:  # the plain version of the kernel's arithmetic on the pre-scaled q
+        M, dt = k.shape[1], q.dtype
+        qs, madd, tail = _flash_scale_q(q), _flash_madd(mask, dt), _flash_tail(M, None)
+        out, lse = _flash_forward(qs, k, v, madd, tail, with_lse=True)
+        pqs = qs.to(torch.bfloat16).to(dt)
+        want, lse_want = _softmax_pv(_logits(pqs, pk, madd, scale=1.0), pv, tail, dt)
+    torch.cuda.synchronize()
+    return out, lse, want, lse_want
+
+
+def _check_forward(kernel, q, k, v, mask=None):
+    counter = onepass_attention if kernel == "onepass" else flash_attention
+    before = counter.launches
+    out, lse, want, lse_want = _forward(kernel, q, k, v, mask)
+    assert counter.launches == before + 1
+    _assert_close(out, want)
+    finite = torch.isfinite(lse_want)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert float((lse - lse_want)[finite].abs().max()) <= LSE_TOL
+
+
+# The onepass and flash kernels (csrc/hopper_attention.cuh) stream keys in
+# tiles of KEY_TILE through a ring of KEY_STAGES, and split the head dim into
+# columns [0, 64) and [64, 80): the cases below sit on either side of both.
+HOPPER_CASES = [  # B, N, M, H, Dh, lengths
+    (2, 200, 1, 2, 72, None),                       # one key
+    (2, 200, KEY_TILE - 1, 2, 72, None),
+    (2, 200, KEY_TILE + 1, 2, 72, None),
+    (2, 200, KEY_TILE * KEY_STAGES - 1, 2, 72, None),   # the ring's wrap
+    (2, 200, KEY_TILE * KEY_STAGES, 2, 72, None),
+    (2, 200, KEY_TILE * KEY_STAGES + 1, 2, 72, None),
+    (2, 4080, 1020, 16, 72, None),                  # the 1088x960 training bucket
+    (2, 333, 500, 3, 80, (500, 77)),                # the widest head dim, masked
+    (2, 333, 500, 3, 64, (500, 77)),                # the first column chunk alone
+]
+
+
 @pytest.mark.parametrize("B,N,M,H,Dh,lengths", [
     (1, 256, 256, 2, 72, None),          # PixArt's head dim, aligned
     (2, 1000, 1008, 3, 72, None),        # unaligned tails (1152x896 px grid)
     (1, 200, 77, 1, 64, None),           # a head dim below the padding of 80
     (2, 300, 300, 2, 72, (300, 1)),      # key mask, one row nearly empty
+    *HOPPER_CASES,
 ])
 def test_onepass_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths):
     rng = np.random.RandomState(0)
@@ -85,20 +137,23 @@ def test_onepass_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths):
     k = _randn(rng, (B, M, H, Dh), cuda)
     v = _randn(rng, (B, M, H, Dh), cuda)
     mask = None if lengths is None else _lengths_mask(lengths, M, cuda)
-    before = onepass_attention.launches
-    got = onepass_attention(q, k, v, mask)
-    torch.cuda.synchronize()
-    assert onepass_attention.launches == before + 1
-    _assert_close(got, attention_reference(q, k, v, mask))
+    _check_forward("onepass", q, k, v, mask)
 
 
-def test_onepass_kernel_reads_strided_qkv(cuda):
-    """q/k/v as column slices of one qkv projection output, no copies."""
+@pytest.mark.parametrize("B,N,H", [(2, 333, 2), (1, 4608, 16)])
+def test_onepass_kernel_reads_strided_qkv(cuda, B, N, H):
+    """q/k/v as column slices of one qkv projection output, no copies (at the
+    2K width TMA reads rows 6912 bytes apart, heads 144 bytes apart). Every
+    row is compared at N = 333; at N = 4608, the first query tile and 300
+    rows from the middle."""
     rng = np.random.RandomState(1)
-    B, N, H, Dh = 2, 333, 2, 72
+    Dh = 72
     qkv = _randn(rng, (B, N, 3 * H * Dh), cuda)
     q, k, v = (t.unflatten(-1, (H, Dh)) for t in qkv.chunk(3, dim=-1))
-    _assert_close(onepass_attention(q, k, v), attention_reference(q, k, v))
+    rows = torch.arange(N, device=cuda)
+    if N > 1024:
+        rows = torch.cat([rows[:KEY_TILE], rows[N // 2 : N // 2 + 300]])
+    _assert_close(onepass_attention(q, k, v)[:, rows], attention_reference(q[:, rows], k, v))
 
 
 @pytest.mark.parametrize("B,N,M,H,lengths", [
@@ -156,9 +211,6 @@ def test_kernels_refuse_other_dtypes(cuda):
 
 
 # ---------------------------------------------------------------- training
-
-LSE_TOL = 2**-10  # log2 units, as chip_smoke.py
-
 
 def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
     rng = np.random.RandomState(seed)
@@ -229,25 +281,17 @@ def test_autograd_runs_the_kernels(cuda):
     (2, 900, 2500, 2, 72, (2500, 0), torch.bfloat16),      # a masked row with a tail: 0
     (2, 900, 2500, 1, 72, (1700, 0), torch.float32),       # f32: sum(V) / 2560
     (1, 200, 77, 1, 64, None, torch.bfloat16),             # a head dim below the padding
+    *(case + (torch.bfloat16,) for case in HOPPER_CASES),
 ])
 def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
+    """f32: the plain version gets the scaled q rounded to bf16, as the
+    kernel reads it."""
     rng = np.random.RandomState(7)
     t = lambda shape, scale=1.0: torch.from_numpy(
         (rng.randn(*shape) * scale).astype(np.float32)).to(cuda, dtype)
     q, k, v = t((B, N, H, Dh), 2.0), t((B, M, H, Dh)), t((B, M, H, Dh))
     mask = None if lengths is None else _lengths_mask(lengths, M, cuda)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, key_mask=mask)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    want, lse_want = flash_reference_with_lse(q, k, v, mask)
-    _assert_close(got, want)
-    if dtype == torch.bfloat16:  # f32: the kernel rounds the scaled q to bf16
-        _, lse = _flash_forward(_flash_scale_q(q), k, v, _flash_madd(mask, dtype),
-                                _flash_tail(M, None), with_lse=True)
-        finite = torch.isfinite(lse_want)
-        assert torch.equal(finite, torch.isfinite(lse))
-        assert float((lse - lse_want)[finite].abs().max()) <= LSE_TOL
+    _check_forward("flash", q, k, v, mask)
 
 
 def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
@@ -322,3 +366,29 @@ def test_auto_dispatch_takes_flash_and_the_crossattn_override(cuda, monkeypatch)
     attention(q.float().requires_grad_(), cap.float(), cap.float(), key_mask=mask).sum().backward()
     assert crossattn_allheads.launches == allheads + 1
     assert crossattn_headsmajor.launches == heads + 1
+
+
+# ---------------------------------------------------------------- the Hopper forward body
+
+
+def test_forward_key_tile_is_the_librarys(cuda):
+    """The libraries' keys per tile and ring depth are the wrapper's
+    KEY_TILE and KEY_STAGES, which the cases above are built from."""
+    from pixart_sigma_tpu_torch.ops import _build
+    from pixart_sigma_tpu_torch.ops.flash_attention import _check_key_geometry
+
+    for name in ("onepass_attention", "flash_forward"):
+        lib = _build.load(name)
+        assert _check_key_geometry(lib, name) is lib
+
+
+@pytest.mark.parametrize("M", [4096, 1024])
+def test_onepass_lse_at_the_training_shape(cuda, M):
+    """The row logsumexp that dkv/dq recompute P from, at B*H = 64."""
+    rng = np.random.RandomState(17)
+    B, N, H, Dh = 4, 4096, 16, 72
+    qkv = _randn(rng, (B, N, 3 * H * Dh), cuda)
+    q, k, v = (x.unflatten(-1, (H, Dh)) for x in qkv.chunk(3, dim=-1))
+    if M != N:
+        k, v = _randn(rng, (B, M, H, Dh), cuda), _randn(rng, (B, M, H, Dh), cuda)
+    _check_forward("onepass", q, k, v)
