@@ -8,19 +8,22 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: the five CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
+2. build: the four CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, with ptxas register, spill and shared-memory use
-   and each kernel's keys per tile, which the planted skipped tile and the
-   spike inputs below follow;
+   and each kernel's keys per tile, which the planted skipped tile, the
+   extent fault and the spike inputs below follow;
 3. kernels against their plain PyTorch versions at the path's shapes and at
    unaligned ones (bf16, seeded inputs; f32 at the unaligned ones), with the
    stated tolerance, and the same check applied to plain outputs with a
    planted fault, which it must reject: the onepass and allheads forward
-   kernels; the flash kernel at the 2K path shape (compared on picked heads
-   and query rows), in the 2048-key block regime with a ragged tail, and
-   masked, each with "spike" inputs that make single key tiles visible, its
-   lse and a gradient through its autograd Function; the headsmajor kernel;
-   then the onepass logsumexp and the two backward kernels (flash_bwd_dkv,
+   kernels (allheads also on a caption with no valid key and on one valid
+   only on keys [256, 300), with the fault "extent one tile short": the tile
+   holding each caption's last valid key skipped); the flash kernel at the
+   2K path shape (compared on picked heads and query rows), in the 2048-key
+   block regime with a ragged tail, and masked, each with "spike" inputs
+   that make single key tiles visible, its lse and a gradient through its
+   autograd Function; the headsmajor kernel (the allheads cases); then the
+   onepass logsumexp and the two backward kernels (flash_bwd_dkv,
    flash_bwd_dq) at the training shapes;
 4. the 1024px sampling path through PixArtPipeline: PixArt-Sigma-XL-2 at full
    width and depth (28 blocks, 1152 wide, KV compression conv x2 on layers
@@ -31,10 +34,14 @@ Phases, each printing its own lines:
    the cross-attention forced to the headsmajor kernel
    (PIXART_CROSSATTN_IMPL=headsmajor): a 20-step trajectory and the 256px one;
 5. 1024px times from CUDA events: each forward kernel (and the onepass
-   launches that write the lse, and that take a key mask), its plain
-   version, the library attention call
-   (`scaled_dot_product_attention`, timed only) and the bound; sampler and
-   decode seconds per image, peak memory and a torch.profiler breakdown;
+   launches that write the lse, and that take a key mask; allheads and
+   headsmajor also at the 2K shape, B = 2, N = 16384, with the 2K
+   trajectory's caption mask, and on a long caption, all 300 keys valid),
+   its plain version, the library attention call
+   (`scaled_dot_product_attention`, timed only) and the bound, each kernel
+   and library call both queued behind a device sleep (device time) and
+   host-paced (host time included); sampler and decode seconds per image,
+   peak memory and a torch.profiler breakdown;
 6. the 2K path: the model of configs/pixart_sigma_config/
    PixArt_sigma_xl2_img2K_internalms_kvcompress.py (input 256, pe
    interpolation 4, KV compression on layers 14-27) with seeded random
@@ -114,7 +121,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """ms per call of fn, from CUDA events around `iters` calls. `queued`:
+    the calls queue behind a device sleep of ~0.2 ms per call, so the
+    reading is the device's time back to back and leaves out the wrapper's
+    host time (argument checks, tensor-map encodes, the ctypes call), which
+    would otherwise set the pace of a kernel shorter than it. Without
+    `queued` the host enqueues the calls as they come, and the reading is
+    the larger of the device time and the host time per call."""
     import torch
 
     for _ in range(warmup):
@@ -122,6 +136,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(iters * 4e5))  # clock cycles, ~1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -150,9 +166,13 @@ class Cases:
         return t.randn(shape, generator=self.gen, device=self.dev).to(dtype or t.bfloat16)
 
     def lengths_mask(self, lengths, M):
+        """[B, M] key mask: an int L keeps keys [0, L), a pair (lo, hi) only
+        keys [lo, hi) (a caption mask that is not a prefix)."""
         t = self.torch
-        lens = t.tensor(lengths, device=self.dev)
-        return t.arange(M, device=self.dev)[None] < lens[:, None]
+        spans = [(0, x) if isinstance(x, int) else x for x in lengths]
+        lo, hi = (t.tensor(col, device=self.dev)[:, None] for col in zip(*spans))
+        keys = t.arange(M, device=self.dev)[None]
+        return (keys >= lo) & (keys < hi)
 
     def onepass(self, B, N, M, H=16, Dh=72, dtype=None):
         """q/k/v as the model hands them over: q (and k/v when M == N) are
@@ -193,23 +213,35 @@ def passes(r) -> bool:
     return r[1] <= ELEM_TOL and r[2] <= L2_TOL
 
 
-def planted_faults(q, k, v, mask, n_heads=None, tile=64) -> dict:
+def planted_faults(q, k, v, mask, tile, n_heads=None, extent=False) -> dict:
     """The plain version's output with a fault planted: the second key tile
-    [tile, 2 tile) skipped (`tile`: the kernel's keys per tile), or the logits
-    scaled by Dh_pad^-0.5 = 80^-0.5 instead of Dh^-0.5. q/k/v are
-    [B, N, H, Dh], or the flat [B, N, C] layout when n_heads is set."""
+    [tile, 2 tile) skipped (`tile`: the kernel's keys per tile; planted when
+    there are more than `tile` keys), the logits scaled by
+    Dh_pad^-0.5 = 80^-0.5 instead of Dh^-0.5, and, with `extent`, the key
+    extent one tile short: each batch element's tile that holds its last
+    valid key skipped. q/k/v are [B, N, H, Dh], or the flat [B, N, C] layout
+    when n_heads is set."""
     from pixart_sigma_tpu_torch.ops.flash_attention import attention_reference as ref
 
     torch_ = sys.modules["torch"]
     if n_heads:
         q, k, v = (x.unflatten(-1, (n_heads, -1)) for x in (q, k, v))
     B, M, _, Dh = k.shape
-    keep = torch_.ones((B, M), dtype=torch_.bool, device=k.device)
-    keep[:, tile:2 * tile] = False
-    out = {
-        "dropped key tile": ref(q, k, v, keep if mask is None else keep & mask),
-        "logit scale 80^-0.5": ref((q.float() * (Dh / 80) ** 0.5).to(q.dtype), k, v, mask),
-    }
+    with_mask = lambda keep: keep if mask is None else keep & mask
+    out = {}
+    if M > tile:
+        keep = torch_.ones((B, M), dtype=torch_.bool, device=k.device)
+        keep[:, tile:2 * tile] = False
+        out[f"key tile [{tile}, {2 * tile}) skipped"] = ref(q, k, v, with_mask(keep))
+    out["logit scale 80^-0.5"] = ref((q.float() * (Dh / 80) ** 0.5).to(q.dtype), k, v, mask)
+    if extent:
+        keep = torch_.ones((B, M), dtype=torch_.bool, device=k.device)
+        for b in range(B):
+            valid = mask[b].nonzero()
+            if len(valid):
+                t0 = int(valid[-1]) // tile * tile
+                keep[b, t0:t0 + tile] = False
+        out["extent one tile short"] = ref(q, k, v, with_mask(keep))
     return {n: o.flatten(2) if n_heads else o for n, o in out.items()}
 
 
@@ -265,7 +297,7 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     out_want, lse_want = fa._plain_forward(pq, pk, pv, madd)
     errs = {}
     errs["onepass"], ok = compare(f"{label} onepass output", out, out_want,
-                                  planted_faults(pq, pk, pv, mask, tile=fa.KEY_TILE))
+                                  planted_faults(pq, pk, pv, mask, fa.KEY_TILE))
     ok &= check_lse(label, lse, lse_want)
     del out_want, lse_want
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -877,7 +909,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     if logs:
-        log(f"[build] {len(logs)} kernels in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+        log(f"[build] {len(logs)} sources in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     else:
         log(f"[build] nothing to compile: libraries for these sources are in {_build.BUILD_DIR}")
     for name, text in logs.items():
@@ -885,18 +917,18 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     smem_onepass = _build.load("onepass_attention").onepass_attention_smem_bytes()
-    smem_allheads = _build.load("allheads_attention").allheads_attention_smem_bytes(300)
+    smem_cross = _build.load("cross_attention").cross_attention_smem_bytes()
     bwd = _build.load("flash_backward")
     smem_flash = _build.load("flash_forward").flash_forward_smem_bytes()
-    smem_heads = _build.load("headsmajor_attention").headsmajor_attention_smem_bytes(300)
     log(f"  dynamic shared memory per block: onepass {smem_onepass} B, "
-        f"allheads {smem_allheads} B (M=300), dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
-        f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B, "
-        f"headsmajor {smem_heads} B (M=300)")
-    fa._onepass_lib(), fa._flash_lib()  # each checks its key tile and ring against the wrapper's
+        f"allheads and headsmajor {smem_cross} B, dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
+        f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B")
+    # each checks its key tile and stages against the wrapper's
+    fa._onepass_lib(), fa._flash_lib(), fa._cross_lib()
     log(f"  keys per tile: onepass and flash {fa.KEY_TILE} (a ring of {fa.KEY_STAGES} K/V "
-        "stages), allheads and headsmajor 64; the planted skipped tile and the spike inputs "
-        "follow them")
+        f"stages), allheads and headsmajor {fa.CROSS_KEY_TILE} (an extent of up to "
+        f"{fa.CROSS_KEY_STAGES} tiles resident, longer ones streamed); the planted skipped "
+        "tile, the extent fault and the spike inputs follow them")
 
     # ---- 3. kernels against their plain versions ------------------------
     log("[kernels] seeded inputs at the path shapes (B = 2 prompts x CFG), bf16 "
@@ -911,12 +943,17 @@ def main() -> int:
         torch.cuda.synchronize()
         err, ok = compare(
             f"onepass B*H=64 N={N} M={M} Dh=72{' f32' if dtype == torch.float32 else ''}",
-            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, tile=fa.KEY_TILE))
+            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, fa.KEY_TILE))
         errs["onepass"].append(err)
         all_ok &= ok
-    for N, M, lengths, dtype in ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
-                                 (1000, 77, (77, 40, 5, 1), torch.bfloat16),
-                                 (1000, 77, (77, 40, 5, 1), torch.float32)):
+    # caption masks: prefixes of 300 keys or fewer, one with no valid key,
+    # one valid only on keys [256, 300)
+    cross_cases = ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
+                   (4096, 300, (300, 40, 5, 0), torch.bfloat16),
+                   (4096, 300, (300, (256, 300), 77, 3), torch.bfloat16))
+    for N, M, lengths, dtype in cross_cases + (
+            (1000, 77, (77, 40, 5, 1), torch.bfloat16),
+            (1000, 77, (77, 40, 5, 1), torch.float32)):
         q, k, v, mask, H = cases.allheads(4, N, M, lengths, dtype=dtype)
         got = fa.crossattn_allheads(q, k, v, mask, H)
         torch.cuda.synchronize()
@@ -925,7 +962,7 @@ def main() -> int:
         err, ok = compare(
             f"allheads B=4 N={N} M={M} C=1152 valid={lengths}"
             f"{' f32' if dtype == torch.float32 else ''}",
-            got, want, planted_faults(q, k, v, mask, H))
+            got, want, planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE, H, extent=True))
         errs["allheads"].append(err)
         all_ok &= ok
     del q, k, v, got, want
@@ -955,8 +992,7 @@ def main() -> int:
     errs["flash_forward"].append(max(grad_errs.values()))
     all_ok &= ok
     torch.cuda.empty_cache()
-    for N, M, lengths, dtype in ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
-                                 (1000, 77, (77, 40, 5, 1), torch.float32)):
+    for N, M, lengths, dtype in cross_cases + ((1000, 77, (77, 40, 5, 1), torch.float32),):
         q, k, v, mask, H = cases.allheads(4, N, M, lengths, dtype=dtype)
         q, k, v = (x.unflatten(-1, (H, 72)) for x in (q, k, v))
         got = fa.crossattn_headsmajor(q, k, v, mask)
@@ -964,7 +1000,8 @@ def main() -> int:
         err, ok = compare(
             f"headsmajor B=4 N={N} M={M} H=16 valid={lengths}"
             f"{' f32' if dtype == torch.float32 else ''}",
-            got, fa.headsmajor_reference(q, k, v, mask), planted_faults(q, k, v, mask))
+            got, fa.headsmajor_reference(q, k, v, mask),
+            planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE, extent=True))
         errs["headsmajor"].append(err)
         all_ok &= ok
     del q, k, v, got
@@ -1099,24 +1136,30 @@ def main() -> int:
 
     mask_path = torch.cat([t5.get_text_embeddings([negative] * 2)[1],
                            t5.get_text_embeddings(prompts)[1]]).to(dev).bool()
+    # the 2K trajectory's CFG batch: one prompt and its negative
+    mask_2k = torch.cat([t5.get_text_embeddings([negative])[1],
+                         t5.get_text_embeddings(prompts[:1])[1]]).to(dev).bool()
+    # a long caption: every one of the 300 keys valid, so the extent (three
+    # tiles) streams through the two K/V stages for every query tile
+    mask_long = torch.ones((4, 300), dtype=torch.bool, device=dev)
+    cross_shapes = ((4, 4096, 300, mask_path), (2, 16384, 300, mask_2k),
+                    (4, 4096, 300, mask_long))
     entries = []
     for name, shapes in (
-        ("onepass", ((4096, 4096), (4096, 1024))),
-        ("allheads", ((4096, 300),)),
-        ("headsmajor", ((4096, 300),)),
+        ("onepass", ((4, 4096, 4096, None), (4, 4096, 1024, None))),
+        ("allheads", cross_shapes),
+        ("headsmajor", cross_shapes),
     ):
         rows = []
-        for N, M in shapes:
-            H, Dh, B = 16, 72, 4
+        for B, N, M, mask in shapes:
+            H, Dh = 16, 72
             if name == "onepass":
                 q, k, v = cases.onepass(B, N, M)
-                mask = None
                 kern = lambda: fa.onepass_attention(q, k, v)
                 plain = lambda: fa.attention_reference(q, k, v)
                 valid = B * M  # keys each head's rows attend to, summed over batch
             else:
                 qf, kf, vf, _, _ = cases.allheads(B, N, M, (M,) * B)
-                mask = mask_path
                 split = lambda x: x.unflatten(-1, (H, Dh))
                 q, k, v = split(qf), split(kf), split(vf)
                 if name == "allheads":
@@ -1130,6 +1173,8 @@ def main() -> int:
             am = None if mask is None else mask[:, None, None, :]
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
             ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain, iters=5), cuda_ms(library)
+            # the same calls at the rate the host enqueues them
+            paced_ms, lib_paced_ms = cuda_ms(kern, queued=False), cuda_ms(library, queued=False)
             lse_ms = masked_ms = None
             if name == "onepass":  # the training launch, which also writes the lse
                 lse_ms = cuda_ms(lambda: fa._onepass_forward(q, k, v, None, with_lse=True))
@@ -1141,22 +1186,32 @@ def main() -> int:
             flops = 4.0 * H * N * valid * Dh
             nbytes = 2.0 * (2 * B * N * H * Dh + 2 * valid * H * Dh)
             b_ms, by = bound_ms(flops, nbytes)
+            extent = None
+            if mask is not None:  # keys the kernel visits per batch element
+                extent = fa.caption_key_extent(mask).tolist()
             shape = (f"B*H={B * H} N={N} M={M}" if name == "onepass"
-                     else f"B={B} C={H * Dh} N={N} M={M} ({valid} valid keys of {B * M})")
-            log(f"[time] {card}: {name} {shape}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                     else f"B={B} C={H * Dh} N={N} M={M} ({valid} valid keys of {B * M}; "
+                          f"key extents {extent})")
+            log(f"[time] {card}: {name} {shape}: kernel {ms:.4f} ms "
+                f"({paced_ms:.4f} ms host-paced), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+                f"({lib_paced_ms:.4f} ms host-paced), bound {b_ms:.4f} ms "
                 f"({by}; {flops / 1e9:.2f} GFLOP over valid keys, "
                 f"{4.0 * H * N * B * M * Dh / 1e9:.2f} GFLOP over all keys, "
                 f"{nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}"
                 + ("" if lse_ms is None else f"; with the lse output {lse_ms:.4f} ms, "
                    f"and a key mask too {masked_ms:.4f} ms"))
-            rows.append(dict(N=N, M=M, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                             library_ms=lib_ms, lse_ms=lse_ms, masked_ms=masked_ms))
+            rows.append(dict(B=B, N=N, M=M, valid_keys=valid, key_extents=extent, ms=ms,
+                             host_paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=by, library_ms=lib_ms, library_host_paced_ms=lib_paced_ms,
+                             lse_ms=lse_ms, masked_ms=masked_ms))
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
         head = rows[0]
         entries.append({
             "name": name,
             "route": "cuda",
-            "source": f"pixart_sigma_tpu_torch/csrc/{name}_attention.cu",
+            "source": "pixart_sigma_tpu_torch/csrc/"
+                      + ("onepass_attention.cu" if name == "onepass" else "cross_attention.cu"),
             "replaces": "pixart_sigma_tpu/ops/flash_attention.py:"
                         + {"onepass": "179", "allheads": "587", "headsmajor": "646"}[name],
             "launches": launches[name],

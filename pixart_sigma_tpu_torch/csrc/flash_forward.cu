@@ -49,7 +49,7 @@
 template <typename TOut, bool kMask>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, kMask>(maps, a);
+  hopper::attention_body<TOut, kMask, false>(maps, a);
 }
 
 // q (pre-scaled, so `scale` is 1 on the flash path), k and v are bf16; o is
@@ -72,15 +72,15 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, const 
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
-    return madd ? hopper::run(flash_fwd_kernel<float, true>, l, s)
-                : hopper::run(flash_fwd_kernel<float, false>, l, s);
+    return madd ? hopper::run<false>(flash_fwd_kernel<float, true>, l, s)
+                : hopper::run<false>(flash_fwd_kernel<float, false>, l, s);
   }
-  return madd ? hopper::run(flash_fwd_kernel<attn::bf16, true>, l, s)
-              : hopper::run(flash_fwd_kernel<attn::bf16, false>, l, s);
+  return madd ? hopper::run<false>(flash_fwd_kernel<attn::bf16, true>, l, s)
+              : hopper::run<false>(flash_fwd_kernel<attn::bf16, false>, l, s);
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
 // ring's depth (the wrapper checks the last two against its own).
-extern "C" int flash_forward_smem_bytes() { return hopper::kSmemBytes; }
+extern "C" int flash_forward_smem_bytes() { return hopper::Ring<false>::smem_bytes; }
 extern "C" int flash_forward_key_tile() { return hopper::kKeys; }
-extern "C" int flash_forward_key_stages() { return hopper::kStages; }
+extern "C" int flash_forward_key_stages() { return hopper::Ring<false>::stages; }

@@ -1,19 +1,19 @@
 // The streamed attention forward that onepass_attention.cu and
-// flash_forward.cu share, written for Hopper (sm_90a): wgmma for both
-// products, a TMA/mbarrier ring for K/V, and the softmax of one warpgroup
-// overlapped with the tensor-core work of the other.
+// flash_forward.cu share, and its caption cross-attention mode, which
+// cross_attention.cu runs for allheads and headsmajor, written for
+// Hopper (sm_90a): wgmma for both products, TMA/mbarrier rings for Q and
+// K/V, and the softmax of one warpgroup overlapped with the tensor-core work
+// of the other.
 //
-// A persistent grid: one block of three warpgroups per SM walks the work
-// items (128 query rows, batch * head), query tiles fastest, so that the
-// blocks in flight share one head's K/V in the 50 MB L2, and the loads of
-// the next item overlap the end of the current one:
+// A persistent grid: one block of three warpgroups per SM walks work items
+// (128 query rows, batch * head) in runs of one batch * head (Work):
 // - warpgroup 2 is the producer. It gives its registers to the consumers
-//   (setmaxnreg), and one of its threads loads each item's Q into one of two
-//   buffers and its K/V tiles of 128 keys into a ring of kStages
-//   shared-memory stages with TMA (cp.async.bulk.tensor). Each stage and
-//   each Q buffer has a "full" mbarrier, which the copies' bytes complete,
-//   and an "empty" one, on which the eight consumer warps release it. No
-//   thread computes a copy address.
+//   (setmaxnreg), and its first warp loads each item's Q into a ring of Q
+//   buffers and its K/V tiles of 128 keys into a ring of K/V stages with TMA
+//   (cp.async.bulk.tensor); lane 0 issues the copies. Each stage and each Q
+//   buffer has a "full" mbarrier, which the copies' bytes complete, and an
+//   "empty" one, on which the consumers release it. No thread computes a
+//   copy address.
 // - warpgroups 0 and 1 are the consumers, 64 query rows each. S = Q.K^T is
 //   wgmma m64n128k16 with Q and K read from shared memory (both K-major);
 //   the probabilities, rounded to bf16, stay in registers as the A operand
@@ -24,6 +24,32 @@
 //   (ping-pong), so one warpgroup's exponentials overlap the other's
 //   products. The key loop has no __syncthreads.
 //
+// Self-attention (kCross false): block i takes the items i, i + gridDim.x,
+// ..., query tiles fastest, so the blocks in flight share one head's K/V in
+// the 50 MB L2; Q is double-buffered and every item streams all its K/V
+// tiles through a ring of three stages.
+//
+// Caption cross-attention (kCross true): each block takes one (batch, head)
+// and a share of its query tiles, the shares of all heads side by side, so
+// the blocks in flight read the same q rows for every head at once (a head
+// is 144 of a row's 2304 bytes at the path's width, and heads read at
+// different rows scatter the reads over DRAM). At the start of a run
+// every warp finds the batch element's key extent from its row of the
+// [B, M] byte mask (key_tiles: the last valid key, plus one, in whole
+// tiles; all M keys when none is valid). Tiles past it are never loaded or
+// multiplied: there every row with a valid key has p = exp2(-1e30 - m) = 0
+// exactly. The producer warp writes each tile's biases into shared memory
+// from the same row (write_tile_bias), so for a bool mask the wrapper
+// launches nothing but the kernel. When the extent fits the two K/V stages
+// it stays resident for the whole run and is released at its end; a longer
+// one streams through the two stages for every item. The Q ring is five buffers deep, so the
+// producer keeps up to 100 KB of Q in flight, and a bf16 output leaves by
+// TMA store from the item's own Q buffer (the consumers write O there,
+// swizzled as Q arrived, once their Q.K^T is done; the buffer is released
+// one item later, when the store has read it), so no consumer waits on
+// device memory. On these one-tile key loops the consumers do not take
+// turns (kPingPong).
+//
 // The head dim (a multiple of 8 up to 80) is split in two column chunks, as
 // a 128-byte TMA swizzle row holds 64 bf16: columns [0, 64) in 128-byte rows
 // with the 128B swizzle; for Q and K (K-major) columns [64, 80) in 32-byte
@@ -31,13 +57,15 @@
 // (MN-major, whose swizzle atom is 64 columns wide) columns [64, 128) as a
 // second 128B atom, so P.V is one N = 80 product per 16 keys. TMA
 // zero-fills the columns past dh and the rows past N or M, so the padding
-// never reaches device memory; with dh <= 64 the second chunks are skipped.
+// never reaches device memory, and clips a stored box to the same bounds;
+// with dh <= 64 the second chunks are skipped.
 //
 // The softmax runs in f32 in log2 units: one FFMA folds the logit scale and
 // the running max into each exponent (exp2(s * scale - m)). With a key mask
 // the bias is added first (s * scale + bias): the wrapper pads the bias rows
 // to whole tiles with -inf, and the producer copies each tile's 128 biases
-// into shared memory beside its K/V, so the consumers test no bounds.
+// into shared memory beside its K/V (the cross mode writes them there from
+// the byte mask), so the consumers test no bounds.
 // Without one, keys past M get the logit -inf in the last tile. `tail`
 // padded keys at logit -1e30 join each row's denominator at the end, as the
 // TPU kernels pad K/V.
@@ -46,13 +74,17 @@
 #include <cuda.h>
 #include <dlfcn.h>
 
+#include <algorithm>
+#include <cstdint>
+#include <limits>
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace hopper {
 
-constexpr int kRows = 128;     // query rows per block: two consumer warpgroups x 64
+constexpr int kRows = 128;     // query rows per item: two consumer warpgroups x 64
 constexpr int kKeys = 128;     // keys per tile, the wgmma N of S = Q.K^T
-constexpr int kStages = 3;     // depth of the K/V ring
 constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int kMainCols = 64;  // head-dim columns [0, 64): 128-byte rows, 128B swizzle
 constexpr int kTailCols = 16;  // Q and K columns [64, 80): 32-byte rows, 32B swizzle
@@ -65,26 +97,47 @@ static_assert(kRows == kKeys, "Q and K/V chunks share one TMA box");
 // and the K tail.
 constexpr int kVOff = kMainTile, kVTailOff = 2 * kMainTile, kKTailOff = 3 * kMainTile;
 constexpr int kStageBytes = 3 * kMainTile + kTailTile;
-// The block: two Q buffers (main, tail), the stages, each stage's 128 mask
-// biases, then the barriers full[kStages], empty[kStages], qfull[2] and
-// qempty[2]; 1024 bytes of slack to align the base.
-constexpr int kQBytes = kMainTile + kTailTile;
-constexpr int kStagesOffset = 2 * kQBytes;
+constexpr int kQBytes = kMainTile + kTailTile;  // one Q buffer: main, tail
 constexpr int kBiasBytes = kKeys * 4;
-constexpr int kBiasOffset = kStagesOffset + kStages * kStageBytes;
-constexpr int kBarOffset = kBiasOffset + kStages * kBiasBytes;
-constexpr int kSmemBytes = kBarOffset + (2 * kStages + 4) * 8 + 1024;
 constexpr int kEncodeError = 10000;  // + CUresult of a failed tensor-map encode
+constexpr int kCrossMaxKeys = 512;   // caption keys the cross mode takes
+
+// The block's shared memory: the Q buffers, the K/V stages, each stage's
+// 128 mask biases, then the barriers full[stages], empty[stages],
+// qfull[qbufs] and qempty[qbufs]; 1024 bytes of slack to align the base.
+template <bool kCross>
+struct Ring {
+  static constexpr int stages = kCross ? 2 : 3;  // K/V tiles in flight (cross: resident)
+  static constexpr int qbufs = kCross ? 5 : 2;
+  static constexpr int stages_offset = qbufs * kQBytes;
+  static constexpr int bias_offset = stages_offset + stages * kStageBytes;
+  static constexpr int bar_offset = bias_offset + stages * kBiasBytes;
+  static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * qbufs) * 8 + 1024;
+  static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
+
+  __device__ static uint32_t full(uint32_t base, int s) { return base + bar_offset + 8 * s; }
+  __device__ static uint32_t empty(uint32_t base, int s) {
+    return base + bar_offset + 8 * (stages + s);
+  }
+  __device__ static uint32_t qfull(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + i);
+  }
+  __device__ static uint32_t qempty(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + qbufs + i);
+  }
+};
 
 // TMA descriptors of the bf16 [B, rows, H, dh] views: 64-column boxes with
 // the 128B swizzle (V's second chunk is the same box at column 64), and
-// 16-column boxes with the 32B swizzle for the tails of Q and K.
+// 16-column boxes with the 32B swizzle for the tails of Q and K; for the
+// output of the cross mode, the same two boxes of 64 rows (one consumer's).
 struct Maps {
-  CUtensorMap q, q_tail, k, k_tail, v;
+  CUtensorMap q, q_tail, k, k_tail, v, o, o_tail;
 };
 
 struct Args {
-  const float* madd;  // [B, pad128(M)] additive key mask (0 / -1e30; -inf past M) or null
+  const float* madd;  // [B, pad128(M)] additive key mask (0 / -1e30; -inf past M) or null;
+                      // null in the cross mode, which reads kmask
   void* o;            // [B, N, H, dh], bf16 or f32
   float* lse;         // [B * H, N] row logsumexp in log2 units, or null
   attn::Strides os;
@@ -92,6 +145,9 @@ struct Args {
   float scale;  // logit scale in log2 units
   float m0;     // the running max before any key
   int tail;     // padded keys at logit -1e30 that join each row's denominator
+  int shares;   // cross mode: blocks that split one (batch, head)'s query tiles
+  const unsigned char* kmask;  // cross mode: [B, M] key mask, a byte per key, nonzero = valid
+  long long kmask_sb;          // its batch stride (bytes)
 };
 
 // ---------------------------------------------------------------- device
@@ -102,6 +158,13 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Raises the bytes the barrier's current phase waits for, without arriving.
+__device__ __forceinline__ void mbar_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
@@ -148,6 +211,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box of shared memory at `src` into the 4D map, clipped to its bounds;
+// completes with the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int head,
+                                          int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(head), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
+// Commits this thread's bulk stores as one group and waits until all but
+// the newest N groups have read their shared memory (the global writes
+// finish on their own).
+template <int N>
+__device__ __forceinline__ void tma_store_commit_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // Named barriers 1 and 2 over the 256 consumer threads (0 is __syncthreads).
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
@@ -155,6 +242,11 @@ __device__ __forceinline__ void bar_sync(int id) {
 
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Named barrier 3 + wg over the 128 threads of consumer warpgroup wg.
+__device__ __forceinline__ void bar_sync_warpgroup(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -263,23 +355,104 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The work: runs r = blockIdx.x, blockIdx.x + gridDim.x, ... < runs, each
+// one (batch * head) bh and its query tiles [t0, t1). Self-attention: a run
+// is one item, query tiles fastest, so the blocks in flight share a head's
+// K/V in L2. Cross mode: run r is share r / BH of bh = r % BH, so the blocks
+// in flight read the same rows of q for every head at once (a head is 144
+// of the row's 2304 bytes at the path's width) and each keeps its head's
+// K/V extent for all its tiles.
+struct Work {
+  int ntq, ntiles, runs, shares, BH;
+
+  __device__ void run(int r, int& bh, int& t0, int& t1) const {
+    if (shares == 0) {
+      bh = r / ntq;
+      t0 = r - bh * ntq;
+      t1 = t0 + 1;
+    } else {
+      bh = r % BH;
+      const int share = r / BH;
+      t0 = share * ntq / shares;
+      t1 = (share + 1) * ntq / shares;
+    }
+  }
+};
+
+__device__ __forceinline__ Work block_work(const Args& a) {
+  const int ntq = (a.N + kRows - 1) / kRows;
+  const int BH = a.B * a.H;
+  return Work{ntq, (a.M + kKeys - 1) / kKeys, a.shares ? a.shares * BH : ntq * BH, a.shares, BH};
+}
+
+// K/V tiles that batch element b's rows need, found by the calling warp
+// (all 32 lanes) from its key mask row (at most 512 bytes): the last valid
+// key, plus one, in whole tiles. Past it every row with a valid key has
+// p = exp2(-1e30 - m) = 0 exactly. With no valid key, all `ntiles`.
+__device__ __forceinline__ int key_tiles(const Args& a, const Work& wk, int b) {
+  // the row in 4-byte words from the aligned word that holds its first
+  // byte, at most 129 words, up to five loads a lane issued together; the
+  // bytes of a word outside [0, M) are skipped
+  const uintptr_t start = reinterpret_cast<uintptr_t>(a.kmask + b * a.kmask_sb);
+  const unsigned* w = reinterpret_cast<const unsigned*>(start & ~uintptr_t(3));
+  const int off = static_cast<int>(start & 3);
+  const int words = (off + a.M + 3) >> 2;
+  const int lane = threadIdx.x & 31;
+  int last = -1;
+#pragma unroll
+  for (int j = 0; j < (kCrossMaxKeys / 4 + 1 + 31) / 32; ++j) {
+    const int i = 32 * j + lane;
+    const unsigned x = i < words ? __ldg(w + i) : 0u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = 4 * i + c - off;
+      if (((x >> (8 * c)) & 0xffu) && key >= 0 && key < a.M) last = key;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  return last < 0 ? wk.ntiles : last / kKeys + 1;
+}
+
+// Cross mode: the 128 biases of batch element b's key tile j, written into
+// shared memory at `dst` by the calling warp, four keys a lane (coalesced):
+// 0 for a valid key, -1e30 for a masked one, -inf past M.
+__device__ __forceinline__ void write_tile_bias(uint32_t dst, const Args& a, int b, int j) {
+  const int lane = threadIdx.x & 31;
+  const unsigned char* row = a.kmask + b * a.kmask_sb;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = j * kKeys + 32 * e + lane;
+    const float x = key >= a.M ? -CUDART_INF_F : (__ldg(row + key) ? 0.f : attn::kMaskedLogit);
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst + 4 * (32 * e + lane)), "f"(x) : "memory");
+  }
+}
+
 // Accumulator layout of wgmma m64nN (per warp w of the warpgroup, lane =
 // 4 g + t): d[4 c + e] holds row 16 w + g (e < 2) or 16 w + g + 8 (e >= 2),
 // column 8 c + 2 t + (e & 1). Two 8-column chunks of S are one 16-key A
 // fragment of P, so P never leaves registers.
 
-// The consumer warpgroup `wg` (0 or 1): its 64 query rows against every key.
-// kTail: dh > 64, so the products also run columns [64, 80).
-template <typename TOut, bool kMask, bool kTail>
-__device__ __forceinline__ void consume(const Args& a, uint32_t base, int wg, int ntq,
-                                        int items, int ntiles) {
+// The consumer warpgroup `wg` (0 or 1): its 64 query rows of each item
+// against the item's keys. kTail: dh > 64, so the products also run columns
+// [64, 80).
+template <typename TOut, bool kMask, bool kTail, bool kCross>
+__device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_t base, int wg,
+                                        const Work& wk) {
+  using R = Ring<kCross>;
+  // a bf16 output of the cross mode leaves by TMA store from the Q buffer
+  constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
+  // the consumers take turns on the tensor cores along long key loops; on
+  // the cross mode's short ones the turns would chain each warpgroup's
+  // epilogue to the other's next products
+  constexpr bool kPingPong = !kCross;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const uint32_t bars = base + kBarOffset;
   // ring position `it` + tile j of the current item
   int it = 0;
-  auto stage = [&](int j) { return base + kStagesOffset + ((it + j) % kStages) * kStageBytes; };
+  auto slot = [&](int j) { return (it + j) % R::stages; };
+  auto stage = [&](int j) { return base + R::stages_offset + slot(j) * kStageBytes; };
 
   float s[64], o[40];
   uint32_t p[8][4];
@@ -293,14 +466,16 @@ __device__ __forceinline__ void consume(const Args& a, uint32_t base, int wg, in
 
   // Tile j has arrived and it is this warpgroup's turn on the tensor cores.
   auto acquire = [&](int j) {
-    mbar_wait(bars + 8 * ((it + j) % kStages), ((it + j) / kStages) & 1);
-    bar_sync(1 + wg);
+    mbar_wait(R::full(base, slot(j)), ((it + j) / R::stages) & 1);
+    if (kPingPong) bar_sync(1 + wg);
     wgmma_fence();
   };
   // The other consumer's turn; lane 0 of each warp releases tile j's stage.
-  auto pass_turn = [&]() { bar_arrive(2 - wg); };
+  auto pass_turn = [&]() {
+    if (kPingPong) bar_arrive(2 - wg);
+  };
   auto release = [&](int j) {
-    if (lane == 0) mbar_arrive(bars + 8 * (kStages + (it + j) % kStages));
+    if (lane == 0) mbar_arrive(R::empty(base, slot(j)));
   };
   // S = Q.K^T of tile j, one commit group.
   auto issue_s = [&](int j) {
@@ -330,7 +505,7 @@ __device__ __forceinline__ void consume(const Args& a, uint32_t base, int wg, in
   auto softmax = [&](int j, float& mn0, float& mn1, float& ls0, float& ls1) {
     const int key0 = j * kKeys;
     if (kMask) {  // the tile's biases, -inf past M, arrived with its K/V
-      const uint32_t bias = base + kBiasOffset + ((it + j) % kStages) * kBiasBytes + 8 * t;
+      const uint32_t bias = base + R::bias_offset + slot(j) * kBiasBytes + 8 * t;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         float b0, b1;
@@ -403,110 +578,163 @@ __device__ __forceinline__ void consume(const Args& a, uint32_t base, int wg, in
     }
   };
 
-  if (wg == 1) pass_turn();  // warpgroup 0 issues first
-  int n = 0;  // items done by this block
-  for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
-    const int bh = w / ntq;
+  if (wg == 1) pass_turn();  // warpgroup 0 issues first (ping-pong)
+  int n = 0;                 // items done by this block
+  int ntiles = wk.ntiles;    // K/V tiles of the current run
+  bool resident = false;     // its tiles stay in their stages for the whole run
+  for (int r = blockIdx.x; r < wk.runs; r += gridDim.x) {
+    int bh, t0, t1;
+    wk.run(r, bh, t0, t1);
     const int b = bh / a.H, h = bh - b * a.H;
-    const int q0 = (w - bh * ntq) * kRows;
-    const uint32_t qbuf = base + (n & 1) * kQBytes;
-    dq = smem_desc(qbuf + wg * (kMainTile / 2), 1024, kSwizzle128);
-    dq_tail = smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
-    m_0 = m_1 = a.m0;
-    l_0 = l_1 = 0.f;
+    if (kCross) {
+      ntiles = key_tiles(a, wk, b);
+      resident = ntiles <= R::stages;
+    }
+    for (int tq = t0; tq < t1; ++tq, ++n) {
+      const int q0 = tq * kRows;
+      // the run's last item releases the resident tiles; otherwise each tile
+      // is released once its P.V is done
+      const bool last_of_run = !resident || tq + 1 == t1;
+      const int qi = n % R::qbufs;
+      const uint32_t qbuf = base + qi * kQBytes;
+      dq = smem_desc(qbuf + wg * (kMainTile / 2), 1024, kSwizzle128);
+      dq_tail = smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
+      m_0 = m_1 = a.m0;
+      l_0 = l_1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 40; ++i) o[i] = 0.f;
-    mbar_wait(bars + 8 * (2 * kStages + (n & 1)), (n >> 1) & 1);  // this item's Q
+      for (int i = 0; i < 40; ++i) o[i] = 0.f;
+      mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q
 
-    float mn0, mn1, ls0, ls1;
-    acquire(0);
-    issue_s(0);
-    pass_turn();
-    wgmma_wait<0>();
-    hold(s);
-    softmax(0, mn0, mn1, ls0, ls1);
-    rescale_pack(mn0, mn1, ls0, ls1);
-    for (int j = 1; j < ntiles; ++j) {
-      // S of tile j and P.V of tile j - 1 go out together; tile j's
-      // softmax runs while that P.V (and the other warpgroup's products)
-      // are in flight
-      acquire(j);
-      issue_s(j);
-      issue_pv(j - 1);
+      float mn0, mn1, ls0, ls1;
+      acquire(0);
+      issue_s(0);
       pass_turn();
-      wgmma_wait<1>();
+      wgmma_wait<0>();
       hold(s);
-      softmax(j, mn0, mn1, ls0, ls1);
+      softmax(0, mn0, mn1, ls0, ls1);
+      rescale_pack(mn0, mn1, ls0, ls1);
+      for (int j = 1; j < ntiles; ++j) {
+        // S of tile j and P.V of tile j - 1 go out together; tile j's
+        // softmax runs while that P.V (and the other warpgroup's products)
+        // are in flight
+        acquire(j);
+        issue_s(j);
+        issue_pv(j - 1);
+        pass_turn();
+        wgmma_wait<1>();
+        hold(s);
+        softmax(j, mn0, mn1, ls0, ls1);
+        wgmma_wait<0>();
+        hold(o);
+        hold(p);
+        if (!resident) release(j - 1);
+        rescale_pack(mn0, mn1, ls0, ls1);
+      }
+      if (kPingPong) bar_sync(1 + wg);
+      wgmma_fence();
+      issue_pv(ntiles - 1);
+      pass_turn();
       wgmma_wait<0>();
       hold(o);
-      hold(p);
-      release(j - 1);
-      rescale_pack(mn0, mn1, ls0, ls1);
-    }
-    bar_sync(1 + wg);
-    wgmma_fence();
-    issue_pv(ntiles - 1);
-    pass_turn();
-    wgmma_wait<0>();
-    hold(o);
-    release(ntiles - 1);
-    if (lane == 0) mbar_arrive(bars + 8 * (2 * kStages + 2 + (n & 1)));  // Q buffer free
-    it += ntiles;
+      if (!resident) {
+        release(ntiles - 1);
+      } else if (last_of_run) {
+        for (int j = 0; j < ntiles; ++j) release(j);
+      }
+      if (!kTmaStore && lane == 0) mbar_arrive(R::qempty(base, qi));  // Q buffer free
+      if (last_of_run) it += ntiles;
 
-    // out = O / l and lse = m + log2(l) for rows below N; the `tail` padded
-    // keys (logit -1e30, zero values) join the denominator first
-    l_0 += __shfl_xor_sync(0xffffffffu, l_0, 1);
-    l_0 += __shfl_xor_sync(0xffffffffu, l_0, 2);
-    l_1 += __shfl_xor_sync(0xffffffffu, l_1, 1);
-    l_1 += __shfl_xor_sync(0xffffffffu, l_1, 2);
-    l_0 += static_cast<float>(a.tail) * attn::fast_exp2(attn::kMaskedLogit - m_0);
-    l_1 += static_cast<float>(a.tail) * attn::fast_exp2(attn::kMaskedLogit - m_1);
-    const float i0 = 1.f / l_0, i1 = 1.f / l_1;
-    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
-    if (a.lse != nullptr && t == 0) {
-      float* lse = a.lse + static_cast<long long>(bh) * a.N;
-      if (r0 < a.N) lse[r0] = m_0 + log2f(l_0);
-      if (r1 < a.N) lse[r1] = m_1 + log2f(l_1);
-    }
-    TOut* out = static_cast<TOut*>(a.o) + b * a.os.sb + h * a.os.sh;
-    TOut* o0 = out + static_cast<long long>(r0) * a.os.sn;
-    TOut* o1 = out + static_cast<long long>(r1) * a.os.sn;
+      // out = O / l and lse = m + log2(l) for rows below N; the `tail` padded
+      // keys (logit -1e30, zero values) join the denominator first
+      l_0 += __shfl_xor_sync(0xffffffffu, l_0, 1);
+      l_0 += __shfl_xor_sync(0xffffffffu, l_0, 2);
+      l_1 += __shfl_xor_sync(0xffffffffu, l_1, 1);
+      l_1 += __shfl_xor_sync(0xffffffffu, l_1, 2);
+      l_0 += static_cast<float>(a.tail) * attn::fast_exp2(attn::kMaskedLogit - m_0);
+      l_1 += static_cast<float>(a.tail) * attn::fast_exp2(attn::kMaskedLogit - m_1);
+      const float i0 = 1.f / l_0, i1 = 1.f / l_1;
+      const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+      if (a.lse != nullptr && t == 0) {
+        float* lse = a.lse + static_cast<long long>(bh) * a.N;
+        if (r0 < a.N) lse[r0] = m_0 + log2f(l_0);
+        if (r1 < a.N) lse[r1] = m_1 + log2f(l_1);
+      }
+      if constexpr (kTmaStore) {
+        // O into this warpgroup's half of the Q buffer, whose Q.K^T is done,
+        // in Q's swizzled layout: 16-byte chunk c of row r at c ^ (r & 7) in
+        // the 128-byte rows, at c ^ ((r >> 2) & 1) in the 32-byte ones
+        const uint32_t main = qbuf + wg * (kMainTile / 2);
+        const uint32_t tail = qbuf + kMainTile + wg * (kTailTile / 2);
 #pragma unroll
-    for (int c = 0; c < 10; ++c) {
-      const int col = 8 * c + 2 * t;
-      if (col < a.dh) {  // dh % 8 == 0, so col + 1 < dh too
-        if (r0 < a.N) attn::store_pair(o0 + col, o[4 * c] * i0, o[4 * c + 1] * i0);
-        if (r1 < a.N) attn::store_pair(o1 + col, o[4 * c + 2] * i1, o[4 * c + 3] * i1);
+        for (int e = 0; e < 2; ++e) {
+          const int lr = 16 * warp + g + 8 * e;  // row in this warpgroup's half
+          const float inv = e ? i1 : i0;
+#pragma unroll
+          for (int c = 0; c < 10; ++c) {
+            if (c < 8 || kTail) {
+              const uint32_t v =
+                  attn::pack_bf16(o[4 * c + 2 * e] * inv, o[4 * c + 2 * e + 1] * inv);
+              const uint32_t at = c < 8 ? main + lr * 128 + ((c ^ (lr & 7)) << 4)
+                                        : tail + lr * 32 + (((c - 8) ^ ((lr >> 2) & 1)) << 4);
+              st_shared(at + 4 * t, v);
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bar_sync_warpgroup(wg);
+        if (tid == 0) {
+          const int row = q0 + 64 * wg;
+          if (row < a.N) {
+            tma_store(&maps.o, main, 0, h, row, b);
+            if (kTail) tma_store(&maps.o_tail, tail, kMainCols, h, row, b);
+          }
+          // the previous item's store has read its buffer: release that one
+          tma_store_commit_wait_read<1>();
+          if (n > 0) mbar_arrive(R::qempty(base, (n - 1) % R::qbufs));
+        }
+      } else {
+        TOut* out = static_cast<TOut*>(a.o) + b * a.os.sb + h * a.os.sh;
+        TOut* o0 = out + static_cast<long long>(r0) * a.os.sn;
+        TOut* o1 = out + static_cast<long long>(r1) * a.os.sn;
+#pragma unroll
+        for (int c = 0; c < 10; ++c) {
+          const int col = 8 * c + 2 * t;
+          if (col < a.dh) {  // dh % 8 == 0, so col + 1 < dh too
+            if (r0 < a.N) attn::store_pair(o0 + col, o[4 * c] * i0, o[4 * c + 1] * i0);
+            if (r1 < a.N) attn::store_pair(o1 + col, o[4 * c + 2] * i1, o[4 * c + 3] * i1);
+          }
+        }
       }
     }
   }
-  if (wg == 0) bar_sync(1);  // matches warpgroup 1's last arrive
+  if (kPingPong && wg == 0) bar_sync(1);  // matches warpgroup 1's last arrive
+  // the last store reads its buffer before the block's shared memory goes
+  if (kTmaStore && tid == 0) tma_store_commit_wait_read<0>();
 }
 
 // The kernel's body: the producer's loads, or a consumer's rows. The grid
-// is persistent: block i takes the work items (query tile, batch * head)
-// i, i + gridDim.x, ..., query tiles fastest, so the blocks in flight share
-// a head's K/V in L2, and the producer loads the next item's Q and first
+// is persistent (block_work), and the producer loads the next items' Q and
 // K/V tiles while the consumers finish the current one.
-template <typename TOut, bool kMask>
+template <typename TOut, bool kMask, bool kCross>
 __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) {
+  using R = Ring<kCross>;
+  constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (attn::smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = base + kBarOffset;
-  const int ntq = (a.N + kRows - 1) / kRows;
-  const int items = ntq * a.B * a.H;
-  const int ntiles = (a.M + kKeys - 1) / kKeys;
+  const Work wk = block_work(a);
   const bool has_tail = a.dh > kMainCols;
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bars + 8 * s, 1);              // full: the producer's expect_tx
-      mbar_init(bars + 8 * (kStages + s), 8);  // empty: lane 0 of each consumer warp
+    for (int s = 0; s < R::stages; ++s) {
+      mbar_init(R::full(base, s), 1);   // the producer's expect_tx
+      mbar_init(R::empty(base, s), 8);  // lane 0 of each consumer warp
     }
-    for (int q = 0; q < 2; ++q) {
-      mbar_init(bars + 8 * (2 * kStages + q), 1);      // qfull
-      mbar_init(bars + 8 * (2 * kStages + 2 + q), 8);  // qempty
+    for (int q = 0; q < R::qbufs; ++q) {
+      mbar_init(R::qfull(base, q), 1);
+      // lane 0 of each consumer warp, or the thread of each consumer
+      // warpgroup that stores its O from the buffer
+      mbar_init(R::qempty(base, q), kTmaStore ? 2 : 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -514,49 +742,85 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
 
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 2 * 128) {
+    // one thread loads; in the cross mode its whole warp finds the extents
+    if (kCross ? threadIdx.x < 2 * 128 + 32 : threadIdx.x == 2 * 128) {
+      const bool issue = !kCross || threadIdx.x == 2 * 128;
       const uint32_t chunk = has_tail ? kMainTile + kTailTile : kMainTile;
       const uint32_t tile_bytes =
           (has_tail ? kStageBytes : 2 * kMainTile) + (a.madd ? kBiasBytes : 0);
-      int it = 0;  // ring position of the item's first tile
+      int it = 0;  // ring position of the next K/V tile to load
       int n = 0;
-      for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
-        const int bh = w / ntq;
+      int ntiles = wk.ntiles;
+      bool resident = false;
+      for (int r = blockIdx.x; r < wk.runs; r += gridDim.x) {
+        int bh, t0, t1;
+        wk.run(r, bh, t0, t1);
         const int b = bh / a.H, h = bh - b * a.H;
-        const int q0 = (w - bh * ntq) * kRows;
-        const uint32_t qfull = bars + 8 * (2 * kStages + (n & 1));
-        if (n >= 2) mbar_wait(bars + 8 * (2 * kStages + 2 + (n & 1)), ((n >> 1) - 1) & 1);
-        const uint32_t qbuf = base + (n & 1) * kQBytes;
-        mbar_expect_tx(qfull, chunk);
-        tma_load(qbuf, &maps.q, qfull, 0, h, q0, b);
-        if (has_tail) tma_load(qbuf + kMainTile, &maps.q_tail, qfull, kMainCols, h, q0, b);
-        for (int j = 0; j < ntiles; ++j, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) mbar_wait(bars + 8 * (kStages + s), ((it / kStages) - 1) & 1);
-          const uint32_t st = base + kStagesOffset + s * kStageBytes;
-          const uint32_t full = bars + 8 * s;
-          const int key0 = j * kKeys;
-          mbar_expect_tx(full, tile_bytes);
-          tma_load(st, &maps.k, full, 0, h, key0, b);
-          tma_load(st + kVOff, &maps.v, full, 0, h, key0, b);
-          if (has_tail) {
-            tma_load(st + kVTailOff, &maps.v, full, kMainCols, h, key0, b);
-            tma_load(st + kKTailOff, &maps.k_tail, full, kMainCols, h, key0, b);
+        for (int tq = t0; tq < t1; ++tq, ++n) {
+          const int q0 = tq * kRows;
+          if (issue) {
+            const int qi = n % R::qbufs;
+            if (n >= R::qbufs) mbar_wait(R::qempty(base, qi), ((n / R::qbufs) - 1) & 1);
+            const uint32_t qbuf = base + qi * kQBytes;
+            mbar_expect_tx(R::qfull(base, qi), chunk);
+            tma_load(qbuf, &maps.q, R::qfull(base, qi), 0, h, q0, b);
+            if (has_tail) {
+              tma_load(qbuf + kMainTile, &maps.q_tail, R::qfull(base, qi), kMainCols, h, q0, b);
+            }
           }
-          if (a.madd) {
-            bulk_load(base + kBiasOffset + s * kBiasBytes,
-                      a.madd + static_cast<long long>(b) * ntiles * kKeys + key0, kBiasBytes,
-                      full);
+          if (kCross && tq == t0) {  // the run's extent, while its first Q tile is in flight
+            ntiles = key_tiles(a, wk, b);
+            resident = ntiles <= R::stages;
           }
+          // resident tiles are loaded for a run's first item only
+          const bool load_kv = !resident || tq == t0;
+          // in the cross mode the whole warp walks the tiles: lane 0 waits for
+          // the stage and starts its K/V copies, every lane then writes its
+          // share of the tile's biases, and lane 0's arrive (a release)
+          // publishes them; the stage is full once the copies land too
+          for (int j = 0; load_kv && j < ntiles; ++j) {
+            const int pos = it + j;
+            const int s = pos % R::stages;
+            const uint32_t full = R::full(base, s);
+            if (issue) {
+              if (pos >= R::stages) mbar_wait(R::empty(base, s), ((pos / R::stages) - 1) & 1);
+              const uint32_t st = base + R::stages_offset + s * kStageBytes;
+              const int key0 = j * kKeys;
+              if (kCross) {
+                mbar_tx(full, tile_bytes);
+              } else {
+                mbar_expect_tx(full, tile_bytes);
+              }
+              tma_load(st, &maps.k, full, 0, h, key0, b);
+              tma_load(st + kVOff, &maps.v, full, 0, h, key0, b);
+              if (has_tail) {
+                tma_load(st + kVTailOff, &maps.v, full, kMainCols, h, key0, b);
+                tma_load(st + kKTailOff, &maps.k_tail, full, kMainCols, h, key0, b);
+              }
+              if (a.madd) {
+                bulk_load(base + R::bias_offset + s * kBiasBytes,
+                          a.madd + static_cast<long long>(b) * wk.ntiles * kKeys + key0,
+                          kBiasBytes, full);
+              }
+            }
+            if (kCross) {
+              __syncwarp();
+              write_tile_bias(base + R::bias_offset + s * kBiasBytes, a, b, j);
+              __syncwarp();
+              if (issue) mbar_arrive(full);
+            }
+          }
+          if (load_kv) it += ntiles;
+          if (kCross) __syncwarp();
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     if (has_tail) {
-      consume<TOut, kMask, true>(a, base, wg, ntq, items, ntiles);
+      consume<TOut, kMask, true, kCross>(maps, a, base, wg, wk);
     } else {
-      consume<TOut, kMask, false>(a, base, wg, ntq, items, ntiles);
+      consume<TOut, kMask, false, kCross>(maps, a, base, wg, wk);
     }
   }
 }
@@ -579,10 +843,11 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A bf16 [B, rows, H, dh] view with element strides `s` as a 4D map over
-// (column, head, row, batch): boxes of `cols` columns x 128 rows of one head,
-// zero-filled past dh and past `rows`.
+// (column, head, row, batch): boxes of `cols` columns x `box_rows` rows of
+// one head, zero-filled (or, stored, clipped) past dh and past `rows`.
 inline int encode(CUtensorMap* map, const void* ptr, int B, int rows, int H, int dh,
-                  const attn::Strides& s, int cols, CUtensorMapSwizzle swizzle) {
+                  const attn::Strides& s, int cols, CUtensorMapSwizzle swizzle,
+                  int box_rows = kKeys) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(H),
@@ -590,7 +855,8 @@ inline int encode(CUtensorMap* map, const void* ptr, int B, int rows, int H, int
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.sh) * 2,
                                  static_cast<cuuint64_t>(s.sn) * 2,
                                  static_cast<cuuint64_t>(s.sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, kKeys, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -604,11 +870,13 @@ struct Launch {
   dim3 grid;
 };
 
-// Tensor maps, arguments and grid of one launch over bf16 q/k/v.
+// Tensor maps, arguments and grid of one launch over bf16 q/k/v. With
+// `o_maps`, o is a bf16 view that the cross mode stores through TMA.
 inline int prepare(Launch& l, const void* q, const void* k, const void* v, const float* madd,
                    void* o, float* lse, int B, int H, int N, int M, int dh,
                    const attn::Strides& qs, const attn::Strides& ks, const attn::Strides& vs,
-                   const attn::Strides& os, float scale, float m0, int tail) {
+                   const attn::Strides& os, float scale, float m0, int tail,
+                   bool cross = false, bool o_maps = false) {
   if (N < 1 || M < 1 || tail < 0 || dh % 8 || dh > kMainCols + kTailCols)
     return static_cast<int>(cudaErrorInvalidValue);
   l = Launch{};
@@ -617,35 +885,68 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
     const void* ptr;
     int rows;
     const attn::Strides* s;
+    int box_rows;
   };
-  const View views[3] = {{&l.maps.q, &l.maps.q_tail, q, N, &qs},
-                         {&l.maps.k, &l.maps.k_tail, k, M, &ks},
-                         {&l.maps.v, nullptr, v, M, &vs}};
+  const View views[4] = {{&l.maps.q, &l.maps.q_tail, q, N, &qs, kRows},
+                         {&l.maps.k, &l.maps.k_tail, k, M, &ks, kKeys},
+                         {&l.maps.v, nullptr, v, M, &vs, kKeys},
+                         {&l.maps.o, &l.maps.o_tail, o, N, &os, kRows / 2}};
   for (const View& x : views) {
-    int err = encode(x.main, x.ptr, B, x.rows, H, dh, *x.s, kMainCols, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (x.main == &l.maps.o && !o_maps) break;
+    int err = encode(x.main, x.ptr, B, x.rows, H, dh, *x.s, kMainCols,
+                     CU_TENSOR_MAP_SWIZZLE_128B, x.box_rows);
     if (!err && x.rest && dh > kMainCols)
-      err = encode(x.rest, x.ptr, B, x.rows, H, dh, *x.s, kTailCols, CU_TENSOR_MAP_SWIZZLE_32B);
+      err = encode(x.rest, x.ptr, B, x.rows, H, dh, *x.s, kTailCols, CU_TENSOR_MAP_SWIZZLE_32B,
+                   x.box_rows);
     if (err) return err;
   }
-  l.args = Args{madd, o, lse, os, B, H, N, M, dh, scale, m0, tail};
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n;
   }();
-  const long long items = static_cast<long long>((N + kRows - 1) / kRows) * B * H;
-  l.grid = dim3(static_cast<unsigned>(items < sms ? items : sms));
+  const int ntq = (N + kRows - 1) / kRows;
+  // cross mode: as many blocks per (batch, head) as fill the SMs, each with
+  // at least one query tile (shares <= ntq)
+  const int shares = cross ? std::max(1, std::min(ntq, sms / (B * H))) : 0;
+  l.args = Args{madd, o, lse, os, B, H, N, M, dh, scale, m0, tail, shares};
+  const long long runs = static_cast<long long>(cross ? shares : ntq) * B * H;
+  l.grid = dim3(static_cast<unsigned>(runs < sms ? runs : sms));
   return 0;
 }
 
-template <typename Kernel>
+template <bool kCross, typename Kernel>
 int run(Kernel* kernel, const Launch& l, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  constexpr int bytes = Ring<kCross>::smem_bytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<l.grid, kThreads, kSmemBytes, stream>>>(l.maps, l.args);
+  kernel<<<l.grid, kThreads, bytes, stream>>>(l.maps, l.args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the cross mode over bf16 q/k/v: the key mask `kmask` is
+// required ([B, M] bytes, nonzero = valid, batch stride kmask_sb, keys
+// contiguous), the running max starts from -inf and the TPU's padding of
+// K/V to pad128(M) keys joins the denominator; a bf16 output is stored
+// through TMA, an f32 one directly.
+template <typename KernelBf16, typename KernelF32>
+int launch_cross(KernelBf16* bf16_kernel, KernelF32* f32_kernel, const void* q, const void* k,
+                 const void* v, const unsigned char* kmask, long long kmask_sb, void* o, int f32,
+                 int B, int H, int N, int M, int dh, const attn::Strides& qs,
+                 const attn::Strides& ks, const attn::Strides& vs, const attn::Strides& os,
+                 float scale, cudaStream_t stream) {
+  if (M > kCrossMaxKeys || kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Launch l;
+  const int tail = (M + kKeys - 1) / kKeys * kKeys - M;
+  const int err = prepare(l, q, k, v, nullptr, o, nullptr, B, H, N, M, dh, qs, ks, vs, os, scale,
+                          -std::numeric_limits<float>::infinity(), tail, /*cross=*/true,
+                          /*o_maps=*/!f32);
+  if (err) return err;
+  l.args.kmask = kmask;
+  l.args.kmask_sb = kmask_sb;
+  return f32 ? run<true>(f32_kernel, l, stream) : run<true>(bf16_kernel, l, stream);
 }
 
 }  // namespace hopper

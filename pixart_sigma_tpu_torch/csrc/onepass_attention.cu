@@ -37,7 +37,7 @@
 template <typename TOut, bool kMask>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     onepass_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, kMask>(maps, a);
+  hopper::attention_body<TOut, kMask, false>(maps, a);
 }
 
 // q/k/v are bf16; o is bf16, or f32 when `f32` is non-zero. `madd` is null
@@ -59,15 +59,15 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
-    return madd ? hopper::run(onepass_kernel<float, true>, l, s)
-                : hopper::run(onepass_kernel<float, false>, l, s);
+    return madd ? hopper::run<false>(onepass_kernel<float, true>, l, s)
+                : hopper::run<false>(onepass_kernel<float, false>, l, s);
   }
-  return madd ? hopper::run(onepass_kernel<attn::bf16, true>, l, s)
-              : hopper::run(onepass_kernel<attn::bf16, false>, l, s);
+  return madd ? hopper::run<false>(onepass_kernel<attn::bf16, true>, l, s)
+              : hopper::run<false>(onepass_kernel<attn::bf16, false>, l, s);
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
 // ring's depth (the wrapper checks the last two against its own).
-extern "C" int onepass_attention_smem_bytes() { return hopper::kSmemBytes; }
+extern "C" int onepass_attention_smem_bytes() { return hopper::Ring<false>::smem_bytes; }
 extern "C" int onepass_attention_key_tile() { return hopper::kKeys; }
-extern "C" int onepass_attention_key_stages() { return hopper::kStages; }
+extern "C" int onepass_attention_key_stages() { return hopper::Ring<false>::stages; }

@@ -21,8 +21,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("onepass_attention", "allheads_attention", "flash_backward", "flash_forward",
-           "headsmajor_attention")
+KERNELS = ("onepass_attention", "cross_attention", "flash_backward", "flash_forward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -6,15 +6,18 @@ plain version.
   `_onepass_kernel` (pixart_sigma_tpu/ops/flash_attention.py). When a
   gradient is needed it also writes the row logsumexp (log2 units).
 - `crossattn_allheads` (masked caption cross-attention on the flat [B, N, C]
-  layout) runs `csrc/allheads_attention.cu`, the counterpart of
-  `_allheads_kernel`.
+  layout) runs `allheads_attention` of `csrc/cross_attention.cu`, the
+  counterpart of `_allheads_kernel`. It visits only the key tiles up to
+  each batch element's last valid caption key (`caption_key_extent`), and
+  builds the mask biases in the kernel from the boolean mask.
 - `flash_attention` (long sequences, [B, N, H, Dh]) runs
   `csrc/flash_forward.cu`, the counterpart of `_fwd_kernel`, with the JAX
   `flash_attention`'s function (q scaled in its dtype, the mask in K's dtype,
   the key-block tail; see its docstring).
 - `crossattn_headsmajor` (masked cross-attention, [B, N, H, Dh], forward
-  only) runs `csrc/headsmajor_attention.cu`, the counterpart of
-  `_headsmajor_kernel`.
+  only) runs `headsmajor_attention` of the same library, the counterpart of
+  `_headsmajor_kernel`: the same function and the same kernel body as
+  `crossattn_allheads`, on other views.
 - Their gradients run `csrc/flash_backward.cu`: `flash_bwd_dkv` and
   `flash_bwd_dq`, the counterparts of `_bwd_dkv_kernel` and `_bwd_dq_kernel`.
   As in the JAX package, the backward of `crossattn_allheads` recomputes the
@@ -50,12 +53,17 @@ NEG_INF = -1e30  # finite stand-in for -inf, as in the TPU kernels
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 ONEPASS_MAX_KV = 4096  # padded keys, as the TPU gate (onepass_supported)
-ALLHEADS_MAX_KV = 512  # keys the allheads kernel keeps in shared memory
-HEADSMAJOR_MAX_KV = 512  # keys the headsmajor kernel keeps in shared memory
-HEADSMAJOR_ROWS = 128  # query rows of the headsmajor kernel's sub-tile
+ALLHEADS_MAX_KV = 512  # caption keys the allheads kernel takes
+HEADSMAJOR_MAX_KV = 512  # caption keys the headsmajor kernel takes
+HEADSMAJOR_ROWS = 128  # unit of headsmajor's block_q (the kernel's query tile)
 MAX_HEAD_DIM = 80  # the kernels pad the head dim to 80 in shared memory
 KEY_TILE = 128  # keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
 KEY_STAGES = 3  # depth of their K/V ring; both are checked against the library at load
+# The allheads and headsmajor kernels: keys per tile, the unit of the key
+# extent they visit, and the K/V stages that hold an extent resident (longer
+# ones stream); checked against the library at load
+CROSS_KEY_TILE = 128
+CROSS_KEY_STAGES = 2
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -83,6 +91,21 @@ def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """[B, M] bool / int key mask -> f32 additive bias, 0 or -1e30."""
     bias = torch.zeros(key_mask.shape, dtype=torch.float32, device=key_mask.device)
     return bias.masked_fill_(~key_mask.bool(), NEG_INF)
+
+
+def caption_key_extent(key_mask: torch.Tensor, tile: int = CROSS_KEY_TILE) -> torch.Tensor:
+    """Plain version of the allheads/headsmajor kernels' key extent: for each
+    row of the [B, M] key mask (True or nonzero = valid), the keys a row with
+    a valid key can weigh, the last valid key, plus one, rounded up to `tile`
+    ([B] int64). Past it every such row has p = exp2(-1e30 - m) = 0 exactly.
+    A row with no valid key keeps every key, M rounded up to `tile`: it
+    averages all of V (sum(V) / pad128(M)). The last index, not the count,
+    as masks need not be prefixes."""
+    M = key_mask.shape[-1]
+    keys = torch.arange(1, M + 1, device=key_mask.device)
+    last = torch.where(key_mask.bool(), keys, 0).amax(-1)
+    last = torch.where(last > 0, last, M)
+    return -(-last // tile) * tile
 
 
 def _logits(q, k, madd, scale: Optional[float] = None):
@@ -241,7 +264,8 @@ TMA_ENCODE_ERROR = 10000  # the Hopper kernels' code base for a failed tensor-ma
 
 
 def _hopper_error(err: int) -> str:
-    """The return code of the onepass or flash C entry point, in words."""
+    """The return code of a Hopper forward kernel's C entry point (onepass,
+    flash, allheads, headsmajor), in words."""
     if err >= TMA_ENCODE_ERROR:
         return f"TMA tensor map encode failed: CUresult {err - TMA_ENCODE_ERROR}"
     return f"CUDA error {err}"
@@ -267,14 +291,16 @@ def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Ten
     return x.float().contiguous()
 
 
-def _check_key_geometry(lib, name: str):
-    """`lib` (onepass_attention or flash_forward), once its keys per tile and
-    K/V ring depth are found to be KEY_TILE and KEY_STAGES, by which
-    `_tile_bias` pads the mask and the tests pick their key counts."""
+def _check_key_geometry(lib, name: str, tile: int = KEY_TILE, stages: int = KEY_STAGES):
+    """`lib` (onepass_attention or flash_forward with KEY_TILE and KEY_STAGES;
+    cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES), once its keys
+    per tile and K/V stages are found to be `tile` and `stages`, by which
+    `_tile_bias` pads the mask of onepass and flash, and the tests and the
+    planted faults pick their key counts."""
     got = (getattr(lib, f"{name}_key_tile")(), getattr(lib, f"{name}_key_stages")())
-    if got != (KEY_TILE, KEY_STAGES):
+    if got != (tile, stages):
         raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through {got[1]} "
-                           f"stages, the wrapper expects {KEY_TILE} and {KEY_STAGES}")
+                           f"stages, the wrapper expects {tile} and {stages}")
     return lib
 
 
@@ -287,10 +313,13 @@ def _onepass_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _allheads_lib() -> ctypes.CDLL:
-    lib = _build.load("allheads_attention")
-    lib.allheads_attention.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 8 + [_F, _P]
-    lib.allheads_attention.restype = _I
+def _cross_lib() -> ctypes.CDLL:
+    """The library of allheads_attention and headsmajor_attention."""
+    lib = _check_key_geometry(_build.load("cross_attention"), "cross_attention",
+                              CROSS_KEY_TILE, CROSS_KEY_STAGES)
+    for fn in (lib.allheads_attention, lib.headsmajor_attention):
+        fn.argtypes = [_P] * 4 + [_L, _P] + [_I] * 6 + [_L] * 12 + [_F, _P]
+        fn.restype = _I
     return lib
 
 
@@ -299,14 +328,6 @@ def _flash_lib() -> ctypes.CDLL:
     lib = _check_key_geometry(_build.load("flash_forward"), "flash_forward")
     lib.flash_forward.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _P]
     lib.flash_forward.restype = _I
-    return lib
-
-
-@functools.cache
-def _headsmajor_lib() -> ctypes.CDLL:
-    lib = _build.load("headsmajor_attention")
-    lib.headsmajor_attention.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 12 + [_F, _P]
-    lib.headsmajor_attention.restype = _I
     return lib
 
 
@@ -385,27 +406,59 @@ onepass_attention.launches = 0
 # ---------------------------------------------------------------- allheads
 
 
-def _allheads_forward(q, k, v, madd, n_heads: int):
+def _cross_operands(q, k, v, n_heads: Optional[int] = None):
+    """q, k, v as the allheads and headsmajor kernels read them through TMA:
+    [B, rows, H, Dh] views (the flat [B, rows, C] layout split into heads
+    when `n_heads` is given), each through `_tma_operand`. The flat q and
+    the column slices of the hoisted [B, M, 2C] caption K/V are read in
+    place."""
+    if n_heads is not None:
+        q, k, v = (x.unflatten(-1, (n_heads, x.shape[-1] // n_heads)) for x in (q, k, v))
+    return _tma_operand(q), _tma_operand(k), _tma_operand(v)
+
+
+def _key_bytes(key_mask: torch.Tensor, device: torch.device, name: str) -> torch.Tensor:
+    """The [B, M] key mask as the allheads and headsmajor kernels read it:
+    one byte per key, nonzero where valid (a bool tensor as it is, another
+    dtype compared with 0), keys contiguous. The kernels build the biases
+    (0 / -1e30) and the key extent from it themselves."""
+    if key_mask.device != device:
+        raise ValueError(f"{name}: key_mask on {key_mask.device}, q on {device}")
+    mask = key_mask if key_mask.dtype == torch.bool else key_mask != 0
+    return mask if mask.stride(-1) == 1 else mask.contiguous()
+
+
+def _cross_launch(name: str, q, k, v, key_mask, out) -> None:
+    """One launch of the allheads or headsmajor kernel (`name`, an entry
+    point of the cross_attention library) on [B, rows, H, Dh] views from
+    `_cross_operands`, writing out, a [B, N, H, Dh] view of bf16 or f32;
+    key_mask is the [B, M] mask (True = valid)."""
+    B, N, H, Dh = q.shape
+    M = k.shape[1]
+    mask = _key_bytes(key_mask, q.device, name)
+    err = getattr(_cross_lib(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask.stride(0),
+        out.data_ptr(), out.dtype == torch.float32, B, H, N, M, Dh, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
+    )
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: {_hopper_error(err)}")
+
+
+def _allheads_forward(q, k, v, key_mask, n_heads: int):
     B, N, C = q.shape
     M = k.shape[1]
     Dh = C // n_heads
     if q.device.type == "cpu":
         split = lambda x: x.unflatten(-1, (n_heads, Dh))
-        return _plain_forward(split(q), split(k), split(v), madd)[0].flatten(2)
+        return _plain_forward(split(q), split(k), split(v), mask_bias(key_mask))[0].flatten(2)
     _check_cuda("crossattn_allheads", q, k, v)
     _check_head_dim("crossattn_allheads", Dh)
     if M > ALLHEADS_MAX_KV:
         raise ValueError(f"crossattn_allheads: {M} keys > {ALLHEADS_MAX_KV}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    madd = _f32_rows(madd, (B, M), "crossattn_allheads madd")
     out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
-    err = _allheads_lib().allheads_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), madd.data_ptr(), out.data_ptr(),
-        q.dtype == torch.float32, B, n_heads, N, M, Dh, *q.stride()[:2], *k.stride()[:2],
-        *v.stride()[:2], *out.stride()[:2], Dh**-0.5 * LOG2E, _stream(q),
-    )
-    if err:
-        raise RuntimeError(f"crossattn_allheads kernel launch failed: CUDA error {err}")
+    _cross_launch("allheads_attention", *_cross_operands(q, k, v, n_heads),
+                  key_mask, out.unflatten(-1, (n_heads, Dh)))
     crossattn_allheads.launches += 1
     return out
 
@@ -426,10 +479,9 @@ def crossattn_allheads(
         raise ValueError(f"crossattn_allheads: q {q.shape}, k {k.shape}, v {v.shape}")
     if key_mask is None or key_mask.shape != (B, M):
         raise ValueError(f"crossattn_allheads: needs a [B, M] key_mask, got {key_mask}")
-    madd = mask_bias(key_mask)
     if _grad_needed(q, k, v):
-        return _AllheadsAttention.apply(q, k, v, madd, n_heads)
-    return _allheads_forward(q, k, v, madd, n_heads)
+        return _AllheadsAttention.apply(q, k, v, key_mask, n_heads)
+    return _allheads_forward(q, k, v, key_mask, n_heads)
 
 
 crossattn_allheads.launches = 0
@@ -546,14 +598,15 @@ class _OnepassAttention(torch.autograd.Function):
 
 class _AllheadsAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, madd, n_heads):
+    def forward(ctx, q, k, v, key_mask, n_heads):
         ctx.n_heads = n_heads
-        ctx.save_for_backward(q, k, v, madd)
-        return _allheads_forward(q, k, v, madd, n_heads)
+        ctx.save_for_backward(q, k, v, key_mask)
+        return _allheads_forward(q, k, v, key_mask, n_heads)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, madd = ctx.saved_tensors
+        q, k, v, key_mask = ctx.saved_tensors
+        madd = mask_bias(key_mask)
         split = lambda x: x.unflatten(-1, (ctx.n_heads, -1))
         q4, k4, v4, do4 = split(q), split(k), split(v), split(do)
         out, lse = _onepass_forward(q4, k4, v4, madd, with_lse=True)
@@ -659,11 +712,11 @@ def crossattn_headsmajor(
     block_q: int = 256,
 ) -> torch.Tensor:
     """Masked cross-attention over at most 512 keys -> contiguous
-    [B, N, H, Dh]: exact row max, one exp sweep, the TPU kernel's function
-    (f32 logit scale, K/V padded to pad128(M)). Each kernel block keeps one
-    head's K/V resident for `block_q` query rows (a multiple of 128).
-    Forward only, as in the JAX package, which gives it no VJP: under
-    autograd it raises."""
+    [B, N, H, Dh]: the TPU kernel's function (f32 logit scale, K/V padded to
+    pad128(M)), which is `crossattn_allheads`'s. The kernel walks query tiles
+    of its own; `block_q`, rows per block on the TPU, must be a multiple of
+    128 and changes nothing. Forward only, as in the JAX package, which gives
+    it no VJP: under autograd it raises."""
     B, N, H, Dh = q.shape
     M = k.shape[1]
     if k.shape != (B, M, H, Dh) or v.shape != k.shape:
@@ -681,17 +734,8 @@ def crossattn_headsmajor(
     _check_head_dim("crossattn_headsmajor", Dh)
     if M > HEADSMAJOR_MAX_KV:
         raise ValueError(f"crossattn_headsmajor: {M} keys > {HEADSMAJOR_MAX_KV}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    madd = _f32_rows(mask_bias(key_mask), (B, M), "crossattn_headsmajor madd")
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
-    rows = min(block_q, -(-N // HEADSMAJOR_ROWS) * HEADSMAJOR_ROWS)
-    err = _headsmajor_lib().headsmajor_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), madd.data_ptr(), out.data_ptr(),
-        q.dtype == torch.float32, B, H, N, M, Dh, rows, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
-    )
-    if err:
-        raise RuntimeError(f"crossattn_headsmajor kernel launch failed: CUDA error {err}")
+    _cross_launch("headsmajor_attention", *_cross_operands(q, k, v), key_mask, out)
     crossattn_headsmajor.launches += 1
     return out
 

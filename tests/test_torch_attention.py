@@ -153,7 +153,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["onepass_attention"])
     assert _build.library_path("onepass_attention").parent == tmp_path
-    assert _build.library_path("onepass_attention") != _build.library_path("allheads_attention")
+    assert _build.library_path("onepass_attention") != _build.library_path("cross_attention")
 
 
 def test_cuda_dispatch_picks_by_length(monkeypatch):

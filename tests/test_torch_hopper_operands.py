@@ -1,7 +1,9 @@
 """The host-side preparation of the Hopper forward kernels' operands
-(`onepass_attention`, `flash_attention`): what `_tma_operand` reads in place,
-what it copies, how a launch error is reported, and the check of a
-library's key tiling against the wrapper's. Runs on the CPU."""
+(`onepass_attention`, `flash_attention`, and through `_cross_operands` and
+`_key_bytes` `crossattn_allheads` and `crossattn_headsmajor`): what
+`_tma_operand` reads in place, what it copies, the key mask the cross
+kernels read, how a launch error is reported, and the check of a library's
+key tiling against the wrapper's. Runs on the CPU."""
 
 import types
 
@@ -10,11 +12,15 @@ import pytest
 import torch
 
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    CROSS_KEY_STAGES,
+    CROSS_KEY_TILE,
     KEY_STAGES,
     KEY_TILE,
     TMA_ENCODE_ERROR,
     _check_key_geometry,
+    _cross_operands,
     _hopper_error,
+    _key_bytes,
     _tile_bias,
     _tma_operand,
     mask_bias,
@@ -102,3 +108,69 @@ def test_library_key_geometry_is_checked(name, tile, stages, ok):
     else:
         with pytest.raises(RuntimeError, match=name):
             _check_key_geometry(lib, name)
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8)])
+def test_cross_operands_read_flat_q_and_hoisted_kv_in_place(heads, dh):
+    """The allheads kernel's operands: the flat [B, N, C] q and the column
+    slices of the hoisted [B, M, 2C] caption K/V (rows 4 C bytes apart) are
+    split into [B, rows, H, dh] views, never copied."""
+    C = heads * dh
+    q, kv = _rand(2, 37, C), _rand(2, 300, 2 * C)
+    flat = (q, kv[..., :C], kv[..., C:])
+    for got, x in zip(_cross_operands(*flat, n_heads=heads), flat):
+        view = x.unflatten(-1, (heads, dh))
+        assert got.data_ptr() == x.data_ptr() and got.stride() == view.stride()
+        assert got.shape == view.shape and _tma_readable(got)
+
+
+def test_cross_operands_of_headsmajor_views():
+    """headsmajor's [B, rows, H, dh] views are read in place; f32 is rounded."""
+    kv = _rand(2, 300, 2 * 3 * 72)
+    q = _rand(2, 37, 3, 72)
+    k, v = (x.unflatten(-1, (3, 72)) for x in kv.chunk(2, dim=-1))
+    for got, x in zip(_cross_operands(q, k, v), (q, k, v)):
+        assert got.data_ptr() == x.data_ptr() and got.stride() == x.stride()
+    q32 = q.float()
+    got = _cross_operands(q32, k.float(), v.float())[0]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, q32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("tile,stages,ok", [
+    (CROSS_KEY_TILE, CROSS_KEY_STAGES, True),
+    (64, CROSS_KEY_STAGES, False),  # the extent and the planted faults would use the wrong tile
+    (2 * CROSS_KEY_TILE, CROSS_KEY_STAGES, False),
+    (CROSS_KEY_TILE, CROSS_KEY_STAGES + 1, False),  # a resident extent of another length
+    (CROSS_KEY_TILE, CROSS_KEY_STAGES - 1, False),
+    (64, 2 * CROSS_KEY_STAGES, False),  # the same keys resident, in other tiles
+])
+def test_cross_library_key_geometry_is_checked(tile, stages, ok):
+    name = "cross_attention"  # the library of allheads_attention and headsmajor_attention
+    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
+                                   f"{name}_key_stages": lambda: stages})
+    if ok:
+        assert _check_key_geometry(lib, name, CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
+    else:
+        with pytest.raises(RuntimeError, match=name):
+            _check_key_geometry(lib, name, CROSS_KEY_TILE, CROSS_KEY_STAGES)
+
+
+@pytest.mark.parametrize("M", [1, 77, 300])
+def test_cross_key_mask_is_read_as_bytes(M):
+    """The cross kernels read the [B, M] key mask as one byte per key with
+    contiguous keys: a bool mask (a column slice too) in place, another
+    dtype as nonzero = valid, a mask with strided keys copied."""
+    lengths = torch.tensor([M, M // 2, 1])
+    mask = torch.arange(M)[None] < lengths[:, None]
+    got = _key_bytes(mask, mask.device, "test")
+    assert got.data_ptr() == mask.data_ptr() and got.stride() == (M, 1)
+    wide = torch.cat([mask, ~mask], dim=1)[:, :M]  # a column slice: rows 2 M bytes apart
+    got = _key_bytes(wide, wide.device, "test")
+    assert got.data_ptr() == wide.data_ptr() and got.stride() == (2 * M, 1)
+    got = _key_bytes(mask.int() * 3, mask.device, "test")
+    assert got.dtype == torch.bool and torch.equal(got, mask)
+    strided = torch.stack([mask, mask], dim=-1)[..., 0]
+    got = _key_bytes(strided, mask.device, "test")
+    assert got.stride(-1) == 1 and torch.equal(got, mask)
+    with pytest.raises(ValueError, match="key_mask on cpu"):
+        _key_bytes(mask, torch.device("meta"), "test")

@@ -23,6 +23,8 @@ import torch
 
 from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV, attention
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    CROSS_KEY_STAGES,
+    CROSS_KEY_TILE,
     KEY_STAGES,
     KEY_TILE,
     _flash_forward,
@@ -64,7 +66,12 @@ def _randn(rng, shape, dev, scale=1.0):
 
 
 def _lengths_mask(lengths, M, dev):
-    return torch.arange(M, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+    """[B, M] key mask: an int L keeps keys [0, L), a pair (lo, hi) only
+    keys [lo, hi) (a caption mask that is not a prefix)."""
+    spans = [(0, x) if isinstance(x, int) else x for x in lengths]
+    keys = torch.arange(M, device=dev)[None]
+    lo, hi = (torch.tensor(col, device=dev)[:, None] for col in zip(*spans))
+    return (keys >= lo) & (keys < hi)
 
 
 def _assert_close(got, want):
@@ -156,14 +163,31 @@ def test_onepass_kernel_reads_strided_qkv(cuda, B, N, H):
     _assert_close(onepass_attention(q, k, v)[:, rows], attention_reference(q[:, rows], k, v))
 
 
-@pytest.mark.parametrize("B,N,M,H,lengths", [
-    (4, 1000, 300, 16, (300, 120, 77, 1)),  # path widths, unaligned N
-    (2, 256, 77, 2, (77, 5)),
-    (2, 130, 77, 2, (40, 0)),  # a row with no valid key averages V
+# The allheads and headsmajor kernels visit each batch element's key tiles
+# (CROSS_KEY_TILE keys) up to its last valid key; an extent of up to
+# CROSS_KEY_STAGES tiles stays resident, a longer one streams. The cases
+# cover both, captions with no valid key (every tile), masks that are not
+# prefixes, and query tiles cut by N.
+CROSS_RESIDENT = CROSS_KEY_TILE * CROSS_KEY_STAGES
+CROSS_CASES = [  # B, N, M, H, lengths
+    (4, 4096, 300, 16, (300, 40, 5, 0)),               # the path width, a caption with no key
+    (4, 4096, 300, 16, (19, (256, 300), 77, 3)),       # one caption valid only on [256, 300)
+    (2, 200, CROSS_RESIDENT + 1, 2, ((CROSS_RESIDENT, CROSS_RESIDENT + 1), 0)),  # streamed
+    (3, 130, 512, 2, (512, (CROSS_RESIDENT - 1, CROSS_RESIDENT), 0)),
+    (10, 300, 77, 16, (77, 0, 5, 40, 1, 77, (70, 77), 3, 9, 60)),  # B*H above the SM count
+]
+
+
+@pytest.mark.parametrize("B,N,M,H,lengths,Dh", [
+    (4, 1000, 300, 16, (300, 120, 77, 1), 72),  # path widths, unaligned N
+    (2, 256, 77, 2, (77, 5), 72),
+    (2, 130, 77, 2, (40, 0), 72),  # a row with no valid key averages V
+    *(case + (72,) for case in CROSS_CASES),
+    (2, 333, 300, 3, (300, (100, 200)), 64),  # the first column chunk alone
+    (2, 200, 77, 4, (77, 9), 8),
 ])
-def test_allheads_kernel_matches_plain(cuda, B, N, M, H, lengths):
+def test_allheads_kernel_matches_plain(cuda, B, N, M, H, lengths, Dh):
     rng = np.random.RandomState(2)
-    Dh = 72
     C = H * Dh
     q = _randn(rng, (B, N, C), cuda, 2.0)
     kv = _randn(rng, (B, M, 2 * C), cuda)  # hoisted K/V: column slices
@@ -329,6 +353,8 @@ def test_flash_autograd_runs_the_kernels(cuda):
     (4, 1000, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # ragged query tail
     (2, 130, 77, 2, (40, 0), torch.bfloat16, 128),  # a row with no valid key averages V
     (2, 333, 77, 2, (77, 5), torch.float32, 512),
+    *(case + (torch.bfloat16, 256) for case in CROSS_CASES),
+    (2, 333, 300, 2, (300, (200, 210)), torch.float32, 128),
 ])
 def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q):
     rng = np.random.RandomState(10)
@@ -373,13 +399,16 @@ def test_auto_dispatch_takes_flash_and_the_crossattn_override(cuda, monkeypatch)
 
 def test_forward_key_tile_is_the_librarys(cuda):
     """The libraries' keys per tile and ring depth are the wrapper's
-    KEY_TILE and KEY_STAGES, which the cases above are built from."""
+    KEY_TILE and KEY_STAGES (CROSS_KEY_TILE and CROSS_KEY_STAGES for
+    allheads and headsmajor), which the cases above are built from."""
     from pixart_sigma_tpu_torch.ops import _build
     from pixart_sigma_tpu_torch.ops.flash_attention import _check_key_geometry
 
     for name in ("onepass_attention", "flash_forward"):
         lib = _build.load(name)
         assert _check_key_geometry(lib, name) is lib
+    lib = _build.load("cross_attention")
+    assert _check_key_geometry(lib, "cross_attention", CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
 
 
 @pytest.mark.parametrize("M", [4096, 1024])
