@@ -24,7 +24,10 @@ Phases, each printing its own lines:
    that make single key tiles visible, its lse and a gradient through its
    autograd Function; the headsmajor kernel (the allheads cases); then the
    onepass logsumexp and the two backward kernels (flash_bwd_dkv,
-   flash_bwd_dq) at the training shapes;
+   flash_bwd_dq) at the training shapes (captions with no valid key and one
+   valid only on keys [256, 300), with the fault "key extent one tile
+   short"), and at the 2K training shapes (flash's backward at
+   N = M = 16384, onepass's at N = 16384, M = 4096) on picked heads;
 4. the 1024px sampling path through PixArtPipeline: PixArt-Sigma-XL-2 at full
    width and depth (28 blocks, 1152 wide, KV compression conv x2 on layers
    14-27), seeded random weights, pseudo-T5 captions padded to 300 tokens,
@@ -64,7 +67,8 @@ Phases, each printing its own lines:
    memory and a torch.profiler breakdown of one step;
 10. one training step's gradients at 256px through the kernels, held against
    the same step through plain attention;
-11. backward times: each backward kernel, its plain version, the backward of
+11. backward times at the 1024px and 2K training shapes: each backward
+   kernel (device time and host-paced), its plain version, the backward of
    `scaled_dot_product_attention` (timed only) and the bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -92,7 +96,7 @@ PEAK_BYTES = 3.35e12
 #   ||err||_b / ||want||_b <= L2_TOL
 # A sound kernel reads at most 0.035 and 3.4e-3 at the shapes below, a
 # planted fault 0.26 and 5.8e-2 or more (PERF.md); the backward kernels read
-# at most 0.033 and 1.7e-3, their faults 0.45 and 0.125 or more.
+# at most 0.038 and 1.7e-3, their faults 0.42 and 6.3e-2 or more.
 ELEM_TOL = 2**-4
 L2_TOL = 1e-2
 # The onepass kernel's row logsumexp against its plain version: max |err| in
@@ -273,13 +277,30 @@ def check_lse(name, got, want) -> bool:
     return ok
 
 
+def extent_short(fa, madd):
+    """The mask bias with each caption's key extent one tile short: the
+    backward kernels' key tile (BWD_KEY_TILE) that holds the last valid key
+    set to -inf, so P = 0 there (a caption with no valid key is left as it
+    is)."""
+    torch_ = sys.modules["torch"]
+    tile = fa.BWD_KEY_TILE
+    out = madd.clone()
+    for b in range(madd.shape[0]):
+        valid = (madd[b] > fa.NEG_INF / 2).nonzero()
+        if len(valid):
+            t0 = int(valid[-1]) // tile * tile
+            out[b, t0:t0 + tile] = float("-inf")
+    return out.to(torch_.float32)
+
+
 def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[dict, bool]:
     """The onepass output (masked when `cross`: the launch the allheads
     backward recomputes through) and lse, then dkv and dq, each against its
     plain version on the same inputs, and the same checks on plain outputs
     with planted faults: for the output those of `planted_faults`; for dkv
     and dq a query tile [64, 128) skipped in the dK/dV sweep (its P set to
-    0), and the lse off by one log2 unit. Returns ({kernel: max |err|}, ok)."""
+    0), the lse off by one log2 unit and, with a key mask, the key extent one
+    tile short (`extent_short`). Returns ({kernel: max |err|}, ok)."""
     torch_ = sys.modules["torch"]
     if cross:
         qf, kf, vf, mask, H = cases.allheads(B, N, M, lengths, dtype=dtype)
@@ -305,14 +326,81 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, madd_b, lse, delta)
     dq = fa.flash_bwd_dq(q, k, v, do, madd_b, lse, delta)
     torch_.cuda.synchronize()
-    ref = lambda l: fa.flash_backward_reference(pq, pk, pv, madd_b, l, delta, pdo)
+    ref = lambda l, m=madd_b: fa.flash_backward_reference(pq, pk, pv, m, l, delta, pdo)
     want = ref(lse)
     skipped = lse.clone()
     skipped[:, :, 64:128] = float("inf")
     faults = {"query tile [64, 128) skipped": ref(skipped), "lse + 1": ref(lse + 1)}
+    if madd_b is not None:
+        faults["key extent one tile short"] = ref(lse, extent_short(fa, madd_b))
     for kname, got, idx in (("dkv", dk, 1), ("dkv", dv, 2), ("dq", dq, 0)):
         err, good = compare(f"{label} {kname} d{'qkv'[idx]}", got, want[idx],
                             {f: o[idx] for f, o in faults.items()})
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        ok &= good
+    return errs, ok
+
+
+def backward_launch(fa, q, k, v, do, flash):
+    """The forward's out and lse, then dkv and dq, as a training step runs
+    them: the flash Function's (q pre-scaled, logit scale 1, chain factor
+    ln 2, its key-block tail) or onepass's (scale Dh^-0.5 log2(e)). Returns
+    (q as the kernels read it, lse, delta, scales, dq, dk, dv)."""
+    torch_ = sys.modules["torch"]
+    M = k.shape[1]
+    if flash:
+        q = fa._flash_scale_q(q)
+        out, lse = fa._flash_forward(q, k, v, None, fa._flash_tail(M, None), with_lse=True)
+        scales = (1.0, fa.LN2)
+    else:
+        out, lse = fa._onepass_forward(q, k, v, None, with_lse=True)
+        scales = (None, None)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, None, lse, delta, *scales)
+    dq = fa.flash_bwd_dq(q, k, v, do, None, lse, delta, *scales)
+    torch_.cuda.synchronize()
+    return q, lse, delta, scales, dq, dk, dv
+
+
+def check_backward_long(fa, cases, label, N, M, flash, picks) -> tuple[dict, bool]:
+    """dkv and dq at a 2K training shape (B = 4, H = 16, Dh = 72), launched
+    whole (`backward_launch`) and held against the plain backward on picks
+    (b, h, rows, keys): dQ of those query rows against all keys, dK and dV
+    of those keys against all queries (the whole plain version would hold a
+    [B, H, N, M] f32 tensor, 68 GB at N = M = 16384). Faults: query tile
+    [64, 128) skipped and lse + 1. Returns ({kernel: max |err|}, ok)."""
+    torch_ = sys.modules["torch"]
+    B, H, Dh = 4, 16, 72
+    q, k, v = cases.onepass(B, N, M)
+    do = cases.randn(B, N, H, Dh)
+    q, lse, delta, scales, dq, dk, dv = backward_launch(fa, q, k, v, do, flash)
+    skipped = lse.clone()
+    skipped[:, :, 64:128] = float("inf")
+    lses = {"want": lse, "query tile [64, 128) skipped": skipped, "lse + 1": lse + 1}
+    out = {name: {"dq": [], "dk": [], "dv": []} for name in lses}
+    got = {"dq": [], "dk": [], "dv": []}
+    every = slice(None)
+    for b, h, rows, keys in picks:
+        one = lambda x, span: x[b:b + 1, span, h:h + 1]
+        stat = lambda x, span: x[b:b + 1, h:h + 1, span]
+        got["dq"].append(one(dq, rows)[0])
+        got["dk"].append(one(dk, keys)[0])
+        got["dv"].append(one(dv, keys)[0])
+        for name, l in lses.items():
+            w = fa.flash_backward_reference(one(q, rows), one(k, every), one(v, every), None,
+                                            stat(l, rows), stat(delta, rows), one(do, rows),
+                                            *scales)
+            out[name]["dq"].append(w[0][0])
+            w = fa.flash_backward_reference(one(q, every), one(k, keys), one(v, keys), None,
+                                            stat(l, every), stat(delta, every), one(do, every),
+                                            *scales)
+            out[name]["dk"].append(w[1][0])
+            out[name]["dv"].append(w[2][0])
+    errs, ok = {}, True
+    for grad, kname in (("dk", "dkv"), ("dv", "dkv"), ("dq", "dq")):
+        stack = lambda xs: torch_.stack(xs)
+        err, good = compare(f"{label} {grad}", stack(got[grad]), stack(out["want"][grad]),
+                            {f: stack(o[grad]) for f, o in out.items() if f != "want"})
         errs[kname] = max(errs.get(kname, 0.0), err)
         ok &= good
     return errs, ok
@@ -651,53 +739,78 @@ def gradient_check(dev) -> None:
 
 
 def backward_times(cases, fa, card, launches: dict, errs: dict) -> list:
-    """Each backward kernel at the training shapes: its time, its plain
-    version's (which computes dq, dk and dv at once), the backward of
-    `scaled_dot_product_attention` on the same inputs (timed only; it also
-    computes all three) and the bound. Returns the two JSON entries."""
+    """Each backward kernel at the 1024px training shapes and at the 2K ones
+    (flash's backward at N = M = 16384, onepass's at N = 16384, M = 4096):
+    its time (device time, and host-paced: the wrapper's operand checks and
+    tensor-map encodes included), its plain version's (which computes dq, dk
+    and dv at once; at 2K on the first 512 query rows of one (batch, head)
+    against all its keys), the backward of `scaled_dot_product_attention`
+    on the same inputs (timed only; it also computes all three) and the
+    bound. Returns the two JSON entries."""
     import torch
     import torch.nn.functional as F
 
     B, H, Dh = 4, 16, 72
     rows = {"flash_bwd_dkv": [], "flash_bwd_dq": []}
-    for label, N, M, lengths in (("self", 4096, 4096, None), ("self", 4096, 1024, None),
-                                 ("cross", 4096, 300, (19, 12, 7, 3))):
+    for label, N, M, lengths, flash in (("self", 4096, 4096, None, False),
+                                        ("self", 4096, 1024, None, False),
+                                        ("cross", 4096, 300, (19, 12, 7, 3), False),
+                                        ("flash 2K", 16384, 16384, None, True),
+                                        ("onepass 2K", 16384, 4096, None, False)):
         if lengths is None:
             q, k, v = cases.onepass(B, N, M)
             mask = None
         else:
             qf, kf, vf, mask, _ = cases.allheads(B, N, M, lengths)
             q, k, v = (x.unflatten(-1, (H, Dh)) for x in (qf, kf, vf))
-        madd = None if mask is None else fa.mask_bias(mask)
         do = cases.randn(B, N, H, Dh)
-        out, lse = fa._onepass_forward(q, k, v, madd, with_lse=True)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        madd_b = None if madd is None else madd.to(q.dtype).float()
-        args = (q, k, v, do, madd_b, lse, delta)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         am = None if mask is None else mask[:, None, None, :]
         out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
         do_t = do.transpose(1, 2).contiguous()
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
-                                                     retain_graph=True))
-        plain_ms = cuda_ms(lambda: fa.flash_backward_reference(q, k, v, madd_b, lse, delta, do),
-                           iters=3, warmup=1)
+        big = N > 4096
+        iters = 5 if big else 20
+        sdpa = lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t, retain_graph=True)
+        lib_ms = cuda_ms(sdpa, iters=iters)
+        lib_paced_ms = cuda_ms(sdpa, iters=iters, queued=False)
+        del qt, kt, vt, out_t, do_t
+        if mask is None:
+            q, lse, delta, scales, *_ = backward_launch(fa, q, k, v, do, flash)
+            madd_b = None
+        else:
+            madd = fa.mask_bias(mask)
+            out, lse = fa._onepass_forward(q, k, v, madd, with_lse=True)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            madd_b, scales = madd.to(q.dtype).float(), (None, None)
+            del out
+        args = (q, k, v, do, madd_b, lse, delta, *scales)
+        sub = slice(0, 512) if big else slice(None)  # the plain version's query rows
+        plain_args = ((q[:1, sub, :1], k[:1, :, :1], v[:1, :, :1], None, lse[:1, :1, sub],
+                       delta[:1, :1, sub], do[:1, sub, :1], *scales) if big else
+                      (q, k, v, madd_b, lse, delta, do, *scales))
+        plain_ms = cuda_ms(lambda: fa.flash_backward_reference(*plain_args), iters=3, warmup=1)
+        plain_rows = 512 if big else B * N
         valid = B * M if mask is None else int(mask.sum())
         io = 2.0 * (2 * B * N * H * Dh + 2 * valid * H * Dh) + 4.0 * 2 * B * H * N
         for name, products, out_bytes in (("flash_bwd_dkv", 4, 2.0 * 2 * valid * H * Dh),
                                           ("flash_bwd_dq", 3, 2.0 * B * N * H * Dh)):
             fn = getattr(fa, name)
-            ms = cuda_ms(lambda: fn(*args))
+            ms = cuda_ms(lambda: fn(*args), iters=iters)
+            paced_ms = cuda_ms(lambda: fn(*args), iters=iters, queued=False)
             flops = products * 2.0 * H * N * valid * Dh
             b_ms, by = bound_ms(flops, io + out_bytes)
             log(f"[time] {card}: {name} {label} B*H={B * H} N={N} M={M}"
                 f"{'' if mask is None else f' ({valid} valid keys of {B * M})'}: kernel "
-                f"{ms:.4f} ms, plain (dq, dk, dv) {plain_ms:.4f} ms, sdpa backward (dq, dk, dv) "
-                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+                f"{ms:.4f} ms ({paced_ms:.4f} ms host-paced), plain (dq, dk, dv) "
+                f"{plain_ms:.4f} ms{f' on {plain_rows} query rows of one head' if big else ''}, "
+                f"sdpa backward (dq, dk, dv) {lib_ms:.4f} ms ({lib_paced_ms:.4f} ms host-paced), "
+                f"bound {b_ms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
                 f"{(io + out_bytes) / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}")
-            rows[name].append(dict(N=N, M=M, valid_keys=valid, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=b_ms, bound_by=by, library_ms=lib_ms))
-        del q, k, v, do, out, lse, delta, qt, kt, vt, out_t
+            rows[name].append(dict(N=N, M=M, valid_keys=valid, ms=ms, host_paced_ms=paced_ms,
+                                   plain_ms=plain_ms, plain_query_rows=plain_rows,
+                                   bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+                                   library_host_paced_ms=lib_paced_ms))
+        del q, k, v, do, lse, delta, args, plain_args
         torch.cuda.empty_cache()
     entries = []
     for name, line, key in (("flash_bwd_dkv", 282, "dkv"), ("flash_bwd_dq", 326, "dq")):
@@ -914,7 +1027,7 @@ def main() -> int:
         log(f"[build] nothing to compile: libraries for these sources are in {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "Used", "spill", "C7514", "arning")):
                 log(f"  {name}: {line.strip()}")
     smem_onepass = _build.load("onepass_attention").onepass_attention_smem_bytes()
     smem_cross = _build.load("cross_attention").cross_attention_smem_bytes()
@@ -924,11 +1037,12 @@ def main() -> int:
         f"allheads and headsmajor {smem_cross} B, dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
         f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B")
     # each checks its key tile and stages against the wrapper's
-    fa._onepass_lib(), fa._flash_lib(), fa._cross_lib()
+    fa._onepass_lib(), fa._flash_lib(), fa._cross_lib(), fa._backward_lib()
     log(f"  keys per tile: onepass and flash {fa.KEY_TILE} (a ring of {fa.KEY_STAGES} K/V "
         f"stages), allheads and headsmajor {fa.CROSS_KEY_TILE} (an extent of up to "
-        f"{fa.CROSS_KEY_STAGES} tiles resident, longer ones streamed); the planted skipped "
-        "tile, the extent fault and the spike inputs follow them")
+        f"{fa.CROSS_KEY_STAGES} tiles resident, longer ones streamed), dkv and dq "
+        f"{fa.BWD_KEY_TILE} (dq's ring {fa.BWD_KEY_STAGES} stages); the planted skipped "
+        "tile, the extent faults and the spike inputs follow them")
 
     # ---- 3. kernels against their plain versions ------------------------
     log("[kernels] seeded inputs at the path shapes (B = 2 prompts x CFG), bf16 "
@@ -1013,12 +1127,26 @@ def main() -> int:
         ("self B*H=64 N=4096 M=1024", 4096, 1024, None, torch.bfloat16, False),
         ("cross B*H=64 N=4096 M=300 valid=(300, 120, 19, 3)", 4096, 300, (300, 120, 19, 3),
          torch.bfloat16, True),
+        ("cross B*H=64 N=4096 M=300 valid=(300, [256, 300), 77, 3)", 4096, 300,
+         (300, (256, 300), 77, 3), torch.bfloat16, True),
         ("cross B*H=64 N=1000 M=300 valid=(300, 40, 5, 0)", 1000, 300, (300, 40, 5, 0),
          torch.bfloat16, True),
         ("cross B*H=64 N=1000 M=300 valid=(300, 40, 5, 0) f32", 1000, 300, (300, 40, 5, 0),
          torch.float32, True),
     ):
         bwd_errs, ok = check_backward(fa, cases, label, 4, N, M, lengths, dtype, cross)
+        for name, err in bwd_errs.items():
+            errs[name].append(err)
+        all_ok &= ok
+        torch.cuda.empty_cache()
+    log("[kernels] 2K training shapes: flash_bwd_dkv and flash_bwd_dq after the flash forward "
+        "(B*H=64, N=M=16384) and after onepass (N=16384, M=4096), compared on picked heads")
+    for label, N, M, flash in (("flash 2K B*H=64 N=M=16384", 16384, 16384, True),
+                               ("onepass 2K B*H=64 N=16384 M=4096", 16384, 4096, False)):
+        picks = [(0, 0, slice(0, 512), slice(0, 512)),
+                 (1, 9, slice(9000, 9512), slice(M - 700, M - 188)),
+                 (3, 15, slice(N - 512, N), slice(M // 2, M // 2 + 512))]
+        bwd_errs, ok = check_backward_long(fa, cases, label, N, M, flash, picks)
         for name, err in bwd_errs.items():
             errs[name].append(err)
         all_ok &= ok

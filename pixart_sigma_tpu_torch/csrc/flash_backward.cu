@@ -1,379 +1,850 @@
-// Attention backward over strided [B, N, H, dh] bf16 or f32 views, from the
-// row logsumexp that the onepass forward saved (log2 units).
+// Attention backward over strided [B, N, H, dh] bf16 views, from the row
+// logsumexp that the forward saved (log2 units); bf16 or f32 gradients.
 //
 // Replaces the TPU kernels `_bwd_dkv_kernel` and `_bwd_dq_kernel`
 // (pixart_sigma_tpu/ops/flash_attention.py, called from `_flash_bwd`). Both
 // recompute the probabilities instead of storing them:
 //   s  = q.k * scale + madd[key]            (scale = dh^-0.5 * log2(e))
 //   P  = exp2(s - lse[row])
-//   dP = dO . v,   dS = P * (dP - delta[row]) * dh^-0.5,  delta = rowsum(dO * O)
+//   dP = dO . v,   dS = P * (dP - delta[row]) * ds_scale,  delta = rowsum(dO * O)
 //   dV = P^T dO,   dK = dS^T q,   dQ = dS k
-// delta is computed by the caller in f32, as XLA does outside the Pallas
-// kernels.
+// with P and dS rounded to bf16 before their products and f32 sums. delta
+// is computed by the caller in f32, as XLA does outside the Pallas kernels.
 //
-// On the TPU each grid step is one (q tile, k tile) pair and the sum over the
-// swept axis lives in VMEM scratch across sequential grid steps. Hopper
-// blocks run in no order, so the sweep becomes a loop inside the block:
-// - dkv_kernel: one block of 4 warps per (64 keys, batch * head). Each warp
-//   keeps its 16 keys' K and V as mma A fragments and its dK/dV accumulators
-//   (16 x 80 f32 each) in registers, while the block streams 64-row tiles of
-//   q, dO, lse and delta through a cp.async double buffer. Transposed
-//   products (S^T = K Q^T, dP^T = V dO^T) keep every intermediate in the
-//   key-major fragment layout, so P^T and dS^T feed the next two products
-//   straight from registers.
-// - dq_kernel: one block of 4 warps per (64 query rows, batch * head). Each
-//   warp keeps its rows' q and dO fragments, lse, delta and a 16 x 80 f32
-//   dQ accumulator in registers while K/V stream in 64-key tiles.
-// Grids use ceil-div and mask their tails: keys at or past M get logit -inf
-// (and madd, when given, carries the key mask), query rows at or past N get
-// lse = +inf so their P is 0, and no row past M (dK/dV) or N (dQ) is
-// written. dh = 72 is zero-padded to 80 in shared memory only.
+// On the TPU each grid step is one (q tile, k tile) pair and the sum over
+// the swept axis lives in VMEM scratch across sequential grid steps. Hopper
+// blocks run in no order, so the sweep is a loop inside a block, and each
+// kernel is a persistent grid (one block of three warpgroups per SM) over
+// work items, the warpgroup layout of the forward (hopper_attention.cuh):
+// warpgroup 2 is the producer (its first warp streams tiles through a
+// TMA/mbarrier ring; setmaxnreg gives its registers to the others) and
+// warpgroups 0 and 1 the consumers, 64 rows each, on wgmma. Two kernels, no
+// atomics: each sum is taken in one block's registers, in a fixed order, so
+// the gradients are deterministic.
+//
+// - dq_kernel: items (128 query rows, batch * head), query tiles fastest so
+//   the blocks in flight share one head's K/V in L2. The item's Q and dO
+//   (K-major: 64 columns 128B-swizzled + 16 columns 32B-swizzled) sit in one
+//   buffer; 128-key K/V tiles stream through a 3-stage ring with each tile's
+//   128 key biases, which the producer warp writes beside them (-inf past M).
+//   Over at most 512 keys (captions: items of one to four tiles) Q and dO
+//   are double-buffered and the ring has two stages, so the next item's
+//   copies overlap this one's few tiles.
+//   Per tile: S = Q.K^T and dP = dO.V^T (wgmma m64n128k16, both operands in
+//   shared memory), dS in registers, then dQ += dS.K with dS as the register
+//   A operand (m64n80k16) and K read MN-major. K is therefore stored as two
+//   128B-swizzled 64-column atoms (columns [64, 128) zero-filled past dh),
+//   which the K-major descriptors of S read too. S and dP of tile j go out
+//   with dQ of tile j - 1, so the exponentials of tile j run while that
+//   product is in flight.
+// - dkv_kernel: items (128 keys, batch * head), key tiles fastest (with a
+//   mask, batch * head fastest: see dkv_item). The item's K and V are loaded
+//   into shared memory (two buffers, so the next item's load overlaps this
+//   one) and from there into registers as wgmma A fragments, each consumer
+//   warpgroup its 64 keys; 64-row tiles of q and dO stream through a 4-stage
+//   ring, each as two 128B atoms, since the tile is the B operand of a
+//   K-major product (S^T = K.Q^T, dP^T = V.dO^T, m64n64k16) and of an
+//   MN-major one (dV += P^T.dO, dK += dS^T.Q, m64n80k16), all four with the
+//   A operand in registers (K, V, P^T, dS^T), so each k-step reads only its
+//   B tile from shared memory. The producer warp writes each tile's lse and
+//   delta beside it (+inf and 0 past N, so those rows give P = 0).
+//
+// The caption key extent (caption_key_extent in ops/flash_attention.py):
+// with a mask, every warp finds its batch element's last valid key (bias
+// above -1e29) in the [B, M] bias row; the key tiles past it are never
+// loaded or multiplied by dq, and a dkv item whose keys all lie past it
+// writes zeros for dK and dV and streams nothing. This is exact: for every
+// row of a caption with a valid key, P = exp2(-1e30 + ...) = 0 there, so
+// dS = 0 and dV = 0. A caption with no valid key keeps every tile, so the
+// TPU's gradient for such a row (P = 1 in f32, P = 0 in bf16, the mask
+// rounded to the input dtype by the caller) is kept.
+//
+// Rows past N and keys past M: TMA zero-fills them (q, dO, K, V), lse is
+// +inf and delta 0 past N and the bias is -inf past M, so P = 0 and dS = 0
+// there and no product meets an infinity; no row past M (dK, dV) or N (dQ)
+// is written.
 //
 // Bound on the card: at the 1024px training path (B * H = 64, N = M = 4096,
-// dh = 72) dkv does four products of 2 N M dh flops per head (618 GFLOP) and
-// dq three (464 GFLOP), against ~150 MB of operands, so the tensor cores
-// bound both. The design keeps all products on bf16 mma.sync with f32
-// accumulation and never writes P or dS to device memory; wgmma/TMA are the
-// next step.
+// dh = 72) dkv does four products of 2 N M dh flops per head (618 GFLOP,
+// 0.625 ms at 989 TFLOP/s) and dq three (464 GFLOP, 0.469 ms), against
+// ~230 MB of operands and outputs (0.07 ms at 3.35 TB/s): the tensor cores
+// bound both. dh = 72 runs as 80 columns (0.9 of the issued products
+// useful). At the caption shape (M = 300, 3-19 valid keys) the work over the
+// extent is one key tile per caption and the bytes of q, dO, lse, delta and
+// dQ bound.
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
-namespace attn {
+namespace bwd {
 
-constexpr int kBwdThreads = 128;  // 4 warps x 16 rows
-constexpr int kBwdRows = 64;      // keys per dkv block, query rows per dq block
-constexpr int kBwdTile = 64;      // rows per streamed tile
-constexpr int kBwdTileElems = kBwdTile * kPitch;
-// dkv: K, V (resident) + 2 x (q, dO) tiles + 2 x (lse, delta)
-constexpr int kDkvSmem = 6 * kBwdTileElems * 2 + 4 * kBwdTile * 4;
-// dq: q, dO (resident) + 2 x (K, V) tiles
-constexpr int kDqSmem = 6 * kBwdTileElems * 2;
+using attn::bf16;
+using hopper::kMainCols;
+using hopper::kSwizzle128;
+using hopper::kSwizzle32;
+using hopper::kTailCols;
 
-template <typename T>
-struct BwdParams {
-  const T* q;
-  const T* k;
-  const T* v;
-  const T* dout;
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kKeys = 128;     // keys per dq K/V tile and per dkv item
+constexpr int kRows = 128;     // query rows per dq item
+constexpr int kQTile = 64;     // query rows per streamed dkv tile
+constexpr int kMainBytes = 128 * 128;  // a 128-row, 64-column 128B-swizzled chunk (16 KB)
+constexpr int kTailBytes = 128 * 32;   // a 128-row, 16-column 32B-swizzled chunk (4 KB)
+constexpr int kQAtom = kQTile * 128;   // a 64-row 128B atom (8 KB)
+
+// dq_kernel's shared memory: `qbufs` Q buffers (Q main, Q tail, dO main, dO
+// tail), the K/V stages (K columns [0, 64) and [64, 128) as two 128B atoms,
+// V main, V tail, the tile's 128 biases), then the barriers full[stages],
+// empty[stages], qfull[qbufs], qempty[qbufs]; 1024 bytes of slack to align
+// the base. Long key sweeps take one Q buffer and three K/V stages; sweeps
+// of at most kShortKeys keys (captions), whose items are one to four tiles
+// long, take two Q buffers and two stages, so the next item's Q and dO
+// arrive while this one's few tiles run.
+constexpr int kShortKeys = 512;
+
+template <int kQBufs>
+struct DqRing {
+  static constexpr int qbufs = kQBufs;
+  static constexpr int stages = kQBufs == 1 ? 3 : 2;
+  static constexpr int q_tail = kMainBytes, do_main = kMainBytes + kTailBytes,
+                       do_tail = 2 * kMainBytes + kTailBytes;
+  static constexpr int q_bytes = 2 * (kMainBytes + kTailBytes);
+  static constexpr int k_hi = kMainBytes, v_main = 2 * kMainBytes, v_tail = 3 * kMainBytes,
+                       bias = 3 * kMainBytes + kTailBytes;
+  static constexpr int stage_bytes = bias + 1024;
+  static constexpr int stages_offset = qbufs * q_bytes;
+  static constexpr int bar_offset = stages_offset + stages * stage_bytes;
+  static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * qbufs) * 8 + 1024;
+  static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
+
+  __device__ static uint32_t full(uint32_t base, int s) { return base + bar_offset + 8 * s; }
+  __device__ static uint32_t empty(uint32_t base, int s) {
+    return base + bar_offset + 8 * (stages + s);
+  }
+  __device__ static uint32_t qfull(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + i);
+  }
+  __device__ static uint32_t qempty(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + qbufs + i);
+  }
+};
+
+// dkv_kernel's shared memory: two K/V buffers (K main, K tail, V main, V
+// tail), the q/dO stages (q columns [0, 64) and [64, 128), dO the same, the
+// tile's 64 lse and 64 delta), then the barriers full[stages],
+// empty[stages], kvfull[2], kvempty[2].
+struct DkvRing {
+  static constexpr int stages = 4;
+  static constexpr int k_tail = kMainBytes, v_main = kMainBytes + kTailBytes,
+                       v_tail = 2 * kMainBytes + kTailBytes;
+  static constexpr int kv_bytes = 2 * (kMainBytes + kTailBytes);
+  static constexpr int q_hi = kQAtom, do_lo = 2 * kQAtom, do_hi = 3 * kQAtom,
+                       lse = 4 * kQAtom, delta = 4 * kQAtom + 4 * kQTile;
+  static constexpr int stage_bytes = 4 * kQAtom + 1024;
+  static constexpr int stages_offset = 2 * kv_bytes;
+  static constexpr int bar_offset = stages_offset + stages * stage_bytes;
+  static constexpr int smem_bytes = bar_offset + (2 * stages + 4) * 8 + 1024;
+  static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
+
+  __device__ static uint32_t full(uint32_t base, int s) { return base + bar_offset + 8 * s; }
+  __device__ static uint32_t empty(uint32_t base, int s) {
+    return base + bar_offset + 8 * (stages + s);
+  }
+  __device__ static uint32_t kvfull(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + i);
+  }
+  __device__ static uint32_t kvempty(uint32_t base, int i) {
+    return base + bar_offset + 8 * (2 * stages + 2 + i);
+  }
+};
+
+// TMA descriptors of the bf16 [B, rows, H, dh] views: 64-column boxes with
+// the 128B swizzle (read at column 0 and, as a second atom, at column 64),
+// and 16-column boxes with the 32B swizzle for the K-major tails. dq_kernel
+// uses q, q_tail, dout, dout_tail (128-row boxes), k, v and v_tail;
+// dkv_kernel q and dout (64-row boxes), k, k_tail, v and v_tail.
+struct Maps {
+  CUtensorMap q, q_tail, dout, dout_tail, k, k_tail, v, v_tail;
+};
+
+struct Args {
   const float* madd;   // [B, M] additive key mask (0 / -1e30) or null
   const float* lse;    // [B * H, N] log2 units
   const float* delta;  // [B * H, N]
-  T* dq;
-  T* dk;
-  T* dv;
-  Strides qs, ks, vs, dos, dqs, dks, dvs;
+  void* dq;            // [B, N, H, dh] views, bf16 or f32
+  void* dk;
+  void* dv;
+  attn::Strides dqs, dks, dvs;
   int B, H, N, M, dh;
-  float scale;     // dh^-0.5 * log2(e): logits in log2 units
-  float ds_scale;  // dh^-0.5 = ln(2) * scale, the chain rule through exp2
+  float scale;     // logit scale in log2 units
+  float ds_scale;  // the chain factor of dS (ln 2 * scale for exp2)
 };
 
-// Bias of key `key`: the key mask inside [0, M), -inf past it.
-__device__ __forceinline__ float key_bias(const float* madd, int key, int M) {
-  if (key >= M) return -CUDART_INF_F;
-  return madd ? __ldg(madd + key) : 0.f;
-}
+// ---------------------------------------------------------------- device
 
-// acc (a warp's 16 rows x kHeadPad f32, C fragments) -> rows row0 + g and
-// row0 + g + 8 below nrows.
-template <typename T>
-__device__ __forceinline__ void store_acc(const float (&acc)[kHeadPad / 8][4], T* o,
-                                          long long stride, int row0, int nrows, int dh,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = row0 + g, r1 = row0 + g + 8;
-#pragma unroll
-  for (int dn = 0; dn < kHeadPad / 8; ++dn) {
-    if (dn * 8 < dh) {
-      const int col = dn * 8 + t * 2;
-      if (r0 < nrows) store_pair(o + r0 * stride + col, acc[dn][0], acc[dn][1]);
-      if (r1 < nrows) store_pair(o + r1 * stride + col, acc[dn][2], acc[dn][3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[kHeadPad / 8][4]) {
-#pragma unroll
-  for (int i = 0; i < kHeadPad / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// lse / delta of rows [row0, row0 + kBwdTile) into shared memory; rows at or
-// past N get lse = +inf (P = 0) and delta = 0.
-__device__ __forceinline__ void load_row_stats(float* sl, float* sd, const float* lse,
-                                               const float* delta, int row0, int N) {
-  for (int i = threadIdx.x; i < kBwdTile; i += blockDim.x) {
-    const int row = row0 + i;
-    sl[i] = row < N ? lse[row] : CUDART_INF_F;
-    sd[i] = row < N ? delta[row] : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads) dkv_kernel(BwdParams<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBwdTileElems;
-  bf16* sQ = sV + kBwdTileElems;      // two buffers
-  bf16* sO = sQ + 2 * kBwdTileElems;  // dO, two buffers
-  float* sL = reinterpret_cast<float*>(sO + 2 * kBwdTileElems);  // lse, two buffers
-  float* sD = sL + 2 * kBwdTile;                                 // delta, two buffers
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int key0 = blockIdx.x * kBwdRows;
-  const T* q = p.q + b * p.qs.sb + h * p.qs.sh;
-  const T* k = p.k + b * p.ks.sb + h * p.ks.sh;
-  const T* v = p.v + b * p.vs.sb + h * p.vs.sh;
-  const T* dout = p.dout + b * p.dos.sb + h * p.dos.sh;
-  const float* lse = p.lse + static_cast<long long>(blockIdx.y) * p.N;
-  const float* delta = p.delta + static_cast<long long>(blockIdx.y) * p.N;
-  const float* madd = p.madd ? p.madd + static_cast<long long>(b) * p.M : nullptr;
-
-  if (p.dh < kHeadPad) {
-    zero_pad_cols(sK, 2 * kBwdTile, p.dh);  // sK and sV are adjacent
-    zero_pad_cols(sQ, 4 * kBwdTile, p.dh);  // both q and both dO buffers
-  }
-  load_rows(sK, k, p.ks.sn, key0, kBwdRows, p.M, p.dh);
-  load_rows(sV, v, p.vs.sn, key0, kBwdRows, p.M, p.dh);
-  load_rows(sQ, q, p.qs.sn, 0, kBwdTile, p.N, p.dh);
-  load_rows(sO, dout, p.dos.sn, 0, kBwdTile, p.N, p.dh);
-  load_row_stats(sL, sD, lse, delta, 0, p.N);
-  cp_async_commit();
-
-  const int warp = threadIdx.x >> 5;
+// Key tiles that batch element b's rows need, found by the calling warp (all
+// 32 lanes) from its bias row: the last valid key (bias above -1e29), plus
+// one, in whole tiles. Past it every row with a valid key has P = 0
+// exactly. With no mask or no valid key, all tiles.
+__device__ __forceinline__ int key_tiles(const Args& a, int b) {
+  const int ntiles = (a.M + kKeys - 1) / kKeys;
+  if (a.madd == nullptr) return ntiles;
+  const float* row = a.madd + static_cast<long long>(b) * a.M;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr = key0 + warp * 16 + g;  // this thread's keys kr and kr + 8
-  const float bias[2] = {key_bias(madd, kr, p.M), key_bias(madd, kr + 8, p.M)};
-  uint32_t ka[kHeadPad / 16][4], va[kHeadPad / 16][4];
-  float dk[kHeadPad / 8][4], dv[kHeadPad / 8][4];
-  zero_acc(dk);
-  zero_acc(dv);
-
-  const int ntiles = (p.N + kBwdTile - 1) / kBwdTile;
-  for (int i = 0; i < ntiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < ntiles) {  // prefetch the next q tile into the other buffer
-      const int nxt = (buf ^ 1) * kBwdTileElems;
-      load_rows(sQ + nxt, q, p.qs.sn, (i + 1) * kBwdTile, kBwdTile, p.N, p.dh);
-      load_rows(sO + nxt, dout, p.dos.sn, (i + 1) * kBwdTile, kBwdTile, p.N, p.dh);
-      load_row_stats(sL + (buf ^ 1) * kBwdTile, sD + (buf ^ 1) * kBwdTile, lse, delta,
-                     (i + 1) * kBwdTile, p.N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-      load_q_frags(ka, sK + warp * 16 * kPitch, lane);
-      load_q_frags(va, sV + warp * 16 * kPitch, lane);
-    }
-    const bf16* cQ = sQ + buf * kBwdTileElems;
-    const bf16* cO = sO + buf * kBwdTileElems;
-    const float* cL = sL + buf * kBwdTile;
-    const float* cD = sD + buf * kBwdTile;
-#pragma unroll 1
-    for (int qc = 0; qc < kBwdTile / 16; ++qc) {  // 16 queries per step
-      // S^T and dP^T: C fragments, row = key (g | g + 8), col = query
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kt = 0; kt < kHeadPad / 16; ++kt) {
-          const int off = (qc * 16 + nt * 8 + g) * kPitch + kt * 16 + t * 2;
-          mma_16816(s[nt], ka[kt], ld_u32(cQ + off), ld_u32(cQ + off + 8));
-          mma_16816(dp[nt], va[kt], ld_u32(cO + off), ld_u32(cO + off + 8));
-        }
-      }
-      float pt[2][4], dst[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = qc * 16 + nt * 8 + t * 2 + (e & 1);
-          pt[nt][e] = fast_exp2(s[nt][e] * p.scale + bias[e >> 1] - cL[row]);
-          dst[nt][e] = pt[nt][e] * (dp[nt][e] - cD[row]) * p.ds_scale;
-        }
-      }
-      // two adjacent 8-query C tiles are one A tile (16 keys x 16 queries)
-      const uint32_t pa[4] = {pack_bf16(pt[0][0], pt[0][1]), pack_bf16(pt[0][2], pt[0][3]),
-                              pack_bf16(pt[1][0], pt[1][1]), pack_bf16(pt[1][2], pt[1][3])};
-      const uint32_t da[4] = {pack_bf16(dst[0][0], dst[0][1]), pack_bf16(dst[0][2], dst[0][3]),
-                              pack_bf16(dst[1][0], dst[1][1]), pack_bf16(dst[1][2], dst[1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kHeadPad / 8; ++dn) {
-        if (dn * 8 < p.dh) {  // warp-uniform
-          const int off = (qc * 16 + (lane & 15)) * kPitch + dn * 8;
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, cO + off);
-          mma_16816(dv[dn], pa, b0, b1);
-          ldmatrix_x2_trans(b0, b1, cQ + off);
-          mma_16816(dk[dn], da, b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this buffer
+  int last = -1;
+  for (int key = lane; key < a.M; key += 32) {
+    if (__ldg(row + key) > 0.1f * attn::kMaskedLogit) last = key;
   }
-  T* dk_out = p.dk + b * p.dks.sb + h * p.dks.sh;
-  T* dv_out = p.dv + b * p.dvs.sb + h * p.dvs.sh;
-  store_acc(dk, dk_out, p.dks.sn, key0 + warp * 16, p.M, p.dh, lane);
-  store_acc(dv, dv_out, p.dvs.sn, key0 + warp * 16, p.M, p.dh, lane);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+  return last < 0 ? ntiles : last / kKeys + 1;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads) dq_kernel(BwdParams<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kBwdTileElems;
-  bf16* sK = sO + kBwdTileElems;      // two buffers
-  bf16* sV = sK + 2 * kBwdTileElems;  // two buffers
+// The bias of key `key` of batch element b: the mask inside [0, M), -inf past it.
+__device__ __forceinline__ float key_bias(const Args& a, int b, int key) {
+  if (key >= a.M) return -CUDART_INF_F;
+  return a.madd ? __ldg(a.madd + static_cast<long long>(b) * a.M + key) : 0.f;
+}
 
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int q0 = blockIdx.x * kBwdRows;
-  const T* q = p.q + b * p.qs.sb + h * p.qs.sh;
-  const T* k = p.k + b * p.ks.sb + h * p.ks.sh;
-  const T* v = p.v + b * p.vs.sb + h * p.vs.sh;
-  const T* dout = p.dout + b * p.dos.sb + h * p.dos.sh;
-  const float* lse = p.lse + static_cast<long long>(blockIdx.y) * p.N;
-  const float* delta = p.delta + static_cast<long long>(blockIdx.y) * p.N;
-  const float* madd = p.madd ? p.madd + static_cast<long long>(b) * p.M : nullptr;
+__device__ __forceinline__ void ld_shared_v2(uint32_t addr, float& x, float& y) {
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(addr));
+}
 
-  if (p.dh < kHeadPad) zero_pad_cols(sQ, 6 * kBwdTile, p.dh);  // all six tiles
-  load_rows(sQ, q, p.qs.sn, q0, kBwdRows, p.N, p.dh);
-  load_rows(sO, dout, p.dos.sn, q0, kBwdRows, p.N, p.dh);
-  load_rows(sK, k, p.ks.sn, 0, kBwdTile, p.M, p.dh);
-  load_rows(sV, v, p.vs.sn, 0, kBwdTile, p.M, p.dh);
-  cp_async_commit();
+// acc, a wgmma m64n80 accumulator (n64 when dh <= 64; per warp w and lane
+// 4 g + t, acc[4 c + e] holds row 16 w + g (+ 8 for e >= 2), column
+// 8 c + 2 t + (e & 1)), into rows r0 and r0 + 8 below `rows` of `out`.
+template <typename TOut>
+__device__ __forceinline__ void store_rows(const float (&acc)[40], void* out,
+                                           const attn::Strides& s, int b, int h, int r0,
+                                           int rows, int dh) {
+  const int t = threadIdx.x & 3;
+  TOut* base = static_cast<TOut*>(out) + b * s.sb + h * s.sh;
+  TOut* o0 = base + static_cast<long long>(r0) * s.sn;
+  TOut* o1 = o0 + 8 * s.sn;
+#pragma unroll
+  for (int c = 0; c < 10; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (col < dh) {  // dh % 8 == 0, so col + 1 < dh too
+      if (r0 < rows) attn::store_pair(o0 + col, acc[4 * c], acc[4 * c + 1]);
+      if (r0 + 8 < rows) attn::store_pair(o1 + col, acc[4 * c + 2], acc[4 * c + 3]);
+    }
+  }
+}
 
-  const int warp = threadIdx.x >> 5;
+// Accumulator pairs (8 kk + 2 i, 8 kk + 2 i + 1) of an m64nK product, rounded
+// to bf16: the A fragments of the next product, 16 columns per k-step.
+template <int KK, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KK][4], const float (&x)[N]) {
+  static_assert(N == 8 * KK, "one k-step per 8 accumulator registers");
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[kk][i] = attn::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+    }
+}
+
+// The wgmma A fragments of rows r and r + 8 of a 128-row tile that TMA
+// wrote as 64 columns with the 128B swizzle at `main` (16-byte chunk c of
+// row r at c ^ (r & 7)) and, with kTail, columns [64, 80) with the 32B
+// swizzle at `tail` (chunk c at c ^ ((r >> 2) & 1)): per k-step of 16
+// columns, (row r, columns 2 t, 2 t + 1), (row r + 8, the same), (row r,
+// columns 2 t + 8, 2 t + 9), (row r + 8, the same).
+template <bool kTail>
+__device__ __forceinline__ void load_a(uint32_t (&a)[5][4], uint32_t main, uint32_t tail, int r,
+                                       int t) {
+  auto ld = [](uint32_t addr) {
+    uint32_t x;
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr));
+    return x;
+  };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t chunk = static_cast<uint32_t>((2 * kk + half) ^ (r & 7)) << 4;
+      a[kk][2 * half] = ld(main + r * 128 + chunk + 4 * t);
+      a[kk][2 * half + 1] = ld(main + (r + 8) * 128 + chunk + 4 * t);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t chunk = static_cast<uint32_t>(half ^ ((r >> 2) & 1)) << 4;
+    a[4][2 * half] = kTail ? ld(tail + r * 32 + chunk + 4 * t) : 0u;
+    a[4][2 * half + 1] = kTail ? ld(tail + (r + 8) * 32 + chunk + 4 * t) : 0u;
+  }
+}
+
+// ---------------------------------------------------------------- dq
+
+template <typename TOut, bool kTail, int kQBufs>
+__device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg) {
+  using R = DqRing<kQBufs>;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntq = (a.N + kRows - 1) / kRows, runs = ntq * a.B * a.H;
+  int it = 0;  // ring position of the current item's first K/V tile
+  auto slot = [&](int j) { return (it + j) % R::stages; };
+  auto stage = [&](int j) { return base + R::stages_offset + slot(j) * R::stage_bytes; };
+
+  float s[64], dp[64], dq[40];
+  uint32_t ds[8][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0u;
+  uint64_t dq_main, dq_tail, do_main, do_tail;  // this warpgroup's rows of the Q buffer
+  float lse0, lse1, dl0, dl1;
+
+  auto acquire = [&](int j) {
+    hopper::mbar_wait(R::full(base, slot(j)), ((it + j) / R::stages) & 1);
+    hopper::wgmma_fence();
+  };
+  auto release = [&](int j) {
+    if (lane == 0) hopper::mbar_arrive(R::empty(base, slot(j)));
+  };
+  // S = Q.K^T and dP = dO.V^T of tile j, one commit group
+  auto issue_sdp = [&](int j) {
+    const uint32_t st = stage(j);
+    const uint64_t dk = hopper::smem_desc(st, 1024, kSwizzle128);
+    const uint64_t dv = hopper::smem_desc(st + R::v_main, 1024, kSwizzle128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_main + 2 * kk, dk + 2 * kk, kk > 0);
+    if (kTail) {
+      hopper::wgmma_ss_n128(s, dq_tail, hopper::smem_desc(st + R::k_hi, 1024, kSwizzle128), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_main + 2 * kk, dv + 2 * kk, kk > 0);
+    if (kTail) {
+      hopper::wgmma_ss_n128(dp, do_tail, hopper::smem_desc(st + R::v_tail, 256, kSwizzle32), 1);
+    }
+    hopper::wgmma_commit();
+  };
+  // dQ += dS.K of tile j (dS in ds), K read MN-major: a k-step is 16 key
+  // rows of 128 bytes in each of K's two atoms
+  auto issue_dq = [&](int j) {
+    const uint64_t dk = hopper::smem_desc(stage(j), 1024, kSwizzle128, R::k_hi);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kTail) {
+        hopper::wgmma_rs_n80(dq, ds[kk], dk + kk * (16 * 128 / 16));
+      } else {
+        hopper::wgmma_rs_n64(dq, ds[kk], dk + kk * (16 * 128 / 16));
+      }
+    }
+    hopper::wgmma_commit();
+  };
+  // P = exp2(s * scale + bias - lse) and, in dp, dS = P (dP - delta) ds_scale
+  auto grads = [&](int j) {
+    const uint32_t bias = stage(j) + R::bias + 8 * t;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      float b0, b1;
+      ld_shared_v2(bias + 32 * c, b0, b1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = attn::fast_exp2(fmaf(s[4 * c + e], a.scale, (e & 1) ? b1 : b0) -
+                                        (e < 2 ? lse0 : lse1));
+        dp[4 * c + e] = p * (dp[4 * c + e] - (e < 2 ? dl0 : dl1)) * a.ds_scale;
+      }
+    }
+  };
+
+  int n = 0;  // items done by this block
+  int ext_b = -1, ntiles = 0;
+  for (int r = blockIdx.x; r < runs; r += gridDim.x, ++n) {
+    const int bh = r / ntq, tq = r - bh * ntq;
+    const int b = bh / a.H, h = bh - b * a.H;
+    if (b != ext_b) {
+      ntiles = key_tiles(a, b);
+      ext_b = b;
+    }
+    const int r0 = tq * kRows + 64 * wg + 16 * warp + g;
+    const float* lse = a.lse + static_cast<long long>(bh) * a.N;
+    const float* delta = a.delta + static_cast<long long>(bh) * a.N;
+    lse0 = r0 < a.N ? __ldg(lse + r0) : CUDART_INF_F;
+    lse1 = r0 + 8 < a.N ? __ldg(lse + r0 + 8) : CUDART_INF_F;
+    dl0 = r0 < a.N ? __ldg(delta + r0) : 0.f;
+    dl1 = r0 + 8 < a.N ? __ldg(delta + r0 + 8) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 40; ++i) dq[i] = 0.f;
+    const int qi = n % R::qbufs;
+    const uint32_t qbuf = base + qi * R::q_bytes;
+    dq_main = hopper::smem_desc(qbuf + wg * (kMainBytes / 2), 1024, kSwizzle128);
+    dq_tail = hopper::smem_desc(qbuf + R::q_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
+    do_main = hopper::smem_desc(qbuf + R::do_main + wg * (kMainBytes / 2), 1024, kSwizzle128);
+    do_tail = hopper::smem_desc(qbuf + R::do_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
+    hopper::mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q and dO
+
+    acquire(0);
+    issue_sdp(0);
+    hopper::wgmma_wait<0>();
+    hopper::hold(s);
+    hopper::hold(dp);
+    grads(0);
+    pack_a(ds, dp);
+    for (int j = 1; j < ntiles; ++j) {
+      // S and dP of tile j and dQ of tile j - 1 go out together; tile j's
+      // exponentials run while that product is in flight
+      acquire(j);
+      issue_sdp(j);
+      issue_dq(j - 1);
+      hopper::wgmma_wait<1>();
+      hopper::hold(s);
+      hopper::hold(dp);
+      grads(j);
+      hopper::wgmma_wait<0>();
+      hopper::hold(dq);
+      hopper::hold(ds);
+      release(j - 1);
+      pack_a(ds, dp);
+    }
+    if (lane == 0) hopper::mbar_arrive(R::qempty(base, qi));  // every S and dP is done
+    hopper::wgmma_fence();
+    issue_dq(ntiles - 1);
+    hopper::wgmma_wait<0>();
+    hopper::hold(dq);
+    release(ntiles - 1);
+    it += ntiles;
+    store_rows<TOut>(dq, a.dq, a.dqs, b, h, r0, a.N, a.dh);
+  }
+}
+
+template <bool kTail, int kQBufs>
+__device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint32_t base) {
+  using R = DqRing<kQBufs>;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  const float row_lse[2] = {r0 < p.N ? lse[r0] : CUDART_INF_F,
-                            r0 + 8 < p.N ? lse[r0 + 8] : CUDART_INF_F};
-  const float row_delta[2] = {r0 < p.N ? delta[r0] : 0.f, r0 + 8 < p.N ? delta[r0 + 8] : 0.f};
-  uint32_t qa[kHeadPad / 16][4], oa[kHeadPad / 16][4];
-  float dq[kHeadPad / 8][4];
-  zero_acc(dq);
-
-  const int ntiles = (p.M + kBwdTile - 1) / kBwdTile;
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {  // prefetch the next key tile into the other buffer
-      const int nxt = (buf ^ 1) * kBwdTileElems;
-      load_rows(sK + nxt, k, p.ks.sn, (j + 1) * kBwdTile, kBwdTile, p.M, p.dh);
-      load_rows(sV + nxt, v, p.vs.sn, (j + 1) * kBwdTile, kBwdTile, p.M, p.dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-      load_q_frags(qa, sQ + warp * 16 * kPitch, lane);
-      load_q_frags(oa, sO + warp * 16 * kPitch, lane);
-    }
-    const bf16* cK = sK + buf * kBwdTileElems;
-    const bf16* cV = sV + buf * kBwdTileElems;
-#pragma unroll 1
-    for (int kc = 0; kc < kBwdTile / 16; ++kc) {  // 16 keys per step
-      // S and dP: C fragments, row = query (g | g + 8), col = key
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kt = 0; kt < kHeadPad / 16; ++kt) {
-          const int off = (kc * 16 + nt * 8 + g) * kPitch + kt * 16 + t * 2;
-          mma_16816(s[nt], qa[kt], ld_u32(cK + off), ld_u32(cK + off + 8));
-          mma_16816(dp[nt], oa[kt], ld_u32(cV + off), ld_u32(cV + off + 8));
-        }
-      }
-      float ds[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = j * kBwdTile + kc * 16 + nt * 8 + t * 2 + (e & 1);
-          const float pr =
-              fast_exp2(s[nt][e] * p.scale + key_bias(madd, key, p.M) - row_lse[e >> 1]);
-          ds[nt][e] = pr * (dp[nt][e] - row_delta[e >> 1]) * p.ds_scale;
-        }
-      }
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-#pragma unroll
-      for (int dn = 0; dn < kHeadPad / 8; ++dn) {
-        if (dn * 8 < p.dh) {  // warp-uniform
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, cK + (kc * 16 + (lane & 15)) * kPitch + dn * 8);
-          mma_16816(dq[dn], da, b0, b1);
-        }
+  const bool issue = lane == 0;
+  const int ntq = (a.N + kRows - 1) / kRows, runs = ntq * a.B * a.H;
+  const uint32_t q_bytes = kTail ? R::q_bytes : 2 * kMainBytes;
+  const uint32_t tile_bytes = kTail ? 3 * kMainBytes + kTailBytes : 2 * kMainBytes;
+  int it = 0, n = 0, ext_b = -1, ntiles = 0;
+  for (int r = blockIdx.x; r < runs; r += gridDim.x, ++n) {
+    const int bh = r / ntq, tq = r - bh * ntq;
+    const int b = bh / a.H, h = bh - b * a.H;
+    const int q0 = tq * kRows;
+    if (issue) {
+      const int qi = n % R::qbufs;
+      if (n >= R::qbufs) hopper::mbar_wait(R::qempty(base, qi), ((n / R::qbufs) - 1) & 1);
+      const uint32_t qbuf = base + qi * R::q_bytes, qfull = R::qfull(base, qi);
+      hopper::mbar_expect_tx(qfull, q_bytes);
+      hopper::tma_load(qbuf, &maps.q, qfull, 0, h, q0, b);
+      hopper::tma_load(qbuf + R::do_main, &maps.dout, qfull, 0, h, q0, b);
+      if (kTail) {
+        hopper::tma_load(qbuf + R::q_tail, &maps.q_tail, qfull, kMainCols, h, q0, b);
+        hopper::tma_load(qbuf + R::do_tail, &maps.dout_tail, qfull, kMainCols, h, q0, b);
       }
     }
-    __syncthreads();  // the next prefetch overwrites this buffer
+    if (b != ext_b) {  // while the first Q copies are in flight
+      ntiles = key_tiles(a, b);
+      ext_b = b;
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int pos = it + j, s = pos % R::stages;
+      const uint32_t st = base + R::stages_offset + s * R::stage_bytes;
+      const uint32_t full = R::full(base, s);
+      const int key0 = j * kKeys;
+      float bias[4];  // loaded before the wait, so their latency hides behind it
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bias[e] = key_bias(a, b, key0 + 32 * e + lane);
+      if (issue) {
+        if (pos >= R::stages) hopper::mbar_wait(R::empty(base, s), ((pos / R::stages) - 1) & 1);
+        hopper::mbar_tx(full, tile_bytes);
+        hopper::tma_load(st, &maps.k, full, 0, h, key0, b);
+        hopper::tma_load(st + R::v_main, &maps.v, full, 0, h, key0, b);
+        if (kTail) {
+          hopper::tma_load(st + R::k_hi, &maps.k, full, kMainCols, h, key0, b);
+          hopper::tma_load(st + R::v_tail, &maps.v_tail, full, kMainCols, h, key0, b);
+        }
+      }
+      __syncwarp();  // lane 0 has seen the stage free
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hopper::st_shared(st + R::bias + 4 * (32 * e + lane), __float_as_uint(bias[e]));
+      }
+      __syncwarp();
+      if (issue) hopper::mbar_arrive(full);  // publishes the biases (a release)
+    }
+    it += ntiles;
   }
-  T* dq_out = p.dq + b * p.dqs.sb + h * p.dqs.sh;
-  store_acc(dq, dq_out, p.dqs.sn, q0 + warp * 16, p.N, p.dh, lane);
 }
 
-template <typename T>
-BwdParams<T> make_params(const void* q, const void* k, const void* v, const void* dout,
-                         const float* madd, const float* lse, const float* delta, void* dq,
-                         void* dk, void* dv, int B, int H, int N, int M, int dh,
-                         const long long* st, float scale, float ds_scale) {
-  auto s3 = [&](int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; };
-  return BwdParams<T>{static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), static_cast<const T*>(dout), madd, lse, delta,
-                      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-                      s3(0), s3(1), s3(2), s3(3), s3(4), s3(5), s3(6),
-                      B, H, N, M, dh, scale, ds_scale};
+// ---------------------------------------------------------------- dkv
+
+// dkv item r: (batch * head bh, key tile kt). Without a mask, key tiles run
+// fastest, so the blocks in flight stream the same head's q and dO from L2.
+// With one, batch * head runs fastest: the items past a caption's extent
+// (which cost only their zeros) then fall on blocks of their own instead of
+// beside a live item of the same caption.
+__device__ __forceinline__ void dkv_item(const Args& a, int r, int nkt, int& bh, int& kt) {
+  if (a.madd == nullptr) {
+    bh = r / nkt;
+    kt = r - bh * nkt;
+  } else {
+    const int BH = a.B * a.H;
+    kt = r / BH;
+    bh = r - kt * BH;
+  }
 }
 
-template <typename T>
-cudaError_t launch_dkv(const BwdParams<T>& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(dkv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + kBwdRows - 1) / kBwdRows, p.B * p.H);
-  dkv_kernel<T><<<grid, kBwdThreads, kDkvSmem, stream>>>(p);
-  return cudaGetLastError();
+template <typename TOut, bool kTail>
+__device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg) {
+  using R = DkvRing;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nkt = (a.M + kKeys - 1) / kKeys, nqt = (a.N + kQTile - 1) / kQTile;
+  const int runs = nkt * a.B * a.H;
+  int it = 0;  // ring position of the current item's first q tile
+  auto slot = [&](int i) { return (it + i) % R::stages; };
+  auto stage = [&](int i) { return base + R::stages_offset + slot(i) * R::stage_bytes; };
+
+  float s[32], dp[32], dk[40], dv[40];
+  uint32_t pt[4][4], dst[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[i][e] = dst[i][e] = 0u;
+  uint32_t ka[5][4], va[5][4];  // this warpgroup's K and V rows as wgmma A fragments
+  float bias0, bias1;
+
+  auto acquire = [&](int i) {
+    hopper::mbar_wait(R::full(base, slot(i)), ((it + i) / R::stages) & 1);
+    hopper::wgmma_fence();
+  };
+  auto release = [&](int i) {
+    if (lane == 0) hopper::mbar_arrive(R::empty(base, slot(i)));
+  };
+  // S^T = K.Q^T and dP^T = V.dO^T of tile i (keys x queries), one commit group
+  auto issue_sdp = [&](int i) {
+    const uint32_t st = stage(i);
+    const uint64_t bq = hopper::smem_desc(st, 1024, kSwizzle128);
+    const uint64_t bo = hopper::smem_desc(st + R::do_lo, 1024, kSwizzle128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(s, ka[kk], bq + 2 * kk, kk > 0);
+    if (kTail) {
+      hopper::wgmma_rs_n64_kmajor(s, ka[4], hopper::smem_desc(st + R::q_hi, 1024, kSwizzle128), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(dp, va[kk], bo + 2 * kk, kk > 0);
+    if (kTail) {
+      hopper::wgmma_rs_n64_kmajor(dp, va[4], hopper::smem_desc(st + R::do_hi, 1024, kSwizzle128),
+                                  1);
+    }
+    hopper::wgmma_commit();
+  };
+  // dV += P^T.dO and dK += dS^T.Q of tile i, q and dO read MN-major: a
+  // k-step is 16 query rows of 128 bytes in each of the tile's two atoms
+  auto issue_dkv = [&](int i) {
+    const uint32_t st = stage(i);
+    const uint64_t bq = hopper::smem_desc(st, 1024, kSwizzle128, R::q_hi);
+    const uint64_t bo = hopper::smem_desc(st + R::do_lo, 1024, kSwizzle128, R::q_hi);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kTail) {
+        hopper::wgmma_rs_n80(dv, pt[kk], bo + kk * (16 * 128 / 16));
+        hopper::wgmma_rs_n80(dk, dst[kk], bq + kk * (16 * 128 / 16));
+      } else {
+        hopper::wgmma_rs_n64(dv, pt[kk], bo + kk * (16 * 128 / 16));
+        hopper::wgmma_rs_n64(dk, dst[kk], bq + kk * (16 * 128 / 16));
+      }
+    }
+    hopper::wgmma_commit();
+  };
+  // in s, P^T = exp2(s * scale + bias - lse); in dp, dS^T = P^T (dP^T - delta) ds_scale
+  auto grads = [&](int i) {
+    const uint32_t st = stage(i) + 8 * t;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float l0, l1, d0, d1;
+      ld_shared_v2(st + R::lse + 32 * c, l0, l1);
+      ld_shared_v2(st + R::delta + 32 * c, d0, d1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = attn::fast_exp2(fmaf(s[4 * c + e], a.scale, e < 2 ? bias0 : bias1) -
+                                        ((e & 1) ? l1 : l0));
+        dp[4 * c + e] = p * (dp[4 * c + e] - ((e & 1) ? d1 : d0)) * a.ds_scale;
+        s[4 * c + e] = p;
+      }
+    }
+  };
+
+  int n = 0;  // items this block has swept
+  int ext_b = -1, ntiles = 0;
+  for (int r = blockIdx.x; r < runs; r += gridDim.x) {
+    int bh, kt;
+    dkv_item(a, r, nkt, bh, kt);
+    const int b = bh / a.H, h = bh - b * a.H;
+    if (b != ext_b) {
+      ntiles = key_tiles(a, b);
+      ext_b = b;
+    }
+    const int r0 = kt * kKeys + 64 * wg + 16 * warp + g;  // this thread's keys r0, r0 + 8
+#pragma unroll
+    for (int i = 0; i < 40; ++i) dk[i] = dv[i] = 0.f;
+    if (kt < ntiles) {  // else every key lies past the extent: dK = dV = 0
+      const int kb = n & 1;
+      const uint32_t kv = base + kb * R::kv_bytes;
+      bias0 = key_bias(a, b, r0);
+      bias1 = key_bias(a, b, r0 + 8);
+      hopper::mbar_wait(R::kvfull(base, kb), (n >> 1) & 1);
+      load_a<kTail>(ka, kv, kv + R::k_tail, 64 * wg + 16 * warp + g, t);
+      load_a<kTail>(va, kv + R::v_main, kv + R::v_tail, 64 * wg + 16 * warp + g, t);
+
+      acquire(0);
+      issue_sdp(0);
+      hopper::wgmma_wait<0>();
+      hopper::hold(s);
+      hopper::hold(dp);
+      grads(0);
+      pack_a(pt, s);
+      pack_a(dst, dp);
+      for (int i = 1; i < nqt; ++i) {
+        acquire(i);
+        issue_sdp(i);
+        issue_dkv(i - 1);
+        hopper::wgmma_wait<1>();
+        hopper::hold(s);
+        hopper::hold(dp);
+        grads(i);
+        hopper::wgmma_wait<0>();
+        hopper::hold(dk);
+        hopper::hold(dv);
+        hopper::hold(pt);
+        hopper::hold(dst);
+        release(i - 1);
+        pack_a(pt, s);
+        pack_a(dst, dp);
+      }
+      hopper::wgmma_fence();
+      issue_dkv(nqt - 1);
+      hopper::wgmma_wait<0>();
+      hopper::hold(dk);
+      hopper::hold(dv);
+      release(nqt - 1);
+      if (lane == 0) hopper::mbar_arrive(R::kvempty(base, kb));
+      it += nqt;
+      ++n;
+    }
+    store_rows<TOut>(dk, a.dk, a.dks, b, h, r0, a.M, a.dh);
+    store_rows<TOut>(dv, a.dv, a.dvs, b, h, r0, a.M, a.dh);
+  }
 }
 
-template <typename T>
-cudaError_t launch_dq(const BwdParams<T>& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kBwdRows - 1) / kBwdRows, p.B * p.H);
-  dq_kernel<T><<<grid, kBwdThreads, kDqSmem, stream>>>(p);
-  return cudaGetLastError();
+template <bool kTail>
+__device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uint32_t base) {
+  using R = DkvRing;
+  const int lane = threadIdx.x & 31;
+  const bool issue = lane == 0;
+  const int nkt = (a.M + kKeys - 1) / kKeys, nqt = (a.N + kQTile - 1) / kQTile;
+  const int runs = nkt * a.B * a.H;
+  const uint32_t kv_bytes = kTail ? R::kv_bytes : 2 * kMainBytes;
+  const uint32_t tile_bytes = kTail ? 4 * kQAtom : 2 * kQAtom;
+  int it = 0, n = 0, ext_b = -1, ntiles = 0;
+  for (int r = blockIdx.x; r < runs; r += gridDim.x) {
+    int bh, kt;
+    dkv_item(a, r, nkt, bh, kt);
+    const int b = bh / a.H, h = bh - b * a.H;
+    if (b != ext_b) {
+      ntiles = key_tiles(a, b);
+      ext_b = b;
+    }
+    if (kt >= ntiles) continue;  // the consumers write zeros
+    const int kb = n & 1;
+    const int key0 = kt * kKeys;
+    if (issue) {
+      const uint32_t kv = base + kb * R::kv_bytes;
+      const uint32_t kvfull = R::kvfull(base, kb);
+      if (n >= 2) hopper::mbar_wait(R::kvempty(base, kb), ((n >> 1) - 1) & 1);
+      hopper::mbar_expect_tx(kvfull, kv_bytes);
+      hopper::tma_load(kv, &maps.k, kvfull, 0, h, key0, b);
+      hopper::tma_load(kv + R::v_main, &maps.v, kvfull, 0, h, key0, b);
+      if (kTail) {
+        hopper::tma_load(kv + R::k_tail, &maps.k_tail, kvfull, kMainCols, h, key0, b);
+        hopper::tma_load(kv + R::v_tail, &maps.v_tail, kvfull, kMainCols, h, key0, b);
+      }
+    }
+    const float* lse = a.lse + static_cast<long long>(bh) * a.N;
+    const float* delta = a.delta + static_cast<long long>(bh) * a.N;
+    for (int i = 0; i < nqt; ++i) {
+      const int pos = it + i, s = pos % R::stages;
+      const uint32_t st = base + R::stages_offset + s * R::stage_bytes;
+      const uint32_t full = R::full(base, s);
+      const int q0 = i * kQTile;
+      float l[2], d[2];  // loaded before the wait, so their latency hides behind it
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = q0 + 32 * e + lane;
+        l[e] = row < a.N ? __ldg(lse + row) : CUDART_INF_F;
+        d[e] = row < a.N ? __ldg(delta + row) : 0.f;
+      }
+      if (issue) {
+        if (pos >= R::stages) hopper::mbar_wait(R::empty(base, s), ((pos / R::stages) - 1) & 1);
+        hopper::mbar_tx(full, tile_bytes);
+        hopper::tma_load(st, &maps.q, full, 0, h, q0, b);
+        hopper::tma_load(st + R::do_lo, &maps.dout, full, 0, h, q0, b);
+        if (kTail) {
+          hopper::tma_load(st + R::q_hi, &maps.q, full, kMainCols, h, q0, b);
+          hopper::tma_load(st + R::do_hi, &maps.dout, full, kMainCols, h, q0, b);
+        }
+      }
+      __syncwarp();  // lane 0 has seen the stage free
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        hopper::st_shared(st + R::lse + 4 * (32 * e + lane), __float_as_uint(l[e]));
+        hopper::st_shared(st + R::delta + 4 * (32 * e + lane), __float_as_uint(d[e]));
+      }
+      __syncwarp();
+      if (issue) hopper::mbar_arrive(full);  // publishes lse and delta (a release)
+    }
+    it += nqt;
+    ++n;
+  }
 }
 
-}  // namespace attn
+// ---------------------------------------------------------------- kernels
+
+__device__ __forceinline__ uint32_t smem_base() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  return (attn::smem_addr(smem_raw) + 1023) & ~1023u;
+}
+
+template <typename TOut, bool kTail, int kQBufs>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using R = DqRing<kQBufs>;
+  const uint32_t base = smem_base();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::stages; ++s) {
+      hopper::mbar_init(R::full(base, s), 1);   // the producer's arrive, after the biases
+      hopper::mbar_init(R::empty(base, s), 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < R::qbufs; ++i) {
+      hopper::mbar_init(R::qfull(base, i), 1);
+      hopper::mbar_init(R::qempty(base, i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 2 * 128 + 32) dq_produce<kTail, kQBufs>(maps, a, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    dq_consume<TOut, kTail, kQBufs>(a, base, wg);
+  }
+}
+
+template <typename TOut, bool kTail>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel(const __grid_constant__ Maps maps, const Args a) {
+  using R = DkvRing;
+  const uint32_t base = smem_base();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::stages; ++s) {
+      hopper::mbar_init(R::full(base, s), 1);   // the producer's arrive, after lse and delta
+      hopper::mbar_init(R::empty(base, s), 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(R::kvfull(base, i), 1);
+      hopper::mbar_init(R::kvempty(base, i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 2 * 128 + 32) dkv_produce<kTail>(maps, a, base);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    dkv_consume<TOut, kTail>(a, base, wg);
+  }
+}
+
+// ---------------------------------------------------------------- host
+
+// A bf16 view as a 64-column 128B-swizzled map of `box_rows` rows and, with
+// `tail` and dh > 64, its 16-column 32B-swizzled map for columns [64, 80).
+inline int encode_view(CUtensorMap* main, CUtensorMap* tail, const void* ptr, int B, int rows,
+                       int H, int dh, const attn::Strides& s, int box_rows) {
+  int err = hopper::encode(main, ptr, B, rows, H, dh, s, kMainCols, CU_TENSOR_MAP_SWIZZLE_128B,
+                           box_rows);
+  if (!err && tail != nullptr && dh > kMainCols)
+    err = hopper::encode(tail, ptr, B, rows, H, dh, s, kTailCols, CU_TENSOR_MAP_SWIZZLE_32B,
+                         box_rows);
+  return err;
+}
+
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+template <typename Kernel>
+int run(Kernel* kernel, int smem_bytes, long long items, const Maps& maps, const Args& a,
+        cudaStream_t stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long sms = sm_count();
+  kernel<<<static_cast<unsigned>(items < sms ? items : sms), kThreads, smem_bytes, stream>>>(
+      maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The (batch, row, head) strides of view i of the 21 the entry points take.
+inline attn::Strides strided(const long long* strides, int i) {
+  return attn::Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+inline bool valid_shape(int N, int M, int dh) {
+  return N >= 1 && M >= 1 && dh % 8 == 0 && dh <= kMainCols + kTailCols;
+}
+
+}  // namespace bwd
 
 // q/dout/dq are [B, N, H, dh] views and k/v/dk/dv [B, M, H, dh] views, each
 // given by its (batch, row, head) strides in elements, in the order q, k, v,
-// dout, dq, dk, dv (21 values in `strides`); all bf16, or f32 when `f32` is
-// non-zero. lse and delta are [B * H, N] f32; madd is [B, M] f32 or null.
-// Each returns the CUDA error code of its launch (0 on success).
+// dout, dq, dk, dv (21 values in `strides`). q, k, v and dout are bf16 with
+// a unit column stride and 16-byte aligned rows (TMA reads them in place);
+// the gradients are bf16, or f32 when `f32` is non-zero. lse and delta are
+// [B * H, N] f32; madd is [B, M] f32 or null. Each returns 0, the CUDA
+// error code of its launch, or 10000 + the CUresult of a tensor map that
+// could not be encoded.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const float* madd, const float* lse, const float* delta, void* dk,
                              void* dv, int f32, int B, int H, int N, int M, int dh,
                              const long long* strides, float scale, float ds_scale,
                              void* stream) {
-  using namespace attn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      f32 ? launch_dkv(make_params<float>(q, k, v, dout, madd, lse, delta, nullptr, dk, dv, B, H,
-                                          N, M, dh, strides, scale, ds_scale), s)
-          : launch_dkv(make_params<bf16>(q, k, v, dout, madd, lse, delta, nullptr, dk, dv, B, H,
-                                         N, M, dh, strides, scale, ds_scale), s);
-  return static_cast<int>(err);
+  using namespace bwd;
+  if (!valid_shape(N, M, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s3 = [&](int i) { return strided(strides, i); };
+  Maps maps{};
+  int err = encode_view(&maps.q, nullptr, q, B, N, H, dh, s3(0), kQTile);
+  if (!err) err = encode_view(&maps.dout, nullptr, dout, B, N, H, dh, s3(3), kQTile);
+  if (!err) err = encode_view(&maps.k, &maps.k_tail, k, B, M, H, dh, s3(1), kKeys);
+  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), kKeys);
+  if (err) return err;
+  const Args a{madd, lse, delta, nullptr, dk, dv, {}, s3(5), s3(6), B, H, N, M, dh,
+               scale, ds_scale};
+  const long long items = static_cast<long long>((M + kKeys - 1) / kKeys) * B * H;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bytes = DkvRing::smem_bytes;
+  if (dh > kMainCols) {
+    return f32 ? run(dkv_kernel<float, true>, bytes, items, maps, a, st)
+               : run(dkv_kernel<bf16, true>, bytes, items, maps, a, st);
+  }
+  return f32 ? run(dkv_kernel<float, false>, bytes, items, maps, a, st)
+             : run(dkv_kernel<bf16, false>, bytes, items, maps, a, st);
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -381,16 +852,41 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int f32, int B, int H, int N, int M, int dh,
                             const long long* strides, float scale, float ds_scale,
                             void* stream) {
-  using namespace attn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      f32 ? launch_dq(make_params<float>(q, k, v, dout, madd, lse, delta, dq, nullptr, nullptr,
-                                         B, H, N, M, dh, strides, scale, ds_scale), s)
-          : launch_dq(make_params<bf16>(q, k, v, dout, madd, lse, delta, dq, nullptr, nullptr,
-                                        B, H, N, M, dh, strides, scale, ds_scale), s);
-  return static_cast<int>(err);
+  using namespace bwd;
+  if (!valid_shape(N, M, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s3 = [&](int i) { return strided(strides, i); };
+  Maps maps{};
+  int err = encode_view(&maps.q, &maps.q_tail, q, B, N, H, dh, s3(0), kRows);
+  if (!err) err = encode_view(&maps.dout, &maps.dout_tail, dout, B, N, H, dh, s3(3), kRows);
+  if (!err) err = encode_view(&maps.k, nullptr, k, B, M, H, dh, s3(1), kKeys);
+  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), kKeys);
+  if (err) return err;
+  const Args a{madd, lse, delta, dq, nullptr, nullptr, s3(4), {}, {}, B, H, N, M, dh,
+               scale, ds_scale};
+  const long long items = static_cast<long long>((N + kRows - 1) / kRows) * B * H;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= kShortKeys) {
+    const int bytes = DqRing<2>::smem_bytes;
+    if (dh > kMainCols) {
+      return f32 ? run(dq_kernel<float, true, 2>, bytes, items, maps, a, st)
+                 : run(dq_kernel<bf16, true, 2>, bytes, items, maps, a, st);
+    }
+    return f32 ? run(dq_kernel<float, false, 2>, bytes, items, maps, a, st)
+               : run(dq_kernel<bf16, false, 2>, bytes, items, maps, a, st);
+  }
+  const int bytes = DqRing<1>::smem_bytes;
+  if (dh > kMainCols) {
+    return f32 ? run(dq_kernel<float, true, 1>, bytes, items, maps, a, st)
+               : run(dq_kernel<bf16, true, 1>, bytes, items, maps, a, st);
+  }
+  return f32 ? run(dq_kernel<float, false, 1>, bytes, items, maps, a, st)
+             : run(dq_kernel<bf16, false, 1>, bytes, items, maps, a, st);
 }
 
-// Dynamic shared memory of one block (bytes).
-extern "C" int flash_bwd_dkv_smem_bytes() { return attn::kDkvSmem; }
-extern "C" int flash_bwd_dq_smem_bytes() { return attn::kDqSmem; }
+// Dynamic shared memory of one block (bytes); keys per K/V tile (the unit of
+// the key extent, and the keys of one dkv item) and the depth of dq's K/V
+// ring, which the wrapper checks against its own.
+extern "C" int flash_bwd_dkv_smem_bytes() { return bwd::DkvRing::smem_bytes; }
+extern "C" int flash_bwd_dq_smem_bytes() { return bwd::DqRing<1>::smem_bytes; }
+extern "C" int flash_backward_key_tile() { return bwd::kKeys; }
+extern "C" int flash_backward_key_stages() { return bwd::DqRing<1>::stages; }

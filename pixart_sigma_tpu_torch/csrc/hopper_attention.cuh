@@ -71,23 +71,18 @@
 // TPU kernels pad K/V.
 #pragma once
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include <algorithm>
 #include <cstdint>
 #include <limits>
 #include <type_traits>
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace hopper {
 
 constexpr int kRows = 128;     // query rows per item: two consumer warpgroups x 64
 constexpr int kKeys = 128;     // keys per tile, the wgmma N of S = Q.K^T
 constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int kMainCols = 64;  // head-dim columns [0, 64): 128-byte rows, 128B swizzle
-constexpr int kTailCols = 16;  // Q and K columns [64, 80): 32-byte rows, 32B swizzle
 constexpr int kMainTile = kKeys * kMainCols * 2;  // 16384 B
 constexpr int kTailTile = kKeys * kTailCols * 2;  // 4096 B
 static_assert(kRows == kKeys, "Q and K/V chunks share one TMA box");
@@ -99,7 +94,6 @@ constexpr int kVOff = kMainTile, kVTailOff = 2 * kMainTile, kKTailOff = 3 * kMai
 constexpr int kStageBytes = 3 * kMainTile + kTailTile;
 constexpr int kQBytes = kMainTile + kTailTile;  // one Q buffer: main, tail
 constexpr int kBiasBytes = kKeys * 4;
-constexpr int kEncodeError = 10000;  // + CUresult of a failed tensor-map encode
 constexpr int kCrossMaxKeys = 512;   // caption keys the cross mode takes
 
 // The block's shared memory: the Q buffers, the K/V stages, each stage's
@@ -149,211 +143,6 @@ struct Args {
   const unsigned char* kmask;  // cross mode: [B, M] key mask, a byte per key, nonzero = valid
   long long kmask_sb;          // its batch stride (bytes)
 };
-
-// ---------------------------------------------------------------- device
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Raises the bytes the barrier's current phase waits for, without arriving.
-__device__ __forceinline__ void mbar_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spins until the barrier's phase of `parity` completes. A wait that lasts
-// 2^28 polls (many seconds) traps, so a pipeline fault ends the launch with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
-// aligned) into shared memory at `dst`; they complete the mbarrier `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// A box of the 4D map (coordinates: column, head, row, batch) into shared
-// memory at `dst`; its bytes complete the mbarrier `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// The box of shared memory at `src` into the 4D map, clipped to its bounds;
-// completes with the issuing thread's bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int col, int head,
-                                          int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(head), "r"(row),
-      "r"(batch)
-      : "memory");
-}
-
-// Commits this thread's bulk stores as one group and waits until all but
-// the newest N groups have read their shared memory (the global writes
-// finish on their own).
-template <int N>
-__device__ __forceinline__ void tma_store_commit_wait_read() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// Named barriers 1 and 2 over the 256 consumer threads (0 is __syncthreads).
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Named barrier 3 + wg over the 128 threads of consumer warpgroup wg.
-__device__ __forceinline__ void bar_sync_warpgroup(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the wait that ends it.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void hold(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
-
-// wgmma shared-memory matrix descriptor: start address, leading byte offset
-// (for an MN-major operand, the distance between its 64-column swizzle
-// atoms; unused by K-major ones), stride byte offset between 8-row groups
-// (8 rows of 128 or 32 bytes) and the swizzle mode; offsets in 16-byte
-// units. Adding n to a descriptor moves its start by 16 n bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t group_bytes,
-                                              uint64_t swizzle, uint32_t atom_bytes = 16) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(atom_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(group_bytes >> 4) << 32) | (swizzle << 62);
-}
-
-// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64]: A from registers, B MN-major in
-// shared memory (d[32..39] untouched).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[40], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d[64 x 80] += A[64 x 16] . B[16 x 80]: as wgmma_rs_n64, B spanning two
-// 64-column swizzle atoms.
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
 
 // The work: runs r = blockIdx.x, blockIdx.x + gridDim.x, ... < runs, each
 // one (batch * head) bh and its query tiles [t0, t1). Self-attention: a run
@@ -826,43 +615,6 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
 }
 
 // ---------------------------------------------------------------- host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver library that the process already
-// uses, so the kernels link against nothing beyond the CUDA runtime.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 [B, rows, H, dh] view with element strides `s` as a 4D map over
-// (column, head, row, batch): boxes of `cols` columns x `box_rows` rows of
-// one head, zero-filled (or, stored, clipped) past dh and past `rows`.
-inline int encode(CUtensorMap* map, const void* ptr, int B, int rows, int H, int dh,
-                  const attn::Strides& s, int cols, CUtensorMapSwizzle swizzle,
-                  int box_rows = kKeys) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.sh) * 2,
-                                 static_cast<cuuint64_t>(s.sn) * 2,
-                                 static_cast<cuuint64_t>(s.sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
-}
 
 struct Launch {
   Maps maps;

@@ -20,6 +20,8 @@ plain version.
   `crossattn_allheads`, on other views.
 - Their gradients run `csrc/flash_backward.cu`: `flash_bwd_dkv` and
   `flash_bwd_dq`, the counterparts of `_bwd_dkv_kernel` and `_bwd_dq_kernel`.
+  With a key mask both visit only the key tiles up to each batch element's
+  last valid key (`caption_key_extent`), found in the kernel from the bias.
   As in the JAX package, the backward of `crossattn_allheads` recomputes the
   output and logsumexp through `onepass_attention` on [B, N, H, Dh] views of
   the flat tensors.
@@ -64,6 +66,10 @@ KEY_STAGES = 3  # depth of their K/V ring; both are checked against the library 
 # ones stream); checked against the library at load
 CROSS_KEY_TILE = 128
 CROSS_KEY_STAGES = 2
+# The backward pair: keys per K/V tile (the unit of its key extent, and the
+# keys of one dK/dV item) and the depth of dq's K/V ring; checked at load
+BWD_KEY_TILE = 128
+BWD_KEY_STAGES = 3
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -100,7 +106,8 @@ def caption_key_extent(key_mask: torch.Tensor, tile: int = CROSS_KEY_TILE) -> to
     ([B] int64). Past it every such row has p = exp2(-1e30 - m) = 0 exactly.
     A row with no valid key keeps every key, M rounded up to `tile`: it
     averages all of V (sum(V) / pad128(M)). The last index, not the count,
-    as masks need not be prefixes."""
+    as masks need not be prefixes. The backward kernels (dkv, dq) apply the
+    same rule to the mask bias row in tiles of BWD_KEY_TILE."""
     M = key_mask.shape[-1]
     keys = torch.arange(1, M + 1, device=key_mask.device)
     last = torch.where(key_mask.bool(), keys, 0).amax(-1)
@@ -249,7 +256,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tma_operand(x: torch.Tensor) -> torch.Tensor:
-    """q, k or v as the Hopper forward kernels (onepass, flash) read it
+    """q, k, v or dO as the Hopper kernels (onepass, flash, dkv, dq) read it
     through TMA: bf16 (f32 is rounded, as the tensor cores multiply in bf16
     anyway), `_aligned`, and the strides positive and below 2^40 bytes. A
     view that meets this, such as a column slice of the qkv projection, is
@@ -264,8 +271,8 @@ TMA_ENCODE_ERROR = 10000  # the Hopper kernels' code base for a failed tensor-ma
 
 
 def _hopper_error(err: int) -> str:
-    """The return code of a Hopper forward kernel's C entry point (onepass,
-    flash, allheads, headsmajor), in words."""
+    """The return code of a Hopper kernel's C entry point (onepass, flash,
+    allheads, headsmajor, dkv, dq), in words."""
     if err >= TMA_ENCODE_ERROR:
         return f"TMA tensor map encode failed: CUresult {err - TMA_ENCODE_ERROR}"
     return f"CUDA error {err}"
@@ -293,10 +300,11 @@ def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Ten
 
 def _check_key_geometry(lib, name: str, tile: int = KEY_TILE, stages: int = KEY_STAGES):
     """`lib` (onepass_attention or flash_forward with KEY_TILE and KEY_STAGES;
-    cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES), once its keys
-    per tile and K/V stages are found to be `tile` and `stages`, by which
-    `_tile_bias` pads the mask of onepass and flash, and the tests and the
-    planted faults pick their key counts."""
+    cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES; flash_backward
+    with BWD_KEY_TILE and BWD_KEY_STAGES), once its keys per tile and K/V
+    stages are found to be `tile` and `stages`, by which `_tile_bias` pads
+    the mask of onepass and flash, and the tests and the planted faults pick
+    their key counts."""
     got = (getattr(lib, f"{name}_key_tile")(), getattr(lib, f"{name}_key_stages")())
     if got != (tile, stages):
         raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through {got[1]} "
@@ -333,7 +341,8 @@ def _flash_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _backward_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_backward")
+    lib = _check_key_geometry(_build.load("flash_backward"), "flash_backward", BWD_KEY_TILE,
+                              BWD_KEY_STAGES)
     strides = ctypes.POINTER(_L)
     lib.flash_bwd_dkv.argtypes = [_P] * 9 + [_I] * 6 + [strides, _F, _F, _P]
     lib.flash_bwd_dq.argtypes = [_P] * 8 + [_I] * 6 + [strides, _F, _F, _P]
@@ -490,16 +499,24 @@ crossattn_allheads.launches = 0
 # ---------------------------------------------------------------- backward
 
 
-def _backward_args(name, q, k, v, do, madd, lse, delta):
-    B, N, H, Dh = q.shape
+def _backward_operands(name, q, k, v, do, madd, lse, delta):
+    """The backward kernels' operands: q, k, v and dO through `_tma_operand`
+    (bf16, views read in place), the [B, M] mask bias, lse and delta as
+    contiguous f32 rows."""
+    B, N, H, _ = q.shape
     M = k.shape[1]
-    _check_cuda(name, q, k, v, do)
-    _check_head_dim(name, Dh)
     if do.shape != q.shape:
         raise ValueError(f"{name}: dout {do.shape} != q {q.shape}")
-    return ((_aligned(q), _aligned(k), _aligned(v), _aligned(do)),
+    return (tuple(_tma_operand(x) for x in (q, k, v, do)),
             _f32_rows(madd, (B, M), f"{name} madd"), _f32_rows(lse, (B, H, N), f"{name} lse"),
             _f32_rows(delta, (B, H, N), f"{name} delta"))
+
+
+def _backward_args(name, q, k, v, do, madd, lse, delta):
+    """`_backward_operands` of CUDA tensors the kernels take."""
+    _check_cuda(name, q, k, v, do)
+    _check_head_dim(name, q.shape[-1])
+    return _backward_operands(name, q, k, v, do, madd, lse, delta)
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -524,20 +541,21 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     scale and ds_scale as in `flash_backward_reference`."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[1:]
+    dtype = q.dtype
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dkv", q, k, v, do, madd, lse,
                                                      delta)
     B, N, H, Dh = q.shape
     M = k.shape[1]
-    dk = torch.empty((B, M, H, Dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, M, H, Dh), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = _backward_lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.dtype == torch.float32,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dtype == torch.float32,
         B, H, N, M, Dh, _strides(q, k, v, do, None, dk, dv),
         *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -550,19 +568,20 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     """dq [B, N, H, Dh]; the arguments of `flash_bwd_dkv`."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[0]
+    dtype = q.dtype
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dq", q, k, v, do, madd, lse,
                                                      delta)
     B, N, H, Dh = q.shape
     M = k.shape[1]
-    dq = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, N, H, Dh), dtype=dtype, device=q.device)
     err = _backward_lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), q.dtype == torch.float32,
+        delta.data_ptr(), dq.data_ptr(), dtype == torch.float32,
         B, H, N, M, Dh, _strides(q, k, v, do, dq, None, None),
         *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dq.launches += 1
     return dq
 

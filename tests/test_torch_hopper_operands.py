@@ -1,7 +1,8 @@
-"""The host-side preparation of the Hopper forward kernels' operands
-(`onepass_attention`, `flash_attention`, and through `_cross_operands` and
-`_key_bytes` `crossattn_allheads` and `crossattn_headsmajor`): what
-`_tma_operand` reads in place, what it copies, the key mask the cross
+"""The host-side preparation of the Hopper kernels' operands
+(`onepass_attention`, `flash_attention`, through `_cross_operands` and
+`_key_bytes` `crossattn_allheads` and `crossattn_headsmajor`, and through
+`_backward_operands` the backward pair `flash_bwd_dkv` and `flash_bwd_dq`):
+what `_tma_operand` reads in place, what it copies, the key mask the cross
 kernels read, how a launch error is reported, and the check of a library's
 key tiling against the wrapper's. Runs on the CPU."""
 
@@ -12,11 +13,14 @@ import pytest
 import torch
 
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    BWD_KEY_STAGES,
+    BWD_KEY_TILE,
     CROSS_KEY_STAGES,
     CROSS_KEY_TILE,
     KEY_STAGES,
     KEY_TILE,
     TMA_ENCODE_ERROR,
+    _backward_operands,
     _check_key_geometry,
     _cross_operands,
     _hopper_error,
@@ -174,3 +178,61 @@ def test_cross_key_mask_is_read_as_bytes(M):
     assert got.stride(-1) == 1 and torch.equal(got, mask)
     with pytest.raises(ValueError, match="key_mask on cpu"):
         _key_bytes(mask, torch.device("meta"), "test")
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80)])
+def test_backward_operands_read_qkv_slices_in_place(heads, dh):
+    """The backward pair reads q, k and v sliced from one qkv projection
+    output, and dO, in place (bf16, TMA-readable strides); the mask bias,
+    lse and delta become contiguous f32 rows of their own shapes."""
+    B, N = 2, 37
+    qkv = _rand(B, N, 3 * heads * dh)
+    q, k, v = (t.unflatten(-1, (heads, dh)) for t in qkv.chunk(3, dim=-1))
+    do = _rand(B, N, heads, dh)
+    madd = mask_bias(torch.arange(N)[None] < torch.tensor([N, 5])[:, None])
+    lse = _rand(B, N, heads, dtype=torch.float32).transpose(1, 2)  # strided
+    delta = _rand(B, heads, N, dtype=torch.float32)
+    (gq, gk, gv, gdo), gm, gl, gd = _backward_operands("test", q, k, v, do, madd, lse, delta)
+    for got, x in zip((gq, gk, gv, gdo), (q, k, v, do)):
+        assert got.data_ptr() == x.data_ptr() and got.stride() == x.stride()
+        assert _tma_readable(got)
+    assert gm.dtype == torch.float32 and gm.is_contiguous() and torch.equal(gm, madd)
+    assert gl.is_contiguous() and torch.equal(gl, lse) and torch.equal(gd, delta)
+    assert _backward_operands("test", q, k, v, do, None, lse, delta)[1] is None
+
+
+def test_backward_operands_round_f32_and_copy_unreadable_views():
+    """f32 q/k/v/dO are rounded to bf16 (the tensor cores multiply in bf16;
+    the gradients keep the input dtype), views TMA cannot read are copied,
+    and shapes that do not match are refused."""
+    q = _rand(2, 33, 3, 72, dtype=torch.float32)
+    k = _rand(2, 50, 3, 72)
+    odd = torch.cat([k, k[..., :4]], -1)[..., :72]  # head stride 76 elements (152 B)
+    lse = delta = torch.zeros(2, 3, 33)
+    (gq, gk, gv, gdo), *_ = _backward_operands("test", q, k, odd, q, None, lse, delta)
+    assert gq.dtype == torch.bfloat16 and torch.equal(gq, q.to(torch.bfloat16))
+    assert gk.data_ptr() == k.data_ptr() and torch.equal(gv, odd) and gv.is_contiguous()
+    assert all(_tma_readable(x) for x in (gq, gk, gv, gdo))
+    with pytest.raises(ValueError, match="dout"):
+        _backward_operands("test", q, k, k, q[:, :32], None, lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        _backward_operands("test", q, k, k, q, None, lse[:, :, :32], delta)
+    with pytest.raises(ValueError, match="madd"):
+        _backward_operands("test", q, k, k, q, torch.zeros(2, 49), lse, delta)
+
+
+@pytest.mark.parametrize("tile,stages,ok", [
+    (BWD_KEY_TILE, BWD_KEY_STAGES, True),
+    (64, BWD_KEY_STAGES, False),  # the extent and its planted fault would use the wrong tile
+    (2 * BWD_KEY_TILE, BWD_KEY_STAGES, False),
+    (BWD_KEY_TILE, BWD_KEY_STAGES - 1, False),
+])
+def test_backward_library_key_geometry_is_checked(tile, stages, ok):
+    name = "flash_backward"  # the library of flash_bwd_dkv and flash_bwd_dq
+    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
+                                   f"{name}_key_stages": lambda: stages})
+    if ok:
+        assert _check_key_geometry(lib, name, BWD_KEY_TILE, BWD_KEY_STAGES) is lib
+    else:
+        with pytest.raises(RuntimeError, match=name):
+            _check_key_geometry(lib, name, BWD_KEY_TILE, BWD_KEY_STAGES)

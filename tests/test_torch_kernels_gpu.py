@@ -250,6 +250,8 @@ def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
     (2, 300, 300, 2, 72, (300, 17), torch.bfloat16),  # ragged key mask
     (1, 200, 77, 1, 64, None, torch.bfloat16),       # a head dim below the padding
     (2, 333, 77, 2, 72, (77, 0), torch.float32),     # f32, one row with no valid key
+    (2, 333, 300, 2, 72, ((256, 300), 40), torch.bfloat16),  # a caption valid on [256, 300)
+    (2, 4080, 1020, 4, 72, None, torch.bfloat16),    # the 1088x960 training bucket
 ])
 def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32 inputs: the plain version gets q, k, v and dO rounded to bf16, as
@@ -271,6 +273,23 @@ def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     want = flash_backward_reference(pq, pk, pv, madd_b, lse, delta, pdo)
     for got, w in zip((got_dq, dk, dv), want):
         _assert_close(got, w)
+
+
+def test_backward_gradients_past_the_caption_extent_are_zero(cuda):
+    """Key tiles past a caption's last valid key are never swept: their dK
+    and dV are exactly 0, as the plain version gives; a caption with no
+    valid key keeps every tile (f32: P = 1 there, so its gradients are not
+    0)."""
+    B, N, M, H, Dh = 3, 200, 512, 2, 72
+    q, k, v, do, madd = _backward_case(cuda, B, N, M, H, Dh, (100, (130, 140), 0),
+                                       torch.float32)
+    out, lse = _onepass_forward(q, k, v, madd, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = flash_bwd_dkv(q, k, v, do, madd, lse, delta)
+    torch.cuda.synchronize()
+    for b, extent in ((0, 128), (1, 256)):
+        assert bool((dk[b, extent:] == 0).all()) and bool((dv[b, extent:] == 0).all())
+    assert bool((dk[2, 256:] != 0).any()) and bool((dv[2, 256:] != 0).any())
 
 
 def test_autograd_runs_the_kernels(cuda):
