@@ -45,6 +45,17 @@ Phases, each printing its own lines:
    and library call both queued behind a device sleep (device time) and
    host-paced (host time included); sampler and decode seconds per image,
    peak memory and a torch.profiler breakdown;
+5b. every other sampler of PixArtPipeline on the same model, prompts and
+   negative prompt (whose caption mask differs from the prompts', so iDDPM's
+   [cond, uncond] batch under the [negative, prompt] masks runs) at the
+   upstream CLI's step counts: DEIS 20, SDE-DPM-Solver++ 20, SA-Solver 25,
+   iDDPM 100, LCM 4 and the one-NFE DMD generator; for each, the onepass and
+   allheads launches against 28 per model call and no other attention
+   kernel, finite non-constant latents, one decoded non-constant image,
+   sampler and decode seconds per image (each the median of 3 calls after
+   the checked one, which warms the sampler's shapes) and peak memory, and a 256px
+   trajectory held against plain attention with the same seed (so the same
+   noise); torch.profiler breakdowns of the iDDPM and SA-Solver trajectories;
 6. the 2K path: the model of configs/pixart_sigma_config/
    PixArt_sigma_xl2_img2K_internalms_kvcompress.py (input 256, pe
    interpolation 4, KV compression on layers 14-27) with seeded random
@@ -111,6 +122,12 @@ TRAIN_CONFIG = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_internalms_
 CONFIG_2K = "configs/pixart_sigma_config/PixArt_sigma_xl2_img2K_internalms_kvcompress.py"
 STEPS_4K = 2
 TRAIN_STEPS = 4
+# the samplers of phase 5b at the upstream CLI's step counts
+# (scripts/inference.py: iddpm 100, sa-solver 25; dpm-solver, deis and
+# sde-dpm-solver 20; the LCM and DMD apps 4 and 1)
+SAMPLER_STEPS = {"deis": 20, "sde-dpm-solver": 20, "sa-solver": 25, "iddpm": 100,
+                 "lcm": 4, "dmd": 1}
+SAMPLER_TIMED = 3  # warm calls per sampler whose median is its time
 
 
 def log(*parts) -> None:
@@ -550,21 +567,25 @@ KERNEL_GROUPS = (  # kernel-name substrings -> the layer they belong to
 )
 
 
-def trace(fn, what: str, card: str) -> None:
+def trace(fn, what: str, card: str, host_ops: bool = True) -> None:
     """fn() under torch.profiler: device time by layer and the device's idle
-    share of the wall time."""
+    share of the wall time. host_ops=False records the device activity only,
+    for long trajectories: with every host op recorded, a 100-step one takes
+    over twice as long to tabulate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # user annotations (the optimizer's "Optimizer.step#CAME.step" span) carry
     # the device time of the kernels inside them, which are counted anyway
-    annotations = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    annotations = set() if not host_ops else {
+        e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in annotations and not e.key.startswith("Optimizer.")]
@@ -849,6 +870,110 @@ def hires_launches(depth: int, compressed: int, steps: int, compressed_is_flash:
     return {"onepass": 0 if compressed_is_flash else compressed * steps,
             "allheads": depth * steps, "headsmajor": 0,
             "flash": (full + (compressed if compressed_is_flash else 0)) * steps}
+
+
+def sampler_nfe(sampler: str, steps: int) -> int:
+    """Model calls of one trajectory, reckoned from the code: DEIS, the SDE
+    solver and SA-Solver (few_steps) call the model at the start and after
+    every step but the last, iDDPM and LCM once per step, DMD once; the CFG
+    batch is one call."""
+    return 1 if sampler == "dmd" else steps
+
+
+def median_s(fn, n: int = SAMPLER_TIMED) -> tuple[float, list]:
+    """The median of n timed calls of fn, in seconds, and each reading."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def run_samplers(dev, card, fa, pipe, model, prompts, negative) -> dict:
+    """Phase 5b: the other samplers through PixArtPipeline at 1024px, each
+    against its launch count, then a 256px trajectory against plain
+    attention. Returns the launches of each sampler's 1024px run."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    log("[samplers] PixArtMS_XL_2 1024px as phase 4, 2 prompts, negative prompt "
+        f"{negative!r}, CFG 4.5 where the sampler guides (LCM and DMD do not), seed 0")
+    masks = pipe.encode_prompts(prompts)[1].sum(1).tolist(), \
+        pipe.encode_prompts([negative])[1].sum(1).tolist()
+    log(f"[samplers] valid caption tokens: prompts {masks[0]}, negative {masks[1]}")
+    if masks[1][0] in masks[0]:
+        raise SystemExit("the negative prompt's mask equals a prompt's: iDDPM's mask "
+                         "pairing would not show")
+    launches = {}
+    for name, steps in SAMPLER_STEPS.items():
+        call = dict(sampler=name, num_inference_steps=steps, guidance_scale=4.5,
+                    negative_prompt=negative, seed=0)
+        nfe = sampler_nfe(name, steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_forward_counts(fa)
+        fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+        t0 = time.perf_counter()
+        lat = pipe(prompts, return_latents=True, **call)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = forward_counts(fa)
+        # under the names of the kernel entries
+        counts.update(flash_forward=counts.pop("flash"), flash_bwd_dkv=fa.flash_bwd_dkv.launches,
+                      flash_bwd_dq=fa.flash_bwd_dq.launches)
+        img = pipe._latents_to_images(torch.from_numpy(lat[:1]).to(dev))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches[name] = counts
+        expect = {"onepass": 28 * nfe, "allheads": 28 * nfe, "headsmajor": 0,
+                  "flash_forward": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+        log(f"[samplers] {name} {steps} steps, {nfe} model calls: latents {tuple(lat.shape)}, "
+            f"std {lat.std():.4f}; launches {counts} (expected {expect})")
+        if lat.shape != (2, 128, 128, 4) or not np.isfinite(lat).all() or lat.std() == 0:
+            raise SystemExit(f"{name} latents are wrong, not finite or constant")
+        if counts != expect:
+            raise SystemExit(f"{name} kernel launches {counts}, expected {expect}")
+        check_images(img, 1024, name)
+        # the run above warmed this sampler's shapes; the times are medians of
+        # SAMPLER_TIMED calls after it
+        run = median_s(lambda: pipe(prompts, return_latents=True, **call))
+        decode = median_s(lambda: pipe._latents_to_images(torch.from_numpy(lat[:1]).to(dev)))
+        log(f"[time] {card}: {name} sampler {run[0] / 2:.4f} s/img ({steps} steps, 2 images; "
+            f"median of {SAMPLER_TIMED} warm calls, each {[round(v / 2, 4) for v in run[1]]}; "
+            f"first call {first / 2:.4f}), decode {decode[0]:.4f} s/img (1 image; each "
+            f"{[round(v, 4) for v in decode[1]]}), peak memory {peak:.2f} GiB")
+
+        small = dict(call, height=256, width=256, return_latents=True)
+        lat_k = pipe(prompts, **small)
+        set_attn_impl(model, "reference")
+        try:
+            lat_r = pipe(prompts, **small)
+        finally:
+            set_attn_impl(model, "auto")
+        rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
+        log(f"[samplers] {name} 256px {steps}-step trajectory, kernels vs plain attention: "
+            f"relative L2 {rel:.3e} (tol {PATH_REL_TOL})")
+        if not np.isfinite(lat_k).all() or rel > PATH_REL_TOL:
+            raise SystemExit(f"{name} 256px trajectory disagrees with plain attention")
+    t_trace = time.perf_counter()
+    for name in ("iddpm", "sa-solver"):
+        steps = SAMPLER_STEPS[name]
+        trace(lambda: pipe(prompts, return_latents=True, sampler=name, num_inference_steps=steps,
+                           guidance_scale=4.5, negative_prompt=negative, seed=0),
+              f"1024px {name} trajectory ({steps} steps, 2 images; device activity only)",
+              card, host_ops=False)
+    t_end = time.perf_counter()
+    log(f"[samplers] phase 5b: {t_end - t_phase:.1f} s, of which the two traces "
+        f"{t_end - t_trace:.1f} s")
+    return launches
 
 
 def check_images(imgs, side: int, what: str) -> None:
@@ -1348,6 +1473,9 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": rows,
         })
+
+    # ---- 5b. the other samplers --------------------------------------------
+    launches_samplers = run_samplers(dev, card, fa, pipe, model, prompts, negative)
     del pipe, model
     torch.cuda.empty_cache()
 
@@ -1367,6 +1495,8 @@ def main() -> int:
 
     # ---- 11. backward kernel times ------------------------------------------
     entries += backward_times(cases, fa, card, launches_train, errs)
+    for entry in entries:
+        entry["launches_samplers"] = {s: c[entry["name"]] for s, c in launches_samplers.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

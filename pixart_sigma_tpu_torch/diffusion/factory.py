@@ -11,23 +11,29 @@ from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 def IDDPM(
     timestep_respacing=None,
     noise_schedule: str = "linear",
+    sigma_small: bool = False,
     predict_xstart: bool = False,
     learn_sigma: bool = True,
     pred_sigma: bool = True,
     rescale_learned_sigmas: bool = False,
     diffusion_steps: int = 1000,
 ) -> SpacedDiffusion:
-    """A SpacedDiffusion configured like the reference's IDDPM(). Its
-    use_kl, sigma_small and snr switches are not ported (GaussianDiffusion
-    says which variants are), nor is a fixed variance (learn_sigma=False)."""
-    if pred_sigma and not learn_sigma:
-        raise NotImplementedError("fixed variances are not ported (learn_sigma=False)")
+    """A SpacedDiffusion configured like the reference's IDDPM(): learned
+    range variance, or with learn_sigma=False a fixed one (small with
+    sigma_small). Its use_kl and snr switches are not ported (ROADMAP.md,
+    Queue 1 item 4)."""
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
+    if not pred_sigma:
+        var_type = None
+    elif learn_sigma:
+        var_type = ModelVarType.LEARNED_RANGE
+    else:
+        var_type = ModelVarType.FIXED_SMALL if sigma_small else ModelVarType.FIXED_LARGE
     return SpacedDiffusion.from_betas(
         betas=named_beta_schedule(noise_schedule, diffusion_steps),
         use_timesteps=space_timesteps(diffusion_steps, timestep_respacing),
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
-        model_var_type=ModelVarType.LEARNED_RANGE if pred_sigma else None,
+        model_var_type=var_type,
         loss_type=LossType.RESCALED_MSE if rescale_learned_sigmas else LossType.MSE,
     )

@@ -1,13 +1,18 @@
-"""iDDPM Gaussian diffusion: the q process, the learned-range variance, the
-variational bound and the training losses.
+"""iDDPM Gaussian diffusion: the q process, the model variances, the
+variational bound, the training losses and the sampling loops.
 
-Port of the training half of pixart_sigma_tpu/diffusion/gaussian.py, with
-the same channel-last layout ([B, H, W, C]; the learned-variance head is the
-second half of the last axis), for what the trainer runs: an epsilon or x0
-prediction, the learned-range variance (or none) and the MSE (+ VB) loss.
-The KL losses, the fixed variances, the SNR-switching objective and Min-SNR
-weighting, the masked-token losses and the sampling loops are not ported
-(the port samples with DPM-Solver, `diffusion/dpm_solver.py`).
+Port of pixart_sigma_tpu/diffusion/gaussian.py, with the same channel-last
+layout ([B, H, W, C]; a learned-variance head is the second half of the last
+axis): epsilon, x0 or x_{t-1} prediction; learned, learned-range, fixed small
+or fixed large variance; the MSE (+ VB) loss; ancestral (`p_sample_loop`),
+DDIM (`ddim_sample_loop`) and DDIM-inversion (`ddim_reverse_sample_loop`)
+trajectories as Python loops over device tensors. The KL losses, the
+SNR-switching objective and Min-SNR weighting and the masked-token losses
+are not ported (ROADMAP.md, Queue 1 item 4).
+
+Random draws: a loop takes its initial latent from the caller and its
+per-step noise from `noise_fn(k, shape)`, the k-th draw of the trajectory
+(`diffusion/noise.py`); JAX splits keys instead (ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pixart_sigma_tpu_torch.diffusion.likelihood import (
     mean_flat,
     normal_kl,
 )
+from pixart_sigma_tpu_torch.diffusion.noise import NoiseFn
 from pixart_sigma_tpu_torch.diffusion.schedules import ScheduleCoefficients, extract
 
 ModelFn = Callable[..., torch.Tensor]
@@ -58,12 +64,9 @@ class GaussianDiffusion:
         model_var_type: Optional[ModelVarType] = ModelVarType.LEARNED_RANGE,
         loss_type: LossType = LossType.MSE,
     ):
-        if model_mean_type not in (ModelMeanType.EPSILON, ModelMeanType.START_X):
-            raise NotImplementedError(f"{model_mean_type} is not ported")
-        if model_var_type not in (None, ModelVarType.LEARNED_RANGE):
-            raise NotImplementedError(f"{model_var_type} is not ported")
         if loss_type not in (LossType.MSE, LossType.RESCALED_MSE):
-            raise NotImplementedError(f"{loss_type} is not ported")
+            raise NotImplementedError(
+                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1 item 4)")
         self.coef = coef
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
@@ -72,6 +75,12 @@ class GaussianDiffusion:
     @property
     def num_timesteps(self) -> int:
         return self.coef.num_timesteps
+
+    def to(self, device) -> "GaussianDiffusion":
+        """Move the coefficient tables to `device` (sampling gathers from
+        them every step)."""
+        self.coef = self.coef.to(device)
+        return self
 
     def q_sample(self, x_start, t, noise):
         """Diffuse x_start to timestep t given unit Gaussian noise."""
@@ -92,11 +101,33 @@ class GaussianDiffusion:
         return (extract(c.sqrt_recip_alphas_cumprod, t, nd) * x_t
                 - extract(c.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
 
-    def model_variance(self, model_var_values, x_t, t):
-        """(variance, log_variance) of p(x_{t-1} | x_t) from the second half
-        of the model output, interpolated in log space between the posterior
-        variance and beta_t."""
+    def predict_eps_from_xstart(self, x_t, t, pred_xstart):
         c, nd = self.coef, x_t.ndim
+        return ((extract(c.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart)
+                / extract(c.sqrt_recipm1_alphas_cumprod, t, nd))
+
+    def predict_xstart_from_xprev(self, x_t, t, xprev):
+        c, nd = self.coef, x_t.ndim
+        coef1 = extract(c.posterior_mean_coef1, t, nd)
+        coef2 = extract(c.posterior_mean_coef2, t, nd)
+        return xprev / coef1 - (coef2 / coef1) * x_t
+
+    def model_variance(self, model_var_values, x_t, t):
+        """(variance, log_variance) of p(x_{t-1} | x_t). Learned range: the
+        second half of the model output interpolates in log space between
+        the posterior variance and beta_t; learned: it is the log-variance;
+        fixed: a table (the output half is ignored)."""
+        c, nd = self.coef, x_t.ndim
+        if self.model_var_type == ModelVarType.LEARNED:
+            return torch.exp(model_var_values), model_var_values
+        if self.model_var_type == ModelVarType.FIXED_LARGE:
+            return (extract(c.fixed_large_variance, t, nd),
+                    extract(c.fixed_large_log_variance, t, nd))
+        if self.model_var_type == ModelVarType.FIXED_SMALL:
+            return (extract(c.posterior_variance, t, nd),
+                    extract(c.posterior_log_variance_clipped, t, nd))
+        if self.model_var_type != ModelVarType.LEARNED_RANGE:
+            raise NotImplementedError(f"no model variance for {self.model_var_type}")
         min_log = extract(c.posterior_log_variance_clipped, t, nd)
         max_log = extract(c.log_betas, t, nd)
         frac = (model_var_values + 1.0) / 2.0
@@ -106,7 +137,7 @@ class GaussianDiffusion:
     def _split_output(self, model_output, x_t):
         """Split a learned-variance model output along the last axis."""
         C = x_t.shape[-1]
-        if self.model_var_type is None:
+        if self.model_var_type not in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
             return model_output, None
         if model_output.shape[-1] != 2 * C:
             raise ValueError(f"expected 2*{C} channels, got {model_output.shape[-1]}")
@@ -115,18 +146,132 @@ class GaussianDiffusion:
     def _pred_xstart(self, x_t, t, out):
         if self.model_mean_type == ModelMeanType.EPSILON:
             return self.predict_xstart_from_eps(x_t, t, out)
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            return self.predict_xstart_from_xprev(x_t, t, out)
         return out
 
-    def p_mean_variance(self, model_output, x_t, t, clip_denoised: bool = True):
-        """Mean/variance of p(x_{t-1} | x_t) and the implied x0 prediction."""
+    def p_mean_variance(self, model_output, x_t, t, clip_denoised: bool = True,
+                        denoised_fn: Optional[Callable] = None):
+        """Mean/variance of p(x_{t-1} | x_t) and the implied x0 prediction,
+        from the raw model output (the caller runs the network)."""
         out, var_values = self._split_output(model_output, x_t)
         variance, log_variance = self.model_variance(var_values, x_t, t)
         pred_xstart = self._pred_xstart(x_t, t, out)
+        if denoised_fn is not None:
+            pred_xstart = denoised_fn(pred_xstart)
         if clip_denoised:
             pred_xstart = pred_xstart.clamp(-1.0, 1.0)
-        mean = self.q_posterior_mean_variance(pred_xstart, x_t, t)[0]
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            mean = out
+        else:
+            mean = self.q_posterior_mean_variance(pred_xstart, x_t, t)[0]
         return {"mean": mean, "variance": variance, "log_variance": log_variance,
                 "pred_xstart": pred_xstart}
+
+    # -------------------------------------------------- classifier guidance
+    def condition_mean(self, cond_fn, p_mean_var, x, t):
+        """The posterior mean shifted by variance * grad log p(y | x);
+        `cond_fn(x, t)` returns that gradient (e.g. through
+        `torch.autograd.grad`)."""
+        gradient = cond_fn(x, t)
+        return p_mean_var["mean"].float() + p_mean_var["variance"] * gradient.float()
+
+    def condition_score(self, cond_fn, p_mean_var, x, t):
+        """Condition the model's score (Song et al. 2020): eps shifted by
+        -sqrt(1 - alpha_bar) * cond_fn(x, t); returns an updated p_mean_var."""
+        alpha_bar = extract(self.coef.alphas_cumprod, t, x.ndim)
+        eps = self.predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1.0 - alpha_bar) * cond_fn(x, t)
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self.predict_xstart_from_eps(x, t, eps)
+        out["mean"] = self.q_posterior_mean_variance(out["pred_xstart"], x, t)[0]
+        return out
+
+    # ---------------------------------------------------------------- sampling
+    @staticmethod
+    def _nonzero(t, x):
+        """1 where t != 0 (no noise on the last step), shaped to broadcast."""
+        return (t != 0).to(x.dtype).reshape(-1, *((1,) * (x.ndim - 1)))
+
+    @staticmethod
+    def _loop_t(i: int, x):
+        """Loop index i as a [B] tensor."""
+        return torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+
+    def p_sample(self, model_fn: ModelFn, x, t, noise, clip_denoised: bool = True,
+                 denoised_fn: Optional[Callable] = None, cond_fn: Optional[Callable] = None):
+        """One ancestral step x_t -> x_{t-1} with the given unit noise;
+        returns (sample, pred_xstart)."""
+        out = self.p_mean_variance(model_fn(x, t), x, t, clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn)
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t)
+        sample = out["mean"] + self._nonzero(t, x) * torch.exp(0.5 * out["log_variance"]) * noise
+        return sample, out["pred_xstart"]
+
+    def p_sample_loop(self, model_fn: ModelFn, noise: torch.Tensor, noise_fn: NoiseFn,
+                      clip_denoised: bool = True, denoised_fn: Optional[Callable] = None,
+                      cond_fn: Optional[Callable] = None) -> torch.Tensor:
+        """The ancestral trajectory from x_T = `noise`: `p_sample` with loop
+        index i running T-1 .. 0, taking draw k = T-1-i."""
+        x = noise
+        T = self.num_timesteps
+        for k in range(T):
+            z = noise_fn(k, x.shape).to(x.device, x.dtype)
+            x, _ = self.p_sample(model_fn, x, self._loop_t(T - 1 - k, x), z,
+                                 clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                 cond_fn=cond_fn)
+        return x
+
+    def ddim_sample_loop(self, model_fn: ModelFn, noise: torch.Tensor, noise_fn: NoiseFn,
+                         clip_denoised: bool = True, eta: float = 0.0,
+                         cond_fn: Optional[Callable] = None) -> torch.Tensor:
+        """The DDIM trajectory from x_T = `noise` (eta = 0: deterministic;
+        the draws are taken all the same, as JAX's scan takes its keys)."""
+        x = noise
+        T, c, nd = self.num_timesteps, self.coef, noise.ndim
+        for k in range(T):
+            t = self._loop_t(T - 1 - k, x)
+            out = self.p_mean_variance(model_fn(x, t), x, t, clip_denoised=clip_denoised)
+            if cond_fn is not None:
+                out = self.condition_score(cond_fn, out, x, t)
+            eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
+            alpha_bar = extract(c.alphas_cumprod, t, nd)
+            alpha_bar_prev = extract(c.alphas_cumprod_prev, t, nd)
+            sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                     * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+            mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                         + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps)
+            z = noise_fn(k, x.shape).to(x.device, x.dtype)
+            x = mean_pred + self._nonzero(t, x) * sigma * z
+        return x
+
+    def ddim_reverse_sample(self, model_output, x, t, clip_denoised: bool = True,
+                            denoised_fn: Optional[Callable] = None,
+                            cond_fn: Optional[Callable] = None, eta: float = 0.0):
+        """One deterministic DDIM reverse-ODE step x_t -> x_{t+1} (inversion)."""
+        if eta != 0.0:
+            raise ValueError("the reverse ODE is deterministic: eta must be 0")
+        out = self.p_mean_variance(model_output, x, t, clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t)
+        c, nd = self.coef, x.ndim
+        # eps re-derived, whatever the model predicts
+        eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = extract(c.alphas_cumprod_next, t, nd)
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                     + torch.sqrt(1.0 - alpha_bar_next) * eps)
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample_loop(self, model_fn: ModelFn, x: torch.Tensor,
+                                 clip_denoised: bool = True) -> torch.Tensor:
+        """The whole inversion x_0 -> x_T (t = 0 .. T-1)."""
+        for i in range(self.num_timesteps):
+            t = self._loop_t(i, x)
+            x = self.ddim_reverse_sample(model_fn(x, t), x, t,
+                                         clip_denoised=clip_denoised)["sample"]
+        return x
 
     def vb_terms_bpd(self, model_output, x_start, x_t, t, clip_denoised: bool = False):
         """Variational-bound term (bits/dim) for one timestep: the KL of the
@@ -154,7 +299,9 @@ class GaussianDiffusion:
             terms["vb"] = self.vb_terms_bpd(frozen, x_start, x_t, t)["output"]
             if self.loss_type == LossType.RESCALED_MSE:
                 terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
-        target = noise if self.model_mean_type == ModelMeanType.EPSILON else x_start
+        target = {ModelMeanType.EPSILON: lambda: noise, ModelMeanType.START_X: lambda: x_start,
+                  ModelMeanType.PREVIOUS_X: lambda: self.q_posterior_mean_variance(
+                      x_start, x_t, t)[0]}[self.model_mean_type]()
         terms["mse"] = mean_flat((target - output) ** 2)
         terms["loss"] = terms["mse"] + terms.get("vb", 0.0)
         terms["pred_xstart"] = self._pred_xstart(x_t, t, output)

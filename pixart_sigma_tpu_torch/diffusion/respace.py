@@ -1,7 +1,11 @@
 """Timestep respacing: a diffusion over a subset of the training chain.
 
 Port of pixart_sigma_tpu/diffusion/respace.py (`space_timesteps`,
-`SpacedDiffusion`).
+`SpacedDiffusion`). Every entry point that takes the model (training
+losses, `p_sample` and so `p_sample_loop`, `ddim_sample_loop`,
+`ddim_reverse_sample_loop`) feeds it the original-chain timestep, not the
+loop index. JAX's inversion loop does so only when given `timestep_map`;
+upstream's wraps the model there too.
 """
 
 from __future__ import annotations
@@ -64,10 +68,26 @@ class SpacedDiffusion(GaussianDiffusion):
         return cls(ScheduleCoefficients.create(np.array(new_betas)),
                    torch.tensor(tmap, dtype=torch.long), **kwargs)
 
+    def to(self, device) -> "SpacedDiffusion":
+        super().to(device)
+        self.timestep_map = self.timestep_map.to(device)
+        return self
+
     def map_t(self, t: torch.Tensor) -> torch.Tensor:
         """Short-chain indices -> original-chain timesteps."""
         return self.timestep_map.to(t.device)[t.long()]
 
+    def _wrap(self, model_fn):
+        return lambda x, t, **kw: model_fn(x, self.map_t(t), **kw)
+
     def training_losses(self, model_fn, *args, **kwargs):
-        return super().training_losses(
-            lambda x, t, **kw: model_fn(x, self.map_t(t), **kw), *args, **kwargs)
+        return super().training_losses(self._wrap(model_fn), *args, **kwargs)
+
+    def p_sample(self, model_fn, *args, **kwargs):
+        return super().p_sample(self._wrap(model_fn), *args, **kwargs)
+
+    def ddim_sample_loop(self, model_fn, *args, **kwargs):
+        return super().ddim_sample_loop(self._wrap(model_fn), *args, **kwargs)
+
+    def ddim_reverse_sample_loop(self, model_fn, *args, **kwargs):
+        return super().ddim_reverse_sample_loop(self._wrap(model_fn), *args, **kwargs)

@@ -106,6 +106,11 @@ class ScheduleCoefficients:
     def num_timesteps(self) -> int:
         return self.betas.shape[0]
 
+    def to(self, device) -> "ScheduleCoefficients":
+        """The same tables on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+
 
 def extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """arr [T] gathered at t [B] -> [B, 1, ..., 1] with `ndim` dims, on t's device."""

@@ -440,3 +440,44 @@ def test_onepass_lse_at_the_training_shape(cuda, M):
     if M != N:
         k, v = _randn(rng, (B, M, H, Dh), cuda), _randn(rng, (B, M, H, Dh), cuda)
     _check_forward("onepass", q, k, v)
+
+
+@pytest.fixture(scope="module")
+def toy_pipeline():
+    """A 2-block PixArtMS (width 144, 2 heads of 72, KV compression on block
+    1) on the card, bf16, seeded random weights, the pseudo text encoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+
+    dev = torch.device("cuda")
+    model = PixArtMS_XL_2(input_size=16, depth=2, hidden_size=144, num_heads=2,
+                          caption_channels=32, model_max_length=12,
+                          kv_compress_sampling="conv", kv_compress_scale=2,
+                          kv_compress_layers=(1,), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for block in model.blocks:
+            block.cross_attn.proj.weight.normal_(0.0, 0.02, generator=gen)
+        model.final_layer.linear.weight.normal_(0.0, 0.02, generator=gen)
+    return PixArtPipeline(model, t5=PseudoT5Embedder(32, 12), device=dev)
+
+
+@pytest.mark.parametrize("sampler,steps,nfe", [
+    ("dpm-solver", 4, 4), ("deis", 4, 4), ("sde-dpm-solver", 4, 4), ("sa-solver", 5, 5),
+    ("iddpm", 6, 6), ("lcm", 4, 4), ("dmd", 1, 1)])
+def test_every_sampler_runs_the_kernels(toy_pipeline, sampler, steps, nfe):
+    """One onepass and one allheads launch per block and model call (the CFG
+    batch is one call), no flash and no headsmajor, finite moving latents."""
+    counters = (onepass_attention, crossattn_allheads, flash_attention, crossattn_headsmajor)
+    for c in counters:
+        c.launches = 0
+    x0 = torch.randn((2, 16, 16, 4), generator=torch.Generator().manual_seed(1))
+    lat = toy_pipeline(["a red cat", "a dog"], height=128, width=128, sampler=sampler,
+                       num_inference_steps=steps, negative_prompt="blurry", latents=x0,
+                       return_latents=True)
+    assert [c.launches for c in counters] == [2 * nfe, 2 * nfe, 0, 0]
+    assert np.isfinite(lat).all() and np.abs(lat - x0.numpy()).max() > 1e-2

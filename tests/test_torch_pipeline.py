@@ -117,16 +117,20 @@ def test_pipeline_with_text_encoder_and_ar_prompt(pipelines):
 
 
 def test_pipeline_refuses_what_is_not_ported(pipelines):
+    """Block caching is still refused (every sampler name is ported); an
+    unknown sampler, algorithm or an SDE solver without noise is an error."""
     _, tpipe = pipelines
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpipe(["a"], sampler="deis")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpipe(["a"], block_cache_interval=2)
+    for kw in (dict(block_cache_interval=2), dict(block_cache_threshold=0.1),
+               dict(sampler="sa-solver", block_cache_schedule=[0, 2])):
+        with pytest.raises(NotImplementedError, match="not ported.*Queue 1 item 7"):
+            tpipe(["a"], **kw)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tpipe(["a"], sampler="euler")
     ns = tdpm.NoiseScheduleVP("discrete", betas=named_beta_schedule("linear", 1000))
-    with pytest.raises(NotImplementedError):
-        tdpm.DPMSolver(lambda x, t: x, ns, algorithm_type="dpmsolver")
-    with pytest.raises(NotImplementedError):
-        tdpm.DPMSolver(lambda x, t: x, ns).sample(torch.zeros(1), steps=5, order=3)
+    with pytest.raises(ValueError):
+        tdpm.DPMSolver(lambda x, t: x, ns, algorithm_type="dpm-solver")
+    with pytest.raises(ValueError, match="sample_sde"):
+        tdpm.DPMSolver(lambda x, t: x, ns, "sde-dpmsolver++").sample(torch.zeros(1), steps=5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PixArtPipeline(tpipe.model)
