@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px training
-paths on one CUDA card.
+"""Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px and 2K
+training paths, with the trainer's features, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -80,7 +80,26 @@ Phases, each printing its own lines:
    the same step through plain attention;
 11. backward times at the 1024px and 2K training shapes: each backward
    kernel (device time and host-paced), its plain version, the backward of
-   `scaled_dot_product_attention` (timed only) and the bound.
+   `scaled_dot_product_attention` (timed only) and the bound;
+12. 2K training through the Trainer at full width and depth
+   (configs/pixart_sigma_config/PixArt_sigma_xl2_img2K_internalms_kvcompress.py:
+   B = 4, the 2048 bucket table, pe interpolation 4, grad checkpointing,
+   CAME, clip 0.01) on synthetic features in the 2048x2048 and 1920x2176
+   buckets (16320 tokens: key tails in flash, dkv and dq), 4 steps:
+   launches against the reckoning (flash in layers 0-13, onepass in 14-27),
+   s/step and img/s, peak memory and a torch.profiler breakdown;
+13. the 2K gradient gate: one step's gradients through the kernels, flash's
+   autograd Function inside the model, against plain attention, on a
+   latent just past the onepass gate (4290 tokens) at depth 4, B = 2, over
+   all parameters, the worst one, and each 128-row tile of the flash
+   layers' q, k and v gradients, with two planted faults in flash's backward
+   (dQ without its ln 2 chain factor; dQ of the tail query tile zeroed) that
+   it must reject;
+14. the trainer's features at 1024px, full width (`run_features`): gradient
+   accumulation, the loss-second-moment sampler, Min-SNR, the snr
+   objective, Lion, no_weight_decay_on, the balanced sampler and a resume
+   round trip at depth 4; validation sampling with a VAE writing PNGs and
+   each remat policy at depth 28; the masked toy config.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -118,10 +137,25 @@ PATH_REL_TOL = 3e-2  # 256px trajectory, kernels vs plain attention, relative L2
 # one training step's gradients at 256px, kernels vs plain attention, relative
 # L2 over all parameters and of the worst parameter (readings 1.9e-3, 5.2e-3)
 GRAD_REL_TOL = 2e-2
+# the 2K gate's gradient of q, k and v in flash's layers, per image and
+# 128-row tile, kernels vs plain attention, relative L2 (worst tile: sound
+# 1.1e-2; planted faults 0.44 and 1.0)
+GRAD_TILE_TOL = 5e-2
 TRAIN_CONFIG = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_internalms_kvcompress.py"
 CONFIG_2K = "configs/pixart_sigma_config/PixArt_sigma_xl2_img2K_internalms_kvcompress.py"
 STEPS_4K = 2
 TRAIN_STEPS = 4
+TRAIN_STEPS_2K = 4
+# launches of one training step, counted by hand: every block launches dkv
+# and dq twice (self and cross), allheads twice (forward and its recompute)
+# and onepass once more for the cross backward; its self-attention forward
+# and recompute run onepass at 1024px (4096 or 4080 keys) and in the 2K
+# config's KV-compressed layers 14-27, flash in its layers 0-13
+TRAIN_STEP_LAUNCHES = {"onepass": 84, "allheads": 56, "flash_bwd_dkv": 56, "flash_bwd_dq": 56,
+                       "flash_forward": 0, "headsmajor": 0}
+TRAIN_2K_STEP_LAUNCHES = {"onepass": 56, "allheads": 56, "flash_bwd_dkv": 56,
+                          "flash_bwd_dq": 56, "flash_forward": 28, "headsmajor": 0}
+MASKED_TOY_CONFIG = "configs/toy/pixart_toy_img128_masked.py"
 # the samplers of phase 5b at the upstream CLI's step counts
 # (scripts/inference.py: iddpm 100, sa-solver 25; dpm-solver, deis and
 # sde-dpm-solver 20; the LCM and DMD apps 4 and 1)
@@ -612,17 +646,56 @@ def set_attn_impl(model, impl: str) -> None:
 
 
 
-def attention_launches_per_step(depth: int) -> dict:
-    """Kernel launches of one training step, reckoned from the code: each
-    block is checkpointed, so its forward runs twice (once in the forward,
-    once recomputed in the backward); each self-attention forward launches
-    onepass and each cross-attention forward allheads; each backward launches
-    dkv and dq once, and the cross-attention backward first recomputes out
-    and lse with one onepass launch. The 1024px keys fit the onepass gate, so
-    flash never runs, and headsmajor, forward-only, never does in training."""
-    return {"onepass": 3 * depth, "allheads": 2 * depth,
-            "flash_bwd_dkv": 2 * depth, "flash_bwd_dq": 2 * depth,
-            "flash_forward": 0, "headsmajor": 0}
+TRAIN_COUNTERS = {"onepass": "onepass_attention", "allheads": "crossattn_allheads",
+                  "flash_bwd_dkv": "flash_bwd_dkv", "flash_bwd_dq": "flash_bwd_dq",
+                  "flash_forward": "flash_attention", "headsmajor": "crossattn_headsmajor"}
+
+
+def reset_train_counts(fa) -> None:
+    for attr in TRAIN_COUNTERS.values():
+        getattr(fa, attr).launches = 0
+
+
+def train_counts(fa) -> dict:
+    return {name: getattr(fa, attr).launches for name, attr in TRAIN_COUNTERS.items()}
+
+
+def step_launches(mc, hw) -> dict:
+    """Kernel launches of one training micro-step of model config `mc` on a
+    latent of `hw`, reckoned from the kernels' gates as this script reads
+    them, not from the port's dispatch: a block's self-attention runs flash
+    past 4096 padded keys (128-key tiles), else onepass; its cross-attention
+    (at most 512 caption keys) allheads; a checkpointed block whose remat
+    policy does not keep the attention outputs ("nothing", "dots",
+    "dots_no_batch") runs both forwards again in the backward; each backward
+    launches dkv and dq once, and the cross-attention's first recomputes out
+    and lse with one onepass launch. Masked training runs the blocks on the
+    kept tokens. headsmajor, forward-only, never runs in training."""
+    h, w = hw[0] // mc.patch_size, hw[1] // mc.patch_size
+    n = int(h * w * (1 - mc.mask_ratio)) if mc.mask_ratio > 0 else h * w
+    if mc.model_max_length > 512:
+        raise SystemExit(f"step_launches: {mc.model_max_length} caption keys exceed allheads")
+    runs = 2 if mc.grad_checkpointing and mc.remat_policy in ("nothing", "dots",
+                                                              "dots_no_batch") else 1
+    out = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for i in range(mc.depth):
+        sr = mc.sr_ratio(i)
+        keys = n if sr == 1 else (h // sr) * (w // sr)
+        out["flash_forward" if -(-keys // 128) * 128 > 4096 else "onepass"] += runs
+        out["allheads"] += runs
+        out["onepass"] += 1
+        out["flash_bwd_dkv"] += 2
+        out["flash_bwd_dq"] += 2
+    return out
+
+
+def run_launches(mc, hws) -> dict:
+    """step_launches summed over the latents of a run's micro-steps."""
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for hw in hws:
+        for k, v in step_launches(mc, hw).items():
+            total[k] += v
+    return total
 
 
 def perturb_zero_leaves(model, gen) -> None:
@@ -636,9 +709,12 @@ def perturb_zero_leaves(model, gen) -> None:
         model.final_layer.linear.weight.normal_(0.0, 0.02, generator=gen)
 
 
-def run_training(dev, card, fa) -> dict:
-    """The port's Trainer at the 1024px operating point on a synthetic feature
-    dataset; returns the kernel launches of the run."""
+def run_training(dev, card, fa, config: str, sizes, resolution: int, steps: int, tag: str,
+                 buckets: str, per_step: dict) -> dict:
+    """The port's Trainer on `config` at its operating point on a synthetic
+    feature dataset of images of `sizes` (its aspect buckets); the run's
+    launches must be `steps` x `per_step`, the fixed counts of one step, and
+    the reckoning of step_launches. Returns the kernel launches of the run."""
     import numpy as np
     import torch
 
@@ -650,77 +726,85 @@ def run_training(dev, card, fa) -> dict:
     tmp = tempfile.mkdtemp(prefix="pixart_train_")
     try:
         t0 = time.perf_counter()
-        write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 4 + [(1088, 960)] * 4,
-                              resolution=1024, valid_tokens=(3, 19), seed=0)
-        log(f"[train] {TRAIN_CONFIG}: synthetic Sigma features for 8 items in "
-            f"{time.perf_counter() - t0:.1f} s: buckets 1024x1024 (64x64 = 4096 tokens, "
-            "1024 after KV compression) and 1088x960 (68x60 = 4080 tokens, 1020 compressed); "
-            "300-token captions with 3-19 valid")
-        cfg = read_config(TRAIN_CONFIG)
+        write_feature_dataset(os.path.join(tmp, "data"), sizes, resolution=resolution,
+                              valid_tokens=(3, 19), seed=0)
+        log(f"[{tag}] {config}: synthetic Sigma features for {len(sizes)} items in "
+            f"{time.perf_counter() - t0:.1f} s: buckets {buckets}; 300-token captions with "
+            "3-19 valid")
+        cfg = read_config(config)
         cfg.data_root = tmp
         cfg.data = dict(cfg.data, root="data", load_vae_feat=True, load_t5_feat=True)
         cfg.update(log_interval=1, save_model_steps=0, save_model_epochs=10**9)
         trainer = Trainer(cfg, os.path.join(tmp, "work"), device=dev)
         mc = trainer.model.cfg
-        log(f"[train] PixArtMS_XL_2 depth {mc.depth} width {mc.hidden_size}, kv-compress "
+        log(f"[{tag}] PixArtMS_XL_2 depth {mc.depth} width {mc.hidden_size}, input "
+            f"{mc.input_size}, pe interpolation {mc.pe_interpolation}, kv-compress "
             f"{mc.kv_compress_sampling} x{mc.kv_compress_scale} on layers "
             f"{mc.kv_compress_layers[0]}-{mc.kv_compress_layers[-1]}, batch "
-            f"{cfg.train_batch_size}, grad checkpointing {mc.grad_checkpointing}, f32 weights, "
-            f"{str(mc.dtype).split('.')[-1]} compute, CAME lr {trainer._base_lr:.3g} "
-            f"(auto-scaled), clip {cfg.gradient_clip}, EMA {cfg.ema_rate} with warmup")
+            f"{cfg.train_batch_size}, grad checkpointing {mc.grad_checkpointing} "
+            f"({mc.remat_policy}), f32 weights, {str(mc.dtype).split('.')[-1]} compute, CAME lr "
+            f"{trainer._base_lr:.3g} (auto-scaled), clip {cfg.gradient_clip}, EMA "
+            f"{cfg.ema_rate} with warmup")
         perturb_zero_leaves(trainer.model, torch.Generator(device=dev).manual_seed(0))
         before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-        counters = {"onepass": fa.onepass_attention, "allheads": fa.crossattn_allheads,
-                    "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq,
-                    "flash_forward": fa.flash_attention, "headsmajor": fa.crossattn_headsmajor}
-        for fn in counters.values():
-            fn.launches = 0
+        reset_train_counts(fa)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        state = trainer.train(max_steps=TRAIN_STEPS)
+        state = trainer.train(max_steps=steps)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = train_counts(fa)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        expect = {k: v * TRAIN_STEPS for k, v in attention_launches_per_step(mc.depth).items()}
+        expect = run_launches(mc, [h["hw"] for h in trainer.history])
         for h in trainer.history:
-            log(f"[train] step {h['step']}: latents {h['hw']}, loss {h['loss']:.5f} "
+            log(f"[{tag}] step {h['step']}: latents {h['hw']}, loss {h['loss']:.5f} "
                 f"(mse {h['mse']:.5f}, vb {h['vb']:.5f}), grad norm {h['grad_norm']:.4f}, "
                 f"lr {h['lr']:.3e}, {h['seconds']:.4f} s")
-        log(f"[train] launches {launches}; reckoned {expect} "
-            f"({TRAIN_STEPS} steps x {attention_launches_per_step(mc.depth)})")
+        per_hw = {hw: step_launches(mc, hw) for hw in sorted({h["hw"] for h in trainer.history})}
+        log(f"[{tag}] launches {launches}; reckoned {expect} ({steps} steps, per step "
+            f"{per_hw}; fixed per step {per_step})")
         moved = sum(not torch.equal(p, before[n]) for n, p in trainer.model.named_parameters())
         ema_moved = sum(not torch.equal(state.ema[n], before[n]) for n in before)
-        log(f"[train] parameters changed: {moved} of {len(before)}; EMA tensors changed: "
+        log(f"[{tag}] parameters changed: {moved} of {len(before)}; EMA tensors changed: "
             f"{ema_moved}; peak memory {peak:.2f} GiB")
         if not all(np.isfinite(h["loss"]) for h in trainer.history):
-            raise SystemExit("training loss is not finite")
-        if state.step != TRAIN_STEPS or launches != expect:
-            raise SystemExit(f"training ran {state.step} steps with launches {launches}")
+            raise SystemExit(f"{tag}: training loss is not finite")
+        fixed = {k: steps * v for k, v in per_step.items()}
+        if state.step != steps or launches != expect or launches != fixed:
+            raise SystemExit(f"{tag}: training ran {state.step} steps with launches {launches}, "
+                             f"{steps} x {per_step} expected")
         if moved < len(before) // 2 or ema_moved < len(before) // 2:
-            raise SystemExit("training left the parameters or the EMA unchanged")
+            raise SystemExit(f"{tag}: training left the parameters or the EMA unchanged")
         for hw in sorted({h["hw"] for h in trainer.history}):
             secs = [h["seconds"] for h in trainer.history[1:] if h["hw"] == hw]
             if secs:
                 mean = sum(secs) / len(secs)
-                log(f"[time] {card}: training step at latents {hw} (B = "
+                log(f"[time] {card}: {tag} step at latents {hw} (B = "
                     f"{cfg.train_batch_size}): {mean:.4f} s/step, "
                     f"{cfg.train_batch_size / mean:.3f} img/s (steps after the first: "
                     f"{', '.join(f'{x:.4f}' for x in secs)} s)")
-        log(f"[time] {card}: training peak memory {peak:.2f} GiB")
+        log(f"[time] {card}: {tag} peak memory {peak:.2f} GiB")
         batch = trainer.prepare_batch(next(iter(trainer.build_loader())))
         trace(lambda: train_step(state, trainer.diffusion, batch, generator=trainer.generator,
                                  grad_clip=cfg.gradient_clip),
-              f"one 1024px training step, latents {tuple(batch['latents'].shape[1:3])}, "
+              f"one {tag} step, latents {tuple(batch['latents'].shape[1:3])}, "
               f"B = {cfg.train_batch_size}", card)
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def gradient_check(dev) -> None:
-    """One training step's gradients at 256px (depth 4, KV compression on
-    layers 2-3, B = 4, bf16 compute) through the kernels and through plain
-    attention (attn_impl="reference"), with the same t, noise and drops."""
+def step_gradients(dev, fa, model_kw: dict, hw, lengths, t, drop, faults=None,
+                   watch=()) -> tuple:
+    """One training step's gradients (bf16 compute, f32 weights, seeded
+    random weights and inputs) through the kernels and through plain
+    attention (attn_impl="reference"), with the same t, noise and drops.
+    Returns the readings, the kernel run's launches, the model config, and
+    the readings with each planted fault of `faults`, {name: context manager
+    factory}, in place while the kernels run. The readings are the relative
+    L2 over all parameters, the worst parameter's (reading, name), and for
+    the blocks of `watch` the worst (reading, where) of the gradient of the
+    self-attention's q, k and v (the qkv projection's output), taken per
+    image and per 128-row tile of tokens, so that one tile's fault shows."""
     import torch
 
     from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
@@ -728,35 +812,343 @@ def gradient_check(dev) -> None:
     from pixart_sigma_tpu_torch.training.train_step import compute_losses
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    model = PixArtMS_XL_2(device=dev, train=True, input_size=32, pe_interpolation=0.5, depth=4,
-                          model_max_length=300, kv_compress_sampling="conv",
-                          kv_compress_scale=2, kv_compress_layers=(2, 3))
+    model = PixArtMS_XL_2(device=dev, train=True, **model_kw)
     init_weights(model, gen)
     perturb_zero_leaves(model, gen)
+    B = len(lengths)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    lengths = torch.tensor([19, 12, 7, 3], device=dev)
-    batch = {"latents": randn(4, 32, 32, 4), "y": randn(4, 300, 4096),
+    lengths = torch.tensor(lengths, device=dev)
+    batch = {"latents": randn(B, *hw, 4), "y": randn(B, 300, 4096),
              "y_mask": (torch.arange(300, device=dev)[None] < lengths[:, None]).int()}
-    t = torch.tensor([10, 250, 600, 999], device=dev)
-    noise, drop = randn(4, 32, 32, 4), torch.tensor([0, 0, 0, 1], device=dev)
+    t, drop = torch.tensor(t, device=dev), torch.tensor(drop, device=dev)
+    noise = randn(B, *hw, 4)
     diffusion = IDDPM(timestep_respacing=[1000], learn_sigma=True, rescale_learned_sigmas=True)
+    qkv_grads = {}
+
+    def capture(i):
+        def hook(mod, inp, out):
+            out.register_hook(lambda g: qkv_grads.__setitem__(i, g.detach().float()))
+        return hook
+
+    for i in watch:
+        model.blocks[i].attn.qkv.register_forward_hook(capture(i))
 
     def grads(impl):
         set_attn_impl(model, impl)
         model.zero_grad(set_to_none=True)
+        qkv_grads.clear()
         compute_losses(model, diffusion, batch, t, noise, force_drop_ids=drop)["loss"].backward()
-        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        return ({n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                dict(qkv_grads))
 
-    got, want = grads("auto"), grads("reference")
-    diff = sum(float((got[n] - want[n]).pow(2).sum()) for n in want)
-    norm = sum(float(want[n].pow(2).sum()) for n in want)
-    rel = (diff / norm) ** 0.5
-    worst = max((float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)), n)
-                for n in want)
+    def tile_worst(got_qkv):
+        worst = (0.0, "")
+        for i in watch:
+            got, ref = got_qkv[i].chunk(3, -1), want_qkv[i].chunk(3, -1)
+            for name, g, r in zip("qkv", got, ref):
+                for b in range(B):
+                    for j in range(0, g.shape[1], 128):
+                        rt = r[b, j:j + 128]
+                        rel = float((g[b, j:j + 128] - rt).norm() / rt.norm().clamp_min(1e-30))
+                        worst = max(worst, (rel, f"block {i} d{name} image {b} rows {j}-"
+                                               f"{min(j + 128, g.shape[1]) - 1}"))
+        return worst
+
+    def readings(got):
+        got, got_qkv = got
+        diff = sum(float((got[n] - want[n]).pow(2).sum()) for n in want)
+        norm = sum(float(want[n].pow(2).sum()) for n in want)
+        worst = max((float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)), n)
+                    for n in want)
+        return (diff / norm) ** 0.5, worst, tile_worst(got_qkv)
+
+    want, want_qkv = grads("reference")
+    reset_train_counts(fa)
+    got = grads("auto")
+    launches = train_counts(fa)
+    sound = readings(got)
+    del got
+    faulty = {}
+    for name, patch in (faults or {}).items():
+        with patch():
+            faulty[name] = readings(grads("auto"))
+    return sound, launches, model.cfg, faulty
+
+
+def gradient_check(dev, fa) -> None:
+    """One training step's gradients at 256px (depth 4, KV compression on
+    layers 2-3, B = 4) through the kernels against plain attention."""
+    (rel, worst, _), _, _, _ = step_gradients(
+        dev, fa, dict(input_size=32, pe_interpolation=0.5, depth=4, model_max_length=300,
+                      kv_compress_sampling="conv", kv_compress_scale=2, kv_compress_layers=(2, 3)),
+        (32, 32), (19, 12, 7, 3), (10, 250, 600, 999), (0, 0, 0, 1))
     log(f"[train] 256px step gradients, kernels vs plain attention: relative L2 {rel:.3e} over "
         f"all parameters, worst parameter {worst[1]} {worst[0]:.3e} (tol {GRAD_REL_TOL})")
     if not rel <= GRAD_REL_TOL or not worst[0] <= GRAD_REL_TOL:
         raise SystemExit("256px training gradients disagree with plain attention")
+
+
+def gradient_check_2k(dev, fa) -> dict:
+    """The 2K gradient gate: one training step's gradients through the
+    kernels, flash's autograd Function in the model, against plain
+    attention. The 2K config's model (input 256, pe interpolation 4) cut to
+    depth 4 with KV compression on layers 2-3, B = 2, a 130x132 latent: 65x66
+    = 4290 tokens, past the onepass gate (4352 padded keys) and not a
+    multiple of the 128-key tile, so layers 0-1 run flash (its 512-key block
+    leaves a tail of 318 keys) and its backward over tail tiles, layers 2-3
+    onepass over 32x33 = 1056 keys. Gated: the parameters' gradients
+    (GRAD_REL_TOL over all and for the worst), and the gradient of q, k and
+    v of the flash layers 0-1 per image and 128-row tile (GRAD_TILE_TOL).
+    Two planted faults in flash's backward must each fail it: dQ without its
+    ln 2 chain factor, and dQ of the last query tile (the 66 tail rows)
+    zeroed. Returns the launches."""
+    import contextlib
+
+    n = 65 * 66
+
+    def flash_dq_fault(edit):
+        @contextlib.contextmanager
+        def patch():
+            orig = fa.flash_bwd_dq
+
+            def faulty(q, k, *args, **kwargs):
+                dq = orig(q, k, *args, **kwargs)
+                return edit(dq) if k.shape[1] == n else dq  # flash's: keys are all tokens
+
+            faulty.launches = 0  # the wrapper counts on the module's name
+            fa.flash_bwd_dq = faulty
+            try:
+                yield
+            finally:
+                fa.flash_bwd_dq = orig
+        return patch
+
+    def zero_tail(dq):
+        dq[:, n - n % fa.BWD_KEY_TILE:] = 0
+        return dq
+
+    def fails(r) -> bool:
+        rel, worst, tile = r
+        return not (rel <= GRAD_REL_TOL and worst[0] <= GRAD_REL_TOL and tile[0] <= GRAD_TILE_TOL)
+
+    hw = (130, 132)
+    sound, launches, mc, faulty = step_gradients(
+        dev, fa, dict(input_size=256, pe_interpolation=4.0, depth=4, model_max_length=300,
+                      kv_compress_sampling="conv", kv_compress_scale=2, kv_compress_layers=(2, 3)),
+        hw, (19, 3), (120, 731), (0, 1),
+        {"dQ without the ln 2 chain factor": flash_dq_fault(lambda dq: dq / fa.LN2),
+         "dQ of the tail query tile zeroed": flash_dq_fault(zero_tail)}, watch=(0, 1))
+    expect = step_launches(mc, hw)
+    log(f"[grad2k] 2K model, depth 4, B = 2, latents {hw} ({n} tokens, 1056 compressed): "
+        f"launches {launches}, reckoned {expect}")
+    for name, r in [("none (sound)", sound)] + list(faulty.items()):
+        rel, worst, tile = r
+        log(f"[grad2k] planted fault {name}: parameters relative L2 {rel:.3e} over all, worst "
+            f"{worst[1]} {worst[0]:.3e} (tol {GRAD_REL_TOL}); q/k/v gradient of flash layers "
+            f"0-1, worst tile {tile[1]} {tile[0]:.3e} (tol {GRAD_TILE_TOL}): "
+            f"{'rejected' if fails(r) else 'passes'}")
+    if launches != expect or launches["flash_forward"] == 0:
+        raise SystemExit(f"2K gradient gate launches {launches}, reckoned {expect}")
+    if fails(sound):
+        raise SystemExit("2K training gradients disagree with plain attention")
+    if not all(fails(r) for r in faulty.values()):
+        raise SystemExit("the 2K gradient gate missed a planted fault")
+    return launches
+
+
+def features_config(data_root: str, config: str = TRAIN_CONFIG, **overrides):
+    from pixart_sigma_tpu_torch.config import read_config
+
+    cfg = read_config(config)
+    cfg.data_root = data_root
+    cfg.data = dict(cfg.data, root="data", load_vae_feat=True, load_t5_feat=True)
+    cfg.update(log_interval=1, save_model_steps=0, save_model_epochs=10**9, num_epochs=10,
+               lr_schedule_args=dict(num_warmup_steps=1))
+    cfg.update(overrides)
+    return cfg
+
+
+def counted_train(fa, trainer, steps: int) -> tuple:
+    """trainer.train(steps) with the kernel counts set to 0 just before and
+    read just after: (launches, the run's history records, peak GiB)."""
+    import torch
+
+    first = len(trainer.history)
+    reset_train_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    trainer.train(max_steps=steps)
+    torch.cuda.synchronize()
+    return (train_counts(fa), trainer.history[first:],
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def run_features(dev, card, fa) -> dict:
+    """The trainer features at 1024px on the operating point's config
+    (configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_internalms_kvcompress.py,
+    B = 4, full width) on synthetic features in the 1024x1024 and 1088x960
+    buckets:
+    a. at depth 4 (KV compression on layers 2-3), so that a checkpoint stays
+       small: gradient accumulation 2, the loss-second-moment sampler,
+       snr_gamma 5, the snr objective, Lion (lr 1e-4 before auto-scaling,
+       weight decay 0.01), no_weight_decay_on (biases, norms, tables) and the
+       balanced sampler; 4 micro-steps in one run against 2, a checkpoint, a
+       new Trainer with resume_from="latest" and 2 more, which must give the
+       same parameters, EMA, resampler ring, losses and buckets bit for bit;
+    b. at full depth (28 blocks): `visualize` with a random SDXL VAE (the
+       validation sampler writes PNGs at step 2), then each remat policy for
+       2 steps with its peak memory, s/step and launches;
+    c. configs/toy/pixart_toy_img128_masked.py (mask_ratio 0.25, mask_loss_coef
+       1; batch 4) for 2 steps.
+    Every run's launches are held against the reckoning. Returns the
+    phase's launches by run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def check(label, launches, expect):
+        log(f"[features] {label}: launches {launches}, reckoned {expect}")
+        if launches != expect:
+            raise SystemExit(f"features: {label} launches {launches}, reckoned {expect}")
+        out[label] = launches
+
+    tmp = tempfile.mkdtemp(prefix="pixart_features_")
+    try:
+        write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 4 + [(1088, 960)] * 4,
+                              resolution=1024, valid_tokens=(3, 19), seed=1)
+        # ---- a. the features, and a resume round trip
+        feats = dict(
+            gradient_accumulation_steps=2, schedule_sampler="loss-second-moment",
+            snr_gamma=5.0, snr_loss=True, balanced_sampler=True,
+            optimizer=dict(type="lion", lr=1e-4, weight_decay=0.01, betas=(0.9, 0.99)),
+            no_weight_decay_on=["bias", "norm", "y_embedding", "scale_shift_table"],
+            model_overrides=dict(depth=4, kv_compress_layers=(2, 3)))
+
+        def trainer(name, **kw):
+            tr = Trainer(features_config(tmp, **feats, **kw), os.path.join(tmp, name), device=dev)
+            perturb_zero_leaves(tr.model, torch.Generator(device=dev).manual_seed(0))
+            return tr
+
+        whole = trainer("whole")
+        mc = whole.model.cfg
+        launches, hist, peak = counted_train(fa, whole, 4)
+        check("depth 4, 4 micro-steps with the features", launches,
+              run_launches(mc, [h["hw"] for h in hist]))
+        groups = whole.state.optimizer.param_groups
+        log(f"[features] Lion, {len(groups[0]['params'])} parameters decayed and "
+            f"{len(groups[1]['params'])} exempt by no_weight_decay_on; optimizer updates "
+            f"{whole.state.opt_step} of {whole.state.step} micro-steps (accumulation 2); "
+            f"resampler ring filled for {int((whole.schedule_sampler.counts > 0).sum())} "
+            f"timesteps; peak memory {peak:.2f} GiB")
+        for h in hist:
+            log(f"[features] micro-step {h['step']}: latents {h['hw']}, loss {h['loss']:.5f} "
+                f"(mse {h['mse']:.5f}, vb {h['vb']:.5f}), grad norm {h['grad_norm']:.4f}, "
+                f"lr {h['lr']:.3e}, {h['seconds']:.4f} s")
+        if not all(np.isfinite(h["loss"]) for h in hist) or whole.state.opt_step != 2:
+            raise SystemExit("features: the run with the features failed")
+        part = trainer("part")
+        counted_train(fa, part, 2)
+        t0 = time.perf_counter()
+        path = part.save(part.state.step, 0)
+        size = os.path.getsize(path) / 2**30
+        save_s = time.perf_counter() - t0
+        resumed = trainer("part", resume_from=dict(checkpoint="latest"))
+        launches, hist_r, _ = counted_train(fa, resumed, 2)
+        check("depth 4, 2 micro-steps after the resume", launches,
+              run_launches(mc, [h["hw"] for h in hist_r]))
+        with torch.no_grad():
+            d_param = max(float((p - dict(resumed.model.named_parameters())[n]).abs().max())
+                          for n, p in whole.model.named_parameters())
+            d_ema = max(float((e - resumed.state.ema[n]).abs().max())
+                        for n, e in whole.state.ema.items())
+        ring = (torch.equal(whole.schedule_sampler.history, resumed.schedule_sampler.history)
+                and torch.equal(whole.schedule_sampler.counts, resumed.schedule_sampler.counts))
+        losses = ([h["loss"] for h in whole.history[2:]], [h["loss"] for h in hist_r])
+        buckets = ([h["hw"] for h in whole.history], [h["hw"] for h in part.history + hist_r])
+        log(f"[features] resume round trip: checkpoint {size:.2f} GiB in {save_s:.2f} s; "
+            f"4 micro-steps in one run vs 2 + resume + 2: largest parameter difference "
+            f"{d_param:.3e}, EMA {d_ema:.3e} (limit 0: both runs are bit for bit); resampler "
+            f"ring {'equal' if ring else 'differs'}; losses after the resume {losses[0]} vs "
+            f"{losses[1]}; buckets {buckets[1]}; step {resumed.state.step}, optimizer updates "
+            f"{resumed.state.opt_step}")
+        if (resumed.state.step != 4 or resumed.state.opt_step != 2 or d_param != 0 or d_ema != 0
+                or not ring or losses[0] != losses[1] or buckets[0] != buckets[1]):
+            raise SystemExit("features: the resumed run differs from the uninterrupted one")
+        del whole, part, resumed
+        torch.cuda.empty_cache()
+
+        # ---- b. validation sampling, then the remat policies, full depth
+        torch.cuda.manual_seed(1)
+        vae = build_vae(VAEConfig.sdxl(), device=dev)
+        work = os.path.join(tmp, "full")
+        full = Trainer(features_config(tmp, visualize=True, eval_sampling_steps=2,
+                                       deterministic_validation=True), work, device=dev, vae=vae)
+        perturb_zero_leaves(full.model, torch.Generator(device=dev).manual_seed(0))
+        mc = full.model.cfg
+        t0 = time.perf_counter()
+        launches, hist, _ = counted_train(fa, full, 2)
+        expect = run_launches(mc, [h["hw"] for h in hist])
+        for k in ("onepass", "allheads"):  # 14 CFG model calls of the validation sampler
+            expect[k] += mc.depth * 14
+        check(f"depth {mc.depth}, 2 steps and validation at step 2", launches, expect)
+        pngs = sorted(f for f in os.listdir(work) if f.endswith(".png"))
+        imgs = [_read_png_size(os.path.join(work, f)) for f in pngs]
+        log(f"[features] validation (DPM-Solver++ 14 steps, order 2, CFG "
+            f"{full.config.cfg_scale}, EMA weights, 2 captions) wrote {pngs} ({imgs}) in a "
+            f"{time.perf_counter() - t0:.2f} s run of 2 steps")
+        if len(pngs) != 2 or any(size != (1024, 1024) for size in imgs):
+            raise SystemExit(f"features: validation wrote {pngs}")
+        full.config.visualize = False
+        for policy in ("nothing", "dots", "dots_no_batch", "save_attn", "everything"):
+            full.model.cfg = dataclasses.replace(mc, remat_policy=policy)
+            launches, hist, peak = counted_train(fa, full, 2)
+            secs = [h["seconds"] for h in hist]
+            check(f"remat_policy {policy}, 2 steps", launches,
+                  run_launches(full.model.cfg, [h["hw"] for h in hist]))
+            log(f"[time] {card}: remat_policy {policy}: peak memory {peak:.2f} GiB, "
+                f"{sum(secs) / len(secs):.4f} s/step ({', '.join(f'{x:.4f}' for x in secs)}), "
+                f"attention launches per step {step_launches(full.model.cfg, hist[0]['hw'])}")
+            if not all(np.isfinite(h["loss"]) for h in hist):
+                raise SystemExit(f"features: remat_policy {policy} loss is not finite")
+        del full, vae
+        torch.cuda.empty_cache()
+
+        # ---- c. the masked toy config
+        write_feature_dataset(os.path.join(tmp, "toy"), [(128, 128)] * 8, resolution=128,
+                              multi_scale=False, caption_channels=64, max_length=12, seed=2)
+        toy = features_config(tmp, config=MASKED_TOY_CONFIG, train_batch_size=4)
+        toy.data = dict(toy.data, root="toy")
+        masked = Trainer(toy, os.path.join(tmp, "masked"), device=dev)
+        launches, hist, _ = counted_train(fa, masked, 2)
+        mc = masked.model.cfg
+        check(f"masked toy (mask_ratio {mc.mask_ratio}, {mc.depth} blocks of {mc.hidden_size}), "
+              "2 steps", launches, run_launches(mc, [h["hw"] for h in hist]))
+        log(f"[features] masked toy: losses {[round(h['loss'], 5) for h in hist]}, removed-patch "
+            f"terms {[round(h['mae'], 5) for h in hist]}")
+        if not all(np.isfinite(h["loss"]) and h["mae"] > 0 for h in hist):
+            raise SystemExit("features: the masked toy run failed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[features] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _read_png_size(path: str) -> tuple:
+    """(height, width) from a PNG's IHDR chunk."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 def backward_times(cases, fa, card, launches: dict, errs: dict) -> list:
@@ -1486,15 +1878,38 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. the training path ---------------------------------------------
-    launches_train = run_training(dev, card, fa)
+    launches_train = run_training(
+        dev, card, fa, TRAIN_CONFIG, [(1024, 1024)] * 4 + [(1088, 960)] * 4, 1024, TRAIN_STEPS,
+        "train", "1024x1024 (64x64 = 4096 tokens, 1024 after KV compression) and 1088x960 "
+        "(68x60 = 4080 tokens, 1020 compressed)", TRAIN_STEP_LAUNCHES)
     for entry in entries:
         entry["launches_training"] = launches_train[entry["name"]]
 
     # ---- 10. gradients through the kernels against plain attention ----------
-    gradient_check(dev)
+    gradient_check(dev, fa)
 
     # ---- 11. backward kernel times ------------------------------------------
     entries += backward_times(cases, fa, card, launches_train, errs)
+
+    # ---- 12. 2K training through the Trainer ----------------------------------
+    launches_2k = run_training(
+        dev, card, fa, CONFIG_2K, [(2048, 2048)] * 4 + [(1920, 2176)] * 4, 2048, TRAIN_STEPS_2K,
+        "train2k", "2048x2048 (128x128 = 16384 tokens, 4096 after KV compression) and 1920x2176 "
+        "(120x136 = 16320 tokens, a tail of 64 keys; 60x68 = 4080 compressed)",
+        TRAIN_2K_STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the 2K gradient gate: flash's autograd Function in the model ------
+    launches_gate = gradient_check_2k(dev, fa)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the trainer features --------------------------------------------
+    launches_features = run_features(dev, card, fa)
+    for entry in entries:
+        name = entry["name"]
+        entry["launches_training_2k"] = launches_2k[name]
+        entry["launches_gradient_gate_2k"] = launches_gate[name]
+        entry["launches_features"] = {run: c[name] for run, c in launches_features.items()}
     for entry in entries:
         entry["launches_samplers"] = {s: c[entry["name"]] for s, c in launches_samplers.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
-"""Aspect-ratio bucket batch sampler; port of the AspectRatioBatchSampler
-of pixart_sigma_tpu/data/sampler.py (the balanced and per-process samplers
-wait for multi-process training)."""
+"""Aspect-ratio bucket batch samplers; port of AspectRatioBatchSampler and
+BalancedAspectRatioBatchSampler of pixart_sigma_tpu/data/sampler.py (the
+per-process sampler waits for multi-process training)."""
 
 from __future__ import annotations
 
@@ -55,6 +55,71 @@ class AspectRatioBatchSampler:
 
     def __len__(self) -> int:
         return max(1, len(self.dataset) // self.batch_size)  # full batches, a lower bound
+
+
+class BalancedAspectRatioBatchSampler(AspectRatioBatchSampler):
+    """Round-robin over the ratio buckets so rare ratios are drawn too.
+
+    A bucket accepts at most its dataset frequency (`ratio_nums`) of items;
+    once it yields a batch it waits until every other available bucket has
+    yielded; the epoch is padded to len(dataset) // batch_size batches by
+    redrawing (refilled, reshuffled) from buckets already seen, from an RNG
+    seeded with seed + epoch."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.ratio_nums = kwargs.get("ratio_nums") or getattr(self.dataset, "ratio_nums", None)
+
+    def __iter__(self) -> Iterator[List[int]]:
+        rng = random.Random(self.seed + self.epoch)
+        order = list(range(len(self.dataset)))
+        if self.shuffle:
+            rng.shuffle(order)
+        buckets: Dict[str, List[int]] = {k: [] for k in self.aspect_ratios}
+        originals: Dict[str, List[int]] = {k: [] for k in self.aspect_ratios}
+        counts: Dict[str, int] = {k: 0 for k in self.aspect_ratios}
+        quota = {k: (self.ratio_nums or {}).get(float(k), len(order)) for k in self.aspect_ratios}
+        available = sorted(self.valid_keys)
+        exhausted: List[str] = []
+        total_batches = len(order) // self.batch_size
+        yielded = 0
+        for idx in order:
+            info = self.dataset.get_data_info(idx)
+            ratio = info["height"] / info["width"]
+            key = min(self.aspect_ratios.keys(), key=lambda r: abs(float(r) - ratio))
+            if key not in self.valid_keys:
+                continue
+            if counts[key] < quota[key]:
+                counts[key] += 1
+                buckets[key].append(idx)
+                originals[key].append(idx)
+            if not available:
+                available, exhausted = exhausted, []
+            if key not in available:
+                continue
+            bucket = buckets[key]
+            if len(bucket) >= self.batch_size:
+                yield bucket[:self.batch_size]
+                del bucket[:self.batch_size]
+                yielded += 1
+                exhausted.append(key)
+                available.remove(key)
+        # pad the epoch to the expected batch count from the buckets seen
+        refillable = [k for k in self.valid_keys if originals[k]]
+        for _ in range(total_batches - yielded):
+            if not refillable:
+                break
+            key = rng.choice(refillable)
+            bucket = buckets[key]
+            if len(bucket) >= self.batch_size:
+                yield bucket[:self.batch_size]
+                del bucket[:self.batch_size]
+                if not bucket:
+                    buckets[key] = originals[key][:]
+                    rng.shuffle(buckets[key])
+            else:
+                buckets[key] = originals[key][:]
+                rng.shuffle(buckets[key])
 
 
 class SimpleBatchSampler:

@@ -17,11 +17,12 @@ def IDDPM(
     pred_sigma: bool = True,
     rescale_learned_sigmas: bool = False,
     diffusion_steps: int = 1000,
+    snr: bool = False,
 ) -> SpacedDiffusion:
     """A SpacedDiffusion configured like the reference's IDDPM(): learned
     range variance, or with learn_sigma=False a fixed one (small with
-    sigma_small). Its use_kl and snr switches are not ported (ROADMAP.md,
-    Queue 1 item 4)."""
+    sigma_small); `snr` switches the MSE target to x0 for t <= 249. Its use_kl
+    switch is not ported (ROADMAP.md, Queue 1 item 8)."""
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     if not pred_sigma:
@@ -36,4 +37,5 @@ def IDDPM(
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
         model_var_type=var_type,
         loss_type=LossType.RESCALED_MSE if rescale_learned_sigmas else LossType.MSE,
+        snr=snr,
     )

@@ -6,9 +6,10 @@ layout ([B, H, W, C]; a learned-variance head is the second half of the last
 axis): epsilon, x0 or x_{t-1} prediction; learned, learned-range, fixed small
 or fixed large variance; the MSE (+ VB) loss; ancestral (`p_sample_loop`),
 DDIM (`ddim_sample_loop`) and DDIM-inversion (`ddim_reverse_sample_loop`)
-trajectories as Python loops over device tensors. The KL losses, the
-SNR-switching objective and Min-SNR weighting and the masked-token losses
-are not ported (ROADMAP.md, Queue 1 item 4).
+trajectories as Python loops over device tensors; the training loss with
+the SNR-switching objective (`snr`), Min-SNR weights (`min_snr_weight`) and
+the masked-token per-patch losses. The KL losses are not ported (ROADMAP.md,
+Queue 1 item 8).
 
 Random draws: a loop takes its initial latent from the caller and its
 per-step noise from `noise_fn(k, shape)`, the k-th draw of the trajectory
@@ -63,14 +64,18 @@ class GaussianDiffusion:
         model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
         model_var_type: Optional[ModelVarType] = ModelVarType.LEARNED_RANGE,
         loss_type: LossType = LossType.MSE,
+        snr: bool = False,
     ):
         if loss_type not in (LossType.MSE, LossType.RESCALED_MSE):
             raise NotImplementedError(
-                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1 item 4)")
+                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1 item 8)")
+        if snr and model_mean_type == ModelMeanType.PREVIOUS_X:
+            raise NotImplementedError("the snr objective with x_{t-1} prediction")
         self.coef = coef
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
         self.loss_type = loss_type
+        self.snr = snr
 
     @property
     def num_timesteps(self) -> int:
@@ -285,14 +290,40 @@ class GaussianDiffusion:
         nll = mean_flat(nll) / math.log(2.0)
         return {"output": torch.where(t == 0, nll, kl), "pred_xstart": out["pred_xstart"]}
 
+    def compute_snr(self, t: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio of q(x_t | x_0), alpha_bar / (1 - alpha_bar), f32."""
+        acp = self.coef.alphas_cumprod.to(t.device)[t.long()]
+        return acp / (1.0 - acp)
+
+    def min_snr_weight(self, t: torch.Tensor, gamma: float,
+                       prediction_type: str = "epsilon") -> torch.Tensor:
+        """Per-sample Min-SNR-gamma MSE weights: min(snr, gamma) / snr for the
+        epsilon objective, min(snr, gamma) / (snr + 1) for v prediction."""
+        snr = self.compute_snr(t)
+        w = torch.clamp(snr, max=gamma)
+        return w / (snr + 1.0) if prediction_type == "v_prediction" else w / snr
+
     def training_losses(self, model_fn: ModelFn, x_start: torch.Tensor, t: torch.Tensor,
-                        noise: torch.Tensor) -> Dict[str, Any]:
-        """Per-sample losses {"loss", "mse", "vb"?, "pred_xstart", "x_t"}, each
-        [B]. The noise is passed in (the caller draws it from its generator).
-        With a learned variance, the VB term trains the variance only: the
-        mean half of the output is detached there."""
+                        noise: torch.Tensor, loss_weight: Optional[torch.Tensor] = None,
+                        mse_weight: Optional[torch.Tensor] = None,
+                        mask_loss_coef: float = 0.0, patch_size: int = 2) -> Dict[str, Any]:
+        """Per-sample losses {"loss", "mse", "vb"?, "mae"?, "pred_xstart",
+        "x_t"}, each [B]. The noise is passed in (the caller draws it from its
+        generator). With a learned variance, the VB term trains the variance
+        only: the mean half of the output is detached there.
+
+        `loss_weight` scales each sample's loss (importance sampling),
+        `mse_weight` its MSE term only (Min-SNR). A model that returns
+        (output, token_mask), token_mask [B, L] with 1 = removed patch, gets
+        the MSE per patch (channel mean, patch_size average pool) over its
+        kept patches, and with `mask_loss_coef` > 0 an "mae" term over the
+        removed ones, each as mean_flat(loss * m) * L / m.sum()."""
         x_t = self.q_sample(x_start, t, noise)
-        output, var_values = self._split_output(model_fn(x_t, t), x_t)
+        model_output = model_fn(x_t, t)
+        token_mask = None
+        if isinstance(model_output, (tuple, list)):
+            model_output, token_mask = model_output
+        output, var_values = self._split_output(model_output, x_t)
         terms: Dict[str, Any] = {}
         if var_values is not None:
             frozen = torch.cat([output.detach(), var_values], dim=-1)
@@ -302,8 +333,35 @@ class GaussianDiffusion:
         target = {ModelMeanType.EPSILON: lambda: noise, ModelMeanType.START_X: lambda: x_start,
                   ModelMeanType.PREVIOUS_X: lambda: self.q_posterior_mean_variance(
                       x_start, x_t, t)[0]}[self.model_mean_type]()
-        terms["mse"] = mean_flat((target - output) ** 2)
-        terms["loss"] = terms["mse"] + terms.get("vb", 0.0)
-        terms["pred_xstart"] = self._pred_xstart(x_t, t, output)
+        pred_xstart = self._pred_xstart(x_t, t, output)
+        if self.snr:  # eps prediction for t > 249, x0 below
+            if self.model_mean_type == ModelMeanType.START_X:
+                pred_noise, pred_startx = self.predict_eps_from_xstart(x_t, t, output), output
+            else:
+                pred_noise, pred_startx = output, pred_xstart
+            eps_branch = (t > 249).reshape(-1, *((1,) * (x_t.ndim - 1)))
+            target = torch.where(eps_branch, noise, x_start)
+            output = torch.where(eps_branch, pred_noise, pred_startx)
+        sq_err = (target - output) ** 2
+        if token_mask is not None:
+            B, H, W, _ = sq_err.shape
+            p = patch_size
+            per_patch = sq_err.mean(-1).reshape(B, H // p, p, W // p, p).mean((2, 4))
+            per_patch = per_patch.reshape(B, -1)
+            token_mask = token_mask.to(per_patch.dtype)
+            unmask = 1.0 - token_mask
+            L = unmask.shape[1]
+            terms["mse"] = mean_flat(per_patch * unmask) * L / unmask.sum(1)
+            if mask_loss_coef > 0:
+                terms["mae"] = (mask_loss_coef * mean_flat(per_patch * token_mask) * L
+                                / token_mask.sum(1))
+        else:
+            terms["mse"] = mean_flat(sq_err)
+        if mse_weight is not None:
+            terms["mse"] = terms["mse"] * mse_weight
+        terms["loss"] = terms["mse"] + terms.get("vb", 0.0) + terms.get("mae", 0.0)
+        if loss_weight is not None:
+            terms["loss"] = terms["loss"] * loss_weight
+        terms["pred_xstart"] = pred_xstart
         terms["x_t"] = x_t
         return terms

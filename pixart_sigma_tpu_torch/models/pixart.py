@@ -6,20 +6,37 @@ latents in and an f32 NHWC prediction out, the blocks unrolled in an
 computes in `cfg.dtype` whatever its weights' dtype: an inference model is
 cast to it, a training model keeps f32 master weights (`train=True` in the
 builders), as the JAX package's flax modules keep f32 params under a bf16
-compute dtype. `grad_checkpointing` recomputes each block in the backward
-(`torch.utils.checkpoint`, the JAX `remat_policy="nothing"`). Not ported
-yet: masked-token training, the other remat policies, block caching and
-int8 matmuls; a config that asks for them raises.
+compute dtype.
+
+`grad_checkpointing` recomputes each block in the backward
+(`torch.utils.checkpoint`) under the JAX package's `remat_policy`:
+"nothing" keeps only the block's inputs; "dots" and "dots_no_batch" also
+keep the outputs of the matmuls (with or without batch dims: bmm or mm);
+"save_attn" keeps the attention kernels' outputs, so the recompute skips
+their launches; "everything" keeps all, as no checkpointing does. The
+last three are selective-checkpoint policies over the dispatched ops, the
+attention launches being ops of their own (`ATTENTION_FORWARD_OPS`).
+
+`mask_ratio > 0` adds the `mask_token` parameter and, in training, runs the
+blocks on a random subset of the tokens (MAE-style), returning
+(output, token_mask). Not ported yet: block caching and int8 matmuls; a
+config that asks for them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from pixart_sigma_tpu_torch.models.layers import (
     CaptionEmbedder,
@@ -30,6 +47,8 @@ from pixart_sigma_tpu_torch.models.layers import (
     T2IFinalLayer,
     TimestepEmbedder,
 )
+from pixart_sigma_tpu_torch.ops.flash_attention import ATTENTION_FORWARD_OPS
+from pixart_sigma_tpu_torch.ops.masking import get_mask, mask_out_token, unmask_tokens
 from pixart_sigma_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed
 from pixart_sigma_tpu_torch.utils.device import resolve_device
 
@@ -94,7 +113,22 @@ class PixArtConfig:
         return groups
 
 
-_NOT_PORTED = {"mask_ratio": 0.0, "quant_int8": False, "cache_span": None}
+_NOT_PORTED = {"quant_int8": False, "cache_span": None}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_MATMULS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# remat_policy -> the ops whose outputs a checkpointed block keeps (None: only
+# its inputs; "all": everything, so the block is not checkpointed)
+REMAT_SAVED = {
+    "nothing": None,
+    "dots": _MATMULS + _BATCHED_MATMULS,
+    "dots_no_batch": _MATMULS,
+    "save_attn": ATTENTION_FORWARD_OPS,
+    "everything": "all",
+}
+
+
+def _save_ops(ops, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class PixArt(nn.Module):
@@ -106,10 +140,9 @@ class PixArt(nn.Module):
             if getattr(cfg, name) != default:
                 raise NotImplementedError(
                     f"PixArtConfig.{name} is not ported yet (ROADMAP.md, Queue 1)")
-        if cfg.grad_checkpointing and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported yet; only 'nothing' "
-                "(recompute every block) is (ROADMAP.md, Queue 1)")
+        if cfg.remat_policy not in REMAT_SAVED:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected one of "
+                             f"{sorted(REMAT_SAVED)}")
         self.cfg = cfg
         self._pos_cache: dict = {}
         D, dt = cfg.hidden_size, cfg.dtype
@@ -129,6 +162,8 @@ class PixArt(nn.Module):
             for i in range(cfg.depth)
         )
         self.final_layer = T2IFinalLayer(D, cfg.patch_size, cfg.out_channels)
+        if cfg.mask_ratio > 0:  # in the tree whenever masking is on, train or eval
+            self.mask_token = nn.Parameter(torch.zeros(1, 1, D))
 
     def forward(
         self,
@@ -142,11 +177,15 @@ class PixArt(nn.Module):
         cross_kv: Optional[Sequence[torch.Tensor]] = None,  # per layer [B, L, 2D]
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        mask_noise: Optional[torch.Tensor] = None,  # [B, h * w] uniform, masked training
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """`cross_kv` (from `precompute_cross_kv`) replaces the caption
         embedder and every block's kv_linear, which depend on the captions
         only and so are paid once per trajectory. `train` turns on random
-        caption dropout, drawn from `generator`."""
+        caption dropout and, with `mask_ratio`, token masking, drawn from
+        `generator` in that order: the mask first (or `mask_noise`, the
+        uniform draw that orders the tokens), then the drops. A masked
+        training call returns (output, token_mask [B, h * w], 1 = removed)."""
         cfg = self.cfg
         B, H, W, _ = x.shape
         p = cfg.patch_size
@@ -156,6 +195,17 @@ class PixArt(nn.Module):
         if train and cross_kv is not None:
             raise ValueError("cross_kv hoisting is an inference-only path")
         x = self.x_embedder(x) + self.pos_embed(h, w, x.device)[None]
+        mask_info = None
+        if train and cfg.mask_ratio > 0:
+            if cfg.mask_type not in ("random", "group"):
+                raise ValueError(f"mask_type {cfg.mask_type!r}: training masks 'random' or "
+                                 "'group'")
+            if any(cfg.sr_ratio(i) != 1 for i in range(cfg.depth)):
+                raise ValueError("mask_ratio is incompatible with KV compression (the kept "
+                                 "token subset has no spatial grid to downsample)")
+            mask_info = get_mask(B, h * w, cfg.mask_ratio, cfg.mask_type, generator=generator,
+                                 noise=mask_noise, device=x.device)
+            x = mask_out_token(x, mask_info["ids_keep"])
         t = self.t_embedder(timestep)  # [B, D]
         if cfg.micro_condition:
             if img_hw is None or aspect_ratio is None:
@@ -168,16 +218,22 @@ class PixArt(nn.Module):
             y = self.y_embedder(y, force_drop_ids, train=train, generator=generator)
         if y_mask is None:
             y_mask = torch.ones(y.shape[:2], dtype=torch.int32, device=y.device)
-        remat = cfg.grad_checkpointing and torch.is_grad_enabled()
+        saved = REMAT_SAVED[cfg.remat_policy]
+        remat = cfg.grad_checkpointing and torch.is_grad_enabled() and saved != "all"
+        context_fn = noop_context_fn if saved is None else functools.partial(
+            create_selective_checkpoint_contexts, functools.partial(_save_ops, saved))
         for i, block in enumerate(self.blocks):
             kv = None if cross_kv is None else cross_kv[i]
-            if remat:  # keep only the block's inputs; recompute it in the backward
+            if remat:  # recompute the block in the backward, keeping what the policy saves
                 x = checkpoint(block, x, y, t0, y_mask, kv, (h, w), use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, context_fn=context_fn)
             else:
                 x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
+        if mask_info is not None:
+            x = unmask_tokens(x, mask_info["ids_restore"], self.mask_token)
         x = self.final_layer(x, t)
-        return self.unpatchify(x, h, w).float()
+        out = self.unpatchify(x, h, w).float()
+        return out if mask_info is None else (out, mask_info["mask"])
 
     def pos_embed(self, h: int, w: int, device: torch.device) -> torch.Tensor:
         """[h * w, D] sin-cos positional embedding in cfg.dtype on `device`,
@@ -238,6 +294,8 @@ def init_weights(model: PixArt, generator: torch.Generator) -> PixArt:
             block.attn.sr.bias.zero_()
         block.scale_shift_table.normal_(0.0, D**-0.5, generator=generator)
     model.final_layer.scale_shift_table.normal_(0.0, D**-0.5, generator=generator)
+    if hasattr(model, "mask_token"):
+        model.mask_token.normal_(0.0, 0.02, generator=generator)
     c = model.cfg.caption_channels
     model.y_embedder.y_embedding.normal_(0.0, c**-0.5, generator=generator)
     return model

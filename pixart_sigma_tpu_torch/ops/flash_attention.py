@@ -602,10 +602,35 @@ def _flash_backward(q, k, v, madd, out, lse, do, scale=None, ds_scale=None):
     return flash_bwd_dq(q, k, v, do, madd, lse, delta, scale, ds_scale), dk, dv
 
 
+# The forward launches of the autograd Functions below, registered as torch
+# ops so that a selective-checkpoint policy sees them (the model's "save_attn"
+# remat policy keeps their outputs, and the recompute skips the launch). An
+# op's outputs may not alias its inputs; the kernels' are fresh tensors.
+
+
+@torch.library.custom_op("pixart_port::onepass_forward", mutates_args=())
+def _onepass_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        madd: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _onepass_forward(q, k, v, madd, with_lse=True)
+
+
+@torch.library.custom_op("pixart_port::allheads_forward", mutates_args=())
+def _allheads_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+    return _allheads_forward(q, k, v, key_mask, n_heads)
+
+
+@torch.library.custom_op("pixart_port::flash_forward", mutates_args=())
+def _flash_forward_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      madd: Optional[torch.Tensor], tail: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _flash_forward(qs, k, v, madd, tail, with_lse=True)
+
+
 class _OnepassAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, madd):
-        out, lse = _onepass_forward(q, k, v, madd, with_lse=True)
+        out, lse = _onepass_forward_op(q, k, v, madd)
         ctx.save_for_backward(q, k, v, madd, out, lse)
         return out
 
@@ -620,7 +645,7 @@ class _AllheadsAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_mask, n_heads):
         ctx.n_heads = n_heads
         ctx.save_for_backward(q, k, v, key_mask)
-        return _allheads_forward(q, k, v, key_mask, n_heads)
+        return _allheads_forward_op(q, k, v, key_mask, n_heads)
 
     @staticmethod
     def backward(ctx, do):
@@ -709,7 +734,7 @@ flash_attention.launches = 0
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qs, k, v, madd, tail):
-        out, lse = _flash_forward(qs, k, v, madd, tail, with_lse=True)
+        out, lse = _flash_forward_op(qs, k, v, madd, tail)
         ctx.save_for_backward(qs, k, v, madd, out, lse)
         return out
 
@@ -718,6 +743,12 @@ class _FlashAttention(torch.autograd.Function):
         qs, k, v, madd, out, lse = ctx.saved_tensors
         return (*_flash_backward(qs, k, v, madd, out, lse, do, scale=1.0, ds_scale=LN2),
                 None, None)
+
+
+# the forward launches a training forward makes, for checkpoint policies
+ATTENTION_FORWARD_OPS = (torch.ops.pixart_port.onepass_forward.default,
+                         torch.ops.pixart_port.allheads_forward.default,
+                         torch.ops.pixart_port.flash_forward.default)
 
 
 # ---------------------------------------------------------------- headsmajor

@@ -41,6 +41,19 @@ from pixart_sigma_tpu_torch.utils.device import resolve_device
 from pixart_sigma_tpu_torch.utils.prompt import prepare_prompt_ar
 
 
+def decode_to_uint8(vae, z: torch.Tensor) -> np.ndarray:
+    """VAE latents [B, h, w, 4] (already divided by the scale factor) ->
+    uint8 images [B, 8h, 8w, 3]: one image at a time up to 128 x 128 latents
+    (the mid-block attention over 128 x 128 tokens holds a 1 GiB f32 logit
+    matrix per image), tile by tile beyond."""
+    if z.shape[1] > 128 or z.shape[2] > 128:
+        img = tiled_decode(vae.decode, z)
+    else:
+        img = torch.cat([vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
+    img = torch.clamp((img.float() + 1.0) / 2.0, 0.0, 1.0)
+    return (img * 255).round().to(torch.uint8).cpu().numpy()
+
+
 class PixArtPipeline:
     """Bundles the denoiser, a text encoder and the VAE.
 
@@ -86,15 +99,7 @@ class PixArtPipeline:
     def _latents_to_images(self, latents: torch.Tensor) -> np.ndarray:
         if self.vae is None:
             return latents.cpu().numpy()
-        z = latents / self.scale_factor
-        if z.shape[1] > 128 or z.shape[2] > 128:  # beyond 1024px: tile
-            img = tiled_decode(self.vae.decode, z)
-        else:
-            # one image at a time: the mid-block attention over 128 x 128
-            # tokens holds a 1 GiB f32 logit matrix per image
-            img = torch.cat([self.vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
-        img = torch.clamp((img.float() + 1.0) / 2.0, 0.0, 1.0)
-        return (img * 255).round().to(torch.uint8).cpu().numpy()
+        return decode_to_uint8(self.vae, latents / self.scale_factor)
 
     @torch.no_grad()
     def __call__(

@@ -1,5 +1,5 @@
-"""Optimizers: CAME (the Sigma configs' default) and AdamW, a global-norm
-gradient clip and the LR auto-scaling rule.
+"""Optimizers: CAME (the Sigma configs' default), Lion and AdamW, a
+global-norm gradient clip and the LR auto-scaling rule.
 
 Port of pixart_sigma_tpu/training/optim.py. CAME (Luo et al. 2023) keeps a
 full momentum per parameter and factors both its second moment and its
@@ -10,13 +10,15 @@ symmetric under a transpose, but a convolution is not. So CAME factors each
 parameter in the JAX package's layout (`jax_layout`): the patch embedding,
 a flax Dense over (p, p, c) inputs, as a 2D [D, p*p*c] matrix, and the
 depthwise KV-compression conv, [C, 1, sr, sr] in torch, as flax's HWIO
-[sr, sr, 1, C]. Lion is not ported yet.
+[sr, sr, 1, C]. Lion is optax's `lion`: the sign of b1 m + (1 - b1) g,
+momentum b2, decoupled weight decay. Parameters that `skip_decay(name)`
+marks (the config's `no_weight_decay_on`) get no weight decay.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,9 +55,10 @@ class CAME(torch.optim.Optimizer):
         eps: Tuple[float, float] = (1e-30, 1e-16),
         clip_threshold: float = 1.0,
         weight_decay: float = 0.0,
+        skip_decay: Optional[Callable[[str], bool]] = None,
     ):
         named = list(params)
-        super().__init__([p for _, p in named], dict(
+        super().__init__(_decay_groups(named, weight_decay, skip_decay), dict(
             lr=lr, betas=betas, eps=eps, clip_threshold=clip_threshold,
             weight_decay=weight_decay))
         self._names = {p: n for n, p in named}
@@ -106,6 +109,47 @@ class CAME(torch.optim.Optimizer):
                 pv.add_(delta.to(p.dtype))
 
 
+def _decay_groups(named: Sequence[Tuple[str, torch.Tensor]], weight_decay: float,
+                  skip_decay: Optional[Callable[[str], bool]]) -> list:
+    """One param group, or two when `skip_decay` exempts some parameters
+    (weight_decay 0 in the second)."""
+    if skip_decay is None:
+        return [{"params": [p for _, p in named]}]
+    keep = [p for n, p in named if not skip_decay(n)]
+    skip = [p for n, p in named if skip_decay(n)]
+    return [{"params": keep}, {"params": skip, "weight_decay": 0.0}]
+
+
+class Lion(torch.optim.Optimizer):
+    """optax `lion`: u = sign((1 - b1) g + b1 m), m <- b2 m + (1 - b2) g,
+    p <- p - lr (u + weight_decay p)."""
+
+    def __init__(self, params: Iterable[Tuple[str, torch.Tensor]], lr: float,
+                 betas: Tuple[float, float] = (0.9, 0.99), weight_decay: float = 0.0,
+                 skip_decay: Optional[Callable[[str], bool]] = None):
+        super().__init__(_decay_groups(list(params), weight_decay, skip_decay),
+                         dict(lr=lr, betas=betas, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                if not st:
+                    st["exp_avg"] = torch.zeros_like(g)
+                m = st["exp_avg"]
+                upd = torch.sign((1.0 - b1) * g + b1 * m)
+                m.mul_(b2).add_(g, alpha=1.0 - b2)
+                if wd:
+                    upd = upd + wd * p.float()
+                p.add_((upd * -lr).to(p.dtype))
+
+
 def auto_scale_lr(lr: float, effective_bs: int, rule: str = "linear",
                   base_batch_size: int = 256) -> Tuple[float, float]:
     """Linear or sqrt LR scaling with the batch; returns (lr, ratio)."""
@@ -118,32 +162,45 @@ def auto_scale_lr(lr: float, effective_bs: int, rule: str = "linear",
 
 
 @torch.no_grad()
-def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: Optional[float]) -> float:
-    """Scale the gradients by max_norm / norm when their global norm reaches
-    max_norm (optax.clip_by_global_norm); returns the norm before clipping."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the parameters' gradients (f32, on their device)."""
+    return torch.sqrt(sum(p.grad.float().square().sum() for p in params if p.grad is not None))
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: Optional[float],
+                        norm: Optional[torch.Tensor] = None) -> float:
+    """Scale the gradients by max_norm / norm when their global norm (given,
+    or computed here) reaches max_norm (optax.clip_by_global_norm); returns
+    the norm before clipping."""
+    norm = global_norm(params) if norm is None else norm
     if max_norm is not None:
         scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        for g in grads:
-            g.mul_(scale.to(g.dtype))
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(scale.to(p.grad.dtype))
     return float(norm)
 
 
 def build_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], *, name: str = "came",
-                    lr: float, weight_decay: float = 0.0, betas=None,
-                    eps=None) -> torch.optim.Optimizer:
+                    lr: float, weight_decay: float = 0.0, betas=None, eps=None,
+                    skip_decay: Optional[Callable[[str], bool]] = None
+                    ) -> torch.optim.Optimizer:
     """The config's `optimizer` dict as a torch optimizer (the clip is
-    `clip_by_global_norm`, applied by the train step before it)."""
+    `clip_by_global_norm`, applied before it). `skip_decay(name)` exempts a
+    parameter from weight decay."""
     if name == "came":
         # eps may leak in as a scalar from a merged AdamW base config; CAME
         # needs its (eps1, eps2) pair, so fall back to the paper's defaults
         eps_pair = tuple(eps) if isinstance(eps, (tuple, list)) else (1e-30, 1e-16)
         return CAME(named_params, lr, betas=tuple(betas) if betas else (0.9, 0.999, 0.9999),
-                    eps=eps_pair, weight_decay=weight_decay)
+                    eps=eps_pair, weight_decay=weight_decay, skip_decay=skip_decay)
+    if name == "lion":
+        return Lion(named_params, lr, betas=(betas[0], betas[1]) if betas else (0.9, 0.99),
+                    weight_decay=weight_decay, skip_decay=skip_decay)
     if name == "adamw":
         return torch.optim.AdamW(
-            [p for _, p in named_params], lr=lr,
+            _decay_groups(named_params, weight_decay, skip_decay), lr=lr,
             betas=(betas[0], betas[1]) if betas else (0.9, 0.999),
             eps=eps if isinstance(eps, float) else 1e-10, weight_decay=weight_decay)
-    raise ValueError(f"optimizer {name!r} is not ported (ROADMAP.md, Queue 1)")
+    raise ValueError(f"unknown optimizer {name!r}")

@@ -7,12 +7,18 @@
   AutoencoderKL names (the port's VAE module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
 - `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
-  "state_dict_ema", "optimizer", "step", "epoch"}), which `load_pth` reads.
+  "state_dict_ema", "optimizer", "step", "epoch"}, and what a resumed run
+  needs besides), which `load_pth` reads; `latest_checkpoint` finds the
+  newest one of a run for `resume_from="latest"`. The JAX trainer's orbax
+  checkpoints are not read.
+- `jax_param_path`: a port parameter's path in the JAX package's param tree
+  ("blocks_scan_1/attn/qkv/bias"), which `no_weight_decay_on` matches.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -103,7 +109,46 @@ def state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
 
     sd["final_layer.scale_shift_table"] = params["final_layer"]["scale_shift_table"]
     dense("final_layer.linear", params["final_layer"]["linear"])
+    if "mask_token" in params:
+        sd["mask_token"] = params["mask_token"]
     return _tensors(sd)
+
+
+_TOP_MODULES = {"t_embedder.mlp.0": "t_embedder/fc1", "t_embedder.mlp.2": "t_embedder/fc2",
+                "csize_embedder.mlp.0": "csize_embedder/fc1",
+                "csize_embedder.mlp.2": "csize_embedder/fc2",
+                "ar_embedder.mlp.0": "ar_embedder/fc1", "ar_embedder.mlp.2": "ar_embedder/fc2",
+                "t_block.1": "t_block"}
+_LAYER_NORMS = ("attn/q_norm", "attn/k_norm", "attn/sr_norm")
+
+
+def jax_param_path(name: str, cfg) -> str:
+    """The path of port parameter `name` in the JAX param tree of `cfg`:
+    module names joined by "/", blocks in their scan group (`blocks_scan_<g>`,
+    `cfg.scan_blocks`) or `blocks_<i>`; Dense weights are "kernel", LayerNorm
+    weights "scale", the KV-compression conv "sr_kernel"/"sr_bias"."""
+    module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    if module.startswith("blocks."):
+        _, i, module = (module + ".").split(".", 2)
+        module = module.rstrip(".")
+        if cfg.scan_blocks:
+            start = 0
+            for g, (_sr, count) in enumerate(cfg.block_groups()):
+                if start <= int(i) < start + count:
+                    break
+                start += count
+            group = f"blocks_scan_{g}"
+        else:
+            group = f"blocks_{i}"
+        if module == "attn.sr":
+            return f"{group}/attn/sr_{'kernel' if leaf == 'weight' else leaf}"
+        module = {"attn.norm": "attn.sr_norm"}.get(module, module).replace(".", "/")
+        module = f"{group}/{module}" if module else group
+    else:
+        module = _TOP_MODULES.get(module, module.replace(".", "/"))
+    if leaf == "weight":
+        leaf = "scale" if module.endswith(_LAYER_NORMS) else "kernel"
+    return f"{module}/{leaf}" if module else leaf
 
 
 def vae_state_dict_from_jax(params: Dict[str, Any], vae_cfg) -> Dict[str, torch.Tensor]:
@@ -177,6 +222,21 @@ def load_pth(model: nn.Module, path: str) -> nn.Module:
     sd = {k: v for k, v in sd.items() if k not in _DROPPED}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The checkpoint of the largest step among `epoch_<e>_step_<s>.pth`
+    under `ckpt_dir` (what `Trainer.save` writes), or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    found = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"epoch_(\d+)_step_(\d+)\.pth", name)
+        if m:
+            found.append((int(m.group(2)), int(m.group(1)), name))
+    if not found:
+        return None
+    return os.path.join(os.path.abspath(ckpt_dir), max(found)[2])
 
 
 def save_pth(path: str, state_dict: Dict[str, torch.Tensor],

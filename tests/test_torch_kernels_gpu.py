@@ -481,3 +481,76 @@ def test_every_sampler_runs_the_kernels(toy_pipeline, sampler, steps, nfe):
                        return_latents=True)
     assert [c.launches for c in counters] == [2 * nfe, 2 * nfe, 0, 0]
     assert np.isfinite(lat).all() and np.abs(lat - x0.numpy()).max() > 1e-2
+
+
+def _model_step_grads(model, batch, t, noise, drop, impl):
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.training.train_step import compute_losses
+
+    for mod in model.modules():
+        if hasattr(mod, "attn_impl"):
+            mod.attn_impl = impl
+    model.zero_grad(set_to_none=True)
+    diffusion = IDDPM(timestep_respacing=[1000], learn_sigma=True, rescale_learned_sigmas=True)
+    compute_losses(model, diffusion, batch, t, noise, force_drop_ids=drop)["loss"].backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _toy_2k_model(dev, depth, **kw):
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = PixArtMS_XL_2(device=dev, train=True, input_size=256, pe_interpolation=4.0,
+                          depth=depth, model_max_length=300, kv_compress_sampling="conv",
+                          kv_compress_scale=2, kv_compress_layers=tuple(range(depth // 2, depth)),
+                          **kw)
+    init_weights(model, gen)
+    with torch.no_grad():  # the zero-initialised projections would hide the blocks
+        for block in model.blocks:
+            block.cross_attn.proj.weight.normal_(0.0, 0.02, generator=gen)
+        model.final_layer.linear.weight.normal_(0.0, 0.02, generator=gen)
+    return model, gen
+
+
+def test_model_gradients_through_flash_match_plain(cuda):
+    """One training step of the 2K model at depth 2 (layer 1 KV-compressed),
+    B = 1, on a 130x132 latent (4290 tokens, past the onepass gate, not a
+    multiple of the key tile): layer 0 runs flash's autograd Function, and
+    every gradient is within chip_smoke.py's 2e-2 relative L2 of plain
+    attention's."""
+    model, gen = _toy_2k_model(cuda, 2)
+    randn = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    batch = {"latents": randn(1, 130, 132, 4), "y": randn(1, 300, 4096),
+             "y_mask": (torch.arange(300, device=cuda) < 11).int()[None]}
+    t, drop = torch.tensor([400], device=cuda), torch.tensor([0], device=cuda)
+    noise = randn(1, 130, 132, 4)
+    flash_attention.launches = 0
+    got = _model_step_grads(model, batch, t, noise, drop, "auto")
+    assert flash_attention.launches == 1
+    want = _model_step_grads(model, batch, t, noise, drop, "reference")
+    diff = sum(float((got[n] - want[n]).pow(2).sum()) for n in want)
+    assert (diff / sum(float(w.pow(2).sum()) for w in want.values())) ** 0.5 <= 2e-2
+    for n in want:
+        assert float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) <= 2e-2, n
+
+
+@pytest.mark.parametrize("remat_policy,recompute", [("nothing", True), ("save_attn", False)])
+def test_2k_training_step_launches(cuda, remat_policy, recompute):
+    """A 2K training step (2048x2048 latent, 16384 tokens) of the 2K model
+    cut to depth 2 with grad checkpointing: flash in layer 0, onepass over
+    the 4096 compressed keys in layer 1, allheads for the captions, and the
+    backward pair twice per layer; "nothing" runs each forward again in the
+    backward, "save_attn" does not, and the cross-attention backward
+    recomputes its lse through onepass either way."""
+    model, gen = _toy_2k_model(cuda, 2, grad_checkpointing=True, remat_policy=remat_policy)
+    randn = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    batch = {"latents": randn(1, 256, 256, 4), "y": randn(1, 300, 4096),
+             "y_mask": (torch.arange(300, device=cuda) < 7).int()[None]}
+    counters = (flash_attention, onepass_attention, crossattn_allheads, flash_bwd_dkv,
+                flash_bwd_dq, crossattn_headsmajor)
+    for fn in counters:
+        fn.launches = 0
+    _model_step_grads(model, batch, torch.tensor([500], device=cuda), randn(1, 256, 256, 4),
+                      torch.tensor([0], device=cuda), "auto")
+    runs = 2 if recompute else 1
+    assert [fn.launches for fn in counters] == [runs, runs + 2, 2 * runs, 4, 4, 0]
