@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px and 2K
-training paths, with the trainer's features, on one CUDA card.
+"""Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px, 2K and
+512px training paths, with the trainer's features and the T5-XXL and
+SDXL-VAE encoders, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -27,7 +28,9 @@ Phases, each printing its own lines:
    flash_bwd_dq) at the training shapes (captions with no valid key and one
    valid only on keys [256, 300), with the fault "key extent one tile
    short"), and at the 2K training shapes (flash's backward at
-   N = M = 16384, onepass's at N = 16384, M = 4096) on picked heads;
+   N = M = 16384, onepass's at N = 16384, M = 4096) on picked heads; the
+   onepass and allheads forwards and the backward pair also at the 512px
+   training shapes (B = 32, N = 1008; M = 1008 or a 300-key caption);
 4. the 1024px sampling path through PixArtPipeline: PixArt-Sigma-XL-2 at full
    width and depth (28 blocks, 1152 wide, KV compression conv x2 on layers
    14-27), seeded random weights, pseudo-T5 captions padded to 300 tokens,
@@ -99,7 +102,31 @@ Phases, each printing its own lines:
    accumulation, the loss-second-moment sampler, Min-SNR, the snr
    objective, Lion, no_weight_decay_on, the balanced sampler and a resume
    round trip at depth 4; validation sampling with a VAE writing PNGs and
-   each remat policy at depth 28; the masked toy config.
+   each remat policy at depth 28; the masked toy config;
+15. T5-XXL at full width (24 layers, d_model 4096, 64 heads of 64, d_ff
+   10240, vocab 32128, 300 tokens) with seeded random weights in bf16 and a
+   word-hash tokenizer defined here (no vocabulary file is reachable): held
+   against the port's own f32 encoder with the same weights on the card,
+   per caption over its valid tokens, with two planted faults (layer 0's
+   position bias dropped; the key mask dropped); encode times for 2 prompts
+   and for B = 32 captions, and the peak memory;
+16. the SDXL-VAE encoder at full width (f32, TF32 off), seeded random
+   weights: a 256px batch on the card against the host's CPU, with the
+   planted fault "symmetric pad before the stride-2 convs"; encode times at
+   512px, B = 32, and 1024px, B = 4;
+17. phase 4's 1024px path with T5-XXL encoding the prompts and the negative
+   prompt, to uint8 images: launches, T5 s/call, sampler and decode s/img,
+   peak memory with T5-XXL resident;
+18. configs/pixart_sigma_config/PixArt_sigma_xl2_img512_internalms.py
+   through the Trainer at full width and depth (B = 32, CAME on the scan
+   groups, clip 0.01, real_prompt_ratio 0.5) from PNG images read with PIL
+   through PixArtMSDataset and their captions, encoded on the fly by the
+   encoders of phases 15 and 16: 4 steps over the 512x512 bucket and the
+   448x576 one (1008 tokens: a key-tile tail), launches against the
+   reckoning, s/step, img/s, the split of a step between T5, VAE encode
+   and the DiT step, peak memory and a torch.profiler breakdown;
+19. the features round trip: the port's extract_features on phase 18's
+   items, then one Trainer step from its files through PixArtMSDataset.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -108,6 +135,7 @@ result, without a card or outside the repository, or if any phase fails.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -162,6 +190,21 @@ MASKED_TOY_CONFIG = "configs/toy/pixart_toy_img128_masked.py"
 SAMPLER_STEPS = {"deis": 20, "sde-dpm-solver": 20, "sa-solver": 25, "iddpm": 100,
                  "lcm": 4, "dmd": 1}
 SAMPLER_TIMED = 3  # warm calls per sampler whose median is its time
+# T5-XXL in bf16 against its f32 copy on the card, per caption over its
+# valid tokens, relative L2 (sound 1.8e-2; dropping layer 0's position bias
+# 0.71, the key mask 1.37; PERF.md)
+T5_REL_TOL = 0.1
+# the SDXL-VAE encoder on the card against the host's CPU, f32 with TF32
+# off, relative L2 of the mean and the log-variance (sound 5.1e-6; the
+# symmetric-pad fault 0.87; PERF.md)
+VAE_REL_TOL = 1e-3
+CONFIG_512 = "configs/pixart_sigma_config/PixArt_sigma_xl2_img512_internalms.py"
+TRAIN_512_BATCH = 32  # the config's batch, beside T5-XXL and the VAE
+TRAIN_STEPS_512 = 4
+# one 512px step (no KV compression; 1024 or 1008 keys): as at 1024px
+TRAIN_512_STEP_LAUNCHES = TRAIN_STEP_LAUNCHES
+# valid caption tokens of the 32 captions in phase 3's 512px training shapes
+CAPTIONS_512 = (300, 120, 77, 41, 19, 5, 3, 0) * 4
 
 
 def log(*parts) -> None:
@@ -1498,6 +1541,398 @@ def run_hires(dev, card, fa, cases, t5, vae, prompt, negative, max_err) -> dict:
     }
 
 
+# ------------------------------------------------------------------------
+# phases 15-19: the T5-XXL and SDXL-VAE encoders, serving with T5-XXL,
+# 512px training from images and captions, the features round trip
+
+
+class WordHashTokenizer:
+    """A tokenizer called as an HF one, for runs without a vocabulary file
+    (none is reachable): each word's id in [2, vocab_size) from a stable
+    hash, the EOS id 1 appended, padded with 0 to max_length, truncated
+    before the EOS."""
+
+    def __init__(self, vocab_size: int = 32128):
+        self.vocab_size = vocab_size
+
+    def __call__(self, texts, max_length, padding="max_length", truncation=True,
+                 return_tensors="np"):
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            toks = [2 + int.from_bytes(hashlib.sha256(w.encode()).digest()[:4], "little")
+                    % (self.vocab_size - 2) for w in text.split()]
+            toks = toks[: max_length - 1] + [1]
+            ids[i, : len(toks)] = toks
+            mask[i, : len(toks)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+class Timed:
+    """`inner` with its method `name` timed: each call, synchronised with the
+    card before and after, appends its seconds to `seconds`."""
+
+    def __init__(self, inner, name: str):
+        self.inner, self.name, self.seconds = inner, name, []
+
+    def __getattr__(self, attr):
+        fn = getattr(self.inner, attr)
+        if attr != self.name:
+            return fn
+        torch = sys.modules["torch"]
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+
+def synthetic_captions(n: int, seed: int) -> list:
+    """n captions of 5-60 words (some past 300 tokens would need more)."""
+    import numpy as np
+
+    words = ("a photo of the red fox small cactus with happy face mountain sunset lake "
+             "astronaut jungle oil painting city street at night old wooden boat").split()
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, int(rng.integers(5, 61)))) for _ in range(n)]
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def run_t5(dev, card):
+    """Phase 15: T5-XXL at full width (24 layers, d_model 4096, 64 heads of
+    64, d_ff 10240, vocab 32128, 300 tokens) with seeded random weights in
+    bf16, held against the port's own f32 encoder with the same weights on
+    the card, per caption over its valid tokens, with two planted faults;
+    encode times. Returns the bf16 `T5Embedder`."""
+    import torch
+
+    from pixart_sigma_tpu_torch.models.t5 import T5Config, T5Embedder, build_t5, init_weights
+    from pixart_sigma_tpu_torch.utils.prompt import clean_caption
+
+    t0 = time.perf_counter()
+    cfg = T5Config.xxl()
+    enc = build_t5(cfg, device=dev)
+    init_weights(enc, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in enc.parameters())
+    log(f"[t5] T5-XXL encoder: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.d_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n / 1e9:.3f} B parameters, {n * 2 / 2**30:.2f} GiB in bf16, seeded random weights "
+        f"(HF's scales, the bias table N(0, 1)) in {time.perf_counter() - t0:.1f} s; "
+        "word-hash tokenizer, 300 tokens")
+    emb = T5Embedder(enc, WordHashTokenizer(cfg.vocab_size), 300)
+    captions = ["a watercolor painting of a lighthouse on a cliff at dusk",
+                "blurry, low quality",
+                " ".join(synthetic_captions(1, 1)),
+                " ".join(synthetic_captions(20, 2))]  # past 300 tokens: truncated
+    tok = emb.tokenizer([clean_caption(c) for c in captions], 300)
+    ids = torch.from_numpy(tok["input_ids"]).to(dev)
+    mask = torch.from_numpy(tok["attention_mask"]).to(dev)
+    valid = mask.bool()
+    lengths = valid.sum(1).tolist()
+    with torch.no_grad():
+        got = enc(ids, mask)
+        ref = build_t5(T5Config.xxl(dtype=torch.float32), device=dev,
+                       param_dtype=torch.float32)
+        ref.load_state_dict(enc.state_dict())
+        want = ref(ids, mask)
+        del ref
+        torch.cuda.empty_cache()
+        table = enc.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
+        kept = table.clone()
+        table.zero_()
+        no_bias = enc(ids, mask)
+        table.copy_(kept)
+        no_mask = enc(ids, torch.ones_like(mask))
+
+    def reading(out):
+        return max(rel_l2(out[b][valid[b]], want[b][valid[b]]) for b in range(len(captions)))
+
+    sound = reading(got)
+    ok = bool(torch.isfinite(got).all()) and sound <= T5_REL_TOL
+    log(f"[t5] bf16 vs f32 (same weights, on the card), captions of {lengths} valid tokens: "
+        f"worst relative L2 over the valid tokens {sound:.3e} (tol {T5_REL_TOL}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    for fault, out in (("layer 0's position bias dropped", no_bias),
+                       ("key mask dropped", no_mask)):
+        r = reading(out)
+        caught = r > T5_REL_TOL
+        ok &= caught
+        log(f"    planted fault, {fault}: {r:.3e} {'rejected' if caught else 'NOT REJECTED'}")
+    if not ok:
+        raise SystemExit("T5-XXL bf16 disagrees with f32, or the check missed a planted fault")
+    prompts = captions[:2]
+    batch32 = synthetic_captions(32, 3)
+    y, m = emb.get_text_embeddings(prompts)
+    log(f"[t5] get_text_embeddings: y {tuple(y.shape)} {y.dtype} on {y.device}, mask "
+        f"{tuple(m.shape)} {m.dtype}")
+    if y.device.type != dev.type or y.dtype != torch.bfloat16 or \
+            y.shape != (2, 300, cfg.d_model):
+        raise SystemExit(f"T5Embedder output is not bf16 [2, 300, {cfg.d_model}] on {dev}")
+    s2, r2 = median_s(lambda: emb.get_text_embeddings(prompts))
+    torch.cuda.reset_peak_memory_stats()
+    s32, r32 = median_s(lambda: emb.get_text_embeddings(batch32))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[time] {card}: T5-XXL encode (clean, tokenize, encode; median of 3): 2 prompts "
+        f"{s2:.4f} s ({', '.join(f'{x:.4f}' for x in r2)}), B = 32 captions {s32:.4f} s "
+        f"({', '.join(f'{x:.4f}' for x in r32)}); peak memory {peak:.2f} GiB")
+    return emb
+
+
+def symmetric_pad(vae) -> list:
+    """Plant the fault "symmetric pad": each stride-2 downsampling conv of the
+    encoder padded by 1 on every side instead of (0, 1) x (0, 1). Returns the
+    patched modules (`del m.forward` restores each)."""
+    F = sys.modules["torch"].nn.functional
+    patched = []
+    for block in vae.encoder.down_blocks:
+        if hasattr(block, "downsamplers"):
+            d = block.downsamplers[0]
+            d.forward = (lambda c: lambda h: F.conv2d(h, c.weight, c.bias, stride=2,
+                                                      padding=1))(d.conv)
+            patched.append(d)
+    return patched
+
+
+def run_vae_encoder(dev, card):
+    """Phase 16: the SDXL-VAE encoder at full width (f32, TF32 off) with
+    seeded random weights: a 256px batch on the card against the same
+    weights on the host's CPU, with a planted fault; encode times at 512px,
+    B = 32, and 1024px, B = 4. Returns the VAE."""
+    import torch
+
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+
+    torch.cuda.manual_seed(2)
+    vae = build_vae(VAEConfig.sdxl(), device=dev)
+    host = build_vae(VAEConfig.sdxl(), device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 256, 256, 3), generator=gen) * 2 - 1
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mean_h, logvar_h = host.encode(x)
+        t_host = time.perf_counter() - t0
+        mean, logvar = vae.encode(x.to(dev))
+        patched = symmetric_pad(vae)
+        mean_f, logvar_f = vae.encode(x.to(dev))
+        for m in patched:
+            del m.forward
+    reading = lambda m, lv: max(rel_l2(m.cpu(), mean_h), rel_l2(lv.cpu(), logvar_h))
+    sound, fault = reading(mean, logvar), reading(mean_f, logvar_f)
+    ok = sound <= VAE_REL_TOL < fault and mean.shape == (2, 32, 32, 4)
+    log(f"[vae] SDXL-VAE encoder, seeded random weights, f32: 256px B = 2 on the card vs the "
+        f"host's CPU ({t_host:.1f} s there): mean {tuple(mean.shape)}, worst relative L2 of "
+        f"mean and logvar {sound:.3e} (tol {VAE_REL_TOL:.0e}) {'ok' if sound <= VAE_REL_TOL else 'MISMATCH'}; "
+        f"planted fault, symmetric pad before the stride-2 convs: {fault:.3e} "
+        f"{'rejected' if fault > VAE_REL_TOL else 'NOT REJECTED'}")
+    if not ok:
+        raise SystemExit("the VAE encoder disagrees with the CPU, or the check missed the fault")
+    del host
+    for B, side in ((32, 512), (4, 1024)):
+        xs = torch.rand((B, side, side, 3), device=dev) * 2 - 1
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            s, r = median_s(lambda: vae.encode(xs))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[time] {card}: VAE encode {side}px B = {B} (median of 3): {s:.4f} s, "
+            f"{s / B:.4f} s/img ({', '.join(f'{x:.4f}' for x in r)}); peak memory {peak:.2f} GiB")
+        del xs
+        torch.cuda.empty_cache()
+    return vae
+
+
+def run_serving_t5(dev, card, fa, emb, vae, prompts, negative) -> dict:
+    """Phase 17: phase 4's 1024px path (PixArtMS-XL-2 kvcompress, 20-step
+    DPM-Solver++, CFG 4.5, 2 prompts and a negative prompt) with T5-XXL
+    encoding the prompts, to uint8 images. Returns the checked call's
+    launches."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+
+    model = PixArtMS_XL_2(input_size=128, pe_interpolation=2.0, model_max_length=300,
+                          kv_compress_sampling="conv", kv_compress_scale=2,
+                          kv_compress_layers=tuple(range(14, 28)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_weights(model, gen)
+    perturb_zero_leaves(model, gen)
+    t5 = Timed(emb, "get_text_embeddings")
+    pipe = PixArtPipeline(model, t5=t5, vae=vae, device=dev)
+    call = dict(num_inference_steps=20, guidance_scale=4.5, negative_prompt=negative, seed=0)
+    expect = 28 * 20
+    torch.cuda.reset_peak_memory_stats()
+    for run in ("checked", "timed"):
+        t5.seconds.clear()
+        reset_forward_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = pipe(prompts, return_latents=True, **call)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        imgs = pipe._latents_to_images(torch.from_numpy(lat).to(dev))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = forward_counts(fa)
+        if run == "checked":
+            launches = dict(counts)
+            if (imgs.shape != (2, 1024, 1024, 3) or imgs.dtype != np.uint8
+                    or any(im.std() == 0 for im in imgs) or not np.isfinite(lat).all()):
+                raise SystemExit(f"1024px with T5-XXL: images {imgs.shape} {imgs.dtype}, "
+                                 "constant or not finite")
+            if (counts["onepass"], counts["allheads"]) != (expect, expect) or \
+                    counts["flash"] or counts["headsmajor"]:
+                raise SystemExit(f"1024px with T5-XXL: launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t_t5 = sum(t5.seconds)
+    log(f"[serve] 1024px with T5-XXL encoding the prompts and the negative prompt: images "
+        f"{imgs.shape} {imgs.dtype}; launches {launches} (expected onepass and allheads "
+        f"{expect})")
+    log(f"[time] {card}: 1024px with T5-XXL: T5 {t_t5 / len(t5.seconds):.4f} s/call "
+        f"({len(t5.seconds)} calls: {', '.join(f'{x:.4f}' for x in t5.seconds)}), sampler "
+        f"{(t1 - t0 - t_t5) / 2:.4f} s/img, decode {(t2 - t1) / 2:.4f} s/img, call to images "
+        f"{(t2 - t0) / 2:.4f} s/img (2 images); peak memory with T5-XXL resident {peak:.2f} GiB")
+    return launches
+
+
+def run_training_512(dev, card, fa, emb, vae) -> tuple:
+    """Phases 18 and 19: the 512px multi-scale config through Trainer at
+    full width and depth from PNG images and their captions, encoded on the
+    fly by T5-XXL and the SDXL VAE; then extract_features on the same items
+    and one Trainer step from its files. Returns the launches of both."""
+    import json as json_
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.data.aspect import aspect_ratio_table, get_closest_ratio
+    from pixart_sigma_tpu_torch.data.datasets import PixArtMSDataset
+    from pixart_sigma_tpu_torch.data.synthetic import write_image_dataset
+    from pixart_sigma_tpu_torch.tools.extract_features import extract_caption_t5, extract_img_vae
+    from pixart_sigma_tpu_torch.training.train_step import train_step
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="pixart_train512_")
+    try:
+        sizes = [(600, 600)] * TRAIN_512_BATCH + [(700, 900)] * TRAIN_512_BATCH
+        t0 = time.perf_counter()
+        root = write_image_dataset(os.path.join(tmp, "data"), sizes, seed=0)
+        table = aspect_ratio_table(512)
+        buckets = sorted({tuple(int(v) for v in get_closest_ratio(h, w, table)[0])
+                          for h, w in sizes})
+        log(f"[train512] {len(sizes)} PNG images written in {time.perf_counter() - t0:.1f} s "
+            f"(600x600 and 700x900, read with PIL through PixArtMSDataset: PIL imports on "
+            f"the card), buckets {buckets}: {[(h // 16) * (w // 16) for h, w in buckets]} "
+            "tokens; captions of 4-40 words, real_prompt_ratio 0.5")
+        cfg = read_config(CONFIG_512)
+        cfg.data_root = tmp
+        cfg.data = dict(cfg.data, root="data")
+        cfg.update(log_interval=1, save_model_steps=0, save_model_epochs=10**9,
+                   train_batch_size=TRAIN_512_BATCH)
+        t5, tvae = Timed(emb, "get_text_embeddings"), Timed(vae, "encode")
+        trainer = Trainer(cfg, os.path.join(tmp, "work"), device=dev, vae=tvae, t5=t5)
+        mc = trainer.model.cfg
+        log(f"[train512] {CONFIG_512}: PixArtMS_XL_2 depth {mc.depth} width {mc.hidden_size}, "
+            f"input {mc.input_size}, kv-compress {mc.kv_compress_sampling or 'none'}, batch "
+            f"{cfg.train_batch_size}, grad checkpointing {mc.grad_checkpointing} "
+            f"({mc.remat_policy}), CAME on the scan-stacked groups {mc.block_groups()}, lr "
+            f"{trainer._base_lr:.3g} (auto-scaled), clip {cfg.gradient_clip}, load_vae_feat "
+            f"{cfg.data['load_vae_feat']}, load_t5_feat {cfg.data['load_t5_feat']}")
+        perturb_zero_leaves(trainer.model, torch.Generator(device=dev).manual_seed(0))
+        t0 = time.perf_counter()
+        launches, hist, peak = counted_train(fa, trainer, TRAIN_STEPS_512)
+        wall = time.perf_counter() - t0
+        expect = run_launches(mc, [h["hw"] for h in hist])
+        fixed = {k: TRAIN_STEPS_512 * v for k, v in TRAIN_512_STEP_LAUNCHES.items()}
+        for i, h in enumerate(hist):
+            total = h["seconds"] + t5.seconds[i] + tvae.seconds[i]
+            log(f"[train512] step {h['step']}: latents {h['hw']}, loss {h['loss']:.5f}, grad "
+                f"norm {h['grad_norm']:.4f}; T5 {t5.seconds[i]:.4f} s + VAE encode "
+                f"{tvae.seconds[i]:.4f} s + DiT step {h['seconds']:.4f} s = {total:.4f} s")
+        log(f"[train512] launches {launches}; reckoned {expect}; fixed per step "
+            f"{TRAIN_512_STEP_LAUNCHES}; per step at each bucket "
+            f"{ {hw: step_launches(mc, hw) for hw in sorted({h['hw'] for h in hist})} }")
+        if not all(np.isfinite(h["loss"]) for h in hist) or len(hist) != TRAIN_STEPS_512:
+            raise SystemExit("train512: loss not finite or steps missing")
+        if launches != expect or launches != fixed:
+            raise SystemExit(f"train512: launches {launches}, reckoned {expect}, fixed {fixed}")
+        B = cfg.train_batch_size
+        for hw in sorted({h["hw"] for h in hist}):
+            idx = [i for i, h in enumerate(hist) if h["hw"] == hw and i > 0]
+            if idx:
+                parts = [sum(x[i] for i in idx) / len(idx) for x in
+                         (t5.seconds, tvae.seconds, [h["seconds"] for h in hist])]
+                step = sum(parts)
+                log(f"[time] {card}: train512 step at latents {hw} (B = {B}, steps after the "
+                    f"first): {step:.4f} s/step, {B / step:.3f} img/s; T5 {parts[0]:.4f} s "
+                    f"({parts[0] / step:.3f}), VAE encode {parts[1]:.4f} s "
+                    f"({parts[1] / step:.3f}), DiT step {parts[2]:.4f} s ({parts[2] / step:.3f})")
+        log(f"[time] {card}: train512 {TRAIN_STEPS_512} steps in {wall:.2f} s wall (loader, "
+            f"first step included); peak memory {peak:.2f} GiB with T5-XXL and the VAE resident")
+        batch = next(iter(trainer.build_loader()))
+        step = trainer.state.step
+        trace(lambda: train_step(trainer.state, trainer.diffusion,
+                                 trainer.prepare_batch(batch, step), generator=trainer.generator,
+                                 grad_clip=cfg.gradient_clip),
+              f"one train512 step from images and captions (T5-XXL, VAE encode, DiT step), "
+              f"B = {B}", card)
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        # ---- 19. the features round trip ----
+        with open(os.path.join(root, "data_info.json")) as f:
+            meta = json_.load(f)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cap_dir = extract_caption_t5(root, meta, emb, batch=32)
+            vae_dir = extract_img_vae(root, meta, vae, 512, multi_scale=True, batch=32)
+        torch.cuda.synchronize()
+        n_cap, n_vae = len(os.listdir(cap_dir)), len(os.listdir(vae_dir))
+        log(f"[features-rt] extract_features on the {len(meta)} items: {n_cap} caption files "
+            f"in {os.path.basename(cap_dir)}/, {n_vae} VAE files in "
+            f"{os.path.basename(vae_dir)}/, {time.perf_counter() - t0:.2f} s")
+        ds = PixArtMSDataset(root, resolution=512, aspect_ratio_type=512, load_vae_feat=True,
+                             load_t5_feat=True, max_length=300, seed=cfg.seed)
+        item = ds.getdata(0)
+        _, m0 = emb.get_text_embeddings([meta[0]["prompt"]])
+        if (n_cap, n_vae) != (len(meta), len(meta)) or item["latents"].shape != (64, 64, 4) \
+                or item["y"].shape != (300, emb.cfg.d_model) or \
+                not np.array_equal(item["y_mask"], m0[0].cpu().numpy()):
+            raise SystemExit("features round trip: files or a dataset item are wrong")
+        cfg2 = read_config(CONFIG_512)
+        cfg2.data_root = tmp
+        # only the real prompt's features are extracted, as upstream's tool
+        cfg2.data = dict(cfg2.data, root="data", load_vae_feat=True, load_t5_feat=True)
+        cfg2.update(log_interval=1, save_model_steps=0, save_model_epochs=10**9,
+                    real_prompt_ratio=1.0, train_batch_size=TRAIN_512_BATCH)
+        trainer = Trainer(cfg2, os.path.join(tmp, "work2"), device=dev)
+        launches_rt, hist_rt, _ = counted_train(fa, trainer, 1)
+        expect_rt = run_launches(trainer.model.cfg, [h["hw"] for h in hist_rt])
+        log(f"[features-rt] one Trainer step from the extracted files through "
+            f"PixArtMSDataset: latents {hist_rt[0]['hw']}, loss {hist_rt[0]['loss']:.5f}, "
+            f"{hist_rt[0]['seconds']:.4f} s; launches {launches_rt}, reckoned {expect_rt}")
+        if not np.isfinite(hist_rt[0]["loss"]) or launches_rt != expect_rt:
+            raise SystemExit("features round trip: the step failed")
+        del trainer
+        torch.cuda.empty_cache()
+        return launches, launches_rt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1577,6 +2012,16 @@ def main() -> int:
             got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, fa.KEY_TILE))
         errs["onepass"].append(err)
         all_ok &= ok
+    # the 512px training shapes: B = 32, 32 x 32 = 1024 or 28 x 36 = 1008 tokens
+    q, k, v = cases.onepass(32, 1008, 1008)
+    got = fa.onepass_attention(q, k, v)
+    torch.cuda.synchronize()
+    err, ok = compare("onepass B*H=512 N=M=1008 Dh=72 (512px training)", got,
+                      fa.attention_reference(q, k, v),
+                      planted_faults(q, k, v, None, fa.KEY_TILE))
+    errs["onepass"].append(err)
+    all_ok &= ok
+    del q, k, v, got
     # caption masks: prefixes of 300 keys or fewer, one with no valid key,
     # one valid only on keys [256, 300)
     cross_cases = ((4096, 300, (300, 120, 77, 1), torch.bfloat16),
@@ -1584,14 +2029,15 @@ def main() -> int:
                    (4096, 300, (300, (256, 300), 77, 3), torch.bfloat16))
     for N, M, lengths, dtype in cross_cases + (
             (1000, 77, (77, 40, 5, 1), torch.bfloat16),
-            (1000, 77, (77, 40, 5, 1), torch.float32)):
-        q, k, v, mask, H = cases.allheads(4, N, M, lengths, dtype=dtype)
+            (1000, 77, (77, 40, 5, 1), torch.float32),
+            (1008, 300, CAPTIONS_512, torch.bfloat16)):
+        q, k, v, mask, H = cases.allheads(len(lengths), N, M, lengths, dtype=dtype)
         got = fa.crossattn_allheads(q, k, v, mask, H)
         torch.cuda.synchronize()
         split = lambda x: x.unflatten(-1, (H, 72))
         want = fa.attention_reference(split(q), split(k), split(v), mask).flatten(2)
         err, ok = compare(
-            f"allheads B=4 N={N} M={M} C=1152 valid={lengths}"
+            f"allheads B={len(lengths)} N={N} M={M} C=1152 valid={lengths}"
             f"{' f32' if dtype == torch.float32 else ''}",
             got, want, planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE, H, extent=True))
         errs["allheads"].append(err)
@@ -1652,6 +2098,15 @@ def main() -> int:
          torch.float32, True),
     ):
         bwd_errs, ok = check_backward(fa, cases, label, 4, N, M, lengths, dtype, cross)
+        for name, err in bwd_errs.items():
+            errs[name].append(err)
+        all_ok &= ok
+        torch.cuda.empty_cache()
+    for label, N, M, lengths, cross in (
+        ("self B*H=512 N=M=1008 (512px training)", 1008, 1008, None, False),
+        ("cross B*H=512 N=1008 M=300 (512px training)", 1008, 300, CAPTIONS_512, True),
+    ):
+        bwd_errs, ok = check_backward(fa, cases, label, 32, N, M, lengths, torch.bfloat16, cross)
         for name, err in bwd_errs.items():
             errs[name].append(err)
         all_ok &= ok
@@ -1912,6 +2367,22 @@ def main() -> int:
         entry["launches_features"] = {run: c[name] for run, c in launches_features.items()}
     for entry in entries:
         entry["launches_samplers"] = {s: c[entry["name"]] for s, c in launches_samplers.items()}
+
+    # ---- 15.-19. the T5-XXL and VAE encoders, serving with T5-XXL, 512px ------
+    # training from images and captions, the features round trip
+    emb = run_t5(dev, card)
+    vae_enc = run_vae_encoder(dev, card)
+    launches_serve = run_serving_t5(dev, card, fa, emb, vae_enc, prompts, negative)
+    torch.cuda.empty_cache()
+    launches_512, launches_rt = run_training_512(dev, card, fa, emb, vae_enc)
+    del emb, vae_enc
+    torch.cuda.empty_cache()
+    for entry in entries:
+        name = entry["name"]
+        entry["launches_serving_t5"] = launches_serve.get(
+            {"flash_forward": "flash"}.get(name, name), 0)
+        entry["launches_training_512"] = launches_512[name]
+        entry["launches_features_round_trip"] = launches_rt[name]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

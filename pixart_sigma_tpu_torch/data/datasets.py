@@ -1,13 +1,21 @@
-"""Feature datasets over the data_info.json layout of the Sigma dialect.
+"""Datasets over the data_info.json layout, in the Sigma and alpha dialects.
 
-Port of pixart_sigma_tpu/data/datasets.py, feature mode only
-(`load_vae_feat` and `load_t5_feat`) and the Sigma dialect only: the image
-path needs the VAE and T5 encoders, which are not ported yet, and the alpha
-layout waits for an alpha training slice; both raise. Items are numpy
-dicts with channel-last arrays, {latents [H, W, C], y [L, C_cap], y_mask
-[L], img_hw [2], aspect_ratio [1], prompt}. Every random draw is keyed on
-(seed, epoch, index) with numpy and `random`, as in the JAX package, so both
-packages give the same bits for the same files.
+Port of pixart_sigma_tpu/data/datasets.py. Items are numpy dicts with
+channel-last arrays: {latents [H, W, C] (load_vae_feat) or image [H, W, 3]
+in [-1, 1] (image mode, for on-the-fly VAE encoding), y [L, C_cap]
+(load_t5_feat), y_mask [L] (all ones in prompt mode), img_hw [2],
+aspect_ratio [1], prompt}. Every random draw is keyed on (seed, epoch,
+index) with numpy and `random`, as in the JAX package, so both packages
+give the same bits for the same files.
+
+- dialect "sigma": data_info.json at the root, caption_features_new/ (or
+  sharegpt4v_caption_features_new/ for the other caption, picked with
+  probability 1 - real_prompt_ratio), img_sdxl_vae_features_{res}resolution_new/
+  (multi-scale: ..._ms_new/), ratios up to 4.5;
+- dialect "alpha": partition/<json>, caption_feature_wmask/,
+  img_vae_features_{res}resolution/noflip (multi-scale:
+  img_vae_fatures_{res}_multiscale/ms, the upstream spelling), file names
+  joined from the item's directory and name, ratios up to 4.0.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Any, Dict, List
 import numpy as np
 
 from pixart_sigma_tpu_torch.data.aspect import aspect_ratio_table, get_closest_ratio
+from pixart_sigma_tpu_torch.data.transforms import default_train, multiscale_train, open_image
 
 
 def _replace_img_ext(path: str, dst: str) -> str:
@@ -29,34 +38,31 @@ def _replace_img_ext(path: str, dst: str) -> str:
 
 
 class PixArtDataset:
-    """Single-scale dataset: data_info.json at the root, caption_features_new/
-    (or sharegpt4v_caption_features_new/ for the other caption, picked with
-    probability 1 - real_prompt_ratio) and
-    img_sdxl_vae_features_{res}resolution_new/."""
+    """Single-scale dataset (upstream InternalData / InternalDataSigma)."""
 
     def __init__(self, root: str, image_list_json="data_info.json", resolution: int = 256,
                  load_vae_feat: bool = False, load_t5_feat: bool = False,
                  max_length: int = 300, real_prompt_ratio: float = 1.0,
                  dialect: str = "sigma", seed: int = 0, **kwargs):
-        if not (load_vae_feat and load_t5_feat):
-            raise NotImplementedError(
-                "the port reads precomputed features only (load_vae_feat and load_t5_feat); "
-                "image and prompt mode need the VAE and T5 encoders (ROADMAP.md, Queue 1)")
-        if dialect != "sigma":
-            raise NotImplementedError(f"the {dialect!r} dataset layout is not ported yet")
         self.root = root
         self.resolution = resolution
+        self.load_vae_feat = load_vae_feat
+        self.load_t5_feat = load_t5_feat
         self.max_length = max_length
         self.real_prompt_ratio = real_prompt_ratio
+        self.dialect = dialect
         self.seed = seed
         self.epoch = 0
         self.rng = random.Random(seed)  # retry resampling only (stateful)
         jsons = image_list_json if isinstance(image_list_json, list) else [image_list_json]
+        max_ratio = 4.5 if dialect == "sigma" else 4.0
         self.meta: List[Dict[str, Any]] = []
         for jf in jsons:
-            with open(os.path.join(root, jf)) as f:
+            path = (os.path.join(root, jf) if dialect == "sigma"
+                    else os.path.join(root, "partition", jf))
+            with open(path) as f:
                 meta = json.load(f)
-            self.meta.extend([m for m in meta if m.get("ratio", 1.0) <= 4.5])
+            self.meta.extend([m for m in meta if m.get("ratio", 1.0) <= max_ratio])
 
     def __len__(self) -> int:
         return len(self.meta)
@@ -65,15 +71,22 @@ class PixArtDataset:
         """Fresh per-epoch randomness for the keyed draws below."""
         self.epoch = epoch
 
-    def _vae_path(self, fname: str) -> str:
-        return os.path.join(self.root, f"img_sdxl_vae_features_{self.resolution}resolution_new",
-                            fname.replace(".png", ".npy"))
-
     def _paths(self, item: Dict[str, Any], real_prompt: bool):
+        """(image, caption feature, VAE feature) paths of an item."""
+        img = os.path.join(self.root.replace("InternData", "InternImgs"), item["path"])
         fname = item["path"].rsplit("/", 1)[-1]
-        feat_dir = "caption_features_new" if real_prompt else "sharegpt4v_caption_features_new"
-        return (os.path.join(self.root, feat_dir, fname.replace(".png", ".npz")),
-                self._vae_path(fname))
+        joined = "_".join(item["path"].rsplit("/", 1))
+        if self.dialect == "sigma":
+            feat_dir = "caption_features_new" if real_prompt else "sharegpt4v_caption_features_new"
+            txt = os.path.join(self.root, feat_dir, fname.replace(".png", ".npz"))
+            vae = os.path.join(self.root, f"img_sdxl_vae_features_{self.resolution}resolution_new",
+                               fname.replace(".png", ".npy"))
+        else:
+            txt = os.path.join(self.root, "caption_feature_wmask",
+                               _replace_img_ext(joined, ".npz"))
+            vae = os.path.join(self.root, f"img_vae_features_{self.resolution}resolution/noflip",
+                               _replace_img_ext(joined, ".npy"))
+        return img, txt, vae
 
     def _load_vae(self, path: str, index: int) -> np.ndarray:
         """[mean, std] .npy -> a posterior draw keyed on (seed, epoch, index),
@@ -98,6 +111,10 @@ class PixArtDataset:
             mask = np.concatenate([mask, np.zeros((L - mask.shape[0],), np.int32)], axis=0)
         return fea[:L], mask[:L]
 
+    def _transform_image(self, item: Dict[str, Any], img_path: str) -> np.ndarray:
+        with open_image(img_path) as im:
+            return default_train(im, self.resolution)
+
     def _data_info(self, item) -> Dict[str, np.ndarray]:
         return {
             "img_hw": np.asarray([self.resolution, self.resolution], dtype=np.float32),
@@ -108,10 +125,16 @@ class PixArtDataset:
         item = self.meta[index]
         real_prompt = (random.Random(f"{self.seed}/{self.epoch}/{index}").random()
                        < self.real_prompt_ratio)
-        txt_path, vae_path = self._paths(item, real_prompt)
+        img_path, txt_path, vae_path = self._paths(item, real_prompt)
         out: Dict[str, Any] = self._data_info(item)
-        out["latents"] = self._load_vae(vae_path, index)
-        out["y"], out["y_mask"] = self._load_txt(txt_path)
+        if self.load_vae_feat:
+            out["latents"] = self._load_vae(vae_path, index)
+        else:
+            out["image"] = self._transform_image(item, img_path)
+        if self.load_t5_feat:
+            out["y"], out["y_mask"] = self._load_txt(txt_path)
+        else:
+            out["y_mask"] = np.ones((self.max_length,), np.int32)
         out["prompt"] = (item.get("prompt", "") if real_prompt
                          else item.get("sharegpt4v", item.get("prompt", "")))
         return out
@@ -131,7 +154,8 @@ class PixArtDataset:
 
 
 class PixArtMSDataset(PixArtDataset):
-    """Multi-scale dataset: each item lands in its closest aspect-ratio bucket."""
+    """Multi-scale dataset: each item lands in its closest aspect-ratio
+    bucket, and image mode resizes and crops to the bucket's size."""
 
     def __init__(self, *args, aspect_ratio_type: int = 1024, test_ratios: bool = False,
                  **kwargs):
@@ -142,9 +166,21 @@ class PixArtMSDataset(PixArtDataset):
             _, key = get_closest_ratio(m["height"], m["width"], self.ratios)
             self.ratio_nums[key] += 1
 
-    def _vae_path(self, fname: str) -> str:
-        return os.path.join(self.root, f"img_sdxl_vae_features_{self.resolution}resolution_ms_new",
-                            _replace_img_ext(fname, ".npy"))
+    def _vae_dir(self) -> str:
+        if self.dialect == "sigma":
+            return f"img_sdxl_vae_features_{self.resolution}resolution_ms_new"
+        return f"img_vae_fatures_{self.resolution}_multiscale/ms"  # sic, upstream's name
+
+    def _paths(self, item, real_prompt: bool):
+        img, txt, _ = super()._paths(item, real_prompt)
+        fname = item["path"].rsplit("/", 1)[-1]
+        name = fname if self.dialect == "sigma" else "_".join(item["path"].rsplit("/", 1))
+        return img, txt, os.path.join(self.root, self._vae_dir(), _replace_img_ext(name, ".npy"))
+
+    def _transform_image(self, item, img_path):
+        size, _ = get_closest_ratio(item["height"], item["width"], self.ratios)
+        with open_image(img_path) as im:
+            return multiscale_train(im, (int(size[0]), int(size[1])))
 
     def _data_info(self, item):
         size, key = get_closest_ratio(item["height"], item["width"], self.ratios)

@@ -1,6 +1,9 @@
-"""A seeded synthetic feature dataset in the Sigma dialect, for runs and tests
-that have no real data: data_info.json, SDXL-VAE [mean, std] features and
-both caption feature directories, laid out as `data/datasets.py` reads them.
+"""Seeded synthetic datasets in the Sigma dialect, for runs and tests that
+have no real data, laid out as `data/datasets.py` reads them:
+`write_feature_dataset` writes data_info.json, SDXL-VAE [mean, std]
+features and both caption feature directories; `write_image_dataset`
+writes data_info.json, PNG images and captions for image- and prompt-mode
+training and for `tools.extract_features`.
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from pixart_sigma_tpu_torch.data.aspect import aspect_ratio_table, get_closest_ratio
+from pixart_sigma_tpu_torch.utils.png import write_png
+
+_WORDS = ("a photo of the red fox small cactus with happy face mountain sunset lake "
+          "astronaut jungle oil painting city street at night old wooden boat on calm "
+          "water under stars bright colorful detailed soft light").split()
 
 
 def write_feature_dataset(
@@ -54,6 +62,31 @@ def write_feature_dataset(
             feat = rng.standard_normal((1, max_length, caption_channels)).astype(np.float16)
             np.savez(os.path.join(root, d, f"{name}.npz"), caption_feature=feat,
                      attention_mask=mask)
+    with open(os.path.join(root, "data_info.json"), "w") as f:
+        json.dump(meta, f)
+    return root
+
+
+def write_image_dataset(root: str, image_sizes: Sequence[Tuple[int, int]], *,
+                        seed: int = 0) -> str:
+    """Write len(image_sizes) RGB PNG images of the given (height, width)
+    under `root`/part0/ (smooth colour fields with noise) and a
+    data_info.json whose items carry two captions of 4-40 words (`prompt`
+    and `sharegpt4v`); return `root`."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "part0"), exist_ok=True)
+    meta = []
+    for i, (height, width) in enumerate(image_sizes):
+        name = f"{i:06d}.png"
+        yy, xx = np.mgrid[0:height, 0:width] / max(height, width)
+        freq, phase = 2 + 6 * rng.random((2, 3)), 6.28 * rng.random(3)
+        img = (127.5 + 90 * np.sin(freq[0] * xx[..., None] + freq[1] * yy[..., None] + phase)
+               + 20 * rng.standard_normal((height, width, 3)))
+        write_png(os.path.join(root, "part0", name), np.clip(img, 0, 255).astype(np.uint8))
+        captions = [" ".join(rng.choice(_WORDS, int(rng.integers(4, 41)))) for _ in range(2)]
+        meta.append({"path": f"part0/{name}", "height": height, "width": width,
+                     "ratio": height / width, "prompt": captions[0],
+                     "sharegpt4v": captions[1]})
     with open(os.path.join(root, "data_info.json"), "w") as f:
         json.dump(meta, f)
     return root

@@ -58,9 +58,11 @@ class PixArtPipeline:
     """Bundles the denoiser, a text encoder and the VAE.
 
     model: a port `PixArt` on `device`. t5: an object with
-    `get_text_embeddings(texts) -> (y, mask)` (e.g. `PseudoT5Embedder`), or
-    None to take precomputed `y` / `y_mask`. vae: a port `AutoencoderKL`, or
-    None to return latents.
+    `get_text_embeddings(texts) -> (y, mask)`: `T5Embedder` (bf16 features
+    on the card for T5-XXL) or `PseudoT5Embedder` (f32 on the CPU); either
+    is moved to `device` and the model casts y to its compute dtype. None
+    takes precomputed `y` / `y_mask`. vae: a port `AutoencoderKL`, or None
+    to return latents.
     """
 
     def __init__(

@@ -10,15 +10,19 @@ symmetric under a transpose, but a convolution is not. So CAME factors each
 parameter in the JAX package's layout (`jax_layout`): the patch embedding,
 a flax Dense over (p, p, c) inputs, as a 2D [D, p*p*c] matrix, and the
 depthwise KV-compression conv, [C, 1, sr, sr] in torch, as flax's HWIO
-[sr, sr, 1, C]. Lion is optax's `lion`: the sign of b1 m + (1 - b1) g,
-momentum b2, decoupled weight decay. Parameters that `skip_decay(name)`
-marks (the config's `no_weight_decay_on`) get no weight decay.
+[sr, sr, 1, C]. With a scan-stacked JAX tree (`scan_blocks`, the shipped
+configs' default) the JAX trainer's leaves are a scan group's layers
+stacked [count, ...]; CAME then factors and clips each stack as one tensor
+(`block_stacks`), as JAX does. Lion is optax's `lion`: the sign of
+b1 m + (1 - b1) g, momentum b2, decoupled weight decay. Parameters that
+`skip_decay(name)` marks (the config's `no_weight_decay_on`) get no weight
+decay.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +34,23 @@ def jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
     if t.ndim == 4:  # conv OIHW -> HWIO
         return t.permute(2, 3, 1, 0)
     return t
+
+
+def block_stacks(names: Sequence[str], block_groups: Sequence[Tuple[int, int]]
+                 ) -> List[List[str]]:
+    """The leaves of the JAX scan-stacked tree: for each scan group of
+    `block_groups` ([(sr_ratio, count)], `PixArtConfig.block_groups`) and
+    each parameter of its first block, that parameter's name in each of the
+    group's blocks, in layer order."""
+    stacks, start = [], 0
+    for _sr, count in block_groups:
+        prefix = f"blocks.{start}."
+        for name in names:
+            if name.startswith(prefix):
+                rest = name[len(prefix):]
+                stacks.append([f"blocks.{start + j}.{rest}" for j in range(count)])
+        start += count
+    return stacks
 
 
 def _approx_sq_grad(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -45,6 +66,13 @@ class CAME(torch.optim.Optimizer):
     two or more dims the factored row/col second moments and confidence
     rows/cols; a vector keeps a full second moment. The update is the JAX
     package's `came`; `step` takes the rate from the param group's "lr".
+
+    `stacks` (`block_stacks`): lists of parameter names updated as one
+    tensor, their `jax_layout` views stacked on a new first axis, as the
+    JAX trainer's scan-stacked leaves: row and column statistics over the
+    last two dims (a stacked bias [count, D] is factored), the update's RMS
+    clip over the whole stack. The stack's state is kept stacked, under its
+    first parameter.
     """
 
     def __init__(
@@ -56,12 +84,23 @@ class CAME(torch.optim.Optimizer):
         clip_threshold: float = 1.0,
         weight_decay: float = 0.0,
         skip_decay: Optional[Callable[[str], bool]] = None,
+        stacks: Optional[Sequence[Sequence[str]]] = None,
     ):
         named = list(params)
         super().__init__(_decay_groups(named, weight_decay, skip_decay), dict(
             lr=lr, betas=betas, eps=eps, clip_threshold=clip_threshold,
             weight_decay=weight_decay))
         self._names = {p: n for n, p in named}
+        by_name = dict(named)
+        group_of = {p: i for i, g in enumerate(self.param_groups) for p in g["params"]}
+        self._stacks: Dict[torch.Tensor, List[torch.Tensor]] = {}
+        self._followers = set()
+        for members in stacks or ():
+            ps = [by_name[n] for n in members]
+            if len({group_of[p] for p in ps}) != 1:
+                raise ValueError(f"stack {members[0]}...: members in different param groups")
+            self._stacks[ps[0]] = ps
+            self._followers.update(ps[1:])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -70,11 +109,16 @@ class CAME(torch.optim.Optimizer):
             beta1, beta2, beta3 = group["betas"]
             eps1, eps2 = group["eps"]
             for p in group["params"]:
-                if p.grad is None:
+                if p.grad is None or p in self._followers:
                     continue
-                name = self._names[p]
-                g = jax_layout(name, p.grad).float()
-                pv = jax_layout(name, p)
+                members = self._stacks.get(p)
+                if members is None:
+                    views = [jax_layout(self._names[p], p)]
+                    g = jax_layout(self._names[p], p.grad).float()
+                else:
+                    views = [jax_layout(self._names[q], q) for q in members]
+                    g = torch.stack([jax_layout(self._names[q], q.grad).float()
+                                     for q in members])
                 st = self.state[p]
                 factored = g.ndim >= 2
                 if not st:
@@ -104,9 +148,11 @@ class CAME(torch.optim.Optimizer):
                 else:
                     upd = m
                 delta = -lr * upd
-                if wd:
-                    delta = delta - lr * wd * pv.float()
-                pv.add_(delta.to(p.dtype))
+                if members is None:
+                    delta = delta[None]
+                for j, pv in enumerate(views):
+                    d = delta[j] - lr * wd * pv.float() if wd else delta[j]
+                    pv.add_(d.to(pv.dtype))
 
 
 def _decay_groups(named: Sequence[Tuple[str, torch.Tensor]], weight_decay: float,
@@ -184,17 +230,21 @@ def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: Optional[float
 
 def build_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], *, name: str = "came",
                     lr: float, weight_decay: float = 0.0, betas=None, eps=None,
-                    skip_decay: Optional[Callable[[str], bool]] = None
+                    skip_decay: Optional[Callable[[str], bool]] = None,
+                    stacks: Optional[Sequence[Sequence[str]]] = None
                     ) -> torch.optim.Optimizer:
     """The config's `optimizer` dict as a torch optimizer (the clip is
     `clip_by_global_norm`, applied before it). `skip_decay(name)` exempts a
-    parameter from weight decay."""
+    parameter from weight decay. `stacks` (`block_stacks`) are the JAX
+    tree's scan-stacked leaves, which CAME factors as one tensor each; the
+    elementwise Lion and AdamW update the same either way."""
     if name == "came":
         # eps may leak in as a scalar from a merged AdamW base config; CAME
         # needs its (eps1, eps2) pair, so fall back to the paper's defaults
         eps_pair = tuple(eps) if isinstance(eps, (tuple, list)) else (1e-30, 1e-16)
         return CAME(named_params, lr, betas=tuple(betas) if betas else (0.9, 0.999, 0.9999),
-                    eps=eps_pair, weight_decay=weight_decay, skip_decay=skip_decay)
+                    eps=eps_pair, weight_decay=weight_decay, skip_decay=skip_decay,
+                    stacks=stacks)
     if name == "lion":
         return Lion(named_params, lr, betas=(betas[0], betas[1]) if betas else (0.9, 0.99),
                     weight_decay=weight_decay, skip_decay=skip_decay)

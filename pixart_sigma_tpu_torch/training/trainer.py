@@ -10,9 +10,10 @@ of `optax.MultiSteps`, EMA with warmup, the balanced bucket sampler,
 windowed metric logging with the NaN watchdog's report, periodic validation
 sampling on the EMA weights, and `.pth` checkpoints in the upstream dialect
 from which a run resumes where it stopped. Runs on the card unless
-`device="cpu"`; without a card it raises. Not ported: multi-host and
-sharded training, on-the-fly VAE/T5 encoding, and reading the JAX
-trainer's orbax checkpoints.
+`device="cpu"`; without a card it raises. Batches of images and prompts
+(`load_vae_feat` / `load_t5_feat` False) are encoded on the fly by the
+VAE and the T5 encoder given to the Trainer. Not ported: multi-host and
+sharded training, and reading the JAX trainer's orbax checkpoints.
 
     python -m pixart_sigma_tpu_torch.training.trainer CONFIG --data-root DIR \\
         --features [--max-steps N] [--work-dir DIR] [--device cpu]
@@ -47,9 +48,10 @@ from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 from pixart_sigma_tpu_torch.diffusion.timestep_sampler import create_named_schedule_sampler
 from pixart_sigma_tpu_torch.models.builder import build_model_from_config
 from pixart_sigma_tpu_torch.models.pixart import init_weights
+from pixart_sigma_tpu_torch.models.vae import posterior_sample
 from pixart_sigma_tpu_torch.pipelines.pipeline import decode_to_uint8
 from pixart_sigma_tpu_torch.training.lr_schedule import build_lr_schedule
-from pixart_sigma_tpu_torch.training.optim import auto_scale_lr, build_optimizer
+from pixart_sigma_tpu_torch.training.optim import auto_scale_lr, block_stacks, build_optimizer
 from pixart_sigma_tpu_torch.training.train_state import TrainState
 from pixart_sigma_tpu_torch.training.train_step import train_step
 from pixart_sigma_tpu_torch.utils.checkpoint import (
@@ -89,10 +91,14 @@ def build_dataset(config: Config):
 class Trainer:
     """config -> data -> steps -> checkpoints on one device.
 
-    `vae` (a port `AutoencoderKL`) turns validation latents into PNGs; without
-    it they are saved as .npy. `history` keeps one record per micro-step: the
-    step, the batch's latent (height, width), the host seconds of the step
-    (it ends in a device sync, when the metrics are read) and the metrics.
+    `vae` (a port `AutoencoderKL`) encodes image-mode batches
+    (`load_vae_feat=False`) and turns validation latents into PNGs; without
+    it validation latents are saved as .npy. `t5` (a `T5Embedder`, or any
+    object with `get_text_embeddings(texts) -> (y, mask)`) encodes
+    prompt-mode batches (`load_t5_feat=False`). `history` keeps one record
+    per micro-step: the step, the batch's latent (height, width), the host
+    seconds of the step (it ends in a device sync, when the metrics are
+    read) and the metrics.
 
     Random draws: t (uniform or from the resampler), the noise, the token
     mask and the caption drops come from `generator` (seeded with seed + 1)
@@ -101,10 +107,11 @@ class Trainer:
     one would."""
 
     def __init__(self, config: Config, work_dir: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda", vae=None):
+                 device: Union[str, torch.device] = "cuda", vae=None, t5=None):
         self.device = resolve_device(device)
         self.config = config
         self.vae = vae
+        self.t5 = t5
         self.work_dir = work_dir or config.work_dir
         os.makedirs(self.work_dir, exist_ok=True)
         config.dump(os.path.join(self.work_dir, "config.py.dump"))
@@ -139,8 +146,10 @@ class Trainer:
 
     def build_state(self, total_steps: int) -> TrainState:
         """The LR schedule over `total_steps`, the optimizer (parameters whose
-        JAX path holds a `no_weight_decay_on` substring get no weight decay)
-        and the EMA."""
+        JAX path holds a `no_weight_decay_on` substring get no weight decay;
+        CAME factors the scan groups' stacked leaves when the model's
+        `scan_blocks` is set, as the JAX trainer's tree has them) and the
+        EMA."""
         cfg = self.config
         schedule = build_lr_schedule(cfg.lr_schedule, self._base_lr,
                                      num_training_steps=total_steps,
@@ -152,8 +161,13 @@ class Trainer:
         if no_decay:
             mcfg = self.model.cfg
             skip_decay = lambda n: any(s in jax_param_path(n, mcfg) for s in no_decay)
-        optimizer = build_optimizer(list(self.model.named_parameters()), name=opt_cfg.pop("type"),
-                                    lr=schedule(0), skip_decay=skip_decay, **opt_cfg)
+        named = list(self.model.named_parameters())
+        mcfg = self.model.cfg
+        # the JAX trainer's tree: a scan group's leaves stacked when scan_blocks
+        stacks = (block_stacks([n for n, _ in named], mcfg.block_groups())
+                  if mcfg.scan_blocks else None)
+        optimizer = build_optimizer(named, name=opt_cfg.pop("type"), lr=schedule(0),
+                                    skip_decay=skip_decay, stacks=stacks, **opt_cfg)
         self.state = TrainState(self.model, optimizer, schedule, ema=True,
                                 ema_rate=cfg.ema_rate, ema_warmup=cfg.get("ema_warmup", True),
                                 accumulation_steps=cfg.get("gradient_accumulation_steps", 1))
@@ -202,13 +216,49 @@ class Trainer:
                                          dataset=dataset)
         return DataLoader(dataset, sampler, num_workers=cfg.get("num_workers", 4))
 
-    def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        if "latents" not in batch or "y" not in batch:
-            raise NotImplementedError("on-the-fly VAE/T5 encoding is not ported yet; train on "
-                                      "precomputed features (ROADMAP.md, Queue 1 item 6)")
+    @torch.no_grad()
+    def _encode_images(self, images, step: int,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """On-the-fly VAE encoding of image-mode batches [B, H, W, 3]: the
+        posterior sample mean + exp(logvar / 2) eps when the config's
+        `sample_posterior` (default True), else the mean. eps comes from a
+        generator on the device seeded from (seed, step), so a resumed run
+        draws what an uninterrupted one would, and never from the trainer's
+        own generator; `noise` gives it instead."""
+        if self.vae is None:
+            raise ValueError("the dataset yields images (load_vae_feat=False) but the Trainer "
+                             "has no VAE: pass vae= or train on precomputed features")
+        x = torch.from_numpy(np.asarray(images, np.float32)).to(self.device)
+        mean, logvar = self.vae.encode(x)
+        if not self.config.get("sample_posterior", True):
+            return mean.float()
+        if noise is None:
+            seed = int(np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            noise = torch.randn(mean.shape, generator=gen, device=self.device)
+        return posterior_sample(mean, logvar, noise).float()
+
+    def prepare_batch(self, batch: Dict[str, Any], step: int = 0,
+                      noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """A loader batch on the device: latents (encoded by the VAE from
+        `image` when the batch has no `latents`, with `_encode_images`'s
+        draw at `step` or `noise`) times the scale factor, and the captions
+        (from the T5 encoder's `get_text_embeddings(prompt)`, mask included,
+        when the batch has no `y`)."""
         to = lambda a: torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=True)
-        out = {"latents": to(np.asarray(batch["latents"], np.float32) * self.config.scale_factor),
-               "y": to(batch["y"]), "y_mask": to(batch["y_mask"])}
+        if "latents" in batch:
+            latents = to(np.asarray(batch["latents"], np.float32) * self.config.scale_factor)
+        else:
+            latents = self._encode_images(batch["image"], step, noise) * self.config.scale_factor
+        if "y" in batch:
+            y, y_mask = to(batch["y"]), to(batch["y_mask"])
+        else:
+            if self.t5 is None:
+                raise ValueError("the dataset yields prompts (load_t5_feat=False) but the "
+                                 "Trainer has no T5 encoder: pass t5= or train on features")
+            y, y_mask = self.t5.get_text_embeddings(list(batch["prompt"]))
+            y, y_mask = y.to(self.device), y_mask.to(self.device)
+        out = {"latents": latents, "y": y, "y_mask": y_mask}
         if self.model.cfg.micro_condition:
             out["img_hw"], out["aspect_ratio"] = to(batch["img_hw"]), to(batch["aspect_ratio"])
         return out
@@ -237,7 +287,7 @@ class Trainer:
         for epoch in range(start_epoch, cfg.num_epochs):
             loader.batch_sampler.set_epoch(epoch)
             for batch in loader:
-                batch_dev = self.prepare_batch(batch)
+                batch_dev = self.prepare_batch(batch, self.state.step)
                 t0 = time.perf_counter()
                 metrics = train_step(self.state, self.diffusion, batch_dev,
                                      generator=self.generator, grad_clip=cfg.get("gradient_clip"),

@@ -5,6 +5,8 @@
   port's state dict, which uses the upstream `.pth` names.
 - `vae_state_dict_from_jax`: the JAX AutoencoderKL param tree -> diffusers
   AutoencoderKL names (the port's VAE module names).
+- `t5_state_dict_from_jax`: the JAX T5Encoder param tree -> HF
+  `T5EncoderModel` names (the port's T5 module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
 - `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
   "state_dict_ema", "optimizer", "step", "epoch"}, and what a resumed run
@@ -254,3 +256,23 @@ def save_pth(path: str, state_dict: Dict[str, torch.Tensor],
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(ckpt, path)
     return path
+
+
+def t5_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX T5Encoder params -> HF `T5EncoderModel` names (the port's T5
+    module names): the inverse of the JAX package's `hf_t5_to_flax`."""
+    params = _numpy_tree(params)
+    sd: Dict[str, np.ndarray] = {"shared.weight": params["token_embedding"],
+                                 "encoder.final_layer_norm.weight": params["final_ln"]["weight"]}
+    for i in range(cfg.num_layers):
+        blk, b = params[f"block_{i}"], f"encoder.block.{i}"
+        sd[f"{b}.layer.0.layer_norm.weight"] = blk["ln_attn"]["weight"]
+        for proj in ("q", "k", "v", "o"):
+            sd[f"{b}.layer.0.SelfAttention.{proj}.weight"] = blk["attn"][proj]["kernel"].T
+        if i == 0:
+            sd[f"{b}.layer.0.SelfAttention.relative_attention_bias.weight"] = (
+                blk["attn"]["relative_attention_bias"])
+        sd[f"{b}.layer.1.layer_norm.weight"] = blk["ln_ff"]["weight"]
+        for proj in ("wi_0", "wi_1", "wo"):
+            sd[f"{b}.layer.1.DenseReluDense.{proj}.weight"] = blk[proj]["kernel"].T
+    return _tensors(sd)

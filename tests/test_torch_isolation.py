@@ -23,6 +23,9 @@ def _imported_roots(path):
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(PORT_FILES) > 10
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"pixart_sigma_tpu_torch/models/t5.py", "pixart_sigma_tpu_torch/data/transforms.py",
+            "pixart_sigma_tpu_torch/tools/extract_features.py"} <= names
     for path in PORT_FILES:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

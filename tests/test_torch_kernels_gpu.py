@@ -554,3 +554,58 @@ def test_2k_training_step_launches(cuda, remat_policy, recompute):
                       torch.tensor([0], device=cuda), "auto")
     runs = 2 if recompute else 1
     assert [fn.launches for fn in counters] == [runs, runs + 2, 2 * runs, 4, 4, 0]
+
+
+# the encoders on the card, at the limits of chip_smoke.py phases 15 and 16
+T5_REL_TOL, VAE_REL_TOL = 0.1, 1e-3
+
+
+def test_t5_encoder_bf16_matches_f32_on_the_card(cuda):
+    """A 6-layer T5 at width 512 (8 heads of 64), seeded weights: bf16
+    against the f32 copy with the same weights, per caption over its valid
+    tokens; dropping layer 0's position bias or the key mask exceeds it."""
+    from pixart_sigma_tpu_torch.models.t5 import T5Config, build_t5, init_weights
+
+    kw = dict(d_model=512, num_heads=8, d_ff=1280, num_layers=6, vocab_size=1000)
+    enc = build_t5(T5Config(**kw), device=cuda)
+    init_weights(enc, torch.Generator(device=cuda).manual_seed(0))
+    ref = build_t5(T5Config(**kw, dtype=torch.float32), device=cuda, param_dtype=torch.float32)
+    ref.load_state_dict(enc.state_dict())
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(2, 1000, (3, 120), generator=gen, device=cuda)
+    mask = (torch.arange(120, device=cuda)[None] < torch.tensor([[120], [37], [5]],
+                                                                device=cuda)).long()
+    valid = mask.bool()
+    with torch.no_grad():
+        want = ref(ids, mask)
+        got = enc(ids, mask)
+        no_mask = enc(ids, torch.ones_like(mask))
+        table = enc.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
+        table.zero_()
+        no_bias = enc(ids, mask)
+
+    def reading(out):
+        return max(float((out[b][valid[b]].float() - want[b][valid[b]]).norm()
+                         / want[b][valid[b]].norm()) for b in range(3))
+
+    assert got.dtype == torch.bfloat16 and reading(got) <= T5_REL_TOL
+    assert reading(no_mask) > T5_REL_TOL and reading(no_bias) > T5_REL_TOL
+
+
+def test_vae_encoder_on_the_card_matches_the_cpu(cuda):
+    """The SDXL VAE's encoder (f32, TF32 off) at 128px on the card against
+    the same weights on the CPU: mean and log-variance."""
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.manual_seed(0)
+    vae = build_vae(VAEConfig.sdxl(), device=cuda)
+    host = build_vae(VAEConfig.sdxl(), device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    x = torch.rand((2, 128, 136, 3), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    with torch.no_grad():
+        got, want = vae.encode(x.to(cuda)), host.encode(x)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2, 16, 17, 4)
+        assert float((g.cpu() - w).norm() / w.norm()) <= VAE_REL_TOL

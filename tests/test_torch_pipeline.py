@@ -236,3 +236,33 @@ def test_flash_trajectory_matches_jax(monkeypatch):
         got_img = tiled_decode(tvae.decode, torch.from_numpy(got) / scale, tile=8, overlap=2)
     to_u8 = lambda a: (np.clip((np.asarray(a) + 1) / 2, 0, 1) * 255).round().astype(int)
     assert np.abs(to_u8(got_img.numpy()) - to_u8(want_img)).max() <= 1
+
+
+def test_pipeline_with_the_t5_encoder_matches_jax(pipelines):
+    """Prompts and the negative prompt encoded by each package's
+    T5Embedder (toy widths, one toy tokenizer object, the same weights),
+    cleaned and padded to 12 tokens, then the same CFG trajectory."""
+    from pixart_sigma_tpu.models.t5 import T5Config as JaxT5Config
+    from pixart_sigma_tpu.models.t5 import T5Embedder as JaxT5Embedder
+    from pixart_sigma_tpu_torch.models.t5 import T5Config, T5Embedder, build_t5
+    from pixart_sigma_tpu_torch.utils.checkpoint import t5_state_dict_from_jax
+    from tests.test_torch_t5 import WordHashTokenizer, _jax_params
+
+    jpipe, tpipe = pipelines
+    tcfg = JaxT5Config.small_test(num_layers=2)
+    tparams = _jax_params(tcfg, seed=7)
+    enc = build_t5(T5Config.small_test(num_layers=2), device="cpu")
+    enc.load_hf_state_dict(t5_state_dict_from_jax(tparams, tcfg))
+    jpipe.t5 = JaxT5Embedder(tparams, tcfg, WordHashTokenizer(), model_max_length=12)
+    tpipe.t5 = T5Embedder(enc, WordHashTokenizer(), model_max_length=12)
+    x0 = np.random.RandomState(3).randn(2, 16, 16, 4).astype(np.float32)
+    prompts = ["A <i>red</i> fox in the snow", "a lighthouse on a cliff at dusk, oil painting"]
+    call = dict(height=128, width=128, num_inference_steps=8, guidance_scale=4.5,
+                negative_prompt="blurry, low quality", return_latents=True)
+    try:
+        want = jpipe(prompts, latents=jnp.asarray(x0), **call)
+        got = tpipe(prompts, latents=torch.from_numpy(x0), **call)
+    finally:
+        jpipe.t5 = tpipe.t5 = None
+    assert got.shape == (2, 16, 16, 4) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-3, rtol=1e-3)

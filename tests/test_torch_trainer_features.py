@@ -63,7 +63,7 @@ from pixart_sigma_tpu_torch.models.pixart import REMAT_SAVED, PixArtConfig, PixA
 from pixart_sigma_tpu_torch.ops import flash_attention as fa
 from pixart_sigma_tpu_torch.ops import masking
 from pixart_sigma_tpu_torch.training import lr_schedule as tlr
-from pixart_sigma_tpu_torch.training.optim import build_optimizer
+from pixart_sigma_tpu_torch.training.optim import block_stacks, build_optimizer
 from pixart_sigma_tpu_torch.training.train_state import TrainState
 from pixart_sigma_tpu_torch.training.train_step import compute_losses, train_step
 from pixart_sigma_tpu_torch.training.trainer import Trainer
@@ -297,11 +297,15 @@ def test_jax_param_path_names_every_jax_leaf():
     ("came", dict(betas=(0.9, 0.999, 0.9999), eps=(1e-30, 1e-16)), False),
     ("lion", dict(betas=(0.9, 0.99)), True),
     ("adamw", dict(eps=1e-10), True),
+    # the scan-stacked tree of the shipped configs: two groups (layers 0-1,
+    # and the KV-compressed 2-3), each leaf factored and clipped as one stack
+    ("came", dict(betas=(0.9, 0.999, 0.9999), eps=(1e-30, 1e-16)), True),
 ])
 def test_optimizers_with_no_weight_decay_match_jax(name, kw, scan):
     """Three steps with weight decay 0.1 behind a global-norm clip, with the
     biases, norms and embedding tables exempt (matched on the JAX path, in
-    scan groups for the elementwise optimizers)."""
+    scan groups on the scanned tree); CAME on the scanned tree updates the
+    stacks of `block_stacks`."""
     _, params, tm, cfg = _toy(TOY_KV, scan_blocks=scan)
     no_decay = ["bias", "norm", "y_embedding", "scale_shift_table"]
     skip = lambda path, p: any(s in "/".join(path) for s in no_decay)
@@ -314,8 +318,12 @@ def test_optimizers_with_no_weight_decay_match_jax(name, kw, scan):
     named = list(tm.named_parameters())
     skipped = {n for n, _ in named if any(s in jax_param_path(n, cfg) for s in no_decay)}
     assert "blocks.3.attn.qkv.bias" in skipped and "blocks.3.attn.qkv.weight" not in skipped
+    stacks = block_stacks([n for n, _ in named], cfg.block_groups()) if scan else None
+    if scan:
+        assert cfg.block_groups() == [(1, 2), (2, 2)] and len(stacks) == len(
+            [n for n, _ in named if n.startswith(("blocks.0.", "blocks.2."))])
     opt = build_optimizer(named, name=name, lr=1e-2, weight_decay=0.1,
-                          skip_decay=lambda n: n in skipped, **kw)
+                          skip_decay=lambda n: n in skipped, stacks=stacks, **kw)
     state = TrainState(tm, opt, lambda step: 1e-2, ema=False)
     apply = jax.jit(lambda s, g: s.apply_gradients(g))
     for g in grads:
@@ -466,6 +474,39 @@ def test_resume_round_trip_is_bit_exact(tmp_path, first):
         assert torch.equal(whole.state.ema[n], state.ema[n]), n
     assert torch.equal(whole.schedule_sampler.history, resumed.schedule_sampler.history)
     assert [h["loss"] for h in whole.history[first:]] == [h["loss"] for h in resumed.history]
+
+
+def test_resume_round_trip_with_stacked_came_is_bit_exact(tmp_path):
+    """The config's CAME on the scan-stacked groups (its state kept stacked
+    under each stack's first parameter): 4 steps in one run against 2, a
+    checkpoint and 2 more in a resumed Trainer."""
+    write_feature_dataset(str(tmp_path / "data"), [(256, 256)] * 4 + [(272, 240)] * 4,
+                          resolution=256, caption_channels=32)
+    # two scan groups of two layers: 0-1, and the KV-compressed 2-3
+    arch = dict(model_overrides=dict(depth=4, hidden_size=144, num_heads=2,
+                                     caption_channels=32, kv_compress_layers=(2, 3)))
+    whole = Trainer(_features_config(str(tmp_path), **arch), str(tmp_path / "whole"),
+                    device="cpu")
+    assert whole.model.cfg.scan_blocks and whole.model.cfg.block_groups() == [(1, 2), (2, 2)]
+    whole.train(max_steps=4)
+    opt, params = whole.state.optimizer, dict(whole.model.named_parameters())
+    # a stacked bias [2, D] is factored: one row per layer, and the second
+    # layer keeps no state of its own
+    assert opt.state[params["blocks.2.attn.qkv.bias"]]["row"].shape == (2,)
+    assert not opt.state[params["blocks.3.attn.qkv.bias"]]
+    part = Trainer(_features_config(str(tmp_path), **arch), str(tmp_path / "part"),
+                   device="cpu")
+    part.train(max_steps=2)
+    part.save(part.state.step, 0)
+    resumed = Trainer(_features_config(str(tmp_path), **arch,
+                                       resume_from=dict(checkpoint="latest")),
+                      str(tmp_path / "part"), device="cpu")
+    state = resumed.train(max_steps=2)
+    assert state.step == 4
+    for n, p in whole.model.named_parameters():
+        assert torch.equal(p, dict(resumed.model.named_parameters())[n]), n
+        assert torch.equal(whole.state.ema[n], state.ema[n]), n
+    assert [h["loss"] for h in whole.history[2:]] == [h["loss"] for h in resumed.history]
 
 
 def test_log_validation_matches_jax(tmp_path):

@@ -1,14 +1,18 @@
-"""The port's VAE decoder against the JAX package, on the CPU.
+"""The port's VAE against the JAX package, on the CPU.
 
 `VAEConfig.small_test` decode with the same (perturbed) weights agrees to
 float32 atol 1e-4, and so does the tiled decode with both JAX tiled
-decoders; `vae_state_dict_from_jax` is the exact inverse of the JAX
-package's `diffusers_vae_to_flax`.
+decoders; `encode`'s mean and log-variance agree to 1e-5 relative L2 (odd
+image sizes included, where the (0, 1) pad before each stride-2 conv
+matters), and so does the posterior sample through the decoder with JAX's
+normal draw passed in; `vae_state_dict_from_jax` is the exact inverse of
+the JAX package's `diffusers_vae_to_flax`.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pixart_sigma_tpu.models.vae import AutoencoderKL as JaxVAE
@@ -16,7 +20,7 @@ from pixart_sigma_tpu.models.vae import VAEConfig as JaxVAEConfig
 from pixart_sigma_tpu.models.vae import diffusers_vae_to_flax
 from pixart_sigma_tpu.models.vae import make_tiled_decode as jax_make_tiled_decode
 from pixart_sigma_tpu.models.vae import tiled_decode as jax_tiled_decode
-from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae, tiled_decode
+from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae, posterior_sample, tiled_decode
 from pixart_sigma_tpu_torch.utils.checkpoint import vae_state_dict_from_jax
 
 
@@ -65,8 +69,8 @@ def test_vae_state_dict_round_trips_through_diffusers_vae_to_flax():
     assert len(flat) == len(back_flat)
     for path, leaf in flat:
         np.testing.assert_array_equal(np.asarray(back_flat[path]), np.asarray(leaf))
-    decoder_keys = {k for k in sd if k.startswith(("decoder.", "post_quant_conv."))}
-    assert decoder_keys == set(build_vae(VAEConfig.small_test(), device="cpu").state_dict())
+    assert any(k.startswith("encoder.") for k in sd)
+    assert set(sd) == set(build_vae(VAEConfig.small_test(), device="cpu").state_dict())
 
 
 def test_tiled_decode_matches_both_jax_tiled_decoders():
@@ -94,3 +98,57 @@ def test_tiled_decode_matches_both_jax_tiled_decoders():
     np.testing.assert_allclose(got.numpy(), np.asarray(want_loop), atol=1e-4, rtol=1e-4)
     with torch.no_grad():
         np.testing.assert_array_equal(whole.numpy(), vae.decode(torch.from_numpy(z[:, :8, :6])))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 17, 23), (3, 8, 8)])
+def test_small_vae_encode_matches_jax(shape):
+    """Mean and clamped log-variance of the posterior, f32."""
+    jcfg, jvae, params = _jax_vae()
+    B, H, W = shape
+    x = np.random.RandomState(4).uniform(-1, 1, (B, H, W, 3)).astype(np.float32)
+    mean_j, logvar_j = jax.jit(lambda p, x: jvae.apply({"params": p}, x,
+                                                       method=JaxVAE.encode))(params, x)
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    vae.load_diffusers_state_dict(vae_state_dict_from_jax(params, jcfg))
+    with torch.no_grad():
+        mean, logvar = vae.encode(torch.from_numpy(x))
+    assert mean.shape == logvar.shape == np.asarray(mean_j).shape
+    assert _rel(mean, mean_j) <= 1e-5 and _rel(logvar, logvar_j) <= 1e-5
+
+
+def test_symmetric_pad_is_not_the_encoder():
+    """The check above sees the (0, 1) pad: at even sizes a symmetric
+    padding=1 gives the same shapes and other numbers."""
+    jcfg, jvae, params = _jax_vae()
+    x = np.random.RandomState(4).uniform(-1, 1, (1, 16, 24, 3)).astype(np.float32)
+    mean_j, _ = jvae.apply({"params": params}, x, method=JaxVAE.encode)
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    vae.load_diffusers_state_dict(vae_state_dict_from_jax(params, jcfg))
+    down = vae.encoder.down_blocks[0].downsamplers[0]
+    down.forward = lambda h: torch.nn.functional.conv2d(
+        h, down.conv.weight, down.conv.bias, stride=2, padding=1)
+    with torch.no_grad():
+        mean, _ = vae.encode(torch.from_numpy(x))
+    assert mean.shape == np.asarray(mean_j).shape and _rel(mean, mean_j) > 1e-2
+
+
+def test_posterior_sample_with_given_noise_matches_jax():
+    """The JAX module's call (encode, sample, decode) with its normal draw
+    passed to the port."""
+    jcfg, jvae, params = _jax_vae()
+    x = np.random.RandomState(5).uniform(-1, 1, (2, 16, 24, 3)).astype(np.float32)
+    rng = jax.random.PRNGKey(3)
+    recon_j, mean_j, _ = jvae.apply({"params": params}, x, rng)
+    noise = np.array(jax.random.normal(rng, np.asarray(mean_j).shape, jnp.float32))
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    vae.load_diffusers_state_dict(vae_state_dict_from_jax(params, jcfg))
+    with torch.no_grad():
+        mean, logvar = vae.encode(torch.from_numpy(x))
+        recon = vae.decode(posterior_sample(mean, logvar, torch.from_numpy(noise)))
+    assert recon.shape == (2, 16, 24, 3)
+    assert _rel(mean, mean_j) <= 1e-5 and _rel(recon, recon_j) <= 1e-5
