@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px, 2K and
-512px training paths, with the trainer's features and the T5-XXL and
-SDXL-VAE encoders, on one CUDA card.
+512px training paths, with the trainer's features, the T5-XXL and SDXL-VAE
+encoders, the turbo serving modes and the HTTP server, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -126,7 +126,27 @@ Phases, each printing its own lines:
    reckoning, s/step, img/s, the split of a step between T5, VAE encode
    and the DiT step, peak memory and a torch.profiler breakdown;
 19. the features round trip: the port's extract_features on phase 18's
-   items, then one Trainer step from its files through PixArtMSDataset.
+   items, then one Trainer step from its files through PixArtMSDataset;
+20. the turbo serving config (configs/pixart_sigma_config/
+   PixArt_sigma_xl2_img1024_serving_turbo.py: int8 W8A8 linears, cache span
+   7-21) at full width and depth with seeded random weights: each int8
+   linear of a block on the card against its plain version on the CPU at
+   the 1024px CFG batch's rows (quantized operands and int32 accumulators
+   equal bit for bit, outputs gated, two planted faults), with its times
+   beside the bf16 linear; 20-step DPM-Solver++ trajectories, exact, with
+   the cache at interval 1 and on a schedule of every step (both equal to
+   the exact latents bit for bit), at interval 2, at the adaptive threshold
+   0.15, int8 alone and turbo (int8 + interval 2), each with its launches
+   against the reckoning (28 per full model call, 14 per call that reuses
+   the cache), their relative L2 to the exact latents and the planted fault
+   "the cache stores out, not out - h"; sampler s/img, decode s/img and
+   traces splitting the turbo trajectory's device time;
+21. the port's HTTP server (pixart_sigma_tpu_torch.scripts.serve) in-process
+   on a loopback port over phase 20's int8 model with block caching at
+   interval 2: concurrent requests, batched PNGs against the same requests
+   served alone, the planted fault "row latent from another seed", /healthz,
+   429 past the queue depth, launches per call, per-request latencies, and
+   img/s over a window of 16 same-signature requests at max batch 4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -205,6 +225,27 @@ TRAIN_STEPS_512 = 4
 TRAIN_512_STEP_LAUNCHES = TRAIN_STEP_LAUNCHES
 # valid caption tokens of the 32 captions in phase 3's 512px training shapes
 CAPTIONS_512 = (300, 120, 77, 41, 19, 5, 3, 0) * 4
+TURBO_CONFIG = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_serving_turbo.py"
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate (NVIDIA data sheet)
+# the int8 linear on the card against its plain version on the CPU, at a
+# block's shapes: the int32 accumulators must be equal bit for bit, and the
+# bf16 outputs are gated per row (elementwise as ELEM_TOL, and relative L2)
+INT8_ELEM_TOL = 2**-9
+INT8_L2_TOL = 1e-4
+# a cached 1024px trajectory's latents against the exact bf16 ones, relative
+# L2. The exact model's interval-2 latents must lie within CACHE_L2_TOL, and
+# the planted fault "the cache stores out, not out - h", planted in that same
+# variant, beyond it: the limit sits between the two readings (PERF.md).
+# The fault must also read at least CACHE_FAULT_RATIO times turbo's reading.
+CACHE_L2_TOL = 7e-2
+CACHE_FAULT_RATIO = 2.5
+# phase 21: a batched request's PNG against the same request served alone,
+# mean |difference| in uint8 levels; the planted fault (the row's latent
+# drawn from another seed) must read at least 10x the limit
+SERVE_PNG_TOL = 0.5
+# phase 21's throughput window: this many same-signature turbo requests sent
+# at once to the server at max batch 4, so the queue never runs dry
+SERVE_WINDOW = 16
 
 
 def log(*parts) -> None:
@@ -1933,6 +1974,575 @@ def run_training_512(dev, card, fa, emb, vae) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phases 20-21: the turbo serving modes (dynamic int8 W8A8 products, delta
+# block caching) and the port's HTTP server
+
+
+def int8_products(dev, card, block) -> None:
+    """Phase 20a: each int8 linear of `block` (qkv, proj, q_linear, fc1, fc2)
+    on the card against its plain version on the CPU, on seeded bf16 rows of
+    the 1024px CFG batch (2 prompts x CFG x 4096 tokens): the quantized
+    operands and the int32 accumulator must be equal bit for bit, the bf16
+    outputs within INT8_ELEM_TOL and INT8_L2_TOL per row, and two planted
+    faults (the weight's scales per input channel; the weight quantized from
+    its bf16 cast) must be rejected. Then the times of the int8 linear, its
+    quantize pass and `_int_mm` beside the bf16 linear it replaces. First,
+    which operand layouts `_int_mm` takes, which `check_int_mm` must match."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixart_sigma_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    # the operand layouts _int_mm takes on this card, against check_int_mm
+    q = lambda *shape: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                     dtype=torch.int8)
+    for label, a, b in (("A row-major, B column-major", q(32, 64), q(40, 64).t()),
+                        ("A row-major, B row-major", q(32, 64), q(64, 40)),
+                        ("A column-major, B row-major", q(64, 32).t(), q(64, 40)),
+                        ("A column-major, B column-major", q(64, 32).t(), q(40, 64).t())):
+        try:
+            taken = torch.equal(torch._int_mm(a, b).cpu(),
+                                quant.int8_accumulate_reference(a.cpu(), b.cpu()))
+        except RuntimeError as e:
+            taken, why = False, str(e).splitlines()[0][:100]
+        try:
+            quant.check_int_mm(a, b)
+            checked = True
+        except ValueError:
+            checked = False
+        log(f"[int8] _int_mm {label}: {'taken, exact' if taken else 'refused: ' + why}; "
+            f"check_int_mm {'passes' if checked else 'raises'}")
+        if taken != checked:
+            raise SystemExit("check_int_mm disagrees with what _int_mm takes on this card")
+    M = 2 * 2 * 4096
+    layers = {"qkv": block.attn.qkv, "proj": block.attn.proj,
+              "q_linear": block.cross_attn.q_linear, "fc1": block.mlp.fc1, "fc2": block.mlp.fc2}
+    for name, lin in layers.items():
+        K, N = lin.in_features, lin.out_features
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        w, b = lin.weight.detach(), lin.bias.detach()
+        qx, sx = quant.quantize_rows(x)
+        qw, sw = lin.quantized_weight()
+        acc = quant.int8_accumulate(qx, qw)
+        got = lin(x)
+        torch.cuda.synchronize()
+        x_c, w_c, b_c = x.cpu(), w.cpu(), b.cpu()
+        qx_c, sx_c = quant.quantize_rows(x_c)
+        qw_c, sw_c = quant.quantize_weight(w_c)
+        same_q = all(torch.equal(a.cpu(), c) for a, c in ((qx, qx_c), (sx, sx_c), (qw, qw_c),
+                                                         (sw, sw_c)))
+        same_acc = torch.equal(acc.cpu(), quant.int8_accumulate_reference(qx_c, qw_c))
+        want = quant.int8_matmul_quantized(x_c, qw_c, sw_c, b_c)
+        # planted faults, on the card: per-input-channel weight scales
+        # (dequantized correctly), and the weight's bf16 cast quantized
+        q_in, s_in = quant.quantize_rows(w.t())  # [in, out]: a scale per input channel
+        deq = (qx.float() * sx) * s_in.t()
+        fault_in = (deq @ q_in.float() + b.float()).to(torch.bfloat16)
+        qw_b, sw_b = quant.quantize_weight(w.bfloat16())
+        fault_bf16 = quant.int8_matmul_quantized(x, qw_b, sw_b, b)
+        r = readings(got.cpu(), want)
+        faults = {"scales per input channel": readings(fault_in.cpu(), want),
+                  "weight quantized from its bf16 cast": readings(fault_bf16.cpu(), want)}
+        ok = same_q and same_acc and r[1] <= INT8_ELEM_TOL and r[2] <= INT8_L2_TOL
+        caught = {f: fr[1] > INT8_ELEM_TOL or fr[2] > INT8_L2_TOL for f, fr in faults.items()}
+        log(f"[int8] {name} x [{M}, {K}] @ W [{K}, {N}]: quantized operands equal to the CPU's "
+            f"{same_q}, int32 accumulator equal {same_acc}; output max|err| {r[0]:.3e}, "
+            f"elementwise {r[1]:.3e} (tol {INT8_ELEM_TOL:.3e}), relative L2 {r[2]:.3e} (tol "
+            f"{INT8_L2_TOL:.0e}); planted faults: "
+            + ", ".join(f"{f} elementwise {fr[1]:.3e} L2 {fr[2]:.3e} "
+                        f"{'rejected' if caught[f] else 'MISSED'}" for f, fr in faults.items()))
+        if not ok or not all(caught.values()):
+            raise SystemExit(f"int8 {name}: the card disagrees with the CPU, or a planted fault "
+                             "passed")
+        w_bf16, b_bf16 = w.bfloat16(), b.bfloat16()
+        ms = {"int8 linear": cuda_ms(lambda: lin(x)),
+              "quantize rows": cuda_ms(lambda: quant.quantize_rows(x)),
+              "_int_mm": cuda_ms(lambda: torch._int_mm(qx, qw)),
+              "bf16 linear": cuda_ms(lambda: F.linear(x, w_bf16, b_bf16))}
+        t_ops, t_bytes = 2.0 * M * K * N / PEAK_INT8_OPS, (M * K + K * N + 4 * M * N) / PEAK_BYTES
+        b_int8, by_int8 = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        b_bf16, by_bf16 = bound_ms(2.0 * M * K * N, 2.0 * (M * K + K * N + M * N))
+        log(f"[time] {card}: {name} [{M}, {K}] x [{K}, {N}]: int8 linear {ms['int8 linear']:.4f} "
+            f"ms (quantize rows {ms['quantize rows']:.4f}, _int_mm {ms['_int_mm']:.4f}, bound "
+            f"{b_int8:.4f} by {by_int8}), bf16 linear {ms['bf16 linear']:.4f} ms (bound "
+            f"{b_bf16:.4f} by {by_bf16})")
+        del x, qx, acc, got, fault_in, fault_bf16
+
+
+def trace_turbo(fn, what: str, card: str) -> None:
+    """fn() under torch.profiler with the int8 path's pieces annotated
+    (`record_function` around `quantize_rows` and the whole int8 linear).
+    Each device kernel is assigned by its time on the device: inside an
+    annotation's device-side range it belongs to that range (the product
+    kernel of an int8 linear is `_int_mm`, its other kernels outside the
+    quantize pass the f32 epilogue), else to the bf16 matmuls, the attention
+    kernels or the rest, by name. Prints the split and the device's idle
+    share of the wall time."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pixart_sigma_tpu_torch.models import layers
+    from pixart_sigma_tpu_torch.ops import quant
+
+    quantize, linear = quant.quantize_rows, layers.int8_matmul_quantized
+    names = ("turbo::quantize_rows", "turbo::int8_linear")
+
+    def quantize_traced(*a, **k):
+        with record_function(names[0]):
+            return quantize(*a, **k)
+
+    def linear_traced(*a, **k):
+        with record_function(names[1]):
+            return linear(*a, **k)
+
+    quant.quantize_rows, layers.int8_matmul_quantized = quantize_traced, linear_traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        quant.quantize_rows, layers.int8_matmul_quantized = quantize, linear
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    annotations = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    kernels = [e for e in on_device if e.name not in annotations]
+    spans = {n: sorted((e.time_range.start, e.time_range.end) for e in on_device if e.name == n)
+             for n in names}
+
+    def inside(n, k):
+        starts = spans[n]
+        i = bisect.bisect_right(starts, (k.time_range.start, float("inf"))) - 1
+        return i >= 0 and k.time_range.end <= starts[i][1]
+
+    matmul = ("gemm", "nvjet", "xmma", "cutlass")
+    split = dict.fromkeys(("_int_mm", "quantize passes", "int8 epilogue", "bf16 matmuls",
+                           "attention kernels", "other"), 0.0)
+    for k in kernels:
+        us = k.time_range.end - k.time_range.start
+        low = k.name.lower()
+        if inside(names[0], k):
+            split["quantize passes"] += us
+        elif inside(names[1], k):
+            split["_int_mm" if any(m in low for m in matmul) else "int8 epilogue"] += us
+        elif any(m in low for m in matmul):
+            split["bf16 matmuls"] += us
+        elif "onepass_kernel" in k.name or "allheads_kernel" in k.name:
+            split["attention kernels"] += us
+        else:
+            split["other"] += us
+    busy = sum(split.values()) / 1e3
+    if busy == 0:
+        raise SystemExit("[trace] the profiler recorded no device time")
+    annotated = all(spans[n] for n in names) or not split["_int_mm"]
+    log(f"[trace] {card}: {what}, wall {wall:.4f} s, device busy {busy / 1e3:.4f} s, idle "
+        f"share {1 - busy / 1e3 / wall:.3f}; annotation ranges on the device "
+        f"{[len(spans[n]) for n in names]}")
+    for name, us in split.items():
+        log(f"  {name}: {us / 1e3:.2f} ms ({us / 1e3 / busy:.3f} of device time)"
+            + ("" if annotated else " (annotations missing: not separated)"))
+    top: dict = {}
+    for k in kernels:
+        top.setdefault(k.name, [0.0, 0])
+        top[k.name][0] += k.time_range.end - k.time_range.start
+        top[k.name][1] += 1
+    for name, (us, n) in sorted(top.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  kernel {name[:90]}: {us / 1e3:.2f} ms, {n} launches")
+
+
+class CallLog:
+    """Counts a model's calls that run the cached span (a first call, or one
+    told to recompute) and those that reuse the cache."""
+
+    def __init__(self, models):
+        self.full = self.reused = 0
+        self.handles = [m.register_forward_pre_hook(self._hook, with_kwargs=True)
+                        for m in models]
+
+    def _hook(self, module, args, kwargs):
+        if kwargs.get("block_cache") is not None and kwargs.get("use_block_cache"):
+            self.reused += 1
+        else:
+            self.full += 1
+
+    def reset(self):
+        self.full = self.reused = 0
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def cached_launches(depth: int, span: tuple, full: int, reused: int) -> int:
+    """onepass (= allheads) launches of a trajectory: one per layer of a full
+    model call, none in the cached span of a call that reuses the cache."""
+    return depth * full + (depth - (span[1] - span[0])) * reused
+
+
+def cache_fault(model):
+    """Plant "the cache stores out, not out - h": the compute branch's new
+    cache gets the span's input h added back. Returns the hook handles."""
+    k1 = model.cfg.cache_span[0]
+    seen = {}
+
+    def grab(module, args):
+        seen["h"] = args[0]
+
+    def plant(module, args, kwargs, output):
+        if kwargs.get("block_cache") is None or kwargs.get("use_block_cache"):
+            return output
+        out, cache = output
+        return out, cache + seen["h"].to(cache.dtype)
+
+    return [model.blocks[k1].register_forward_pre_hook(grab),
+            model.register_forward_hook(plant, with_kwargs=True)]
+
+
+def run_turbo(dev, card, fa, prompts, negative) -> tuple:
+    """Phase 20: the turbo serving config (PixArtMS-XL-2 kvcompress at
+    1024px, int8, cache span) at full width and depth: the int8 products
+    against the CPU; 20-step DPM-Solver++ CFG 4.5 trajectories exact, with
+    the cache at interval 1 and with a schedule of every step (both must equal
+    the exact latents bit for bit), at interval 2, at the adaptive threshold
+    0.15, int8 alone and turbo (int8 + interval 2), each with its launches
+    against the reckoning; the planted cache fault; s/img and a trace.
+    Returns (launches by variant, the int8 model, the VAE, the text encoder)."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.pixart import init_weights
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+
+    t_phase = time.perf_counter()
+    config = read_config(TURBO_CONFIG)
+    quant_model = build_model_from_config(config, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_weights(quant_model, gen)
+    perturb_zero_leaves(quant_model, gen)
+    exact_model = build_model_from_config(config, device=dev, quant_int8=False)
+    exact_model.load_state_dict(quant_model.state_dict())
+    mc = quant_model.cfg
+    log(f"[turbo] {TURBO_CONFIG}: PixArtMS_XL_2 1024px, {mc.depth} blocks x {mc.hidden_size}, "
+        f"quant_int8 {mc.quant_int8} (f32 master weights of the int8 linears), cache_span "
+        f"{mc.cache_span}, seeded random weights; the exact model is the same weights in bf16")
+    int8_products(dev, card, quant_model.blocks[0])
+
+    torch.cuda.manual_seed(1)
+    vae = build_vae(VAEConfig.sdxl(), device=dev)
+    t5 = PseudoT5Embedder(dim=4096, model_max_length=300)
+    pipes = {"exact": PixArtPipeline(exact_model, t5=t5, vae=vae, device=dev),
+             "int8": PixArtPipeline(quant_model, t5=t5, vae=vae, device=dev)}
+    call = dict(num_inference_steps=20, guidance_scale=4.5, negative_prompt=negative, seed=0,
+                return_latents=True)
+    variants = {  # name -> (pipeline, kwargs, (full, reused) model calls reckoned)
+        "exact": ("exact", {}, (20, 0)),
+        "schedule of every step": ("exact", dict(block_cache_schedule=list(range(20))), (20, 0)),
+        "interval 2": ("exact", dict(block_cache_interval=2), (10, 10)),
+        "threshold 0.15": ("exact", dict(block_cache_threshold=0.15), None),
+        "int8": ("int8", {}, (20, 0)),
+        "turbo": ("int8", dict(block_cache_interval=2), (10, 10)),
+    }
+    calls = CallLog([exact_model, quant_model])
+    lats, launches = {}, {}
+    for name, (pipe, kw, reckoned) in variants.items():
+        reset_forward_counts(fa)
+        calls.reset()
+        lats[name] = pipes[pipe](prompts, **call, **kw)
+        counts = forward_counts(fa)
+        full, reused = calls.full, calls.reused
+        if reckoned is not None and (full, reused) != reckoned:
+            raise SystemExit(f"[turbo] {name}: {full} full and {reused} cached model calls, "
+                             f"reckoned {reckoned}")
+        want = cached_launches(mc.depth, mc.cache_span, full, reused)
+        launches[name] = counts
+        log(f"[turbo] {name}: {full} full model calls, {reused} reusing the cache; launches "
+            f"{counts} (reckoned onepass and allheads {want} each)")
+        if (counts["onepass"], counts["allheads"]) != (want, want) or counts["flash"] \
+                or counts["headsmajor"]:
+            raise SystemExit(f"[turbo] {name}: launches {counts}, reckoned {want}")
+        if not np.isfinite(lats[name]).all() or lats[name].shape != (2, 128, 128, 4):
+            raise SystemExit(f"[turbo] {name}: latents not finite or of the wrong shape")
+        if name == "threshold 0.15" and not 2 <= full <= 20:
+            raise SystemExit(f"[turbo] threshold 0.15: {full} refreshes; the first and last "
+                             "calls always refresh")
+    calls.remove()
+
+    # interval 1 through the cached builder itself (__call__ takes the cache
+    # from interval 2 on), from the initial latents __call__ draws
+    pe = pipes["exact"]
+    with torch.no_grad():
+        y, y_mask = pe.encode_prompts(prompts)
+        null_y, null_mask = pe.encode_prompts([negative] * 2)
+        x = torch.randn((2, 128, 128, 4), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+        ones = torch.ones((2, 2), device=dev), torch.ones((2, 1), device=dev)
+        lats["interval 1"] = pe._build_dpm_cached(20, 4.5, 1)(
+            x, y, null_y, torch.cat([null_mask, y_mask]), *ones, None).cpu().numpy()
+    for name in ("interval 1", "schedule of every step"):
+        equal = np.array_equal(lats[name], lats["exact"])
+        log(f"[turbo] {name} equals the exact latents bit for bit: {equal}")
+        if not equal:
+            raise SystemExit(f"[turbo] {name} differs from the uncached trajectory")
+    handles = cache_fault(exact_model)
+    try:
+        lats["fault: cache stores out"] = pe(prompts, **call, block_cache_interval=2)
+    finally:
+        for h in handles:
+            h.remove()
+    exact = lats["exact"].astype(np.float64)
+    rel = {name: float(np.linalg.norm(lat - exact) / np.linalg.norm(exact))
+           for name, lat in lats.items() if name != "exact"}
+    log("[turbo] relative L2 of the latents to the exact bf16 ones: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in rel.items()))
+    fault = rel["fault: cache stores out"]
+    log(f"[turbo] interval 2 (exact model) {rel['interval 2']:.4e} against the limit "
+        f"{CACHE_L2_TOL:.0e}; the fault planted in that variant {fault:.4e} must lie beyond it "
+        f"and read {CACHE_FAULT_RATIO}x turbo's {rel['turbo']:.4e}")
+    if not rel["interval 2"] <= CACHE_L2_TOL < fault:
+        raise SystemExit(f"[turbo] interval 2 reads {rel['interval 2']:.3e} and the planted "
+                         f"cache fault {fault:.3e}: the limit {CACHE_L2_TOL:.0e} must lie "
+                         "between them")
+    if not fault >= CACHE_FAULT_RATIO * rel["turbo"]:
+        raise SystemExit(f"[turbo] the planted cache fault reads {fault:.3e}, not "
+                         f"{CACHE_FAULT_RATIO}x turbo's {rel['turbo']:.3e}")
+    imgs = pipes["int8"]._latents_to_images(torch.from_numpy(lats["turbo"][:1]).to(dev))
+    check_images(imgs, 1024, "turbo")
+
+    times = {}
+    for name in ("exact", "int8", "interval 2", "turbo"):
+        pipe, kw, _ = variants[name]
+        run = median_s(lambda: pipes[pipe](prompts, **call, **kw))
+        times[name] = run[0] / 2
+        log(f"[time] {card}: {name} sampler {run[0] / 2:.4f} s/img (20 steps, 2 images; median "
+            f"of {SAMPLER_TIMED} warm calls, each {[round(v / 2, 4) for v in run[1]]})")
+    decode = median_s(lambda: pipes["int8"]._latents_to_images(
+        torch.from_numpy(lats["turbo"]).to(dev)))
+    log(f"[time] {card}: decode {decode[0] / 2:.4f} s/img (2 images; median of "
+        f"{SAMPLER_TIMED}, each {[round(v / 2, 4) for v in decode[1]]})")
+    for name in ("exact", "turbo"):
+        pipe, kw, _ = variants[name]
+        trace_turbo(lambda: pipes[pipe](prompts, **call, **kw),
+                    f"1024px {name} trajectory (20 steps, 2 images)", card)
+    log(f"[turbo] phase 20: {time.perf_counter() - t_phase:.1f} s")
+    del pipes, exact_model
+    return launches, quant_model, vae, t5
+
+
+class CountedPipe:
+    """A pipeline whose calls record their size, options and kernel launches
+    (the batcher runs one call at a time on its thread)."""
+
+    def __init__(self, pipe, fa):
+        self.pipe, self.fa, self.calls = pipe, fa, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, prompts, **kw):
+        torch = sys.modules["torch"]
+        reset_forward_counts(self.fa)
+        t0 = time.perf_counter()
+        out = self.pipe(prompts, **kw)
+        torch.cuda.synchronize()
+        self.calls.append(dict(rows=len(prompts), secs=time.perf_counter() - t0,
+                               sampler=kw["sampler"],
+                               steps=kw["num_inference_steps"],
+                               interval=kw.get("block_cache_interval", 0),
+                               counts=forward_counts(self.fa)))
+        return out
+
+
+def http(url, payload=None):
+    """(status, headers, parsed JSON body) of a GET or, with a payload, a POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def png_array(b64: str):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def serve_window(url, card, pipe, subjects) -> None:
+    """The server's throughput: SERVE_WINDOW requests of one signature (1024px,
+    20 steps, turbo), each with its own seed, sent at once, so the batcher
+    runs full batches back to back; img/s over the window from the first send
+    to the last reply, and over the pipeline calls alone."""
+    import threading
+
+    reqs = [dict(prompt=subjects[i % len(subjects)], seed=100 + i, steps=20)
+            for i in range(SERVE_WINDOW)]
+    done = [None] * len(reqs)
+    first_call = len(pipe.calls)
+
+    def send(i):
+        status, _, body = http(url + "/generate", reqs[i])
+        done[i] = (status, body.get("batched_with"), time.perf_counter())
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(d[0] != 200 for d in done):
+        raise SystemExit(f"[server] throughput window: statuses {[d[0] for d in done]}")
+    span = max(d[2] for d in done) - t0
+    calls = pipe.calls[first_call:]
+    rows, secs = [c["rows"] for c in calls], [c["secs"] for c in calls]
+    latency = sorted(d[2] - t0 for d in done)
+    log(f"[time] {card}: server throughput {len(reqs) / span:.4f} img/s: {len(reqs)} requests "
+        f"of one signature (1024px, 20 steps, turbo, max batch 4) sent at once, served in "
+        f"{span:.3f} s by {len(calls)} pipeline calls of {rows} rows taking "
+        f"{[round(v, 3) for v in secs]} s ({sum(rows) / sum(secs):.4f} img/s over the calls "
+        f"alone); latency median {latency[len(latency) // 2]:.3f} s, max {latency[-1]:.3f} s")
+
+
+def run_server(dev, card, fa, model, vae, t5) -> dict:
+    """Phase 21: the port's HTTP server in-process on 127.0.0.1 (port 0) over
+    the phase 20 int8 model with --turbo's block caching at interval 2:
+    concurrent requests (4 of one signature with their own seeds, 1 with
+    other steps, 1 SA-Solver, which runs without the cache), each batched
+    request's PNG against the same request served alone, the planted fault
+    (the row's latent drawn from another seed), /healthz, 429 with
+    Retry-After under queue depth 2, launches per pipeline call against the
+    reckoning, per-request latencies, and img/s over a window of
+    SERVE_WINDOW same-signature requests (`serve_window`). Returns the
+    launches."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+    from pixart_sigma_tpu_torch.scripts import serve
+
+    t_phase = time.perf_counter()
+    pipe = CountedPipe(PixArtPipeline(model, t5=t5, vae=vae, device=dev), fa)
+    y_null_row = model.y_embedder.y_embedding.detach().float()
+    servers = []
+
+    def start(queue_depth):
+        batcher = serve.MicroBatcher(pipe, y_null_row=y_null_row, max_wait_ms=1000, max_batch=4,
+                                     batch_sizes=(1, 2, 4), queue_depth=queue_depth,
+                                     gen_kwargs={"block_cache_interval": 2})
+        info = {"resolution": 1024, "model": "seeded random weights", "turbo": True}
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(batcher, pipe, info))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append((httpd, batcher))
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    try:
+        url = start(SERVE_WINDOW)
+        status, _, health = http(url + "/healthz")
+        log(f"[server] {url}: /healthz {status} {health}")
+        if status != 200 or health.get("status") != "ok":
+            raise SystemExit("[server] /healthz did not answer")
+        subjects = ["a lighthouse on a cliff at dusk", "a red fox in the snow",
+                    "a bowl of ramen, studio light", "an astronaut in a jungle, oil painting"]
+        reqs = [dict(prompt=p, seed=11 + i, steps=20) for i, p in enumerate(subjects)]
+        reqs += [dict(prompt="a small cactus with a happy face", seed=15, steps=10),
+                 dict(prompt="an old wooden boat on a lake", seed=16, steps=20,
+                      sampler="sa-solver")]
+        replies, walls = [None] * len(reqs), [None] * len(reqs)
+
+        def send(i):
+            t0 = time.perf_counter()
+            replies[i] = http(url + "/generate", reqs[i])
+            walls[i] = (t0, time.perf_counter())
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for (status, _, body), req, w in zip(replies, reqs, walls):
+            log(f"[time] {card}: server request {req}: {status}, batched_with "
+                f"{body.get('batched_with')}, latency {w[1] - w[0]:.3f} s (6 concurrent "
+                "requests of 3 signatures, served one signature after another)")
+            if status != 200:
+                raise SystemExit(f"[server] {req}: {status} {body}")
+        batched = [png_array(body["images"][0]) for _, _, body in replies]
+        for img, req in zip(batched, reqs):
+            if img.shape != (1024, 1024, 3) or img.dtype != np.uint8 or img.std() == 0:
+                raise SystemExit(f"[server] {req}: image {img.shape} {img.dtype}, or constant")
+        if any(replies[i][2]["batched_with"] < 2 for i in range(4)):
+            raise SystemExit("[server] the 4 requests of one signature were not batched")
+        n_batched = len(pipe.calls)
+        diffs = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            status, _, body = http(url + "/generate", reqs[i])
+            solo = png_array(body["images"][0])
+            diffs.append(float(np.abs(solo.astype(np.int16) - batched[i]).mean()))
+            log(f"[server] request {i} served alone: {status}, batched_with "
+                f"{body['batched_with']}, wall {time.perf_counter() - t0:.3f} s; PNG vs the "
+                f"batched one: mean |diff| {diffs[-1]:.4f} levels, max "
+                f"{int(np.abs(solo.astype(np.int16) - batched[i]).max())}")
+        status, _, body = http(url + "/generate", dict(reqs[0], seed=reqs[1]["seed"]))
+        fault = float(np.abs(png_array(body["images"][0]).astype(np.int16) - batched[0]).mean())
+        log(f"[server] planted fault, request 0's row drawn from request 1's seed: mean |diff| "
+            f"{fault:.4f} levels (tol {SERVE_PNG_TOL}, the fault must read 10x)")
+        serve_window(url, card, pipe, subjects)
+        launches = {"onepass": 0, "allheads": 0, "flash": 0, "headsmajor": 0}
+        for c in pipe.calls:
+            steps = c["steps"]
+            if c["sampler"] == "dpm-solver":
+                if c["interval"] != 2:
+                    raise SystemExit(f"[server] a dpm-solver call without the cache: {c}")
+                full = -(-steps // 2)
+                want = cached_launches(model.cfg.depth, model.cfg.cache_span, full, steps - full)
+            else:  # run exact under turbo: no cache for other samplers
+                if c["interval"]:
+                    raise SystemExit(f"[server] {c['sampler']} ran with the cache: {c}")
+                want = model.cfg.depth * sampler_nfe(c["sampler"], steps)
+            if (c["counts"]["onepass"], c["counts"]["allheads"]) != (want, want):
+                raise SystemExit(f"[server] call {c}: launches, reckoned {want}")
+            for k in launches:
+                launches[k] += c["counts"][k]
+        log(f"[server] pipeline calls: {[(c['rows'], c['sampler'], c['steps'], c['interval']) for c in pipe.calls]} "
+            f"({n_batched} for the concurrent round); launches {launches}, as reckoned per call")
+        busy_url = start(2)
+        status, headers, body = http(busy_url + "/generate", dict(prompt=["a", "b", "c"]))
+        log(f"[server] queue depth 2, a 3-prompt request: {status}, Retry-After "
+            f"{headers.get('Retry-After')}, {body}")
+        if status != 429 or headers.get("Retry-After") != "5":
+            raise SystemExit("[server] no 429 with Retry-After past the queue depth")
+        if max(diffs) > SERVE_PNG_TOL or fault < 10 * SERVE_PNG_TOL:
+            raise SystemExit("[server] a batched request differs from its solo call, or the "
+                             "planted fault passed")
+    finally:
+        for httpd, batcher in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.shutdown()
+    log(f"[server] phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2383,6 +2993,16 @@ def main() -> int:
             {"flash_forward": "flash"}.get(name, name), 0)
         entry["launches_training_512"] = launches_512[name]
         entry["launches_features_round_trip"] = launches_rt[name]
+
+    # ---- 20.-21. the turbo serving modes and the port's HTTP server ----------
+    launches_turbo, quant_model, vae_t, t5_t = run_turbo(dev, card, fa, prompts, negative)
+    launches_server = run_server(dev, card, fa, quant_model, vae_t, t5_t)
+    del quant_model, vae_t, t5_t
+    torch.cuda.empty_cache()
+    for entry in entries:
+        name = {"flash_forward": "flash"}.get(entry["name"], entry["name"])
+        entry["launches_turbo"] = {v: c.get(name, 0) for v, c in launches_turbo.items()}
+        entry["launches_server"] = launches_server.get(name, 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

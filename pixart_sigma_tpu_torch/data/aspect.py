@@ -78,3 +78,9 @@ def get_closest_ratio(height: float, width: float, ratios: Dict[str, List[float]
     aspect = height / width
     key = min(ratios.keys(), key=lambda r: abs(float(r) - aspect))
     return ratios[key], float(key)
+
+
+def get_chunks(lst, n):
+    """Yield n-sized chunks of `lst`."""
+    for i in range(0, len(lst), n):
+        yield lst[i : i + n]

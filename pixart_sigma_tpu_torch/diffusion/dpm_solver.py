@@ -13,8 +13,9 @@ the JAX `sample_scan` recurrence as a Python loop:
     x_i = (sig_i / sig_{i-1}) x - alpha_i expm1(-h_i) (m0 + c1_i (m0 - m1))
 
 with c1 = 0 on the first step and, with `lower_order_final`, on the last.
-Its block-cache variant (`state_model_fn`) is not ported yet (ROADMAP.md,
-Queue 1 item 7).
+Its block-cache variant takes a `state_model_fn(x, t, state, use_cache)` that
+carries a model state (the cached residual) through the loop and a
+`refresh_mask` of the steps that must recompute it.
 """
 
 from __future__ import annotations
@@ -570,11 +571,18 @@ class DPMSolver:
 
     def sample_scan(self, x: torch.Tensor, steps: int, t_start: float, t_end: float,
                     order: int = 2, skip_type: str = "time_uniform",
-                    lower_order_final: bool = True) -> torch.Tensor:
+                    lower_order_final: bool = True, state_model_fn=None, model_state=None,
+                    refresh_mask=None, return_state: bool = False):
         """Multistep dpmsolver++ of order <= 2 with every step in one form:
         the first step's order 1 and the lower-order tail zero the D1
         coefficient. Coefficients in f64 on the host, rounded to f32 as
-        JAX's scan columns are."""
+        JAX's scan columns are.
+
+        With `state_model_fn(x, t, state, use_cache) -> (eps, state)` in
+        place of the noise model, `model_state` rides the loop: the model
+        call at ts[0] always refreshes, the one at step i (1..steps-1) gets
+        `use_cache = not refresh_mask[i]`. `return_state` also returns the
+        final state."""
         ns = self.ns
         ts = get_time_steps(ns, skip_type, t_start, t_end, steps)  # [S + 1] f64
         lam = ns.marginal_lambda(ts)
@@ -589,9 +597,23 @@ class DPMSolver:
             if lower_order_final:
                 c1[-1] = 0.0
         f32 = lambda a: float(np.float32(a))
+        stateful = state_model_fn is not None
+        if stateful:
+            if model_state is None or refresh_mask is None:
+                raise ValueError("state_model_fn needs model_state and refresh_mask")
+            refresh_mask = np.asarray(refresh_mask, bool)
+            if refresh_mask.shape != (steps,):
+                raise ValueError(f"refresh_mask of shape {refresh_mask.shape}, expected "
+                                 f"({steps},)")
+        state = model_state
 
         def x0_pred(xi, i):
-            eps = self.noise_fn(xi, float(ts[i]))
+            nonlocal state
+            if stateful:
+                refresh = i == 0 or bool(refresh_mask[i])
+                eps, state = state_model_fn(xi, float(ts[i]), state, not refresh)
+            else:
+                eps = self.noise_fn(xi, float(ts[i]))
             return (xi - f32(sig[i]) * eps) / f32(alpha[i])
 
         m0 = x0_pred(x, 0)
@@ -600,7 +622,25 @@ class DPMSolver:
             x = f32(sr[i]) * x - f32(aphi[i]) * (m0 + f32(c1[i]) * (m0 - m1))
             if i + 1 < steps:
                 m0, m1 = x0_pred(x, i + 1), m0
-        return x
+        return (x, state) if return_state else x
+
+
+def model_time(ns: NoiseScheduleVP, t_cont: float) -> torch.Tensor:
+    """The network's time input for continuous t, an f32 scalar tensor:
+    (t - 1/N) * 1000 for a discrete schedule, computed in f32 as JAX does."""
+    t = torch.tensor(t_cont, dtype=torch.float32)
+    return (t - 1.0 / ns.total_N) * 1000.0 if ns.schedule == "discrete" else t
+
+
+def cfg_batch(x: torch.Tensor, condition, uncondition):
+    """The classifier-free guidance batch: [x, x] against [uncondition, condition]."""
+    return torch.cat([x, x], dim=0), torch.cat([uncondition, condition], dim=0)
+
+
+def cfg_guide(noise: torch.Tensor, cfg_scale: float) -> torch.Tensor:
+    """Guided noise from the prediction over a `cfg_batch`."""
+    noise_uncond, noise_cond = noise.chunk(2, dim=0)
+    return noise_uncond + cfg_scale * (noise_cond - noise_uncond)
 
 
 def make_cfg_model_fn(
@@ -651,12 +691,8 @@ def make_cfg_model_fn(
             return alpha_t * out + sigma_t * x
         return -sigma_t * out  # score
 
-    def model_input_time(t_cont):
-        t = torch.tensor(t_cont, dtype=torch.float32)
-        return (t - 1.0 / ns.total_N) * 1000.0 if ns.schedule == "discrete" else t
-
     def model_fn(x, t_cont: float):
-        t_model = model_input_time(t_cont)
+        t_model = model_time(ns, t_cont)
         if guidance_type == "uncond":
             t_vec = t_model.to(x.device).expand(x.shape[0])
             return to_noise(x, t_cont, apply_fn(x, t_vec, condition, **model_kwargs))
@@ -673,12 +709,10 @@ def make_cfg_model_fn(
         if cfg_scale == 1.0 or uncondition is None:
             t_vec = t_model.to(x.device).expand(x.shape[0])
             return to_noise(x, t_cont, apply_fn(x, t_vec, condition, **model_kwargs))
-        x_in = torch.cat([x, x], dim=0)
+        x_in, c_in = cfg_batch(x, condition, uncondition)
         t_vec = t_model.to(x.device).expand(x_in.shape[0])
-        c_in = torch.cat([uncondition, condition], dim=0)
-        noise = to_noise(x_in, t_cont, apply_fn(x_in, t_vec, c_in, **model_kwargs))
-        noise_uncond, noise_cond = noise.chunk(2, dim=0)
-        return noise_uncond + cfg_scale * (noise_cond - noise_uncond)
+        return cfg_guide(to_noise(x_in, t_cont, apply_fn(x_in, t_vec, c_in, **model_kwargs)),
+                         cfg_scale)
 
     return model_fn
 

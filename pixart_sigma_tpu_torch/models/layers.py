@@ -15,6 +15,10 @@ f32 params in bf16: a training model keeps f32 master weights and receives
 f32 gradients, and for an inference model cast to bf16 the casts are no-ops.
 The embedders that take raw inputs cast them to `dtype` (default: their
 weights' dtype).
+
+`quant=True` (the config's `quant_int8`, a serving mode) builds the block's
+projections and MLP as `QuantLinear`, dynamic int8 (W8A8) products, where
+the JAX package's `_dense(quant=)` builds `QuantDense`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixart_sigma_tpu_torch.ops.attention import attention
+from pixart_sigma_tpu_torch.ops.quant import int8_matmul_quantized, quantize_weight
 
 
 class Linear(nn.Linear):
@@ -35,6 +40,45 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class QuantLinear(Linear):
+    """`Linear` with a dynamic int8 (W8A8) product (`ops/quant.py`), the
+    counterpart of JAX's `QuantDense`: the same parameter names and shapes,
+    so every checkpoint loads unchanged.
+
+    As `QuantDense` declares its kernel and bias f32 whatever the compute
+    dtype, the weight and bias stay f32 when the module is cast (`.to(bf16)`
+    moves them to the device only): the int8 weight is quantized from the
+    f32 master, not from its bf16 cast, and the bias is added in f32. The
+    quantized weight is kept per module, keyed on the weight's storage and
+    version, so loading or changing the weight quantizes it anew.
+    `Linear.forward(module, x)` is the unquantized product in the input's
+    dtype (the caption K/V hoist takes it, as the JAX hoist does)."""
+
+    def _apply(self, fn, recurse=True):
+        # the target device, from an empty tensor: no cast copy of the weight
+        return super()._apply(
+            lambda t: t.to(fn(t.new_empty(0)).device) if t.is_floating_point() else fn(t),
+            recurse)
+
+    def quantized_weight(self):
+        w = self.weight
+        key = (w.data_ptr(), w.device, w._version)
+        cached = getattr(self, "_qweight", None)
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                cached = (key, *quantize_weight(w.detach().float()))
+            self._qweight = cached
+        return cached[1], cached[2]
+
+    def forward(self, x):
+        qw, sw = self.quantized_weight()
+        return int8_matmul_quantized(x, qw, sw, self.bias, out_dtype=x.dtype)
+
+
+def _linear(in_features: int, out_features: int, quant: bool) -> Linear:
+    return (QuantLinear if quant else Linear)(in_features, out_features)
 
 
 class Conv2d(nn.Conv2d):
@@ -66,10 +110,11 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 class Mlp(nn.Module):
     """fc1 -> gelu(tanh) -> fc2."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 quant: bool = False):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_features)
-        self.fc2 = Linear(hidden_features, out_features)
+        self.fc1 = _linear(in_features, hidden_features, quant)
+        self.fc2 = _linear(hidden_features, out_features, quant)
 
     def forward(self, x):
         return self.fc2(gelu_tanh(self.fc1(x)))
@@ -179,14 +224,15 @@ class SelfAttentionKVCompress(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, sampling: Optional[str] = None,
-                 sr_ratio: int = 1, qk_norm: bool = False, attn_impl: str = "auto"):
+                 sr_ratio: int = 1, qk_norm: bool = False, attn_impl: str = "auto",
+                 quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.sampling = sampling
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = _linear(dim, 3 * dim, quant)
+        self.proj = _linear(dim, dim, quant)
         if qk_norm:
             self.q_norm = LayerNorm(dim, eps=1e-6)
             self.k_norm = LayerNorm(dim, eps=1e-6)
@@ -229,13 +275,14 @@ class MultiHeadCrossAttention(nn.Module):
     (`models.pixart.precompute_cross_kv`); `proj` starts at zero.
     """
 
-    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto",
+                 quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.q_linear = Linear(dim, dim)
-        self.kv_linear = Linear(dim, 2 * dim)
-        self.proj = Linear(dim, dim)
+        self.q_linear = _linear(dim, dim, quant)
+        self.kv_linear = _linear(dim, 2 * dim, quant)
+        self.proj = _linear(dim, dim, quant)
 
     def forward(self, x, cond, mask=None, kv=None):
         B, N, C = x.shape
@@ -270,14 +317,15 @@ class PixArtBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
                  sampling: Optional[str] = None, sr_ratio: int = 1,
-                 qk_norm: bool = False, attn_impl: str = "auto"):
+                 qk_norm: bool = False, attn_impl: str = "auto", quant: bool = False):
         super().__init__()
         D = hidden_size
         self.norm1 = nn.LayerNorm(D, elementwise_affine=False, eps=1e-6)
-        self.attn = SelfAttentionKVCompress(D, num_heads, sampling, sr_ratio, qk_norm, attn_impl)
-        self.cross_attn = MultiHeadCrossAttention(D, num_heads, attn_impl)
+        self.attn = SelfAttentionKVCompress(D, num_heads, sampling, sr_ratio, qk_norm, attn_impl,
+                                            quant)
+        self.cross_attn = MultiHeadCrossAttention(D, num_heads, attn_impl, quant)
         self.norm2 = nn.LayerNorm(D, elementwise_affine=False, eps=1e-6)
-        self.mlp = Mlp(D, int(D * mlp_ratio), D)
+        self.mlp = Mlp(D, int(D * mlp_ratio), D, quant)
         self.scale_shift_table = nn.Parameter(torch.randn(6, D) / D**0.5)
 
     def forward(

@@ -19,8 +19,13 @@ attention launches being ops of their own (`ATTENTION_FORWARD_OPS`).
 
 `mask_ratio > 0` adds the `mask_token` parameter and, in training, runs the
 blocks on a random subset of the tokens (MAE-style), returning
-(output, token_mask). Not ported yet: block caching and int8 matmuls; a
-config that asks for them raises.
+(output, token_mask).
+
+Serving modes (inference only, as in the JAX package): `quant_int8` builds
+the blocks' projections and MLPs as dynamic int8 products (`QuantLinear`);
+`cache_span=(k1, k2)` lets a call reuse the summed residual of layers
+[k1, k2) from an earlier call (delta block caching, `forward(block_cache=,
+use_block_cache=)`).
 """
 
 from __future__ import annotations
@@ -113,7 +118,6 @@ class PixArtConfig:
         return groups
 
 
-_NOT_PORTED = {"quant_int8": False, "cache_span": None}
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 _BATCHED_MATMULS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
 # remat_policy -> the ops whose outputs a checkpointed block keeps (None: only
@@ -136,10 +140,10 @@ class PixArt(nn.Module):
 
     def __init__(self, cfg: PixArtConfig):
         super().__init__()
-        for name, default in _NOT_PORTED.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f"PixArtConfig.{name} is not ported yet (ROADMAP.md, Queue 1)")
+        if cfg.cache_span is not None and not 0 <= cfg.cache_span[0] < cfg.cache_span[1] \
+                <= cfg.depth:
+            raise ValueError(f"cache_span {cfg.cache_span} is not a layer range of depth "
+                             f"{cfg.depth}")
         if cfg.remat_policy not in REMAT_SAVED:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected one of "
                              f"{sorted(REMAT_SAVED)}")
@@ -158,6 +162,7 @@ class PixArt(nn.Module):
             PixArtBlock(
                 D, cfg.num_heads, cfg.mlp_ratio, sampling=cfg.kv_compress_sampling,
                 sr_ratio=cfg.sr_ratio(i), qk_norm=cfg.qk_norm, attn_impl=cfg.attn_impl,
+                quant=cfg.quant_int8,
             )
             for i in range(cfg.depth)
         )
@@ -178,6 +183,8 @@ class PixArt(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         mask_noise: Optional[torch.Tensor] = None,  # [B, h * w] uniform, masked training
+        block_cache: Optional[torch.Tensor] = None,  # [B, h * w, D] cached delta
+        use_block_cache: Optional[bool] = None,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """`cross_kv` (from `precompute_cross_kv`) replaces the caption
         embedder and every block's kv_linear, which depend on the captions
@@ -185,7 +192,13 @@ class PixArt(nn.Module):
         caption dropout and, with `mask_ratio`, token masking, drawn from
         `generator` in that order: the mask first (or `mask_noise`, the
         uniform draw that orders the tokens), then the drops. A masked
-        training call returns (output, token_mask [B, h * w], 1 = removed)."""
+        training call returns (output, token_mask [B, h * w], 1 = removed).
+
+        With `cache_span=(k1, k2)` and a `block_cache` the call returns
+        (output, new_cache): `use_block_cache` true skips layers [k1, k2),
+        adding the cached delta instead and passing the cache on; false runs
+        them and caches their summed residual, in the cache's dtype. The
+        JAX model's traced `nn.cond` is a host branch on a Python bool."""
         cfg = self.cfg
         B, H, W, _ = x.shape
         p = cfg.patch_size
@@ -194,6 +207,14 @@ class PixArt(nn.Module):
             raise ValueError("fixed-resolution PixArt expects a square grid")
         if train and cross_kv is not None:
             raise ValueError("cross_kv hoisting is an inference-only path")
+        if train and cfg.quant_int8:
+            raise ValueError(
+                "quant_int8 is a serving-only path: the int8 round and clip have near-zero "
+                "gradients and would silently break training; train in bf16 and enable "
+                "quant_int8 at inference")
+        if block_cache is not None and (train or cfg.cache_span is None):
+            raise ValueError("block_cache needs an inference call of a model built with "
+                             "cache_span")
         x = self.x_embedder(x) + self.pos_embed(h, w, x.device)[None]
         mask_info = None
         if train and cfg.mask_ratio > 0:
@@ -222,17 +243,35 @@ class PixArt(nn.Module):
         remat = cfg.grad_checkpointing and torch.is_grad_enabled() and saved != "all"
         context_fn = noop_context_fn if saved is None else functools.partial(
             create_selective_checkpoint_contexts, functools.partial(_save_ops, saved))
-        for i, block in enumerate(self.blocks):
-            kv = None if cross_kv is None else cross_kv[i]
-            if remat:  # recompute the block in the backward, keeping what the policy saves
-                x = checkpoint(block, x, y, t0, y_mask, kv, (h, w), use_reentrant=False,
-                               preserve_rng_state=False, context_fn=context_fn)
+
+        def run_range(x, lo, hi):
+            for i in range(lo, hi):
+                block = self.blocks[i]
+                kv = None if cross_kv is None else cross_kv[i]
+                if remat:  # recompute the block in the backward, keeping what the policy saves
+                    x = checkpoint(block, x, y, t0, y_mask, kv, (h, w), use_reentrant=False,
+                                   preserve_rng_state=False, context_fn=context_fn)
+                else:
+                    x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
+            return x
+
+        if block_cache is None:
+            x = run_range(x, 0, cfg.depth)
+        else:
+            k1, k2 = cfg.cache_span
+            x = run_range(x, 0, k1)
+            if use_block_cache:
+                x, new_cache = x + block_cache.to(x.dtype), block_cache
             else:
-                x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
+                out = run_range(x, k1, k2)
+                x, new_cache = out, (out - x).to(block_cache.dtype)
+            x = run_range(x, k2, cfg.depth)
         if mask_info is not None:
             x = unmask_tokens(x, mask_info["ids_restore"], self.mask_token)
         x = self.final_layer(x, t)
         out = self.unpatchify(x, h, w).float()
+        if block_cache is not None:
+            return out, new_cache
         return out if mask_info is None else (out, mask_info["mask"])
 
     def pos_embed(self, h: int, w: int, device: torch.device) -> torch.Tensor:
@@ -261,9 +300,11 @@ class PixArt(nn.Module):
 
 def precompute_cross_kv(model: PixArt, y: torch.Tensor) -> list:
     """Caption K/V of every block, [B, L, 2D] each, once per trajectory:
-    y -> y_proj MLP -> each block's kv_linear. Inference only."""
+    y -> y_proj MLP -> each block's kv_linear. Inference only. The product
+    is the plain one in the compute dtype also under `quant_int8`, as the
+    JAX hoist multiplies by the kernel cast to the dtype."""
     emb = model.y_embedder.y_proj(y.to(model.cfg.dtype))
-    return [block.cross_attn.kv_linear(emb) for block in model.blocks]
+    return [Linear.forward(block.cross_attn.kv_linear, emb) for block in model.blocks]
 
 
 @torch.no_grad()

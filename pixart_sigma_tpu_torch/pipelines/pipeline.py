@@ -7,8 +7,11 @@ and "iddpm" run classifier-free guidance as one 2B model call per step with
 the caption K/V computed once per trajectory; "lcm" and the one-NFE "dmd"
 run unguided on the B prompts. The VAE decodes one image at a time up to
 128 x 128 latents (1024px) and tile by tile beyond (`models.vae.tiled_decode`:
-2048px, or 4096px through the 2880 bucket table). Block caching is not
-ported yet and raises (ROADMAP.md, Queue 1 item 7).
+2048px, or 4096px through the 2880 bucket table).
+
+Delta block caching (`block_cache_interval`, `block_cache_threshold`,
+`block_cache_schedule`) runs DPM-Solver++ with the model's `cache_span`
+layers recomputed only on refresh steps (`_build_dpm_cached`).
 
 The stochastic samplers take their per-step noise from `noise_fn(k, shape)`
 (`diffusion/noise.py`): by default a `torch.Generator` on the device, seeded
@@ -28,7 +31,10 @@ from pixart_sigma_tpu_torch.diffusion.deis import DEISMultistep
 from pixart_sigma_tpu_torch.diffusion.dpm_solver import (
     DPMSolver,
     NoiseScheduleVP,
+    cfg_batch,
+    cfg_guide,
     make_cfg_model_fn,
+    model_time,
 )
 from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
 from pixart_sigma_tpu_torch.diffusion.lcm import LCMScheduler
@@ -130,11 +136,12 @@ class PixArtPipeline:
         replaces the seeded generator's per-step draws."""
         if sampler not in self.SAMPLERS:
             raise ValueError(f"unknown sampler {sampler}")
-        if block_cache_interval >= 2 or block_cache_threshold is not None \
-                or block_cache_schedule is not None:
-            raise NotImplementedError(
-                "block caching is not ported yet (ROADMAP.md, Queue 1 item 7: block cache "
-                "and int8)")
+        schedule = (None if block_cache_schedule is None
+                    else tuple(sorted(set(int(i) for i in block_cache_schedule))))
+        cache_on = (block_cache_interval >= 2 or block_cache_threshold is not None
+                    or schedule is not None)
+        if cache_on and sampler != "dpm-solver":
+            raise ValueError(f"block caching requires sampler='dpm-solver' (got {sampler!r})")
         if isinstance(prompts, str):
             prompts = [prompts]
         B = len(prompts)
@@ -186,6 +193,10 @@ class PixArtPipeline:
             out = self._build_lcm(num_inference_steps)(x, y, y_mask, img_hw, aspect, noise_fn)
         elif sampler == "dmd":
             out = self._build_dmd()(x, y, y_mask, img_hw, aspect)
+        elif cache_on:
+            run = self._build_dpm_cached(num_inference_steps, guidance_scale,
+                                         block_cache_interval, block_cache_threshold, schedule)
+            out = run(x, y, null_y, mask_full, img_hw, aspect, noise_fn)
         else:
             run = getattr(self, self.GUIDED[sampler])(num_inference_steps, guidance_scale)
             out = run(x, y, null_y, mask_full, img_hw, aspect, noise_fn)
@@ -193,12 +204,17 @@ class PixArtPipeline:
             return out.cpu().numpy()
         return self._latents_to_images(out)
 
-    def _apply_eps(self, x, t_vec, cond, mask, img_hw, aspect, cross_kv=None):
+    def _apply_eps(self, x, t_vec, cond, mask, img_hw, aspect, cross_kv=None, **cache):
+        """The model's eps channels; given `block_cache` and `use_block_cache`
+        (the cached DPM-Solver++), (eps, the new cache)."""
         kwargs = {}
         if self.model.cfg.micro_condition:
             n = x.shape[0] // img_hw.shape[0]
             kwargs = dict(img_hw=img_hw.repeat(n, 1), aspect_ratio=aspect.repeat(n, 1))
-        out = self.model(x, t_vec, cond, mask, cross_kv=cross_kv, **kwargs)
+        out = self.model(x, t_vec, cond, mask, cross_kv=cross_kv, **cache, **kwargs)
+        if cache:
+            out, new_cache = out
+            return out[..., :4], new_cache
         return out[..., :4]
 
     def _hoisted_kv(self, y_cat: torch.Tensor) -> list:
@@ -218,6 +234,73 @@ class PixArtPipeline:
             model_fn = self._cfg_model_fn(y, null_y, mask, img_hw, aspect, cfg_scale)
             solver = DPMSolver(model_fn, self.ns, algorithm_type="dpmsolver++")
             return solver.sample(x, steps=steps, order=2, method="multistep")
+
+        return run
+
+    def _build_dpm_cached(self, steps: int, cfg_scale: float, interval: int,
+                          adaptive_threshold: Optional[float] = None,
+                          schedule: Optional[Sequence[int]] = None):
+        """DPM-Solver++ with delta block caching: the residual of the model's
+        `cache_span` layers rides the sampler loop, recomputed on refresh
+        steps and reused otherwise. Refresh policies: every `interval`-th
+        model call (1 gives the uncached trajectory); the model calls listed
+        in `schedule` (step 0 among them); or, with `adaptive_threshold`,
+        while the drift, the sum of mean|x - x_prev| / (mean|x_prev| + 1e-8)
+        since the last refresh, stays under the threshold (the first and last
+        calls always refresh). The drift is an f32 tensor on the device, as
+        in JAX; the decision is read back once per model call. The CFG batch,
+        guidance and model time are `make_cfg_model_fn`'s helpers; the batch
+        is always [uncond, cond], the cache's layout."""
+        cfg = self.model.cfg
+        if cfg.cache_span is None:
+            raise ValueError("block caching needs a model built with cache_span "
+                             "(the turbo serving config sets (7, 21))")
+        adaptive = adaptive_threshold is not None
+        if adaptive:
+            refresh = np.zeros(steps, bool)
+            refresh[0] = refresh[-1] = True
+        elif schedule is not None:
+            refresh = np.zeros(steps, bool)
+            refresh[np.asarray(sorted(set(schedule)), int)] = True
+            if not refresh[0]:
+                raise ValueError("block_cache_schedule must hold step 0 (the cache starts "
+                                 "empty)")
+        else:
+            refresh = np.asarray([i % interval == 0 for i in range(steps)])
+        ns = self.ns
+
+        def run(x, y, null_y, mask, img_hw, aspect, noise_fn):
+            kvs = self._hoisted_kv(torch.cat([null_y, y], dim=0))
+
+            def state_model_fn(xi, t_cont, state, use_cache):
+                if adaptive:
+                    cache, x_prev, drift = state
+                    rel = (xi - x_prev).abs().mean() / (x_prev.abs().mean() + 1e-8)
+                    drift = drift + rel
+                    use_cache = use_cache and bool(drift < adaptive_threshold)
+                    if not use_cache:
+                        drift = torch.zeros_like(drift)
+                else:
+                    cache = state
+                x_in, c_in = cfg_batch(xi, y, null_y)
+                t_vec = model_time(ns, t_cont).to(xi.device).expand(x_in.shape[0])
+                eps, cache = self._apply_eps(x_in, t_vec, c_in, mask, img_hw, aspect,
+                                             cross_kv=kvs, block_cache=cache,
+                                             use_block_cache=use_cache)
+                guided = cfg_guide(eps, cfg_scale)
+                return guided, ((cache, xi, drift) if adaptive else cache)
+
+            p = cfg.patch_size
+            n_tokens = (x.shape[1] // p) * (x.shape[2] // p)
+            state = torch.zeros((2 * x.shape[0], n_tokens, cfg.hidden_size), dtype=cfg.dtype,
+                                device=x.device)
+            if adaptive:
+                state = (state, torch.zeros_like(x),
+                         torch.zeros((), dtype=torch.float32, device=x.device))
+            solver = DPMSolver(lambda *_: None, ns, algorithm_type="dpmsolver++")
+            return solver.sample_scan(x, steps=steps, t_start=ns.T, t_end=1.0 / ns.total_N,
+                                      order=2, state_model_fn=state_model_fn,
+                                      model_state=state, refresh_mask=refresh)
 
         return run
 

@@ -8,6 +8,9 @@
 - `t5_state_dict_from_jax`: the JAX T5Encoder param tree -> HF
   `T5EncoderModel` names (the port's T5 module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
+- `load_checkpoint`: the entry points' loader, a `.pth` (its EMA weights
+  with `load_ema`); diffusers transformer files and the JAX trainer's orbax
+  directories are refused.
 - `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
   "state_dict_ema", "optimizer", "step", "epoch"}, and what a resumed run
   needs besides), which `load_pth` reads; `latest_checkpoint` finds the
@@ -215,15 +218,33 @@ def vae_state_dict_from_jax(params: Dict[str, Any], vae_cfg) -> Dict[str, torch.
     return _tensors(sd)
 
 
-def load_pth(model: nn.Module, path: str) -> nn.Module:
-    """Load an upstream-dialect PixArt `.pth` ({'state_dict': ...} or a bare
-    state dict) into a port model; resolution-dependent `pos_embed` buffers
-    are dropped, every other key must match."""
+def load_pth(model: nn.Module, path: str, load_ema: bool = False) -> nn.Module:
+    """Load an upstream-dialect PixArt `.pth` ({'state_dict': ...}, with
+    `load_ema` its 'state_dict_ema' when present, or a bare state dict) into
+    a port model; resolution-dependent `pos_embed` buffers are dropped,
+    every other key must match."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("state_dict", ckpt)
+    key = "state_dict_ema" if load_ema and "state_dict_ema" in ckpt else "state_dict"
+    sd = ckpt.get(key, ckpt)
     sd = {k: v for k, v in sd.items() if k not in _DROPPED}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False) -> nn.Module:
+    """Load a PixArt checkpoint into a port model, as the JAX package's
+    `load_checkpoint` does for the formats the port reads: a `.pth`/`.pt`
+    through `load_pth`. A directory (an orbax train state) and a diffusers
+    `.safetensors` raise."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: the port reads no orbax checkpoint (ROADMAP.md, Queue 3, "
+            "'Resume reads only the port's .pth')")
+    if not path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{path}: the port reads upstream .pth checkpoints only; diffusers transformer "
+            ".safetensors names are not mapped (ROADMAP.md, Queue 1 item 10)")
+    return load_pth(model, path, load_ema=load_ema)
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

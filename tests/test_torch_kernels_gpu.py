@@ -609,3 +609,51 @@ def test_vae_encoder_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape == (2, 16, 17, 4)
         assert float((g.cpu() - w).norm() / w.norm()) <= VAE_REL_TOL
+
+
+INT8_ELEM_TOL, INT8_L2_TOL = 2**-9, 1e-4  # as chip_smoke.py
+
+
+def test_int8_product_matches_the_cpu_bit_for_bit(cuda):
+    """`torch._int_mm` at a block's qkv shape (one image with CFG: 2 x 4096
+    rows, 1152 -> 3456) against the plain version on the CPU: the quantized
+    operands and the int32 accumulator equal, the bf16 output within the
+    limits of chip_smoke.py."""
+    from pixart_sigma_tpu_torch.ops.quant import (
+        int8_accumulate,
+        int8_accumulate_reference,
+        int8_matmul_quantized,
+        quantize_rows,
+        quantize_weight,
+    )
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8192, 1152).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3456, 1152) * 0.03).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(3456).astype(np.float32)).to(cuda)
+    qx, sx = quantize_rows(x)
+    qw, sw = quantize_weight(w)
+    qx_c, sx_c = quantize_rows(x.cpu())
+    qw_c, sw_c = quantize_weight(w.cpu())
+    for got, want in ((qx, qx_c), (sx, sx_c), (qw, qw_c), (sw, sw_c)):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(int8_accumulate(qx, qw).cpu(), int8_accumulate_reference(qx_c, qw_c))
+    got = int8_matmul_quantized(x, qw, sw, b).cpu().float()
+    want = int8_matmul_quantized(x.cpu(), qw_c, sw_c, b.cpu()).float()
+    err = got - want
+    rms = want.pow(2).mean(1, keepdim=True).sqrt()
+    assert float((err.abs() / (want.abs() + rms)).max()) <= INT8_ELEM_TOL
+    assert float((err.norm(dim=1) / want.norm(dim=1)).max()) <= INT8_L2_TOL
+
+
+def test_int8_product_refuses_what_int_mm_does_not_take(cuda):
+    """A shape outside `_int_mm`'s limits raises on the card; it does not
+    fall back to another product."""
+    from pixart_sigma_tpu_torch.ops.quant import int8_accumulate
+
+    q = lambda *s: torch.ones(s, dtype=torch.int8, device=cuda)
+    assert int8_accumulate(q(32, 64), q(40, 64).t()).dtype == torch.int32
+    for a, b in ((q(16, 64), q(40, 64).t()), (q(32, 60), q(40, 60).t()),
+                 (q(32, 64), q(36, 64).t()), (q(64, 32).t(), q(40, 64).t())):
+        with pytest.raises(ValueError):
+            int8_accumulate(a, b)

@@ -316,5 +316,5 @@ def test_builders_default_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PixArtMS_XL_2(depth=1, hidden_size=144, num_heads=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PixArtMS_XL_2(device="cpu", depth=1, hidden_size=144, num_heads=2, quant_int8=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PixArtMS_XL_2(depth=1, hidden_size=144, num_heads=2, quant_int8=True, cache_span=(0, 1))

@@ -117,13 +117,15 @@ def test_pipeline_with_text_encoder_and_ar_prompt(pipelines):
 
 
 def test_pipeline_refuses_what_is_not_ported(pipelines):
-    """Block caching is still refused (every sampler name is ported); an
-    unknown sampler, algorithm or an SDE solver without noise is an error."""
+    """Block caching needs a model built with cache_span and the dpm-solver
+    sampler, as in JAX (every sampler name is ported); an unknown sampler,
+    algorithm or an SDE solver without noise is an error."""
     _, tpipe = pipelines
-    for kw in (dict(block_cache_interval=2), dict(block_cache_threshold=0.1),
-               dict(sampler="sa-solver", block_cache_schedule=[0, 2])):
-        with pytest.raises(NotImplementedError, match="not ported.*Queue 1 item 7"):
+    for kw in (dict(block_cache_interval=2), dict(block_cache_threshold=0.1)):
+        with pytest.raises(ValueError, match="cache_span"):
             tpipe(["a"], **kw)
+    with pytest.raises(ValueError, match="requires sampler='dpm-solver'"):
+        tpipe(["a"], sampler="sa-solver", block_cache_schedule=[0, 2])
     with pytest.raises(ValueError, match="unknown sampler"):
         tpipe(["a"], sampler="euler")
     ns = tdpm.NoiseScheduleVP("discrete", betas=named_beta_schedule("linear", 1000))
