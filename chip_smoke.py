@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px, 2K and
 512px training paths, with the trainer's features, the T5-XXL and SDXL-VAE
-encoders, the turbo serving modes and the HTTP server, on one CUDA card.
+encoders, the turbo serving modes and the HTTP server, the training CLI and
+the fine-tuning and distillation loops, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -146,7 +147,31 @@ Phases, each printing its own lines:
    interval 2: concurrent requests, batched PNGs against the same requests
    served alone, the planted fault "row latent from another seed", /healthz,
    429 past the queue depth, launches per call, per-request latencies, and
-   img/s over a window of 16 same-signature requests at max batch 4.
+   img/s over a window of 16 same-signature requests at max batch 4;
+22. the training CLI (pixart_sigma_tpu_torch.scripts.train, its main) at
+   full width and depth on synthetic 1024px features: the 1024px
+   KV-compress config for 3 steps from a `.pth`, and 2 steps, a checkpoint
+   and `--resume-from latest` for 1, bit for bit against the 3; the 1024px
+   config without KV compression from a `.pth` and from the diffusers
+   `.safetensors` of the same weights, equal first-step losses; the 512px
+   config in image mode with `--debug`, its VAE from a `.safetensors` and
+   T5 from an HF directory (T5-XXL's width, cut to 2 layers);
+23. LoRA (scripts.train_pixart_lora) on the KV-compress config, B = 4, rank
+   4, 3 steps, then a DoRA step: zero-init adapters give the base output
+   bit for bit, only the adapters move, the merged `.pth` gives the merged
+   forward bit for bit;
+24. DreamBooth (scripts.train_dreambooth_lora) on its config (1024px, 120
+   tokens, prior preservation) from 4 instance and 4 class PNGs, 3 steps;
+25. LCM (scripts.train_pixart_lcm) at the config's B = 12, 1024px, the
+   teacher from a diffusers `.safetensors`, 3 steps, s/step, peak memory and
+   a trace of one step;
+26. DMD: tools.generate_dmd_data (8 triplets, 20 steps, 512px teacher,
+   pseudo-T5), scripts.train_pixart_dmd on them (B = 4, bf16 teacher, 3
+   steps), one_step_generate against the pipeline's one-step sampler; then
+   one LoRA, LCM and DMD generator step at 256px and full width through the
+   kernels against plain attention, each with a planted fault it must
+   reject. Every one of these counts its kernel launches against the
+   reckoning.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -2543,6 +2568,726 @@ def run_server(dev, card, fa, model, vae, t5) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 22-26: the training front end, checkpoint interop, fine-tuning and
+# distillation (LoRA/DoRA, DreamBooth, LCM, DMD), through their entry points
+
+CONFIG_1024 = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_internalms.py"
+DREAMBOOTH_CONFIG = "configs/pixart_alpha_config/PixArt_xl2_img1024_dreambooth.py"
+LCM_CONFIG = "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_lcm.py"
+DMD_CONFIG = "configs/pixart_app_config/PixArt_DMD_xl2_img512_internalms.py"
+FT_STEPS = 3  # steps of each fine-tuning and distillation run
+T5_CUT_LAYERS = 2  # T5-XXL's depth in the image-mode CLI run (full width)
+DMD_SAMPLES, DMD_DATA_STEPS = 8, 20
+# one step at 256px, full width, through the kernels against plain attention
+# (SGD, so the update is the gradient): |loss_k - loss_r| / |loss_r| and the
+# relative L2 of the trainable parameters' update; the planted faults (LoRA:
+# the adapters' scale doubled; LCM: the target network run with the
+# student's weights; DMD: real and fake scores swapped) must read above the
+# limits (PERF.md)
+GATE_LOSS_TOL = 1e-2
+GATE_UPDATE_TOL = 5e-2
+# DMD's one_step_generate against the pipeline's one-step "dmd" sampler on
+# the same weights, captions and noise, relative L2 (the pipeline's
+# alpha-bar is an f64 host scalar); the fault "noise rolled by one row"
+DMD_ONE_STEP_TOL = 1e-4
+
+
+def sync() -> None:
+    sys.modules["torch"].cuda.synchronize()
+
+
+def reset_peak() -> None:
+    torch = sys.modules["torch"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    return sys.modules["torch"].cuda.max_memory_allocated() / 2**30
+
+
+def check_launches(tag: str, got: dict, want: dict, some: bool = True) -> None:
+    """The run's launches must equal the reckoning, and (`some`) be made."""
+    log(f"[{tag}] launches {got}; reckoned {want}")
+    if got != want or (some and not any(got.values())):
+        raise SystemExit(f"{tag}: launches {got}, reckoned {want}")
+
+
+def forward_launches(mc, hw, calls: int) -> dict:
+    """Launches of `calls` no-grad model calls on a latent of `hw`: each
+    block's self-attention (onepass up to 4096 padded keys, flash past) and
+    its caption cross-attention (allheads), once per call."""
+    h, w = hw[0] // mc.patch_size, hw[1] // mc.patch_size
+    out = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for i in range(mc.depth):
+        sr = mc.sr_ratio(i)
+        keys = h * w if sr == 1 else (h // sr) * (w // sr)
+        out["flash_forward" if -(-keys // 128) * 128 > 4096 else "onepass"] += calls
+        out["allheads"] += calls
+    return out
+
+
+def add_launches(*parts) -> dict:
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for part in parts:
+        for k, v in part.items():
+            total[k] += v
+    return total
+
+
+def times(values) -> str:
+    return ", ".join(f"{x:.4f}" for x in values)
+
+
+def write_config(path: str, base: str, **overrides) -> str:
+    """A config file that inherits `base` (a repository path) and sets
+    `overrides`, for the entry points that read a config file."""
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.abspath(base)!r}]\n")
+        for k, v in overrides.items():
+            f.write(f"{k} = {v!r}\n")
+    return path
+
+
+def random_weights(dev, config_path: str, seed: int, pth: str = None, st: str = None) -> dict:
+    """Seeded random weights of a config's model at full width, written as an
+    upstream `.pth` and/or a diffusers `.safetensors`; returns them (CPU)."""
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.pixart import init_weights
+    from pixart_sigma_tpu_torch.utils.checkpoint import (
+        save_pth,
+        save_safetensors,
+        torch_to_diffusers_state_dict,
+    )
+
+    model = build_model_from_config(read_config(config_path), device=dev, train=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init_weights(model, gen)
+    perturb_zero_leaves(model, gen)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    if pth:
+        save_pth(pth, sd)
+    if st:
+        save_safetensors(st, torch_to_diffusers_state_dict(sd))
+    return sd
+
+
+def write_t5_dir(dev, path: str, words) -> None:
+    """T5-XXL's width with T5_CUT_LAYERS layers, seeded random weights in
+    bf16, as an HF directory (`model.safetensors`), and a word-level
+    `tokenizers` tokenizer over `words` (no SentencePiece model is
+    reachable) that `T5Embedder.from_pretrained` reads."""
+    import torch
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    from pixart_sigma_tpu_torch.models.t5 import T5Config, build_t5, init_weights
+    from pixart_sigma_tpu_torch.utils.checkpoint import save_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    enc = build_t5(T5Config.xxl(num_layers=T5_CUT_LAYERS), device=dev,
+                   param_dtype=torch.bfloat16)
+    init_weights(enc, torch.Generator(device=dev).manual_seed(15))
+    save_safetensors(os.path.join(path, "model.safetensors"), enc.state_dict())
+    del enc
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    for w in sorted(set(words)):
+        vocab.setdefault(w, len(vocab))
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.post_processor = processors.TemplateProcessing(single="$A </s>",
+                                                       special_tokens=[("</s>", 1)])
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>",
+                   "eos_token": "</s>", "unk_token": "<unk>", "model_max_length": 512}, f)
+
+
+def counted(fa, fn):
+    """fn() with the kernel counts set to 0 just before and read just after:
+    (its result, launches, peak GiB, wall seconds)."""
+    reset_train_counts(fa)
+    reset_peak()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, train_counts(fa), peak_gib(), time.perf_counter() - t0
+
+
+def run_train_cli(dev, card, fa, tmp: str) -> dict:
+    """Phase 22: `python -m pixart_sigma_tpu_torch.scripts.train` (its
+    `main`) on the 1024px KV-compress config from features: 3 steps from a
+    `.pth`; 2 steps, a checkpoint, and `--resume-from latest` for 1, bit for
+    bit against the 3; `--load-from` a `.pth` and the diffusers
+    `.safetensors` of the same weights on the 1024px config without KV
+    compression (diffusers names carry no KV-compression conv), equal
+    first-step losses; the 512px config in image mode with `--debug`, its
+    VAE from a diffusers `.safetensors` and T5 from an HF directory. Returns
+    the launches and the files the later phases reuse."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset, write_image_dataset
+    from pixart_sigma_tpu_torch.models import t5 as t5_mod
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+    from pixart_sigma_tpu_torch.scripts import train as train_cli
+    from pixart_sigma_tpu_torch.utils.checkpoint import save_safetensors
+
+    t0 = time.perf_counter()
+    write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 12, resolution=1024,
+                          valid_tokens=(3, 19), seed=0)
+    files = dict(data=tmp, kv_pth=os.path.join(tmp, "kv.pth"),
+                 pth=os.path.join(tmp, "w1024.pth"), st=os.path.join(tmp, "w1024.safetensors"),
+                 vae=os.path.join(tmp, "vae.safetensors"))
+    random_weights(dev, TRAIN_CONFIG, 22, pth=files["kv_pth"])
+    random_weights(dev, CONFIG_1024, 23, pth=files["pth"], st=files["st"])
+    torch.cuda.manual_seed(24)
+    save_safetensors(files["vae"], build_vae(VAEConfig.sdxl(), device=dev).state_dict())
+    features = {"root": "data", "load_vae_feat": True, "load_t5_feat": True}
+    common = dict(data_root=tmp, data=features, log_interval=1, save_model_steps=0,
+                  save_model_epochs=10**9, num_workers=4)
+    kv_cfg = write_config(os.path.join(tmp, "kv.py"), TRAIN_CONFIG, **common)
+    cfg_1024 = write_config(os.path.join(tmp, "c1024.py"), CONFIG_1024, **common)
+    log(f"[cli] features of 12 1024x1024 items, random weights of {TRAIN_CONFIG} (.pth) and "
+        f"of {CONFIG_1024} (.pth and diffusers .safetensors), a random SDXL VAE "
+        f"(.safetensors) written in {time.perf_counter() - t0:.1f} s")
+
+    def cli(cfg, work, *extra):
+        return train_cli.main([cfg, "--work-dir", os.path.join(tmp, work), "--data-root", tmp,
+                               "--features", "--device", str(dev), *extra])
+
+    whole, launches, peak, wall = counted(fa, lambda: cli(kv_cfg, "whole", "--load-from",
+                                                          files["kv_pth"], "--max-steps", "3"))
+    mc = whole.model.cfg
+    hws = [h["hw"] for h in whole.history]
+    check_launches("cli", launches, run_launches(mc, hws))
+    log(f"[cli] {TRAIN_CONFIG} --load-from .pth, 3 steps: losses "
+        f"{[round(h['loss'], 6) for h in whole.history]}, s/step {times(h['seconds'] for h in whole.history)}, "
+        f"peak {peak:.2f} GiB, {wall:.1f} s with the model's load")
+    part = cli(kv_cfg, "part", "--load-from", files["kv_pth"], "--max-steps", "2")
+    t0 = time.perf_counter()
+    part.save(part.state.step, 0)
+    del part
+    resumed = cli(kv_cfg, "part", "--resume-from", "latest", "--max-steps", "1")
+    same = all(torch.equal(p, dict(resumed.model.named_parameters())[n]) and
+               torch.equal(whole.state.ema[n], resumed.state.ema[n])
+               for n, p in whole.model.named_parameters())
+    same &= whole.history[2]["loss"] == resumed.history[0]["loss"] and resumed.state.step == 3
+    log(f"[cli] 2 steps, a checkpoint, --resume-from latest for 1 ({time.perf_counter() - t0:.1f}"
+        f" s with the save and load): step {resumed.state.step}, loss "
+        f"{resumed.history[0]['loss']:.6f} against {whole.history[2]['loss']:.6f}; weights and "
+        f"EMA bit for bit: {same}")
+    if not same:
+        raise SystemExit("cli: the resumed run differs from the uninterrupted one")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+    from_pth = cli(cfg_1024, "pth", "--load-from", files["pth"], "--max-steps", "1")
+    from_st = cli(cfg_1024, "st", "--load-from", files["st"], "--max-steps", "1")
+    a, b = from_pth.history[0]["loss"], from_st.history[0]["loss"]
+    log(f"[cli] {CONFIG_1024} first-step loss from the .pth {a:.8f}, from the diffusers "
+        f".safetensors {b:.8f} (equal: {a == b}); the KV-compress config's diffusers file "
+        "would lack the KV-compression conv, which load_checkpoint refuses")
+    if a != b or not np.isfinite(a):
+        raise SystemExit("cli: --load-from .pth and .safetensors disagree")
+    del from_pth, from_st
+    torch.cuda.empty_cache()
+
+    # image mode: PNGs and captions, encoded on the fly by the CLI's encoders
+    img = os.path.join(tmp, "img")
+    write_image_dataset(os.path.join(img, "data"), [(512, 512)] * 4, seed=1)
+    with open(os.path.join(img, "data", "data_info.json")) as f:
+        words = " ".join(m["prompt"] + " " + m["sharegpt4v"] for m in json.load(f)).split()
+    write_t5_dir(dev, os.path.join(tmp, "t5"), words)
+    cfg_512 = write_config(os.path.join(tmp, "c512.py"), CONFIG_512, data_root=img,
+                           data={"root": "data"}, vae_pretrained=files["vae"],
+                           t5_pretrained=os.path.join(tmp, "t5"), save_model_steps=0,
+                           save_model_epochs=10**9, num_workers=4)
+    xxl = vars(t5_mod.T5Config)["xxl"]  # the CLI builds T5-XXL: cut its depth
+    t5_mod.T5Config.xxl = classmethod(lambda cls, **kw: xxl.__func__(
+        cls, **dict(kw, num_layers=T5_CUT_LAYERS)))
+    try:
+        run, launches_img, peak, wall = counted(fa, lambda: train_cli.main(
+            [cfg_512, "--work-dir", os.path.join(tmp, "w512"), "--debug", "--max-steps", "2",
+             "--device", str(dev)]))
+    finally:
+        t5_mod.T5Config.xxl = xxl
+    check_launches("cli", launches_img, run_launches(run.model.cfg,
+                                                     [h["hw"] for h in run.history]))
+    enc = run.t5.encoder
+    log(f"[cli] {CONFIG_512} image mode --debug (B = {run.config.train_batch_size}): VAE "
+        f"{type(run.vae).__name__} from .safetensors, T5 from an HF directory (cut: "
+        f"{len(enc.encoder.block)} of 24 layers at width {enc.cfg.d_model}, word-level "
+        f"tokenizer), losses {[round(h['loss'], 6) for h in run.history]}, peak {peak:.2f} GiB")
+    if not all(np.isfinite(h["loss"]) for h in run.history) or len(run.history) != 2:
+        raise SystemExit("cli: image-mode run failed")
+    del run
+    torch.cuda.empty_cache()
+    files["kv_cfg"], files["cfg_1024"] = kv_cfg, cfg_1024
+    return dict(launches=add_launches(launches, launches_img), files=files)
+
+
+def model_inputs(dev, mc, B: int, hw, seed: int, lengths=None):
+    """Seeded latents [B, h, w, 4], t, captions [B, L, C] and their mask."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, hw[0], hw[1], 4), generator=gen, device=dev)
+    y = torch.randn((B, mc.model_max_length, mc.caption_channels), generator=gen, device=dev)
+    lengths = lengths or [mc.model_max_length] * B
+    mask = (torch.arange(mc.model_max_length, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+    t = torch.linspace(50, 900, B, device=dev)
+    return x, t, y, mask
+
+
+def run_lora(dev, card, fa, files) -> dict:
+    """Phase 23: `scripts.train_pixart_lora` on the 1024px KV-compress config
+    (B = 4) from phase 22's `.pth` (diffusers names carry no KV-compression
+    conv), rank 4, 3 steps, then 1 step with `--use-dora`. Gates: zero-init
+    LoRA and DoRA give the base model's output bit for bit; only the
+    adapters moved; the merged `.pth` through `load_pth` gives the merged
+    forward bit for bit; launches per step equal `step_launches`."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.scripts import train_pixart_lora
+    from pixart_sigma_tpu_torch.training import lora
+    from pixart_sigma_tpu_torch.utils.checkpoint import load_pth
+
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    outs = {}
+    for tag, extra, steps in (("lora", [], FT_STEPS), ("dora", ["--use-dora"], 1)):
+        out, launches, peak, wall = counted(fa, lambda: train_pixart_lora.main(
+            [files["kv_cfg"], "--base", files["kv_pth"], "--work-dir",
+             os.path.join(files["data"], tag), "--rank", "4", "--max-steps", str(steps),
+             "--device", str(dev), *extra]))
+        mc = out["model"].cfg
+        check_launches(tag, launches, {k: steps * v for k, v in
+                                       step_launches(mc, (128, 128)).items()})
+        total = add_launches(total, launches)
+        n = lora.count_lora_params(out["lora"])
+        log(f"[{tag}] rank 4, {len(out['lora'])} adapted modules, {n / 1e6:.2f}M adapter "
+            f"parameters; losses {[round(x, 6) for x in out['losses']]}, s/step "
+            f"{times(out['seconds'])} (B = 4, 1024x1024), peak {peak:.2f} GiB, {wall:.1f} s "
+            "with the load and the merged export")
+        if not all(np.isfinite(out["losses"])):
+            raise SystemExit(f"{tag}: loss not finite")
+        outs[tag] = out
+    out = outs["lora"]
+    model, base = out["model"], out["base"]
+    loaded = torch.load(files["kv_pth"], map_location="cpu", weights_only=True)["state_dict"]
+    unmoved = all(torch.equal(p.cpu(), loaded[n]) for n, p in model.named_parameters())
+    moved = sum(int(e["b"].abs().sum() > 0) for e in out["lora"].values())
+    x, t, y, mask = model_inputs(dev, model.cfg, 1, (128, 128), 23, [19])
+    with torch.no_grad():
+        want = model(x, t, y, mask)
+        ident = {}
+        for use_dora in (False, True):
+            zero = lora.init_lora_params(base, model.cfg, 4, torch.Generator(
+                device=dev).manual_seed(1), use_dora=use_dora)
+            with lora.swapped_weights(model, lora.adapted_weights(lora.apply_lora(base, zero),
+                                                                  zero)):
+                ident["dora" if use_dora else "lora"] = torch.equal(model(x, t, y, mask), want)
+        with lora.swapped_weights(model, lora.adapted_weights(lora.apply_lora(base, out["lora"]),
+                                                              out["lora"])):
+            merged_out = model(x, t, y, mask)
+        fresh = load_pth(build_model_from_config(read_config(files["kv_cfg"]), device=dev,
+                                                 train=True), out["merged_path"])
+        from_file = fresh(x, t, y, mask)
+    del fresh
+    diff = rel_l2(merged_out, want)
+    log(f"[lora] zero-init adapters give the base output bit for bit: {ident}; base weights "
+        f"unmoved after 3 steps: {unmoved}; adapters with b moved: {moved} of "
+        f"{len(out['lora'])}; merged forward vs base relative L2 {diff:.3e}; merged .pth "
+        f"through load_pth equals the merged forward bit for bit: "
+        f"{torch.equal(from_file, merged_out)}")
+    if not (all(ident.values()) and unmoved and moved == len(out["lora"])
+            and torch.equal(from_file, merged_out) and diff > 0):
+        raise SystemExit("lora: a gate failed")
+    del outs, out, model, base
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_dreambooth(dev, card, fa, files) -> dict:
+    """Phase 24: `scripts.train_dreambooth_lora` on the DreamBooth config
+    (1024px, 120 tokens, prior preservation: a batch of 2) from 4 instance
+    and 4 class PNGs at 1024x1024 encoded by the random SDXL VAE, with
+    `--prompt-embeds` (pseudo-T5 captions) and the base from a diffusers
+    `.safetensors`, for 3 steps."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.scripts import train_dreambooth_lora
+    from pixart_sigma_tpu_torch.utils.png import write_png
+
+    tmp = os.path.join(files["data"], "dreambooth")
+    base = os.path.join(tmp, "base.safetensors")
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    random_weights(dev, DREAMBOOTH_CONFIG, 24, st=base)
+    rng = np.random.default_rng(24)
+    for sub in ("instance", "class"):
+        os.makedirs(os.path.join(tmp, sub))
+        yy, xx = np.mgrid[0:1024, 0:1024] / 1024.0
+        for i in range(4):
+            f = 2 + 6 * rng.random((2, 3))
+            img = 127.5 + 100 * np.sin(f[0] * xx[..., None] * 6 + f[1] * yy[..., None] * 6)
+            write_png(os.path.join(tmp, sub, f"{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+    emb = PseudoT5Embedder(4096, 120)
+    y, m = emb.get_text_embeddings(["a photo of sks dog", "a photo of a dog"])
+    np.savez(os.path.join(tmp, "emb.npz"), y_instance=y[0].numpy(), mask_instance=m[0].numpy(),
+             y_class=y[1].numpy(), mask_class=m[1].numpy())
+    log(f"[dreambooth] 8 PNGs at 1024x1024, random weights of {DREAMBOOTH_CONFIG} "
+        f"(.safetensors), pseudo-T5 prompt embeddings in {time.perf_counter() - t0:.1f} s")
+    out, launches, peak, wall = counted(fa, lambda: train_dreambooth_lora.main(
+        [DREAMBOOTH_CONFIG, "--base", base, "--work-dir", os.path.join(tmp, "work"),
+         "--instance-dir", os.path.join(tmp, "instance"), "--class-dir",
+         os.path.join(tmp, "class"), "--prompt-embeds", os.path.join(tmp, "emb.npz"),
+         "--vae-path", files["vae"], "--rank", "4", "--max-steps", str(FT_STEPS),
+         "--device", str(dev)]))
+    mc = out["model"].cfg
+    check_launches("dreambooth", launches, {k: FT_STEPS * v for k, v in
+                                            step_launches(mc, (128, 128)).items()})
+    ms = out["metrics"]
+    log(f"[dreambooth] {FT_STEPS} steps, batch 2 ([instance; class]), 120-token captions: "
+        + "; ".join(f"loss {h['loss']:.5f} = instance {h['instance']:.5f} + prior "
+                    f"{h['prior']:.5f}" for h in ms)
+        + f"; s/step {times(h['seconds'] for h in ms)}; peak {peak:.2f} GiB; {wall:.1f} s "
+        "with the loads, the VAE encode and the merged export")
+    ok = all(np.isfinite(h["loss"]) and abs(h["loss"] - h["instance"] - h["prior"])
+             <= 1e-5 * abs(h["loss"]) for h in ms)
+    if not ok or not any(e["b"].abs().sum() > 0 for e in out["lora"].values()):
+        raise SystemExit("dreambooth: a gate failed")
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_lcm(dev, card, fa, files) -> dict:
+    """Phase 25: `scripts.train_pixart_lcm` on the LCM config at its B = 12
+    (1024px, 4096 tokens, CAME, grad checkpointing), the teacher from phase
+    22's diffusers `.safetensors`, for 3 steps: launches per step (the
+    student's step, and three no-grad forwards: the teacher's conditional
+    and unconditional and the target's), s/step, peak memory and a trace of
+    one step."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.scripts import train_pixart_lcm
+    from pixart_sigma_tpu_torch.scripts.finetune_common import device_batch, feature_loader
+    from pixart_sigma_tpu_torch.training.lcm_trainer import make_lcm_train_step
+
+    cfg_path = write_config(os.path.join(files["data"], "lcm.py"), LCM_CONFIG,
+                            data_root=files["data"],
+                            data={"root": "data", "load_vae_feat": True, "load_t5_feat": True},
+                            log_interval=1,
+                            save_model_steps=0, num_workers=4,
+                            work_dir=os.path.join(files["data"], "lcm"))
+    out, launches, peak, wall = counted(fa, lambda: train_pixart_lcm.main(
+        [cfg_path, "--teacher", files["st"], "--max-steps", str(FT_STEPS), "--device", str(dev)]))
+    state, teacher = out["state"], out["teacher"]
+    mc = state.model.cfg
+    per_step = add_launches(step_launches(mc, (128, 128)), forward_launches(mc, (128, 128), 3))
+    check_launches("lcm", launches, {k: FT_STEPS * v for k, v in per_step.items()})
+    hist = out["history"]
+    cfg = read_config(cfg_path)
+    log(f"[lcm] {LCM_CONFIG}: B = {cfg.train_batch_size}, 1024x1024, {cfg.loss_type} loss, "
+        f"ema_decay {cfg.ema_decay}, cfg {cfg.cfg_scale}, {cfg.optimizer['type']}; losses "
+        f"{[round(h['loss'], 6) for h in hist]}; per step {per_step}")
+    log(f"[time] {card}: lcm step (B = {cfg.train_batch_size}, 1024x1024): "
+        f"{times(h['seconds'] for h in hist)} s/step; peak memory {peak:.2f} GiB (student, "
+        f"CAME, the EMA target and the bf16 teacher); {wall:.1f} s with the loads")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise SystemExit("lcm: loss not finite")
+    step_fn = make_lcm_train_step(mc, IDDPM(timestep_respacing=[1000], learn_sigma=True),
+                                  num_ddim_timesteps=cfg.num_ddim_timesteps,
+                                  cfg_scale=cfg.cfg_scale, loss_type=cfg.loss_type,
+                                  huber_c=cfg.huber_c, ema_decay=cfg.ema_decay)
+    batch = device_batch(next(iter(feature_loader(cfg))), cfg, mc, dev)
+    uncond = state.model.y_embedder.y_embedding.detach()[None].expand(
+        batch["y"].shape).float()
+    trace(lambda: step_fn(state, teacher, uncond, batch, grad_clip=cfg.gradient_clip),
+          f"one lcm step, B = {cfg.train_batch_size}", card)
+    del out, state, teacher, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_dmd(dev, card, fa, files) -> dict:
+    """Phase 26: `tools.generate_dmd_data` with the 512px teacher of the DMD
+    config (8 samples, 20 steps, `--pseudo-t5`), then
+    `scripts.train_pixart_dmd` on those triplets (B = 4, bf16 teacher, CAME)
+    for 3 generator and fake-score steps; one_step_generate against the
+    pipeline's one-step "dmd" sampler on the same weights and noise."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+    from pixart_sigma_tpu_torch.scripts import train_pixart_dmd
+    from pixart_sigma_tpu_torch.tools import generate_dmd_data
+    from pixart_sigma_tpu_torch.training.dmd import make_dmd_train_steps
+
+    tmp = os.path.join(files["data"], "dmd")
+    root = os.path.join(tmp, "InternData")
+    os.makedirs(os.path.join(root, "caption_features"))
+    teacher = os.path.join(tmp, "teacher.pth")
+    random_weights(dev, DMD_CONFIG, 26, pth=teacher)
+    prompts = synthetic_captions(DMD_SAMPLES, 26)
+    with open(os.path.join(root, "data_info.json"), "w") as f:
+        json.dump([{"path": f"part0/{i:06d}.png", "prompt": p, "ratio": 1.0,
+                    "height": 512, "width": 512} for i, p in enumerate(prompts)], f)
+    y, mask = PseudoT5Embedder(4096, 300).get_text_embeddings(prompts)
+    for i in range(DMD_SAMPLES):  # the captions as a T5 feature run writes them
+        n = int(mask[i].sum())
+        np.savez(os.path.join(root, "caption_features", f"{i:06d}.npz"),
+                 caption_feature=y[i:i + 1, :n].numpy(), attention_mask=mask[i:i + 1, :n].numpy())
+    reset_forward_counts(fa)
+    t0 = time.perf_counter()
+    generate_dmd_data.main(["--data-root", root, "--config", DMD_CONFIG, "--model-path", teacher,
+                            "--pseudo-t5", "4096", "--sample-nums", str(DMD_SAMPLES), "--batch",
+                            str(DMD_SAMPLES), "--steps", str(DMD_DATA_STEPS), "--device", str(dev)])
+    sync()
+    gen_s = time.perf_counter() - t0
+    data_counts = forward_counts(fa)
+    log(f"[dmd] generate_dmd_data: {DMD_SAMPLES} triplets at 512px, {DMD_DATA_STEPS}-step "
+        f"DPM-Solver++ with CFG (one batch), {gen_s:.1f} s with the teacher's load")
+    base = np.load(os.path.join(root, "base_latents", "000000.npy"))
+    if base.shape != (64, 64, 4) or not np.isfinite(base).all() or base.std() == 0:
+        raise SystemExit("dmd: the teacher's base latent is wrong")
+
+    out, launches, peak, wall = counted(fa, lambda: train_pixart_dmd.main(
+        ["--data-root", root, "--teacher", teacher, "--config", DMD_CONFIG, "--work-dir",
+         os.path.join(tmp, "work"), "--batch-size", "4", "--teacher-dtype", "bfloat16",
+         "--max-steps", str(FT_STEPS), "--save-steps", "1000", "--log-interval", "1",
+         "--device", str(dev)]))
+    gen_model, real, fake = out["generator"], out["real"], out["fake"]
+    mc = gen_model.cfg
+    fwd = forward_launches(mc, (64, 64), DMD_DATA_STEPS)  # one CFG model call per step
+    check_launches("dmd data", data_counts, {"onepass": fwd["onepass"], "allheads":
+                                             fwd["allheads"], "flash": fwd["flash_forward"],
+                                             "headsmajor": 0})
+    per_step = add_launches(step_launches(mc, (64, 64)), step_launches(mc, (64, 64)),
+                            forward_launches(mc, (64, 64), 2))
+    check_launches("dmd", launches, {k: FT_STEPS * v for k, v in per_step.items()})
+    hist = out["history"]
+    log(f"[dmd] {FT_STEPS} generator and fake-score steps (B = 4, 512px, bf16 teacher "
+        f"{next(real.parameters()).dtype}, CAME): dm_loss "
+        f"{[round(h['dm_loss'], 6) for h in hist]}, sg_loss "
+        f"{[round(h['sg_loss'], 6) for h in hist]}; per step {per_step}")
+    log(f"[time] {card}: dmd generator + fake-score step (B = 4, 512x512): "
+        f"{times(h['seconds'] for h in hist)} s; peak memory {peak:.2f} GiB (two trained "
+        f"XL-2 with CAME and the bf16 teacher); {wall:.1f} s with the loads")
+    if not all(np.isfinite(h["dm_loss"]) and np.isfinite(h["sg_loss"]) for h in hist):
+        raise SystemExit("dmd: loss not finite")
+
+    diffusion = IDDPM(timestep_respacing=[1000], learn_sigma=True)
+    _, _, one = make_dmd_train_steps(mc, diffusion, start_ts=400)
+    noise = torch.randn((4, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(26),
+                        device=dev)
+    yb, mb = y[:4].to(dev), mask[:4].to(dev)
+    pipe = PixArtPipeline(gen_model, base_resolution=512, device=dev)
+    with torch.no_grad():
+        x0 = one(gen_model, noise, yb, mb)
+        x0_fault = one(gen_model, noise.roll(1, 0), yb, mb)
+    want = torch.from_numpy(pipe(prompts[:4], sampler="dmd", y=yb, y_mask=mb, latents=noise,
+                                 return_latents=True)).to(dev)
+    err, err_fault = rel_l2(x0, want), rel_l2(x0_fault, want)
+    log(f"[dmd] one_step_generate vs the pipeline's 'dmd' sampler, same weights, captions "
+        f"and noise: relative L2 {err:.3e} (limit {DMD_ONE_STEP_TOL}); planted fault 'noise "
+        f"rolled by one row' {err_fault:.3e}")
+    if not err <= DMD_ONE_STEP_TOL < err_fault:
+        raise SystemExit("dmd: one_step_generate disagrees with the pipeline, or the gate "
+                         "missed its fault")
+    gen_step, fake_step, _ = make_dmd_train_steps(
+        mc, diffusion, start_ts=400, generator_optimizer=torch.optim.SGD(
+            gen_model.parameters(), lr=0.0), fake_optimizer=torch.optim.SGD(
+            fake.parameters(), lr=0.0))
+    uncond = gen_model.y_embedder.y_embedding.detach()[None].expand(4, 300, 4096).float()
+    batch = {"init_noise": noise, "y": yb, "y_mask": mb, "uncond_y": uncond}
+
+    def dmd_step():
+        _, x0s = gen_step(gen_model, real, fake, batch)
+        fake_step(fake, x0s, batch)
+
+    trace(dmd_step, "one dmd generator + fake-score step, B = 4 (SGD at lr 0)", card)
+    del out, gen_model, real, fake, pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gate_update(before: dict, after: dict):
+    import torch
+
+    return torch.cat([(after[n] - before[n]).detach().flatten().float() for n in before])
+
+
+def run_finetune_gates(dev, card, fa) -> dict:
+    """The kernels on the new paths: at 256px and full width (28 blocks x
+    1152, KV compression on layers 14-27, grad checkpointing), one LoRA
+    step, one LCM step and one DMD generator step, each run through the
+    kernels and through plain attention with the same draws and an SGD
+    update; the loss and the trainable parameters' update must agree within
+    GATE_LOSS_TOL and GATE_UPDATE_TOL, and a planted fault per path must
+    read beyond them. Returns the kernel runs' launches."""
+    import torch
+
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+    from pixart_sigma_tpu_torch.training import lora
+    from pixart_sigma_tpu_torch.training.dmd import make_dmd_train_steps
+    from pixart_sigma_tpu_torch.training.lcm_trainer import make_lcm_train_step
+    from pixart_sigma_tpu_torch.training.train_state import TrainState
+
+    kw = dict(input_size=32, pe_interpolation=0.5, model_max_length=300,
+              kv_compress_sampling="conv", kv_compress_scale=2,
+              kv_compress_layers=tuple(range(14, 28)), grad_checkpointing=True)
+    nets = []
+    for seed in (0, 1, 2):
+        m = PixArtMS_XL_2(device=dev, train=True, **kw)
+        gen = torch.Generator(device=dev).manual_seed(30 + seed)
+        init_weights(m, gen)
+        perturb_zero_leaves(m, gen)
+        nets.append(m)
+    student, other, third = nets
+    saved = [{n: p.detach().clone() for n, p in m.named_parameters()} for m in nets]
+    diffusion = IDDPM(timestep_respacing=[1000], learn_sigma=True, rescale_learned_sigmas=True)
+    x, _, y, mask = model_inputs(dev, student.cfg, 2, (32, 32), 31, [300, 19])
+    gen = torch.Generator(device=dev).manual_seed(32)
+    t = torch.tensor([120, 333], device=dev)  # DMD draws t in [1, 400)
+    noise = torch.randn(x.shape, generator=gen, device=dev)
+    index = torch.tensor([7, 33], device=dev)
+    uncond = student.y_embedder.y_embedding.detach()[None].expand(y.shape).float()
+    batch = {"latents": x, "y": y, "y_mask": mask}
+    readings, launches = {}, dict.fromkeys(TRAIN_COUNTERS, 0)
+
+    def restore():
+        with torch.no_grad():
+            for m, sd in zip(nets, saved):
+                for n, p in m.named_parameters():
+                    p.copy_(sd[n])
+
+    def with_impl(impl, fn):
+        for m in nets:
+            set_attn_impl(m, impl)
+        try:
+            reset_train_counts(fa)
+            out = fn()
+            sync()
+            return out, train_counts(fa)
+        finally:
+            for m in nets:
+                set_attn_impl(m, "auto")
+
+    # LoRA: adapters with b moved off zero, so the merged weights differ from the base
+    student.requires_grad_(False)
+    base = {n: p.detach() for n, p in student.named_parameters()}
+    ad0 = lora.init_lora_params(base, student.cfg, 4, torch.Generator(device=dev).manual_seed(33))
+    with torch.no_grad():
+        for e in ad0.values():
+            e["b"].normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(34))
+
+    def lora_run(scale=1.0):
+        ad = {m: {k: v.detach().clone().requires_grad_(True) for k, v in e.items()}
+              for m, e in ad0.items()}
+        opt = torch.optim.SGD(list(lora.lora_parameters(ad)), lr=1.0)
+        loss = lora.make_lora_train_step(student, diffusion, base, opt, scale=scale)(
+            ad, batch, t=t, noise=noise, force_drop_ids=torch.zeros(2, device=dev))
+        after = {f"{m}.{k}": v.detach() for m, e in ad.items() for k, v in e.items()}
+        before = {f"{m}.{k}": v for m, e in ad0.items() for k, v in e.items()}
+        return loss, gate_update(before, after)
+
+    def lcm_run(target=third):
+        restore()
+        student.requires_grad_(True)
+        state = TrainState(student, torch.optim.SGD(student.parameters(), lr=1.0),
+                           lambda s: 1.0, ema=True)
+        state.ema = {n: p.detach().clone() for n, p in target.named_parameters()}
+        step = make_lcm_train_step(student.cfg, diffusion)
+        loss = step(state, other, uncond, batch, index=index, noise=noise)["loss"]
+        after = {n: p.detach().clone() for n, p in student.named_parameters()}
+        return loss, gate_update(saved[0], after)
+
+    def dmd_run(swap=False):
+        restore()
+        student.requires_grad_(True)
+        g_step, _, _ = make_dmd_train_steps(
+            student.cfg, diffusion, generator_optimizer=torch.optim.SGD(student.parameters(),
+                                                                        lr=1.0))
+        real, fake = (third, other) if swap else (other, third)
+        dbatch = {"init_noise": noise, "y": y, "y_mask": mask, "uncond_y": uncond}
+        metrics, _ = g_step(student, real, fake, dbatch, t=t, noise=noise)
+        after = {n: p.detach().clone() for n, p in student.named_parameters()}
+        return metrics["dm_loss"], gate_update(saved[0], after)
+
+    mc, hw = student.cfg, (32, 32)
+    for tag, run, fault, fault_name, fwd in (
+            ("lora", lora_run, lambda: lora_run(scale=2.0), "the adapters' scale doubled", 0),
+            ("lcm", lcm_run, lambda: lcm_run(target=student),
+             "the target network run with the student's weights", 3),
+            ("dmd", dmd_run, lambda: dmd_run(swap=True), "real and fake scores swapped", 2)):
+        (loss_k, upd_k), got = with_impl("auto", run)
+        (loss_r, upd_r), ref_counts = with_impl("reference", run)
+        (loss_f, upd_f), _ = with_impl("auto", fault)
+        launches = add_launches(launches, got)
+        read = lambda l, u: (abs(l - loss_r) / abs(loss_r), rel_l2(u, upd_r))
+        sound, bad = read(loss_k, upd_k), read(loss_f, upd_f)
+        readings[tag] = dict(loss=sound[0], update=sound[1], fault_loss=bad[0],
+                             fault_update=bad[1])
+        log(f"[gates] {tag} step at 256px, full width, kernels vs plain attention: loss "
+            f"{loss_k:.6f} vs {loss_r:.6f}, relative {sound[0]:.3e} (limit {GATE_LOSS_TOL}); "
+            f"update relative L2 {sound[1]:.3e} (limit {GATE_UPDATE_TOL}); planted fault "
+            f"'{fault_name}': loss {bad[0]:.3e}, update {bad[1]:.3e}")
+        if not (sound[0] <= GATE_LOSS_TOL and sound[1] <= GATE_UPDATE_TOL):
+            raise SystemExit(f"gates: the {tag} step through the kernels disagrees with plain "
+                             "attention")
+        if bad[0] <= GATE_LOSS_TOL and bad[1] <= GATE_UPDATE_TOL:
+            raise SystemExit(f"gates: the {tag} gate missed its planted fault")
+        check_launches(f"gates {tag}", got, add_launches(step_launches(mc, hw),
+                                                         forward_launches(mc, hw, fwd)))
+        check_launches(f"gates {tag} plain", ref_counts, dict.fromkeys(TRAIN_COUNTERS, 0),
+                       some=False)
+    del nets, student, other, third, saved
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_finetuning(dev, card, fa) -> dict:
+    """Phases 22-26 and the gates, in one temporary directory; returns the
+    launches of each."""
+    tmp = tempfile.mkdtemp(prefix="pixart_finetune_")
+    try:
+        t0 = time.perf_counter()
+        cli = run_train_cli(dev, card, fa, tmp)
+        out = {"cli": cli["launches"]}
+        t = {"cli": time.perf_counter() - t0}
+        for name, fn in (("lora", run_lora), ("dreambooth", run_dreambooth), ("lcm", run_lcm),
+                         ("dmd", run_dmd)):
+            t0 = time.perf_counter()
+            out[name] = fn(dev, card, fa, cli["files"])
+            t[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["gates"] = run_finetune_gates(dev, card, fa)
+        t["gates"] = time.perf_counter() - t0
+        log("[finetune] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3003,6 +3748,11 @@ def main() -> int:
         name = {"flash_forward": "flash"}.get(entry["name"], entry["name"])
         entry["launches_turbo"] = {v: c.get(name, 0) for v, c in launches_turbo.items()}
         entry["launches_server"] = launches_server.get(name, 0)
+
+    # ---- 22.-26. the training CLI, LoRA/DoRA, DreamBooth, LCM, DMD; gates -----
+    launches_ft = run_finetuning(dev, card, fa)
+    for entry in entries:
+        entry["launches_finetuning"] = {run: c[entry["name"]] for run, c in launches_ft.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

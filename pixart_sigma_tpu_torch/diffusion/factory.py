@@ -22,7 +22,8 @@ def IDDPM(
     """A SpacedDiffusion configured like the reference's IDDPM(): learned
     range variance, or with learn_sigma=False a fixed one (small with
     sigma_small); `snr` switches the MSE target to x0 for t <= 249. Its use_kl
-    switch is not ported (ROADMAP.md, Queue 1 item 8)."""
+    switch is not ported (ROADMAP.md, Queue 1, "The rest of JAX
+    diffusion/gaussian.py")."""
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     if not pred_sigma:

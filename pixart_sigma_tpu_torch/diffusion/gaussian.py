@@ -9,7 +9,7 @@ DDIM (`ddim_sample_loop`) and DDIM-inversion (`ddim_reverse_sample_loop`)
 trajectories as Python loops over device tensors; the training loss with
 the SNR-switching objective (`snr`), Min-SNR weights (`min_snr_weight`) and
 the masked-token per-patch losses. The KL losses are not ported (ROADMAP.md,
-Queue 1 item 8).
+Queue 1, "The rest of JAX diffusion/gaussian.py").
 
 Random draws: a loop takes its initial latent from the caller and its
 per-step noise from `noise_fn(k, shape)`, the k-th draw of the trajectory
@@ -68,7 +68,8 @@ class GaussianDiffusion:
     ):
         if loss_type not in (LossType.MSE, LossType.RESCALED_MSE):
             raise NotImplementedError(
-                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1 item 8)")
+                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1, 'The rest of JAX "
+                "diffusion/gaussian.py')")
         if snr and model_mean_type == ModelMeanType.PREVIOUS_X:
             raise NotImplementedError("the snr objective with x_{t-1} prediction")
         self.coef = coef

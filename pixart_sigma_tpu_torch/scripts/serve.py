@@ -341,8 +341,8 @@ def refuse_unported(args) -> None:
     """The options of the JAX entry points that the port does not run."""
     if getattr(args, "seq_parallel", 0) and args.seq_parallel > 1:
         raise NotImplementedError(
-            "--seq-parallel needs the parallelism of ROADMAP.md, Queue 1 item 9, which the "
-            "port does not have yet")
+            "--seq-parallel needs the parallelism of ROADMAP.md, Queue 1, 'Parallelism', "
+            "which the port does not have yet")
     if getattr(args, "vae_flax", None):
         raise NotImplementedError(
             "--vae-flax reads a JAX training directory, which the port does not read "

@@ -1,1 +1,3 @@
-"""Single-card training of PixArt: the iDDPM loss, CAME, EMA and the trainer."""
+"""Single-card training of PixArt: the iDDPM loss, CAME, EMA and the trainer,
+and the fine-tuning and distillation steps (LoRA/DoRA, DreamBooth, LCM,
+DMD)."""

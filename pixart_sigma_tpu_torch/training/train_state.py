@@ -62,11 +62,14 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self, grad_clip: Optional[float] = None,
-                        grad_norm: Optional[torch.Tensor] = None) -> None:
+                        grad_norm: Optional[torch.Tensor] = None,
+                        ema_rate: Optional[float] = None) -> None:
         """One micro-step on the model's .grad: accumulate, and on the last
         micro-step of a window clip (by `grad_norm`, the gradients' global
         norm when the caller has it), set the LR and step the optimizer; then
-        one EMA update."""
+        one EMA update. `ema_rate` overrides the state's rate for this step
+        and bypasses the warmup ramp, as in JAX: a prescribed per-step rate
+        (LCM's target network tracks the student at 0.95 from step 0)."""
         named = self._params()
         if self.accumulation_steps > 1:
             i = self.mini_step
@@ -92,8 +95,8 @@ class TrainState:
             self.optimizer.step()
             self.opt_step += 1
         if self.ema is not None:
-            rate = self.ema_rate
-            if self.ema_warmup:
+            rate = self.ema_rate if ema_rate is None else ema_rate
+            if self.ema_warmup and ema_rate is None:
                 rate = warmup_ema_rate(rate, self.step)
             for n, p in self.model.named_parameters():
                 self.ema[n].mul_(rate).add_(p, alpha=1.0 - rate)

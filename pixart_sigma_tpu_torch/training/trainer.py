@@ -13,15 +13,13 @@ from which a run resumes where it stopped. Runs on the card unless
 `device="cpu"`; without a card it raises. Batches of images and prompts
 (`load_vae_feat` / `load_t5_feat` False) are encoded on the fly by the
 VAE and the T5 encoder given to the Trainer. Not ported: multi-host and
-sharded training, and reading the JAX trainer's orbax checkpoints.
-
-    python -m pixart_sigma_tpu_torch.training.trainer CONFIG --data-root DIR \\
-        --features [--max-steps N] [--work-dir DIR] [--device cpu]
+sharded training (a config that asks for it raises, `refuse_parallelism`),
+and reading the JAX trainer's orbax checkpoints. The training CLI is
+`pixart_sigma_tpu_torch.scripts.train`; `main` here is the same CLI.
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 import time
 from typing import Any, Dict, List, Optional, Union
@@ -57,7 +55,7 @@ from pixart_sigma_tpu_torch.training.train_step import train_step
 from pixart_sigma_tpu_torch.utils.checkpoint import (
     jax_param_path,
     latest_checkpoint,
-    load_pth,
+    load_checkpoint,
     save_pth,
 )
 from pixart_sigma_tpu_torch.utils.debug import (
@@ -71,6 +69,27 @@ from pixart_sigma_tpu_torch.utils.logging import LogBuffer, MetricsWriter, Track
 from pixart_sigma_tpu_torch.utils.png import write_png
 
 _MS_TYPES = ("PixArtMSDataset", "InternalDataMS", "InternalDataMSSigma")
+_FSDP_MIN_SIZE = 2**16  # the JAX trainer's default
+
+
+def refuse_parallelism(config: Config) -> None:
+    """Raise for the JAX trainer's parallelism keys set away from their
+    defaults (configs/PixArt_xl2_internal.py): a mesh axis above 1 other
+    than `data`, `use_fsdp`, `use_tensor_parallel`, another `fsdp_min_size`,
+    and `loader_processes` (the process-pool loader). The port trains on one
+    card with the thread loader, and never ignores them silently."""
+    where = "(ROADMAP.md, Queue 1, 'Parallelism')"
+    mesh = config.get("mesh") or {}
+    for axis, size in mesh.items():
+        if axis != "data" and size not in (1, None):
+            raise NotImplementedError(f"mesh axis {axis}={size}: sharded training is not "
+                                      f"ported {where}")
+    for key in ("use_fsdp", "use_tensor_parallel", "loader_processes"):
+        if config.get(key, False):
+            raise NotImplementedError(f"{key}=True is not ported {where}")
+    if config.get("fsdp_min_size", _FSDP_MIN_SIZE) != _FSDP_MIN_SIZE:
+        raise NotImplementedError(f"fsdp_min_size={config.fsdp_min_size}: FSDP is not ported "
+                                  f"{where}")
 
 
 def build_dataset(config: Config):
@@ -108,6 +127,7 @@ class Trainer:
 
     def __init__(self, config: Config, work_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda", vae=None, t5=None):
+        refuse_parallelism(config)
         self.device = resolve_device(device)
         self.config = config
         self.vae = vae
@@ -122,7 +142,7 @@ class Trainer:
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(config.seed))
         if config.get("load_from"):
             self.logger.info(f"loading weights from {config.load_from}")
-            load_pth(self.model, config.load_from)
+            load_checkpoint(config.load_from, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         self.diffusion = IDDPM(timestep_respacing=[config.train_sampling_steps],
                                learn_sigma=True, rescale_learned_sigmas=True,
@@ -396,22 +416,10 @@ class Trainer:
 
 
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("config")
-    parser.add_argument("--work-dir")
-    parser.add_argument("--data-root", help="overrides the config's data_root")
-    parser.add_argument("--features", action="store_true",
-                        help="read precomputed VAE and T5 features "
-                             "(load_vae_feat = load_t5_feat = True)")
-    parser.add_argument("--max-steps", type=int)
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-    config = read_config(args.config)
-    if args.data_root is not None:
-        config.data_root = args.data_root
-    if args.features:
-        config.data = dict(config.data, load_vae_feat=True, load_t5_feat=True)
-    Trainer(config, args.work_dir, device=args.device).train(args.max_steps)
+    """The training CLI (`pixart_sigma_tpu_torch.scripts.train`)."""
+    from pixart_sigma_tpu_torch.scripts.train import main as train_main
+
+    train_main(argv)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,12 @@
   `T5EncoderModel` names (the port's T5 module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
 - `load_checkpoint`: the entry points' loader, a `.pth` (its EMA weights
-  with `load_ema`); diffusers transformer files and the JAX trainer's orbax
-  directories are refused.
+  with `load_ema`) or a diffusers transformer `.safetensors` (a file or a
+  directory of shards); the JAX trainer's orbax directories are refused.
+- `diffusers_to_torch_state_dict` / `torch_to_diffusers_state_dict`: the
+  diffusers `Transformer2DModel` names <-> the upstream `.pth` names (names
+  only: qkv and kv_linear split and joined); `load_safetensors_state_dict`
+  and `save_safetensors` read and write the files.
 - `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
   "state_dict_ema", "optimizer", "step", "epoch"}, and what a resumed run
   needs besides), which `load_pth` reads; `latest_checkpoint` finds the
@@ -231,20 +235,155 @@ def load_pth(model: nn.Module, path: str, load_ema: bool = False) -> nn.Module:
     return model
 
 
-def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False) -> nn.Module:
+# diffusers Transformer2DModel name -> upstream .pth name, outside the blocks
+_DIFFUSERS_RENAMES = {
+    "pos_embed.proj.weight": "x_embedder.proj.weight",
+    "pos_embed.proj.bias": "x_embedder.proj.bias",
+    "caption_projection.linear_1.weight": "y_embedder.y_proj.fc1.weight",
+    "caption_projection.linear_1.bias": "y_embedder.y_proj.fc1.bias",
+    "caption_projection.linear_2.weight": "y_embedder.y_proj.fc2.weight",
+    "caption_projection.linear_2.bias": "y_embedder.y_proj.fc2.bias",
+    "adaln_single.emb.timestep_embedder.linear_1.weight": "t_embedder.mlp.0.weight",
+    "adaln_single.emb.timestep_embedder.linear_1.bias": "t_embedder.mlp.0.bias",
+    "adaln_single.emb.timestep_embedder.linear_2.weight": "t_embedder.mlp.2.weight",
+    "adaln_single.emb.timestep_embedder.linear_2.bias": "t_embedder.mlp.2.bias",
+    "adaln_single.emb.resolution_embedder.linear_1.weight": "csize_embedder.mlp.0.weight",
+    "adaln_single.emb.resolution_embedder.linear_1.bias": "csize_embedder.mlp.0.bias",
+    "adaln_single.emb.resolution_embedder.linear_2.weight": "csize_embedder.mlp.2.weight",
+    "adaln_single.emb.resolution_embedder.linear_2.bias": "csize_embedder.mlp.2.bias",
+    "adaln_single.emb.aspect_ratio_embedder.linear_1.weight": "ar_embedder.mlp.0.weight",
+    "adaln_single.emb.aspect_ratio_embedder.linear_1.bias": "ar_embedder.mlp.0.bias",
+    "adaln_single.emb.aspect_ratio_embedder.linear_2.weight": "ar_embedder.mlp.2.weight",
+    "adaln_single.emb.aspect_ratio_embedder.linear_2.bias": "ar_embedder.mlp.2.bias",
+    "adaln_single.linear.weight": "t_block.1.weight",
+    "adaln_single.linear.bias": "t_block.1.bias",
+    "proj_out.weight": "final_layer.linear.weight",
+    "proj_out.bias": "final_layer.linear.bias",
+    "scale_shift_table": "final_layer.scale_shift_table",
+    "caption_projection.y_embedding": "y_embedder.y_embedding",
+}
+
+# per block: (upstream suffix, diffusers suffixes joined along dim 0)
+_DIFFUSERS_BLOCK = (
+    ("scale_shift_table", ("scale_shift_table",)),
+    ("attn.qkv.weight", ("attn1.to_q.weight", "attn1.to_k.weight", "attn1.to_v.weight")),
+    ("attn.qkv.bias", ("attn1.to_q.bias", "attn1.to_k.bias", "attn1.to_v.bias")),
+    ("attn.proj.weight", ("attn1.to_out.0.weight",)),
+    ("attn.proj.bias", ("attn1.to_out.0.bias",)),
+    ("attn.q_norm.weight", ("attn1.q_norm.weight",)),
+    ("attn.q_norm.bias", ("attn1.q_norm.bias",)),
+    ("attn.k_norm.weight", ("attn1.k_norm.weight",)),
+    ("attn.k_norm.bias", ("attn1.k_norm.bias",)),
+    ("cross_attn.q_linear.weight", ("attn2.to_q.weight",)),
+    ("cross_attn.q_linear.bias", ("attn2.to_q.bias",)),
+    ("cross_attn.kv_linear.weight", ("attn2.to_k.weight", "attn2.to_v.weight")),
+    ("cross_attn.kv_linear.bias", ("attn2.to_k.bias", "attn2.to_v.bias")),
+    ("cross_attn.proj.weight", ("attn2.to_out.0.weight",)),
+    ("cross_attn.proj.bias", ("attn2.to_out.0.bias",)),
+    ("mlp.fc1.weight", ("ff.net.0.proj.weight",)),
+    ("mlp.fc1.bias", ("ff.net.0.proj.bias",)),
+    ("mlp.fc2.weight", ("ff.net.2.weight",)),
+    ("mlp.fc2.bias", ("ff.net.2.bias",)),
+)
+_OPTIONAL = ("q_norm", "k_norm")  # qk_norm models only
+
+
+def diffusers_to_torch_state_dict(dsd: Dict[str, torch.Tensor],
+                                  depth: int = 28) -> Dict[str, torch.Tensor]:
+    """diffusers `Transformer2DModel` names -> upstream `.pth` names: the
+    attention projections joined into qkv and kv_linear. The names a
+    diffusers PixArt has: no KV-compression conv, no `pos_embed` buffer."""
+    sd = {dst: dsd[src] for src, dst in _DIFFUSERS_RENAMES.items() if src in dsd}
+    for i in range(depth):
+        t, b = f"transformer_blocks.{i}", f"blocks.{i}"
+        for ours, theirs in _DIFFUSERS_BLOCK:
+            if any(n in ours for n in _OPTIONAL) and f"{t}.{theirs[0]}" not in dsd:
+                continue
+            parts = [dsd[f"{t}.{n}"] for n in theirs]
+            sd[f"{b}.{ours}"] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return sd
+
+
+def torch_to_diffusers_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Upstream `.pth` names -> diffusers `Transformer2DModel` names (qkv
+    split into to_q/to_k/to_v, kv_linear into to_k/to_v); `pos_embed` and
+    the KV-compression conv, which diffusers does not name, are dropped."""
+    dsd = {src: sd[dst] for src, dst in _DIFFUSERS_RENAMES.items() if dst in sd}
+    depth = max(int(k.split(".")[1]) for k in sd if k.startswith("blocks.")) + 1
+    for i in range(depth):
+        t, b = f"transformer_blocks.{i}", f"blocks.{i}"
+        for ours, theirs in _DIFFUSERS_BLOCK:
+            if f"{b}.{ours}" not in sd and any(n in ours for n in _OPTIONAL):
+                continue
+            parts = sd[f"{b}.{ours}"].chunk(len(theirs), dim=0)
+            for n, part in zip(theirs, parts):
+                dsd[f"{t}.{n}"] = part.contiguous()
+    return dsd
+
+
+def _safetensors_files(path: str) -> list:
+    if not os.path.isdir(path):
+        return [path]
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors under {path}")
+    return [os.path.join(path, f) for f in files]
+
+
+def load_safetensors_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file, or every one in a directory (a diffusers
+    transformer's shards), as f32 CPU tensors."""
+    from safetensors.torch import load_file
+
+    sd: Dict[str, torch.Tensor] = {}
+    for f in _safetensors_files(path):
+        sd.update({k: v.float() for k, v in load_file(f).items()})
+    return sd
+
+
+def save_safetensors(path: str, sd: Dict[str, torch.Tensor]) -> str:
+    """Write `sd` (CPU copies, made contiguous) as one `.safetensors` file."""
+    from safetensors.torch import save_file
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    save_file({k: v.detach().cpu().contiguous() for k, v in sd.items()}, path)
+    return path
+
+
+def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False,
+                    null_embedding: Optional[torch.Tensor] = None) -> nn.Module:
     """Load a PixArt checkpoint into a port model, as the JAX package's
-    `load_checkpoint` does for the formats the port reads: a `.pth`/`.pt`
-    through `load_pth`. A directory (an orbax train state) and a diffusers
-    `.safetensors` raise."""
-    if os.path.isdir(path):
+    `load_checkpoint` does: a `.pth`/`.pt` through `load_pth`, anything else
+    as a diffusers transformer (`.safetensors` file or directory). A
+    diffusers file has no `y_embedder.y_embedding` of its own unless it was
+    written from a PixArt `.pth`: then `null_embedding` gives it, and without
+    either it raises, as JAX does. `null_embedding` replaces a `.pth`'s too.
+    Every key of the model must be filled. An orbax directory (a JAX trainer
+    state) raises."""
+    if os.path.isdir(path) and not any(f.endswith(".safetensors") for f in os.listdir(path)):
         raise NotImplementedError(
-            f"{path} is a directory: the port reads no orbax checkpoint (ROADMAP.md, Queue 3, "
-            "'Resume reads only the port's .pth')")
-    if not path.endswith((".pth", ".pt")):
+            f"{path} is a directory without .safetensors: the port reads no orbax checkpoint "
+            "(ROADMAP.md, Queue 3, 'What the port does not read')")
+    if path.endswith((".pth", ".pt")):
+        load_pth(model, path, load_ema=load_ema)
+        if null_embedding is not None:
+            with torch.no_grad():
+                model.y_embedder.y_embedding.copy_(torch.as_tensor(null_embedding))
+        return model
+    sd = diffusers_to_torch_state_dict(load_safetensors_state_dict(path), depth=model.cfg.depth)
+    if null_embedding is not None:
+        sd["y_embedder.y_embedding"] = torch.as_tensor(null_embedding, dtype=torch.float32)
+    missing_sr = [k for k in model.state_dict() if ".attn.sr." in k and k not in sd]
+    if missing_sr:
         raise NotImplementedError(
-            f"{path}: the port reads upstream .pth checkpoints only; diffusers transformer "
-            ".safetensors names are not mapped (ROADMAP.md, Queue 1 item 10)")
-    return load_pth(model, path, load_ema=load_ema)
+            f"{path}: diffusers names carry no KV-compression conv ({missing_sr[0]}), as in the "
+            "JAX package's map; load this model from a .pth (ROADMAP.md, Queue 3, "
+            "'What the port does not read')")
+    if "y_embedder.y_embedding" not in sd:
+        raise ValueError(f"{path} has no y_embedder.y_embedding (caption_projection."
+                         "y_embedding); pass null_embedding=")
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

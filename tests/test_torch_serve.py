@@ -47,7 +47,12 @@ from pixart_sigma_tpu_torch.data.aspect import get_chunks
 from pixart_sigma_tpu_torch.models.builder import build_model_from_config, model_kwargs_from_config
 from pixart_sigma_tpu_torch.models.layers import QuantLinear
 from pixart_sigma_tpu_torch.scripts import inference, serve
-from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint, state_dict_from_jax
+from pixart_sigma_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_safetensors,
+    state_dict_from_jax,
+    torch_to_diffusers_state_dict,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURBO = os.path.join(REPO, "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_serving_turbo.py")
@@ -374,9 +379,10 @@ def test_load_checkpoint_reads_pth_and_ema(toy_files, tmp_path):
     assert torch.equal(model.blocks[1].attn.qkv.weight, sd["blocks.1.attn.qkv.weight"])
     load_checkpoint(pth, model, load_ema=True)
     assert torch.equal(model.blocks[1].attn.qkv.weight, ema["blocks.1.attn.qkv.weight"])
-    (tmp_path / "x.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="safetensors"):
-        load_checkpoint(str(tmp_path / "x.safetensors"), model)
+    # a diffusers transformer file of the same weights
+    path = save_safetensors(str(tmp_path / "x.safetensors"), torch_to_diffusers_state_dict(sd))
+    fresh = load_checkpoint(path, build_model_from_config(read_config(config), device="cpu"))
+    assert torch.equal(fresh.blocks[1].attn.qkv.weight, sd["blocks.1.attn.qkv.weight"])
 
 
 def test_turbo_config_reads_as_in_jax():
@@ -401,7 +407,7 @@ def test_entry_points_refuse_what_the_port_does_not_run(toy_files, tmp_path):
     cli = ["--model-path", pth, "--txt-file", str(prompts), "--config", config,
            "--save-root", str(tmp_path / "o"), "--device", "cpu"]
     for extra, match in ((["--vae-flax", str(tmp_path)], "vae-flax"),
-                         (["--seq-parallel", "2"], "Queue 1 item 9")):
+                         (["--seq-parallel", "2"], "Queue 1, 'Parallelism'")):
         with pytest.raises(NotImplementedError, match=match):
             serve.build_pipeline(_serve_args(config, pth, *extra))
         with pytest.raises(NotImplementedError, match=match):

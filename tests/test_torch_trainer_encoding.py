@@ -41,7 +41,7 @@ from pixart_sigma_tpu_torch.utils.checkpoint import (
     vae_state_dict_from_jax,
 )
 from tests.test_torch_t5 import WordHashTokenizer, _jax_params
-from tests.test_torch_trainer_features import SIGMA_1024
+from tests.test_torch_trainer_resume import SIGMA_1024
 from tests.test_torch_vae import _random_vae_params
 
 # a VAE of the SDXL layout (three stride-2 downsamplings: latents at 1/8)
