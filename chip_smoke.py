@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 1024px, 2K and 4K sampling and 1024px, 2K and
 512px training paths, with the trainer's features, the T5-XXL and SDXL-VAE
-encoders, the turbo serving modes and the HTTP server, the training CLI and
-the fine-tuning and distillation loops, on one CUDA card.
+encoders, the turbo serving modes and the HTTP server, the training CLI,
+the fine-tuning and distillation loops, the evaluation (bits/dim, FID,
+LPIPS), the VAE trainer and the offline toy workflow, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -171,7 +172,35 @@ Phases, each printing its own lines:
    one LoRA, LCM and DMD generator step at 256px and full width through the
    kernels against plain attention, each with a planted fault it must
    reject. Every one of these counts its kernel launches against the
-   reckoning.
+   reckoning;
+27. bits/dim: `calc_bpd_loop` over a 50-step spaced chain on the 1024px
+   KV-compress config at full width (B = 2, pseudo-T5 captions; 50 x 28
+   onepass and allheads launches); at 256px the bits/dim through the
+   kernels against plain attention (fault: the decoder NLL at t = 0
+   replaced by the KL) and one `IDDPM(use_kl=True)` step (SGD; fault: the
+   bound not rescaled by T);
+28. FID features: InceptionV3 (2048) with its fixed-seed random weights in
+   f32, on the card against the host's CPU for 8 1024px images from phase 4
+   and the same at 512px (fault: Mixed_7c pooling by average; the same run
+   with TF32 on, the control, must read beyond the limit too, as in 29 and
+   30); img/s at B = 32 on 1024px inputs, the resize included;
+29. LPIPS (VGG16) on the card against the CPU at 512px, B = 4 pairs (fault:
+   no channel unit-normalisation); one DMD generator step at 512px, B = 4,
+   with the LPIPS regression of the SDXL-VAE-decoded x0 against phase 26's
+   base latents; phase 26's 256px DMD gate again with the regression on;
+30. `scripts.train_vae` with the sdxl preset at 256px, B = 8, on 64 PNGs
+   (3 steps), its directory read back bit for bit; one small-preset step on
+   the card against the CPU with the same eps (fault: eps of another image);
+31. the offline toy workflow (docs/toy_workflow.md), cut in length:
+   make_toy_dataset (512 images), train_vae (small, 200 steps),
+   extract_features --vae-flax, the training CLI on
+   configs/toy/pixart_toy_img128.py (250 steps at B = 64), inference --vae-flax (64
+   samples, 20 steps), compute_fid (real vs real, vs the samples, vs
+   uniform noise: the samples must score below the noise) and one prompt
+   through the interface REPL on stdin; on the trained model, one training
+   step at B = 64 and one CFG forward of 2 x 32 rows through the kernels
+   against plain attention (fault: the padding of the last key tile left
+   unmasked); the loader and a held batch's step at the config's B = 256.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -180,6 +209,7 @@ result, without a card or outside the repository, or if any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -700,10 +730,10 @@ KERNEL_GROUPS = (  # kernel-name substrings -> the layer they belong to
     ("allheads_kernel", "allheads attention kernel"),
     ("dkv_kernel", "flash backward dK/dV kernel"),
     ("dq_kernel", "flash backward dQ kernel"),
-    ("conv", "convolutions (patch embed, KV compression)"),
-    ("fprop", "convolutions (patch embed, KV compression)"),
-    ("dgrad", "convolutions (patch embed, KV compression)"),
-    ("wgrad", "convolutions (patch embed, KV compression)"),
+    ("conv", "convolutions (patch embed, KV compression; VAE, VGG)"),
+    ("fprop", "convolutions (patch embed, KV compression; VAE, VGG)"),
+    ("dgrad", "convolutions (patch embed, KV compression; VAE, VGG)"),
+    ("wgrad", "convolutions (patch embed, KV compression; VAE, VGG)"),
     ("gemm", "matmuls (projections, MLP)"), ("nvjet", "matmuls (projections, MLP)"),
     ("xmma", "matmuls (projections, MLP)"), ("cutlass", "matmuls (projections, MLP)"),
     ("layer_norm", "layer norms"), ("norm", "layer norms"),
@@ -3067,6 +3097,9 @@ def run_dmd(dev, card, fa, files) -> dict:
     base = np.load(os.path.join(root, "base_latents", "000000.npy"))
     if base.shape != (64, 64, 4) or not np.isfinite(base).all() or base.std() == 0:
         raise SystemExit("dmd: the teacher's base latent is wrong")
+    # phase 29's DMD step regresses against these
+    files["dmd_base_latents"] = np.stack([np.load(os.path.join(root, "base_latents",
+                                                               f"{i:06d}.npy")) for i in range(4)])
 
     out, launches, peak, wall = counted(fa, lambda: train_pixart_dmd.main(
         ["--data-root", root, "--teacher", teacher, "--config", DMD_CONFIG, "--work-dir",
@@ -3137,30 +3170,24 @@ def gate_update(before: dict, after: dict):
 def run_finetune_gates(dev, card, fa) -> dict:
     """The kernels on the new paths: at 256px and full width (28 blocks x
     1152, KV compression on layers 14-27, grad checkpointing), one LoRA
-    step, one LCM step and one DMD generator step, each run through the
-    kernels and through plain attention with the same draws and an SGD
-    update; the loss and the trainable parameters' update must agree within
-    GATE_LOSS_TOL and GATE_UPDATE_TOL, and a planted fault per path must
-    read beyond them. Returns the kernel runs' launches."""
+    step, one LCM step and one DMD generator step, without and (phase 29)
+    with the LPIPS regression of the decoded x0 (a random SDXL VAE and
+    LPIPS), each run through the kernels and through plain attention with
+    the same draws and an SGD update; the loss and the trainable parameters'
+    update must agree within GATE_LOSS_TOL and GATE_UPDATE_TOL, and a
+    planted fault per path must read beyond them. Returns the kernel runs'
+    launches."""
     import torch
 
     from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
-    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+    from pixart_sigma_tpu_torch.models.lpips import build_lpips
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
     from pixart_sigma_tpu_torch.training import lora
     from pixart_sigma_tpu_torch.training.dmd import make_dmd_train_steps
     from pixart_sigma_tpu_torch.training.lcm_trainer import make_lcm_train_step
     from pixart_sigma_tpu_torch.training.train_state import TrainState
 
-    kw = dict(input_size=32, pe_interpolation=0.5, model_max_length=300,
-              kv_compress_sampling="conv", kv_compress_scale=2,
-              kv_compress_layers=tuple(range(14, 28)), grad_checkpointing=True)
-    nets = []
-    for seed in (0, 1, 2):
-        m = PixArtMS_XL_2(device=dev, train=True, **kw)
-        gen = torch.Generator(device=dev).manual_seed(30 + seed)
-        init_weights(m, gen)
-        perturb_zero_leaves(m, gen)
-        nets.append(m)
+    nets = [xl2_256(dev, 30 + seed, train=True, grad_checkpointing=True) for seed in (0, 1, 2)]
     student, other, third = nets
     saved = [{n: p.detach().clone() for n, p in m.named_parameters()} for m in nets]
     diffusion = IDDPM(timestep_respacing=[1000], learn_sigma=True, rescale_learned_sigmas=True)
@@ -3220,24 +3247,38 @@ def run_finetune_gates(dev, card, fa) -> dict:
         after = {n: p.detach().clone() for n, p in student.named_parameters()}
         return loss, gate_update(saved[0], after)
 
-    def dmd_run(swap=False):
+    torch.cuda.manual_seed(29)
+    vae = build_vae(VAEConfig.sdxl(), device=dev)
+    lpips = build_lpips(dev, seed=29)
+    base_latent = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(35),
+                              device=dev)
+    regression = dict(lpips_fn=lpips, decode_fn=lambda z: vae.decode(z / 0.13025))
+
+    def dmd_run(swap=False, regress=False):
         restore()
         student.requires_grad_(True)
         g_step, _, _ = make_dmd_train_steps(
             student.cfg, diffusion, generator_optimizer=torch.optim.SGD(student.parameters(),
-                                                                        lr=1.0))
+                                                                        lr=1.0),
+            **(regression if regress else {}))
         real, fake = (third, other) if swap else (other, third)
-        dbatch = {"init_noise": noise, "y": y, "y_mask": mask, "uncond_y": uncond}
+        dbatch = {"init_noise": noise, "y": y, "y_mask": mask, "uncond_y": uncond,
+                  "base_latent": base_latent}
         metrics, _ = g_step(student, real, fake, dbatch, t=t, noise=noise)
+        if regress:
+            log(f"[gates] dmd with the regression: dm_loss {metrics['dm_loss']:.6f}, lpips_loss "
+                f"{metrics['lpips_loss']:.6f}")
         after = {n: p.detach().clone() for n, p in student.named_parameters()}
-        return metrics["dm_loss"], gate_update(saved[0], after)
+        return metrics["loss"], gate_update(saved[0], after)
 
     mc, hw = student.cfg, (32, 32)
     for tag, run, fault, fault_name, fwd in (
             ("lora", lora_run, lambda: lora_run(scale=2.0), "the adapters' scale doubled", 0),
             ("lcm", lcm_run, lambda: lcm_run(target=student),
              "the target network run with the student's weights", 3),
-            ("dmd", dmd_run, lambda: dmd_run(swap=True), "real and fake scores swapped", 2)):
+            ("dmd", dmd_run, lambda: dmd_run(swap=True), "real and fake scores swapped", 2),
+            ("dmd_lpips", lambda: dmd_run(regress=True),
+             lambda: dmd_run(swap=True, regress=True), "real and fake scores swapped", 2)):
         (loss_k, upd_k), got = with_impl("auto", run)
         (loss_r, upd_r), ref_counts = with_impl("reference", run)
         (loss_f, upd_f), _ = with_impl("auto", fault)
@@ -3259,14 +3300,14 @@ def run_finetune_gates(dev, card, fa) -> dict:
                                                          forward_launches(mc, hw, fwd)))
         check_launches(f"gates {tag} plain", ref_counts, dict.fromkeys(TRAIN_COUNTERS, 0),
                        some=False)
-    del nets, student, other, third, saved
+    del nets, student, other, third, saved, vae, lpips, regression
     torch.cuda.empty_cache()
     return launches
 
 
-def run_finetuning(dev, card, fa) -> dict:
+def run_finetuning(dev, card, fa) -> tuple:
     """Phases 22-26 and the gates, in one temporary directory; returns the
-    launches of each."""
+    launches of each and the first 4 of phase 26's base latents."""
     tmp = tempfile.mkdtemp(prefix="pixart_finetune_")
     try:
         t0 = time.perf_counter()
@@ -3282,10 +3323,752 @@ def run_finetuning(dev, card, fa) -> dict:
         out["gates"] = run_finetune_gates(dev, card, fa)
         t["gates"] = time.perf_counter() - t0
         log("[finetune] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
-        return out
+        return out, cli["files"]["dmd_base_latents"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+
+# ---------------------------------------------------------------------------
+# phases 27-31: evaluation (bits/dim and the KL objective, FID features,
+# LPIPS and DMD's regression), the VAE trainer and the offline toy workflow
+
+BPD_STEPS = 50  # the spaced chain of phase 27's bits/dim
+# phase 27's bits/dim at 256px, kernels vs plain attention with the same
+# noise: per timestep, the relative L2 over the batch, the worst of the 50
+# (PERF.md); the planted fault "decoder NLL at t = 0 replaced by the KL"
+BPD_REL_TOL = 2e-2
+# Phases 28-30 hold f32 work on the card (TF32 off) against the host's CPU,
+# each limit between the sound reading and the same run with TF32 on, which
+# must read beyond it as the planted fault must (readings in PERF.md).
+# phase 28: InceptionV3 activations, relative L2 (sound 1.8e-6-2.1e-6, TF32
+# 5.3e-4-5.8e-4); the planted fault "Mixed_7c pools by average"
+FID_REL_TOL = 1e-5
+# phase 29: LPIPS distances, relative L2 (sound 4.3e-8-1.1e-7, TF32
+# 1.5e-5-5.4e-5); the planted fault "taps not unit-normalised over the
+# channels"
+LPIPS_REL_TOL = 1e-6
+# phase 30: one small-preset VAE step (SGD, so the update is the gradient)
+# with the same eps: the loss, relative (sound 1.1e-6, TF32 4.3e-5), and the
+# update, relative L2 (2.6e-5, 1.0e-3); the planted fault "eps of another
+# image"
+VAE_LOSS_TOL, VAE_UPDATE_TOL = 1e-5, 2e-4
+VAE_TRAIN_STEPS = 3
+TOY_CONFIG = "configs/toy/pixart_toy_img128.py"
+# phase 31's lengths, cut from docs/toy_workflow.md's (JAX: 2048 images, a
+# 4000-step VAE, 2000 DiT steps at B = 256, 96 samples), and the DiT's batch:
+# at the config's 256 the loader alone takes ~0.5 s a batch (its threads
+# parse 512 small .npy/.npz files under the GIL), a held batch's train_step
+# ~0.06 s (toy_loader_reading; PERF.md)
+TOY_IMAGES, TOY_VAE_STEPS, TOY_DIT_STEPS, TOY_SAMPLES = 512, 200, 250, 64
+TOY_DIT_BATCH = 64
+TOY_SCALE = 0.3264  # the toy config's scale factor
+# phase 31's kernels at its own shapes (Dh = 64, 64 tokens, 12 caption
+# keys) on the trained toy model, against plain attention with the same
+# draws: one training step (GATE_LOSS_TOL, GATE_UPDATE_TOL) and one CFG
+# forward of the sampler's 2 x 32 rows, relative L2 (PERF.md); the planted
+# fault "the padding of the last key tile left unmasked" (step: sound
+# 8.6e-5-2.0e-4 and 3.1e-3-3.3e-3, fault 0.13-0.14 and 2.1-2.3; forward:
+# sound 1.7e-3-1.8e-3, fault 1.4e-2-2.4e-2)
+TOY_FWD_TOL = 5e-3
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for matmuls and cuDNN convolutions, the control of the f32
+    gates of phases 28-30 (every phase runs with it off)."""
+    torch = sys.modules["torch"]
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def xl2_256(dev, seed: int, **kw):
+    """The 1024px KV-compress architecture at 256px (32x32 latents), full
+    width and depth, seeded random weights."""
+    import torch
+
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+
+    m = PixArtMS_XL_2(device=dev, input_size=32, pe_interpolation=0.5, model_max_length=300,
+                      kv_compress_sampling="conv", kv_compress_scale=2,
+                      kv_compress_layers=tuple(range(14, 28)), **kw)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init_weights(m, gen)
+    perturb_zero_leaves(m, gen)
+    return m
+
+
+def worst_column(got, want) -> float:
+    """The largest relative L2 over the batch of any timestep column."""
+    return float(((got - want).norm(dim=0) / want.norm(dim=0)).max())
+
+
+def run_bpd(dev, card, fa) -> dict:
+    """Phase 27: `calc_bpd_loop` over a 50-step `SpacedDiffusion` chain (its
+    `timestep_map`) on the 1024px KV-compress config at full width, B = 2,
+    pseudo-T5 captions; then, at 256px and full width, the bits/dim through
+    the kernels against plain attention with the same noise (fault: the
+    decoder NLL at t = 0 replaced by the KL) and one `IDDPM(use_kl=True)`
+    training step (SGD) through the kernels against plain attention (fault:
+    the loss not rescaled by T). Returns the launches."""
+    import copy
+    import math
+    import types
+
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.diffusion.gaussian import LossType
+    from pixart_sigma_tpu_torch.diffusion.likelihood import mean_flat, normal_kl
+    from pixart_sigma_tpu_torch.diffusion.noise import generator_noise
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.pixart import init_weights
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+
+    t_phase = time.perf_counter()
+    diffusion = IDDPM(timestep_respacing=str(BPD_STEPS)).to(dev)
+    y, mask = PseudoT5Embedder(4096, 300).get_text_embeddings(synthetic_captions(2, 27))
+    y, mask = y.to(dev), mask.to(dev)
+
+    def bpd(model, x0, diff=diffusion):
+        gen = torch.Generator(device=dev).manual_seed(27)
+        fn = lambda x, t: model(x, t.float(), y, mask).float()
+        with torch.no_grad():
+            return diff.calc_bpd_loop(fn, x0, generator_noise(gen),
+                                      timestep_map=diffusion.timestep_map)
+
+    def data(hw):
+        g = torch.Generator(device=dev).manual_seed(28)
+        return torch.rand((2, *hw, 4), generator=g, device=dev) * 2 - 1
+
+    model = build_model_from_config(read_config(TRAIN_CONFIG), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    init_weights(model, gen)
+    perturb_zero_leaves(model, gen)
+    mc = model.cfg
+    out, launches, peak, wall = counted(fa, lambda: bpd(model, data((128, 128))))
+    check_launches("bpd", launches, forward_launches(mc, (128, 128), BPD_STEPS))
+    log(f"[bpd] {TRAIN_CONFIG}: calc_bpd_loop over {BPD_STEPS} of 1000 timesteps, B = 2 "
+        f"latents 128x128x4 in [-1, 1]: total bits/dim {times(out['total_bpd'].tolist())}, "
+        f"prior {times(out['prior_bpd'].tolist())}, t = 0 term "
+        f"{times(out['vb'][:, -1].tolist())}")
+    log(f"[time] {card}: bits/dim, {BPD_STEPS} model calls at B = 2, 1024px: {wall:.3f} s "
+        f"({wall / BPD_STEPS * 1e3:.1f} ms per call); peak {peak:.2f} GiB")
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise SystemExit("bpd: not finite")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- the 256px gates
+    net = xl2_256(dev, 40, train=True, grad_checkpointing=True)
+    x0 = data((32, 32))
+
+    def nll_as_kl(self, model_output, x_start, x_t, t, clip_denoised=False):
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        o = self.p_mean_variance(model_output, x_t, t, clip_denoised=clip_denoised)
+        kl = normal_kl(true_mean, true_log_var, o["mean"], o["log_variance"])
+        return {"output": mean_flat(kl) / math.log(2.0), "pred_xstart": o["pred_xstart"]}
+
+    faulty = copy.copy(diffusion)
+    faulty.vb_terms_bpd = types.MethodType(nll_as_kl, faulty)
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    got, launches, _, _ = counted(fa, lambda: bpd(net, x0))
+    check_launches("bpd gate", launches, forward_launches(net.cfg, (32, 32), BPD_STEPS))
+    total = add_launches(total, launches)
+    bad = bpd(net, x0, faulty)
+    set_attn_impl(net, "reference")
+    try:
+        want, plain, _, _ = counted(fa, lambda: bpd(net, x0))
+    finally:
+        set_attn_impl(net, "auto")
+    check_launches("bpd gate plain", plain, dict.fromkeys(TRAIN_COUNTERS, 0), some=False)
+    sound, fault = worst_column(got["vb"], want["vb"]), worst_column(bad["vb"], want["vb"])
+    total_rel = float(((got["total_bpd"] - want["total_bpd"]).abs() / want["total_bpd"]).max())
+    log(f"[bpd] 256px bits/dim, kernels vs plain attention: total {times(got['total_bpd'])} vs "
+        f"{times(want['total_bpd'])} (relative {total_rel:.3e}); worst timestep's relative L2 "
+        f"{sound:.3e} (limit {BPD_REL_TOL}); planted fault 'decoder NLL at t = 0 replaced by "
+        f"the KL' {fault:.3e}")
+    if not sound <= BPD_REL_TOL < fault:
+        raise SystemExit("bpd: the bits/dim through the kernels disagree with plain attention, "
+                         "or the gate missed its fault")
+
+    # ---- one IDDPM(use_kl=True) training step (SGD)
+    kl_diff = IDDPM(timestep_respacing=[1000], learn_sigma=True, use_kl=True).to(dev)
+    plain_kl = copy.copy(kl_diff)
+    plain_kl.loss_type = LossType.KL
+    t = torch.tensor([0, 613], device=dev)
+    noise = torch.randn(x0.shape, generator=torch.Generator(device=dev).manual_seed(41),
+                        device=dev)
+    saved = {n: p.detach().clone() for n, p in net.named_parameters()}
+
+    def kl_step(diff=kl_diff):
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(saved[n])
+        opt = torch.optim.SGD(net.parameters(), lr=1.0)
+        fn = lambda x, tt: net(x, tt, y, mask)  # no caption drops
+        loss = diff.training_losses(fn, x0, t, noise)["loss"].mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return float(loss.detach()), gate_update(saved, {n: p.detach() for n, p in
+                                                         net.named_parameters()})
+
+    (loss_k, upd_k), launches, _, _ = counted(fa, kl_step)
+    check_launches("kl step", launches, step_launches(net.cfg, (32, 32)))
+    total = add_launches(total, launches)
+    set_attn_impl(net, "reference")
+    try:
+        (loss_r, upd_r), plain, _, _ = counted(fa, kl_step)
+    finally:
+        set_attn_impl(net, "auto")
+    check_launches("kl step plain", plain, dict.fromkeys(TRAIN_COUNTERS, 0), some=False)
+    loss_f, upd_f = kl_step(plain_kl)
+    read = lambda l, u: (abs(l - loss_r) / abs(loss_r), rel_l2(u, upd_r))
+    sound, bad = read(loss_k, upd_k), read(loss_f, upd_f)
+    log(f"[gates] IDDPM(use_kl=True) step at 256px (t = 0 and 613), full width, kernels vs "
+        f"plain attention: loss {loss_k:.6f} vs {loss_r:.6f}, relative {sound[0]:.3e} (limit "
+        f"{GATE_LOSS_TOL}); update relative L2 {sound[1]:.3e} (limit {GATE_UPDATE_TOL}); "
+        f"planted fault 'the bound not rescaled by T': loss {bad[0]:.3e}, update {bad[1]:.3e}")
+    if not (sound[0] <= GATE_LOSS_TOL and sound[1] <= GATE_UPDATE_TOL):
+        raise SystemExit("gates: the KL step through the kernels disagrees with plain attention")
+    if bad[0] <= GATE_LOSS_TOL and bad[1] <= GATE_UPDATE_TOL:
+        raise SystemExit("gates: the KL gate missed its planted fault")
+    del net, saved
+    torch.cuda.empty_cache()
+    log(f"[bpd] phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def eight_images(imgs):
+    """Eight 1024px images from phase 4's two: each, flipped, and turned."""
+    import numpy as np
+
+    out = []
+    for im in imgs:
+        out += [im, im[:, ::-1], im[::-1], np.rot90(im)]
+    return np.ascontiguousarray(np.stack(out)).astype(np.float32) / 255.0
+
+
+def resized(batch, side: int):
+    import numpy as np
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.fromarray((im * 255).round().astype(np.uint8)).resize(
+        (side, side), Image.BICUBIC), np.float32) / 255.0 for im in batch])
+
+
+def run_fid_features(dev, card, images) -> None:
+    """Phase 28: InceptionV3 (2048 features) with the fixed-seed random
+    weights, f32 with TF32 off: activations of 8 1024px images (phase 4's)
+    and of the same at 512px on the card against the same extractor on the
+    host's CPU (fault: Mixed_7c pooling by average), then img/s at B = 32
+    on 1024px inputs, the resize to 299 included."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.inception import (
+        extract_activations,
+        random_inception_params,
+    )
+
+    t_phase = time.perf_counter()
+    net, host = random_inception_params(0, dev), random_inception_params(0, "cpu")
+    for side, batch in ((1024, images), (512, resized(images, 512))):
+        got = torch.from_numpy(extract_activations(net, batch, batch=8))
+        want = torch.from_numpy(extract_activations(host, batch, batch=8))
+        net.Mixed_7c.pool_mode = "avg"
+        bad = torch.from_numpy(extract_activations(net, batch, batch=8))
+        net.Mixed_7c.pool_mode = "max"
+        with tf32_on():
+            loose = torch.from_numpy(extract_activations(net, batch, batch=8))
+        sound, fault, control = rel_l2(got, want), rel_l2(bad, want), rel_l2(loose, want)
+        log(f"[fid] InceptionV3 activations of 8 {side}px images, card vs CPU: relative L2 "
+            f"{sound:.3e} (limit {FID_REL_TOL}); planted fault 'Mixed_7c pools by average' "
+            f"{fault:.3e}; control 'TF32 on' {control:.3e}; feature std across images "
+            f"{float(want.std(0).mean()):.4f}")
+        if not (torch.isfinite(got).all() and sound <= FID_REL_TOL < min(fault, control)):
+            raise SystemExit("fid: the card's activations disagree with the CPU's, or the gate "
+                             "missed its fault")
+    x = torch.from_numpy(np.concatenate([images] * 4)).to(dev)
+    with torch.no_grad():
+        s, _ = median_s(lambda: net(x))
+    log(f"[time] {card}: InceptionV3 at B = 32, 1024px inputs (antialiased resize to 299 "
+        f"included), f32: {s:.4f} s, {32 / s:.1f} img/s")
+    del net, host, x
+    torch.cuda.empty_cache()
+    log(f"[fid] phase 28: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_lpips_dmd(dev, card, fa, images, base_latents) -> dict:
+    """Phase 29: LPIPS (VGG16) on the card against the CPU at 512px, B = 4
+    pairs (fault: no channel unit-normalisation); one DMD generator step at
+    512px, B = 4, on the DMD config (three seeded XL-2), with the LPIPS
+    regression of the decoded x0 (a random SDXL VAE) against phase 26's
+    teacher base latents: lpips_loss, s/step, peak memory and launches."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.lpips import build_lpips
+    from pixart_sigma_tpu_torch.models.pixart import init_weights
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
+    from pixart_sigma_tpu_torch.training.dmd import make_dmd_train_steps
+
+    t_phase = time.perf_counter()
+    lp, host = build_lpips(dev), build_lpips("cpu")
+    pairs = torch.from_numpy(resized(images, 512) * 2 - 1)
+    a, b = pairs[:4], pairs[4:]
+
+    def unnormalised(model, x0, x1):
+        f0, f1 = model.vgg(x0), model.vgg(x1)
+        return sum(getattr(model, f"lin{i}")((p - q) ** 2)[:, 0].mean(dim=(1, 2))
+                   for i, (p, q) in enumerate(zip(f0, f1)))
+
+    with torch.no_grad():
+        got = lp(a.to(dev), b.to(dev)).cpu()
+        want = host(a, b)
+        bad = unnormalised(lp, a.to(dev), b.to(dev)).cpu()
+        with tf32_on():
+            loose = lp(a.to(dev), b.to(dev)).cpu()
+        s, _ = median_s(lambda: lp(a.to(dev), b.to(dev)))
+    sound, fault, control = rel_l2(got, want), rel_l2(bad, want), rel_l2(loose, want)
+    log(f"[lpips] LPIPS (VGG16) at 512px, B = 4 pairs, card vs CPU: distances {times(got)}, "
+        f"relative L2 {sound:.3e} (limit {LPIPS_REL_TOL}); planted fault 'taps not "
+        f"unit-normalised' {fault:.3e}; control 'TF32 on' {control:.3e}")
+    log(f"[time] {card}: LPIPS at 512px, B = 4 pairs, f32: {s:.4f} s")
+    if not sound <= LPIPS_REL_TOL < min(fault, control):
+        raise SystemExit("lpips: the card disagrees with the CPU, or the gate missed its fault")
+    del host
+
+    config = read_config(DMD_CONFIG)
+    nets = []
+    for seed in (50, 51, 52):
+        m = build_model_from_config(config, device=dev, train=True)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        init_weights(m, g)
+        perturb_zero_leaves(m, g)
+        nets.append(m)
+    gen, real, fake = nets
+    real.requires_grad_(False)
+    fake.requires_grad_(False)
+    mc = gen.cfg
+    torch.cuda.manual_seed(53)
+    vae = build_vae(VAEConfig.sdxl(), device=dev)
+    step, _, _ = make_dmd_train_steps(
+        mc, IDDPM(timestep_respacing=[1000], learn_sigma=True), start_ts=400,
+        lpips_fn=lp, decode_fn=lambda z: vae.decode(z / config.scale_factor),
+        generator_optimizer=torch.optim.SGD(gen.parameters(), lr=1e-5))
+    y, mask = PseudoT5Embedder(4096, mc.model_max_length).get_text_embeddings(
+        synthetic_captions(4, 29))
+    batch = {"init_noise": torch.randn((4, 64, 64, 4), device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(54)),
+             "y": y.to(dev), "y_mask": mask.to(dev),
+             "uncond_y": gen.y_embedder.y_embedding.detach()[None].expand(
+                 4, *y.shape[1:]).float(),
+             "base_latent": torch.from_numpy(np.asarray(base_latents[:4], np.float32)).to(dev)}
+    gstep = torch.Generator(device=dev).manual_seed(55)
+    runs = [counted(fa, lambda: step(gen, real, fake, batch, generator=gstep)) for _ in range(2)]
+    per_step = add_launches(step_launches(mc, (64, 64)), forward_launches(mc, (64, 64), 2))
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for (metrics, _), launches, peak, wall in runs:
+        check_launches("dmd regression", launches, per_step)
+        total = add_launches(total, launches)
+        if not (np.isfinite(metrics["loss"]) and metrics["lpips_loss"] > 0):
+            raise SystemExit("dmd regression: the loss is not finite or lpips_loss is 0")
+    log(f"[dmd] generator step with the LPIPS regression ({DMD_CONFIG}, 512px, B = 4, base "
+        f"latents from phase 26's teacher, regression on the first 2 decoded): "
+        + "; ".join(f"dm_loss {r[0][0]['dm_loss']:.6f} lpips_loss {r[0][0]['lpips_loss']:.6f}"
+                    for r in runs))
+    log(f"[time] {card}: dmd generator step with the regression (B = 4, 512px, SGD): "
+        f"{times(r[3] for r in runs)} s (first, second); peak {runs[1][2]:.2f} GiB")
+    trace(lambda: step(gen, real, fake, batch, generator=gstep),
+          "one dmd generator step with the LPIPS regression, B = 4 (SGD)", card)
+    del nets, gen, real, fake, vae, lp, runs, batch
+    torch.cuda.empty_cache()
+    log(f"[lpips] phase 29: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def run_vae_trainer(dev, card, tmp: str) -> None:
+    """Phase 30: `scripts.train_vae` with the sdxl preset (full SDXL-VAE
+    width) at 256px, B = 8, on 64 PNGs, for VAE_TRAIN_STEPS steps, the
+    written directory read back by `load_flax_vae` bit for bit; one
+    small-preset step (SGD) on the card against the CPU with the same eps
+    (fault: eps of another image)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.vae import (
+        AutoencoderKL,
+        VAEConfig,
+        init_vae_weights,
+        load_flax_vae,
+    )
+    from pixart_sigma_tpu_torch.scripts import train_vae
+    from pixart_sigma_tpu_torch.tools import make_toy_dataset
+
+    t_phase = time.perf_counter()
+    data = os.path.join(tmp, "vae_data")
+    make_toy_dataset.main(["--out", data, "--n", "64", "--size", "256", "--seed", "30"])
+    imgs = os.path.join(data, "InternImgs")
+    reset_peak()
+    out = train_vae.main(["--data-root", imgs, "--out", os.path.join(tmp, "vae_sdxl"),
+                          "--resolution", "256", "--preset", "sdxl", "--batch", "8",
+                          "--steps", str(VAE_TRAIN_STEPS), "--log-interval", "1",
+                          "--device", str(dev)])
+    peak = peak_gib()
+    sec = np.diff([0.0] + out["elapsed"])  # every step is logged, and its loss read
+    log(f"[vae] scripts.train_vae --preset sdxl, 256px, B = 8, 64 PNGs: losses "
+        f"{[round(h[1], 6) for h in out['history']]}")
+    log(f"[time] {card}: VAE training step (sdxl preset, 256px, B = 8, f32, TF32 off): "
+        f"{times(sec)} s/step, {8 / np.median(sec[1:]):.1f} img/s after the first; peak "
+        f"{peak:.2f} GiB")
+    back = load_flax_vae(os.path.join(tmp, "vae_sdxl"), device=dev).state_dict()
+    same = all(torch.equal(back[k], v) for k, v in out["vae"].state_dict().items())
+    log(f"[vae] the written directory read back by load_flax_vae, bit for bit: {same}")
+    if not (same and all(np.isfinite(h[1]) for h in out["history"])):
+        raise SystemExit("vae: the run failed or its directory does not read back")
+    del out, back
+    torch.cuda.empty_cache()
+
+    cfg = VAEConfig(**train_vae.PRESETS["small"])
+    host = init_vae_weights(AutoencoderKL(cfg), torch.Generator().manual_seed(31)).train()
+    batch = torch.from_numpy(train_vae.load_images(train_vae.image_files(imgs)[:4], 128))
+    eps = torch.randn((4, 16, 16, cfg.latent_channels), generator=torch.Generator().manual_seed(32))
+
+    def one_step(vae, dev_, e):
+        vae = vae.to(dev_)
+        before = {n: p.detach().clone() for n, p in vae.named_parameters()}
+        loss, _, _ = train_vae.make_train_step(vae, torch.optim.SGD(vae.parameters(), lr=1.0),
+                                               1e-6)(batch.to(dev_), e.to(dev_))
+        return float(loss), gate_update(before, {n: p.detach() for n, p in
+                                                 vae.named_parameters()}).cpu()
+
+    card_net = copy.deepcopy(host)
+    loss_c, upd_c = one_step(host, "cpu", eps)
+    loss_g, upd_g = one_step(copy.deepcopy(card_net), dev, eps)
+    with tf32_on():
+        loss_t, upd_t = one_step(copy.deepcopy(card_net), dev, eps)
+    loss_f, upd_f = one_step(card_net, dev, eps.roll(1, 0))
+    read = lambda l, u: (abs(l - loss_c) / abs(loss_c), rel_l2(u, upd_c))
+    sound, bad, control = read(loss_g, upd_g), read(loss_f, upd_f), read(loss_t, upd_t)
+    log(f"[vae] one small-preset step (SGD), 128px, B = 4, card vs CPU, the same eps: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f}, relative {sound[0]:.3e}; update relative L2 "
+        f"{sound[1]:.3e} (limits {VAE_LOSS_TOL}, {VAE_UPDATE_TOL}); planted fault 'eps of "
+        f"another image': loss {bad[0]:.3e}, update {bad[1]:.3e}; control 'TF32 on': loss "
+        f"{control[0]:.3e}, update {control[1]:.3e}")
+    if not (sound[0] <= VAE_LOSS_TOL and sound[1] <= VAE_UPDATE_TOL):
+        raise SystemExit("vae: the card's step disagrees with the CPU's")
+    for what, r in (("planted fault", bad), ("TF32 control", control)):
+        if r[0] <= VAE_LOSS_TOL and r[1] <= VAE_UPDATE_TOL:
+            raise SystemExit(f"vae: the gate missed its {what}")
+    log(f"[vae] phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+
+def unmasked_tail(plain):
+    """`plain` attention as a kernel that leaves the padding of its last
+    128-key tile unmasked: K and V zero-padded to a multiple of 128 keys,
+    and a caption's mask ignored."""
+    import torch.nn.functional as F
+
+    def attention(q, k, v, key_mask=None):
+        pad = -k.shape[1] % 128
+        return plain(q, F.pad(k, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad)), None)
+
+    return attention
+
+
+def run_toy_gates(dev, fa, trainer) -> dict:
+    """The kernels at phase 31's shapes on its trained model: one training
+    step (SGD) on a loader batch of TOY_DIT_BATCH, and one CFG forward of 2
+    x 32 rows (32 noised latents of that batch, their captions and the null
+    caption, as the sampler's), of which the eps the sampler reads is held;
+    each through the kernels and through plain attention with the same t
+    and noise. The fault `unmasked_tail` in place of plain attention must
+    read beyond the limits. Returns the kernel runs' launches."""
+    import torch
+
+    from pixart_sigma_tpu_torch.diffusion.dpm_solver import cfg_batch
+    from pixart_sigma_tpu_torch.ops import attention as attn_mod
+    from pixart_sigma_tpu_torch.training.train_state import TrainState
+    from pixart_sigma_tpu_torch.training.train_step import train_step
+
+    model, diffusion = trainer.model, trainer.diffusion
+    mc, hw = model.cfg, (16, 16)
+    loader = trainer.build_loader()
+    loader.batch_sampler.set_epoch(0)
+    batch = trainer.prepare_batch(next(iter(loader)), 0)
+    x0, y, mask = batch["latents"], batch["y"], batch["y_mask"]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    t = torch.randint(0, diffusion.num_timesteps, (x0.shape[0],), generator=gen, device=dev)
+    noise = torch.randn(x0.shape, generator=gen, device=dev)
+    saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n = 32
+    x_in, y_in = cfg_batch(diffusion.q_sample(x0[:n], t[:n], noise[:n]), y[:n],
+                           model.y_embedder.y_embedding.detach()[None].expand(n, *y.shape[1:]))
+    t_in, mask_in = torch.cat([t[:n], t[:n]]).float(), torch.cat([mask[:n], mask[:n]])
+
+    def step():
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(saved[name])
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1.0), lambda s: 1.0,
+                           ema=False)
+        loss = train_step(state, diffusion, batch, t=t, noise=noise,
+                          force_drop_ids=torch.zeros(x0.shape[0], device=dev))["loss"]
+        return loss, gate_update(saved, {name: p.detach() for name, p in
+                                         model.named_parameters()})
+
+    def forward():
+        with torch.no_grad():
+            return model(x_in, t_in, y_in, mask_in)[..., :mc.in_channels].float()  # eps
+
+    def run(fn, impl, fault=False):
+        plain = attn_mod.attention_reference
+        set_attn_impl(model, impl)
+        if fault:
+            attn_mod.attention_reference = unmasked_tail(plain)
+        try:
+            return counted(fa, fn)
+        finally:
+            attn_mod.attention_reference = plain
+            set_attn_impl(model, "auto")
+
+    launches = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for tag, fn, want in (("step", step, step_launches(mc, hw)),
+                          ("cfg forward", forward, forward_launches(mc, hw, 1))):
+        got, counts, _, _ = run(fn, "auto")
+        ref, plain_counts, _, _ = run(fn, "reference")
+        bad, _, _, _ = run(fn, "reference", fault=True)
+        check_launches(f"toy gate {tag}", counts, want)
+        check_launches(f"toy gate {tag} plain", plain_counts, dict.fromkeys(TRAIN_COUNTERS, 0),
+                       some=False)
+        launches = add_launches(launches, counts)
+        if tag == "step":
+            read = lambda l, u: (abs(l - ref[0]) / abs(ref[0]), rel_l2(u, ref[1]))
+            sound, fault = read(*got), read(*bad)
+            log(f"[toy] gate: one training step (SGD), B = {x0.shape[0]}, 12 caption keys, "
+                f"kernels vs plain attention: loss {got[0]:.6f} vs {ref[0]:.6f}, relative "
+                f"{sound[0]:.3e} (limit {GATE_LOSS_TOL}); update relative L2 {sound[1]:.3e} "
+                f"(limit {GATE_UPDATE_TOL}); planted fault 'the padding of the last key tile "
+                f"left unmasked': loss {fault[0]:.3e}, update {fault[1]:.3e}")
+            ok = sound[0] <= GATE_LOSS_TOL and sound[1] <= GATE_UPDATE_TOL
+            caught = fault[0] > GATE_LOSS_TOL or fault[1] > GATE_UPDATE_TOL
+        else:
+            sound, fault = rel_l2(got, ref), rel_l2(bad, ref)
+            log(f"[toy] gate: one CFG forward, 2 x {n} rows, kernels vs plain attention: "
+                f"relative L2 {sound:.3e} (limit {TOY_FWD_TOL}); planted fault 'the padding "
+                f"of the last key tile left unmasked' {fault:.3e}")
+            ok, caught = bool(torch.isfinite(got).all()) and sound <= TOY_FWD_TOL, \
+                fault > TOY_FWD_TOL
+        if not ok:
+            raise SystemExit(f"toy: the {tag} through the kernels disagrees with plain attention")
+        if not caught:
+            raise SystemExit(f"toy: the {tag} gate missed its planted fault")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(saved[name])
+    return launches
+
+
+def toy_loader_reading(card, trainer) -> None:
+    """The toy config's B = 256 without the step: the loader alone over one
+    epoch (2 batches of 256 feature items) with its worker threads and with
+    one, and train_step alone on a held batch, traced. (Phase 31 trains at
+    TOY_DIT_BATCH: PERF.md.)"""
+    from pixart_sigma_tpu_torch.training.train_step import train_step
+
+    trainer.config.train_batch_size = 256
+    loader = trainer.build_loader()
+    threads = loader.num_workers
+    per_batch = {}
+    for workers in (threads, 1):
+        loader.num_workers = workers
+        loader.batch_sampler.set_epoch(0)
+        t0 = time.perf_counter()
+        batches = list(loader)
+        per_batch[workers] = (time.perf_counter() - t0) / len(batches)
+    batch = trainer.prepare_batch(batches[0], 0)
+    step = lambda: train_step(trainer.state, trainer.diffusion, batch,
+                              generator=trainer.generator,
+                              grad_clip=trainer.config.get("gradient_clip"))
+    s, _ = median_s(step)
+    log(f"[time] {card}: the toy loader alone at B = 256 (one epoch, {len(batches)} batches "
+        f"of 256 feature items): {per_batch[threads]:.4f} s/batch with {threads} threads, "
+        f"{per_batch[1]:.4f} with 1; train_step alone on a held batch: {s:.4f} s")
+    trace(step, "one toy train_step at B = 256 on a held batch", card)
+
+
+def run_toy_workflow(dev, card, fa, tmp: str) -> dict:
+    """Phase 31: docs/toy_workflow.md through the port's entry points, cut
+    in length: make_toy_dataset, train_vae (small), extract_features
+    --vae-flax, the training CLI on the toy config, inference --vae-flax
+    --pseudo-t5 64 (20-step DPM-Solver++), compute_fid (two real splits,
+    real vs samples, real vs uniform noise), one prompt through the
+    interface REPL on stdin. The kernels are gated at the phase's shapes on
+    the trained model (`run_toy_gates`), the config's B = 256 is read
+    without the step (`toy_loader_reading`), and the samples' FID must be
+    below the noise's."""
+    import glob
+    import io
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.scripts import inference, interface
+    from pixart_sigma_tpu_torch.scripts import train as train_cli
+    from pixart_sigma_tpu_torch.scripts import train_vae
+    from pixart_sigma_tpu_torch.tools import compute_fid, extract_features, make_toy_dataset
+    from pixart_sigma_tpu_torch.utils.png import write_png
+
+    t = {}
+    root, vae_dir, run = (os.path.join(tmp, d) for d in ("toy", "toy_vae", "toy_run"))
+    data = os.path.join(root, "InternData")
+    t0 = time.perf_counter()
+    make_toy_dataset.main(["--out", root, "--n", str(TOY_IMAGES), "--size", "128",
+                           "--pseudo-t5", "--caption-dim", "64"])
+    t["dataset"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vae_run = train_vae.main(["--data-root", os.path.join(root, "InternImgs"), "--out", vae_dir,
+                              "--preset", "small", "--resolution", "128", "--steps",
+                              str(TOY_VAE_STEPS), "--log-interval", "100", "--device", str(dev)])
+    t["train_vae"] = time.perf_counter() - t0
+    vae_losses = [h[1] for h in vae_run["history"]]
+    del vae_run
+
+    t0 = time.perf_counter()
+    extract_features.main(["--root", data, "--vae-flax", vae_dir, "--resolution", "128",
+                           "--batch", "64", "--device", str(dev)])
+    t["extract_features"] = time.perf_counter() - t0
+
+    cfg_path = write_config(os.path.join(tmp, "toy_cfg.py"), TOY_CONFIG, data_root=root,
+                            vae_pretrained=vae_dir, save_model_steps=TOY_DIT_STEPS,
+                            train_batch_size=TOY_DIT_BATCH,
+                            save_model_epochs=10**9, log_interval=50,
+                            lr_schedule_args={"num_warmup_steps": 30})
+    t0 = time.perf_counter()
+    trainer, launches_train, peak, _ = counted(fa, lambda: train_cli.main(
+        [cfg_path, "--work-dir", run, "--max-steps", str(TOY_DIT_STEPS), "--device", str(dev)]))
+    t["train"] = time.perf_counter() - t0
+    mc = trainer.model.cfg
+    hist = trainer.history
+    check_launches("toy train", launches_train, run_launches(mc, [h["hw"] for h in hist]))
+    ckpt = sorted(glob.glob(os.path.join(run, "checkpoints", "*.pth")))[-1]
+    dit = (hist[0]["loss"], hist[-1]["loss"], np.median([h["seconds"] for h in hist[1:]]),
+           sum(h["seconds"] for h in hist))
+    t0 = time.perf_counter()
+    launches_gates = run_toy_gates(dev, fa, trainer)
+    t["gates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toy_loader_reading(card, trainer)
+    t["loader_b256"] = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(data, "data_info.json")) as f:
+        prompts = [m["prompt"] for m in json.load(f)][:TOY_SAMPLES]
+    with open(os.path.join(tmp, "prompts.txt"), "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    samples = os.path.join(tmp, "samples")
+    common = ["--config", cfg_path, "--model-path", ckpt, "--vae-flax", vae_dir, "--pseudo-t5",
+              "64", "--scale-factor", str(TOY_SCALE), "--device", str(dev)]
+    t0 = time.perf_counter()
+    _, launches_inf, _, _ = counted(fa, lambda: inference.main(
+        common + ["--txt-file", os.path.join(tmp, "prompts.txt"), "--save-root", samples,
+                  "--sampling-algo", "dpm-solver", "--steps", "20", "--bs", "32"]))
+    t["inference"] = time.perf_counter() - t0
+    check_launches("toy inference", launches_inf,
+                   forward_launches(mc, (16, 16), 20 * -(-TOY_SAMPLES // 32)))
+
+    # FID: two disjoint real splits, real vs the samples, real vs noise
+    imgs = sorted(glob.glob(os.path.join(root, "InternImgs", "*.png")))
+    splits = {}
+    for name, part in (("real_a", imgs[:TOY_SAMPLES]), ("real_b", imgs[TOY_SAMPLES:
+                                                                          2 * TOY_SAMPLES])):
+        splits[name] = os.path.join(tmp, name)
+        os.makedirs(splits[name])
+        for p in part:
+            os.symlink(p, os.path.join(splits[name], os.path.basename(p)))
+    noise_dir = os.path.join(tmp, "noise")
+    os.makedirs(noise_dir)
+    rng = np.random.default_rng(31)
+    for i in range(TOY_SAMPLES):
+        write_png(os.path.join(noise_dir, f"{i:03d}.png"),
+                  rng.integers(0, 256, (128, 128, 3)).astype(np.uint8))
+    acts = os.path.join(tmp, "acts")
+    t0 = time.perf_counter()
+    fid = {"real_vs_real": compute_fid.main([splits["real_a"], splits["real_b"], "--save-acts",
+                                             acts, "--batch", "64", "--device", str(dev)])}
+    real = os.path.join(acts, "real_a_acts.npz")
+    fid["real_vs_samples"] = compute_fid.main([real, samples, "--batch", "64",
+                                               "--device", str(dev)])
+    fid["real_vs_noise"] = compute_fid.main([real, noise_dir, "--batch", "64",
+                                             "--device", str(dev)])
+    t["fid"] = time.perf_counter() - t0
+
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(prompts[0] + "\n")
+    blocked = sys.modules.get("gradio", False)
+    sys.modules["gradio"] = None  # the REPL, as on machines without gradio
+    t0 = time.perf_counter()
+    try:
+        written, launches_repl, _, _ = counted(fa, lambda: interface.main(
+            common + ["--save-root", os.path.join(tmp, "demo")]))
+    finally:
+        sys.stdin = stdin
+        if blocked is False:
+            del sys.modules["gradio"]
+        else:
+            sys.modules["gradio"] = blocked
+    t["repl"] = time.perf_counter() - t0
+    check_launches("toy repl", launches_repl, forward_launches(mc, (16, 16), 20))
+
+    sample_files = sorted(os.listdir(samples))
+    log(f"[toy] {TOY_IMAGES} images at 128px (pseudo-T5, 64 dims); VAE (small preset) "
+        f"{TOY_VAE_STEPS} steps: loss {vae_losses[0]:.5f} -> {vae_losses[-1]:.5f}; DiT "
+        f"({mc.depth} blocks x {mc.hidden_size}, B = {read_config(cfg_path).train_batch_size}) "
+        f"{TOY_DIT_STEPS} steps: loss {dit[0]:.5f} -> {dit[1]:.5f}, {dit[2]:.4f} s/step "
+        f"(median train_step), {dit[3]:.1f} s in train_step of the CLI's {t['train']:.1f} s "
+        f"(the rest: the loader, the model's build, the checkpoint), peak {peak:.2f} GiB; "
+        f"{len(sample_files)} samples; REPL wrote {written}")
+    log(f"[toy] FID[random(seed=0)]: real vs real {fid['real_vs_real']:.4f}, real vs samples "
+        f"{fid['real_vs_samples']:.4f}, real vs uniform noise {fid['real_vs_noise']:.4f}")
+    log("[toy] stage seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    if len(sample_files) != TOY_SAMPLES or len(written) != 1:
+        raise SystemExit("toy: the samples or the REPL's image are missing")
+    if not fid["real_vs_samples"] < fid["real_vs_noise"]:
+        raise SystemExit("toy: the samples' FID is not below the uniform noise's")
+    return {"train": launches_train, "gates": launches_gates, "inference": launches_inf,
+            "repl": launches_repl}
+
+
+def run_evaluation(dev, card, fa, images, base_latents) -> dict:
+    """Phases 27-31 (27 and 29 need no files; 30 and 31 in one temporary
+    directory); returns the launches of each."""
+    out = {"bpd": run_bpd(dev, card, fa)}
+    run_fid_features(dev, card, images)
+    out["dmd_lpips"] = run_lpips_dmd(dev, card, fa, images, base_latents)
+    tmp = tempfile.mkdtemp(prefix="pixart_eval_")
+    try:
+        run_vae_trainer(dev, card, tmp)
+        t0 = time.perf_counter()
+        out.update({f"toy_{k}": v for k, v in run_toy_workflow(dev, card, fa, tmp).items()})
+        log(f"[toy] phase 31: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -3521,6 +4304,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     lat, imgs, counts, _, _ = run_path(prompts)
     launches = dict(counts)
+    images_1024 = imgs  # phases 28 and 29 read them
     counts = (counts["onepass"], counts["allheads"])
     expect = 28 * 20
     log(f"[path] 1024px: latents {tuple(lat.shape)} images {imgs.shape} {imgs.dtype}; "
@@ -3750,9 +4534,17 @@ def main() -> int:
         entry["launches_server"] = launches_server.get(name, 0)
 
     # ---- 22.-26. the training CLI, LoRA/DoRA, DreamBooth, LCM, DMD; gates -----
-    launches_ft = run_finetuning(dev, card, fa)
+    launches_ft, base_latents = run_finetuning(dev, card, fa)
     for entry in entries:
         entry["launches_finetuning"] = {run: c[entry["name"]] for run, c in launches_ft.items()}
+
+    # ---- 27.-31. bits/dim and the KL step, FID features, LPIPS and DMD's ------
+    # regression, the VAE trainer, the offline toy workflow
+    t0 = time.perf_counter()
+    launches_eval = run_evaluation(dev, card, fa, eight_images(images_1024), base_latents)
+    log(f"[evaluation] phases 27-31: {time.perf_counter() - t0:.1f} s")
+    for entry in entries:
+        entry["launches_evaluation"] = {run: c[entry["name"]] for run, c in launches_eval.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

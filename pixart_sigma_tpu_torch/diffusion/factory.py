@@ -11,6 +11,7 @@ from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 def IDDPM(
     timestep_respacing=None,
     noise_schedule: str = "linear",
+    use_kl: bool = False,
     sigma_small: bool = False,
     predict_xstart: bool = False,
     learn_sigma: bool = True,
@@ -21,9 +22,8 @@ def IDDPM(
 ) -> SpacedDiffusion:
     """A SpacedDiffusion configured like the reference's IDDPM(): learned
     range variance, or with learn_sigma=False a fixed one (small with
-    sigma_small); `snr` switches the MSE target to x0 for t <= 249. Its use_kl
-    switch is not ported (ROADMAP.md, Queue 1, "The rest of JAX
-    diffusion/gaussian.py")."""
+    sigma_small); `snr` switches the MSE target to x0 for t <= 249; `use_kl`
+    trains on the rescaled variational bound alone."""
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     if not pred_sigma:
@@ -37,6 +37,7 @@ def IDDPM(
         use_timesteps=space_timesteps(diffusion_steps, timestep_respacing),
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
         model_var_type=var_type,
-        loss_type=LossType.RESCALED_MSE if rescale_learned_sigmas else LossType.MSE,
+        loss_type=(LossType.RESCALED_KL if use_kl else
+                   LossType.RESCALED_MSE if rescale_learned_sigmas else LossType.MSE),
         snr=snr,
     )

@@ -8,8 +8,10 @@ or fixed large variance; the MSE (+ VB) loss; ancestral (`p_sample_loop`),
 DDIM (`ddim_sample_loop`) and DDIM-inversion (`ddim_reverse_sample_loop`)
 trajectories as Python loops over device tensors; the training loss with
 the SNR-switching objective (`snr`), Min-SNR weights (`min_snr_weight`) and
-the masked-token per-patch losses. The KL losses are not ported (ROADMAP.md,
-Queue 1, "The rest of JAX diffusion/gaussian.py").
+the masked-token per-patch losses, or the variational bound alone (the KL
+losses); the diffusers-convention entry (`training_losses_diffusers`), the
+LCM one (`training_losses_startx`), and the bound in bits/dim over a whole
+chain (`calc_bpd_loop`, `prior_bpd`).
 
 Random draws: a loop takes its initial latent from the caller and its
 per-step noise from `noise_fn(k, shape)`, the k-th draw of the trajectory
@@ -54,6 +56,9 @@ class LossType(enum.Enum):
     KL = enum.auto()
     RESCALED_KL = enum.auto()
 
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
 
 class GaussianDiffusion:
     """Schedule coefficients + the diffusion's configuration."""
@@ -66,10 +71,6 @@ class GaussianDiffusion:
         loss_type: LossType = LossType.MSE,
         snr: bool = False,
     ):
-        if loss_type not in (LossType.MSE, LossType.RESCALED_MSE):
-            raise NotImplementedError(
-                f"{loss_type} is not ported yet (ROADMAP.md, Queue 1, 'The rest of JAX "
-                "diffusion/gaussian.py')")
         if snr and model_mean_type == ModelMeanType.PREVIOUS_X:
             raise NotImplementedError("the snr objective with x_{t-1} prediction")
         self.coef = coef
@@ -87,6 +88,13 @@ class GaussianDiffusion:
         them every step)."""
         self.coef = self.coef.to(device)
         return self
+
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log-variance of q(x_t | x_0)."""
+        c, nd = self.coef, x_start.ndim
+        return (extract(c.sqrt_alphas_cumprod, t, nd) * x_start,
+                extract(1.0 - c.alphas_cumprod, t, nd),
+                extract(c.log_one_minus_alphas_cumprod, t, nd))
 
     def q_sample(self, x_start, t, noise):
         """Diffuse x_start to timestep t given unit Gaussian noise."""
@@ -305,13 +313,17 @@ class GaussianDiffusion:
         return w / (snr + 1.0) if prediction_type == "v_prediction" else w / snr
 
     def training_losses(self, model_fn: ModelFn, x_start: torch.Tensor, t: torch.Tensor,
-                        noise: torch.Tensor, loss_weight: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor], loss_weight: Optional[torch.Tensor] = None,
                         mse_weight: Optional[torch.Tensor] = None,
-                        mask_loss_coef: float = 0.0, patch_size: int = 2) -> Dict[str, Any]:
+                        mask_loss_coef: float = 0.0, patch_size: int = 2,
+                        skip_noise: bool = False) -> Dict[str, Any]:
         """Per-sample losses {"loss", "mse", "vb"?, "mae"?, "pred_xstart",
         "x_t"}, each [B]. The noise is passed in (the caller draws it from its
-        generator). With a learned variance, the VB term trains the variance
-        only: the mean half of the output is detached there.
+        generator); `skip_noise` feeds x_start itself to the model (the noise
+        is then only the epsilon target). With a learned variance, the VB
+        term trains the variance only: the mean half of the output is
+        detached there. The KL loss types return {"loss"} alone: the bound's
+        term at t in bits/dim (times T for RESCALED_KL).
 
         `loss_weight` scales each sample's loss (importance sampling),
         `mse_weight` its MSE term only (Min-SNR). A model that returns
@@ -319,13 +331,20 @@ class GaussianDiffusion:
         the MSE per patch (channel mean, patch_size average pool) over its
         kept patches, and with `mask_loss_coef` > 0 an "mae" term over the
         removed ones, each as mean_flat(loss * m) * L / m.sum()."""
-        x_t = self.q_sample(x_start, t, noise)
+        if noise is None and not (skip_noise and self.model_mean_type != ModelMeanType.EPSILON):
+            raise ValueError("training_losses needs the noise (the epsilon target)")
+        x_t = x_start if skip_noise else self.q_sample(x_start, t, noise)
         model_output = model_fn(x_t, t)
         token_mask = None
         if isinstance(model_output, (tuple, list)):
             model_output, token_mask = model_output
-        output, var_values = self._split_output(model_output, x_t)
         terms: Dict[str, Any] = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self.vb_terms_bpd(model_output, x_start, x_t, t)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+        output, var_values = self._split_output(model_output, x_t)
         if var_values is not None:
             frozen = torch.cat([output.detach(), var_values], dim=-1)
             terms["vb"] = self.vb_terms_bpd(frozen, x_start, x_t, t)["output"]
@@ -366,3 +385,58 @@ class GaussianDiffusion:
         terms["pred_xstart"] = pred_xstart
         terms["x_t"] = x_t
         return terms
+
+    def training_losses_diffusers(self, model_fn: ModelFn, x_start: torch.Tensor,
+                                  timestep: torch.Tensor, noise: Optional[torch.Tensor],
+                                  skip_noise: bool = False, return_startx: bool = False):
+        """The diffusers-convention entry: `model_fn(x_t, timestep=t)`, the
+        math of `training_losses`. With `return_startx` and epsilon
+        prediction: (eps, pred_xstart, x_t) from one model call, with t as
+        given (a spaced diffusion does not map it there, as in JAX)."""
+        t = timestep
+        x_t = x_start if skip_noise else self.q_sample(x_start, t, noise)
+        wrapped = lambda x, tt: model_fn(x, timestep=tt)
+        if return_startx and self.model_mean_type == ModelMeanType.EPSILON:
+            output, _ = self._split_output(wrapped(x_t, t), x_t)
+            return output, self.predict_xstart_from_eps(x_t, t, output), x_t
+        return self.training_losses(wrapped, x_start, t, noise, skip_noise=skip_noise)
+
+    def training_losses_startx(self, model_fn: ModelFn, x_start: torch.Tensor,
+                               t: torch.Tensor, noise: torch.Tensor):
+        """The LCM entry: (eps, pred_xstart, x_t) from one model call."""
+        x_t = self.q_sample(x_start, t, noise)
+        output, _ = self._split_output(model_fn(x_t, t), x_t)
+        return output, self.predict_xstart_from_eps(x_t, t, output), x_t
+
+    # --------------------------------------------------------------- NLL eval
+    def prior_bpd(self, x_start: torch.Tensor) -> torch.Tensor:
+        """The bound's prior term KL(q(x_T | x_0) || N(0, I)) in bits/dim, [B]."""
+        t = self._loop_t(self.num_timesteps - 1, x_start)
+        mean, _, log_variance = self.q_mean_variance(x_start, t)
+        zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
+        return mean_flat(normal_kl(mean, log_variance, zero, zero)) / math.log(2.0)
+
+    def calc_bpd_loop(self, model_fn: ModelFn, x_start: torch.Tensor, noise_fn: NoiseFn,
+                      clip_denoised: bool = True,
+                      timestep_map: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The whole variational bound in bits/dim: for t = T-1 .. 0, x_t from
+        draw k = T-1-t and the bound's term at t. Returns total_bpd and
+        prior_bpd [B], and vb, xstart_mse and mse [B, T] whose column j is
+        timestep T-1-j (JAX's order). `timestep_map` maps the loop's t to
+        the timestep the model is fed (a spaced chain's `timestep_map`)."""
+        T = self.num_timesteps
+        cols = {"vb": [], "xstart_mse": [], "mse": []}
+        for k in range(T):
+            t = self._loop_t(T - 1 - k, x_start)
+            t_model = t if timestep_map is None else timestep_map.to(t.device)[t]
+            noise = noise_fn(k, x_start.shape).to(x_start.device, x_start.dtype)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self.vb_terms_bpd(model_fn(x_t, t_model), x_start, x_t, t,
+                                    clip_denoised=clip_denoised)
+            eps = self.predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            cols["vb"].append(out["output"])
+            cols["xstart_mse"].append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            cols["mse"].append(mean_flat((eps - noise) ** 2))
+        seq = {k: torch.stack(v, dim=1) for k, v in cols.items()}
+        prior = self.prior_bpd(x_start)
+        return {"total_bpd": seq["vb"].sum(dim=1) + prior, "prior_bpd": prior, **seq}

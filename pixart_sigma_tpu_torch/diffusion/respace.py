@@ -2,10 +2,11 @@
 
 Port of pixart_sigma_tpu/diffusion/respace.py (`space_timesteps`,
 `SpacedDiffusion`). Every entry point that takes the model (training
-losses, `p_sample` and so `p_sample_loop`, `ddim_sample_loop`,
-`ddim_reverse_sample_loop`) feeds it the original-chain timestep, not the
-loop index. JAX's inversion loop does so only when given `timestep_map`;
-upstream's wraps the model there too.
+losses, `training_losses_startx`, `p_sample` and so `p_sample_loop`,
+`ddim_sample_loop`, `ddim_reverse_sample_loop`) feeds it the original-chain
+timestep, not the loop index. JAX's inversion loop does so only when given
+`timestep_map`; upstream's wraps the model there too. `calc_bpd_loop`, as
+JAX's, maps only through the `timestep_map` it is given.
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ class SpacedDiffusion(GaussianDiffusion):
 
     def training_losses(self, model_fn, *args, **kwargs):
         return super().training_losses(self._wrap(model_fn), *args, **kwargs)
+
+    def training_losses_startx(self, model_fn, *args, **kwargs):
+        return super().training_losses_startx(self._wrap(model_fn), *args, **kwargs)
 
     def p_sample(self, model_fn, *args, **kwargs):
         return super().p_sample(self._wrap(model_fn), *args, **kwargs)

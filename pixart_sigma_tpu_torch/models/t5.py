@@ -298,6 +298,13 @@ def _load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def pseudo_word_vector(word: str, dim: int) -> np.ndarray:
+    """The offline hash embedding of one word: a unit-variance fp16 vector
+    seeded by the first 4 bytes of its sha256."""
+    seed = int.from_bytes(hashlib.sha256(word.encode()).digest()[:4], "little")
+    return np.random.RandomState(seed).randn(dim).astype(np.float16)
+
+
 class PseudoT5Embedder:
     """Offline hash embedding: each word maps to a fixed unit-variance fp16
     vector seeded by a stable hash, padded to model_max_length; the same
@@ -314,7 +321,6 @@ class PseudoT5Embedder:
         mask = np.zeros((B, L), np.int32)
         for i, text in enumerate(texts):
             for j, word in enumerate(text.split()[:L]):
-                seed = int.from_bytes(hashlib.sha256(word.encode()).digest()[:4], "little")
-                y[i, j] = np.random.RandomState(seed).randn(self.dim).astype(np.float16)
+                y[i, j] = pseudo_word_vector(word, self.dim)
                 mask[i, j] = 1
         return torch.from_numpy(y), torch.from_numpy(mask)

@@ -4,14 +4,20 @@ Port of pixart_sigma_tpu/models/vae.py. Module names follow diffusers'
 AutoencoderKL (`decoder.mid_block.resnets.0.conv1`, ...), so
 `utils.checkpoint.vae_state_dict_from_jax` and diffusers checkpoints load
 directly. NHWC at the public boundary, NCHW inside. `tiled_decode` decodes
-2K/4K latents tile by tile. The mid blocks' single-head attention is plain
-matmuls over all H/8 x W/8 tokens, as in the JAX package: its f32 logits
-take 64 MiB per image at 512px, 1 GiB at 1024px and 16 GiB at 2048px.
+2K/4K latents tile by tile. `load_flax_vae` reads the directory the VAE
+trainer (`scripts.train_vae`, or the JAX package's) writes, a
+`vae_config.json` and the flax msgpack `vae_params.msgpack`, and
+`save_flax_vae` writes one that the JAX package's `load_flax_vae` reads.
+The mid blocks' single-head attention is plain matmuls over all H/8 x W/8
+tokens, as in the JAX package: its f32 logits take 64 MiB per image at
+512px, 1 GiB at 1024px and 16 GiB at 2048px.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Optional, Tuple, Union
 
 import torch
@@ -232,6 +238,63 @@ def build_vae(cfg: VAEConfig, device: Union[str, torch.device] = "cuda") -> Auto
     with dev:
         vae = AutoencoderKL(cfg)
     return vae.to(cfg.dtype).eval().requires_grad_(False)
+
+
+def init_vae_weights(vae: AutoencoderKL, generator: torch.Generator) -> AutoencoderKL:
+    """flax's default init, drawn from `generator` in module order: conv and
+    linear kernels lecun-normal (truncated at two deviations, scaled to
+    variance 1 / fan_in), biases 0, norm scales 1."""
+    with torch.no_grad():
+        for m in vae.modules():
+            if isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = (m.weight[0].numel() ** -0.5) / 0.87962566103423978
+                w = torch.empty(m.weight.shape, dtype=torch.float32, device=generator.device)
+                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+                m.weight.copy_(w)
+                m.bias.zero_()
+    return vae
+
+
+VAE_CONFIG_FILE, VAE_PARAMS_FILE = "vae_config.json", "vae_params.msgpack"
+VAE_CONFIG_KEYS = ("in_channels", "latent_channels", "block_out_channels", "layers_per_block",
+                   "norm_num_groups", "scaling_factor")
+
+
+def load_flax_vae(path: str, device: Union[str, torch.device] = "cuda") -> AutoencoderKL:
+    """The VAE of a `scripts.train_vae` directory (vae_config.json +
+    vae_params.msgpack, the flax tree {"params": ...}), encoder and decoder,
+    f32, frozen."""
+    from pixart_sigma_tpu_torch.utils.checkpoint import vae_state_dict_from_jax
+    from pixart_sigma_tpu_torch.utils.flax_msgpack import from_bytes
+
+    with open(os.path.join(path, VAE_CONFIG_FILE)) as f:
+        raw = json.load(f)
+    raw["block_out_channels"] = tuple(raw["block_out_channels"])
+    cfg = VAEConfig(**raw)
+    with open(os.path.join(path, VAE_PARAMS_FILE), "rb") as f:
+        params = from_bytes(f.read())["params"]
+    vae = build_vae(cfg, device=device)
+    vae.load_diffusers_state_dict(vae_state_dict_from_jax(params, cfg))
+    return vae
+
+
+def save_flax_vae(vae: AutoencoderKL, path: str) -> None:
+    """Write `vae` as the VAE trainer's directory, which the JAX package's
+    `load_flax_vae` reads too."""
+    from pixart_sigma_tpu_torch.utils.checkpoint import vae_state_dict_to_jax
+    from pixart_sigma_tpu_torch.utils.flax_msgpack import to_bytes
+
+    os.makedirs(path, exist_ok=True)
+    tree = {"params": vae_state_dict_to_jax(vae.state_dict(), vae.cfg)}
+    with open(os.path.join(path, VAE_PARAMS_FILE), "wb") as f:
+        f.write(to_bytes(tree))
+    cfg = {k: getattr(vae.cfg, k) for k in VAE_CONFIG_KEYS}
+    cfg["block_out_channels"] = list(cfg["block_out_channels"])
+    with open(os.path.join(path, VAE_CONFIG_FILE), "w") as f:
+        json.dump(cfg, f)
 
 
 def load_diffusers_vae(path: str, cfg: Optional[VAEConfig] = None,

@@ -56,7 +56,9 @@ def parse_args(argv=None):
                         "(overrides the interval)")
     p.add_argument("--cache-span", type=str, default="7:21",
                    help="k1:k2 layer span cached by block caching")
-    p.add_argument("--vae-flax", default=None, help="a JAX VAE directory (not read by the port)")
+    p.add_argument("--vae-flax", default=None,
+                   help="a VAE directory of scripts.train_vae (vae_config.json + "
+                        "vae_params.msgpack); instead of --vae-path")
     p.add_argument("--pseudo-t5", type=int, default=None, metavar="DIM",
                    help="hash-embedding text encoder of this dim; the CFG null is the "
                         "model's learned null caption")

@@ -343,16 +343,13 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--seq-parallel needs the parallelism of ROADMAP.md, Queue 1, 'Parallelism', "
             "which the port does not have yet")
-    if getattr(args, "vae_flax", None):
-        raise NotImplementedError(
-            "--vae-flax reads a JAX training directory, which the port does not read "
-            "(ROADMAP.md, Queue 3: orbax checkpoints); pass --vae-path")
 
 
 def load_encoders(args, model, scale: float, device):
     """(text encoder, its null-caption row or None, VAE) from the flags:
     `--pseudo-t5 DIM` conditions on the model's learned null caption, as the
-    JAX entry points do; `--vae-path` is a diffusers `.safetensors`."""
+    JAX entry points do; `--vae-flax` is a `scripts.train_vae` directory,
+    `--vae-path` a diffusers `.safetensors`."""
     t5 = y_null_row = vae = None
     if args.pseudo_t5:
         from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
@@ -365,7 +362,11 @@ def load_encoders(args, model, scale: float, device):
         t5 = T5Embedder.from_pretrained(args.t5_path,
                                         model_max_length=model.cfg.model_max_length,
                                         device=device)
-    if args.vae_path:
+    if args.vae_flax:
+        from pixart_sigma_tpu_torch.models.vae import load_flax_vae
+
+        vae = load_flax_vae(args.vae_flax, device=device)
+    elif args.vae_path:
         from pixart_sigma_tpu_torch.models.vae import VAEConfig, load_diffusers_vae
 
         vae = load_diffusers_vae(args.vae_path, VAEConfig.sdxl(scaling_factor=scale),
@@ -419,7 +420,9 @@ def parse_args(argv=None):
     p.add_argument("--t5-path", default=None, help="a local HF T5 encoder directory")
     p.add_argument("--pseudo-t5", type=int, default=None, metavar="DIM")
     p.add_argument("--vae-path", default=None, help="a diffusers VAE .safetensors")
-    p.add_argument("--vae-flax", default=None, help="a JAX VAE directory (not read by the port)")
+    p.add_argument("--vae-flax", default=None,
+                   help="a VAE directory of scripts.train_vae (vae_config.json + "
+                        "vae_params.msgpack)")
     p.add_argument("--scale-factor", type=float, default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)

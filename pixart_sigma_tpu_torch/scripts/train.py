@@ -4,10 +4,10 @@ Port of scripts/train.py. `--load-from` starts the weights from a `.pth` or
 a diffusers `.safetensors`; `--resume-from` (a checkpoint, or "latest" of
 the run) restores the weights (not the EMA), the optimizer and the LR
 schedule's position; `--debug` trains at batch 2 and logs every step. The
-VAE comes from the config's `vae_pretrained` (a diffusers `.safetensors`)
-when it is set, for image-mode batches and validation images; T5 from
-`t5_pretrained` (a local HF directory) when the data holds prompts
-(`load_t5_feat=False`).
+VAE comes from the config's `vae_pretrained` (a diffusers `.safetensors`,
+or a directory `scripts.train_vae` wrote) when it is set, for image-mode
+batches and validation images; T5 from `t5_pretrained` (a local HF
+directory) when the data holds prompts (`load_t5_feat=False`).
 
     python -m pixart_sigma_tpu_torch.scripts.train CONFIG [--work-dir DIR] \\
         [--load-from M.pth] [--resume-from latest] [--max-steps N] [--debug] \\
@@ -39,17 +39,16 @@ def parse_args(argv=None):
 
 
 def load_vae(config, device):
-    """The config's `vae_pretrained` (a diffusers `.safetensors`) as an SDXL
-    VAE at the config's scale factor, or None when unset."""
+    """The config's `vae_pretrained`: a diffusers `.safetensors` as an SDXL
+    VAE at the config's scale factor, or a `scripts.train_vae` directory;
+    None when unset."""
     path = config.get("vae_pretrained")
     if not path:
         return None
+    from pixart_sigma_tpu_torch.models.vae import VAEConfig, load_diffusers_vae, load_flax_vae
+
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"vae_pretrained {path} is a directory (a VAE written by scripts/train_vae.py), "
-            "which the port does not read (ROADMAP.md, Queue 1, 'The remaining front ends'); "
-            "give a diffusers .safetensors")
-    from pixart_sigma_tpu_torch.models.vae import VAEConfig, load_diffusers_vae
+        return load_flax_vae(path, device=device)
 
     return load_diffusers_vae(path, VAEConfig.sdxl(scaling_factor=config.scale_factor),
                               device=device)

@@ -9,7 +9,7 @@ training (port of tools/extract_features.py).
   image size.
 
     python -m pixart_sigma_tpu_torch.tools.extract_features --root DIR \\
-        [--t5-path HF_DIR] [--vae-path VAE.safetensors] [--resolution 512] \\
+        [--t5-path HF_DIR] [--vae-path VAE.safetensors | --vae-flax DIR] [--resolution 512] \\
         [--multi-scale] [--max-length 300] [--batch 8] [--device cpu]
 
 Both halves read the data_info.json layout of the Sigma dialect
@@ -17,7 +17,7 @@ Both halves read the data_info.json layout of the Sigma dialect
 replaced by "InternImgs", as the datasets do. No tokenizer or weights ship
 with the repository: `--t5-path` names a local HF T5 checkpoint directory
 with its tokenizer, `--vae-path` a diffusers AutoencoderKL `.safetensors`
-file.
+file, `--vae-flax` a directory `scripts.train_vae` wrote.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 
 from pixart_sigma_tpu_torch.data.aspect import aspect_ratio_table, get_closest_ratio
 from pixart_sigma_tpu_torch.data.transforms import default_train, multiscale_train, open_image
-from pixart_sigma_tpu_torch.models.vae import load_diffusers_vae
+from pixart_sigma_tpu_torch.models.vae import load_diffusers_vae, load_flax_vae
 
 
 def _stem(item: Dict[str, Any]) -> str:
@@ -99,16 +99,13 @@ def main(argv=None) -> None:
     p.add_argument("--json", default="data_info.json")
     p.add_argument("--t5-path", help="local HF T5 checkpoint directory: caption features")
     p.add_argument("--vae-path", help="diffusers VAE .safetensors: image latents")
-    p.add_argument("--vae-flax", help="a JAX VAE training directory (not read by the port)")
+    p.add_argument("--vae-flax", help="a VAE directory of scripts.train_vae: image latents")
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--max-length", type=int, default=300)
     p.add_argument("--multi-scale", action="store_true")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.vae_flax:
-        raise NotImplementedError("--vae-flax reads a JAX training directory, which the port "
-                                  "does not read (ROADMAP.md, Queue 3: orbax checkpoints)")
     with open(os.path.join(args.root, args.json)) as f:
         meta = json.load(f)
     if args.t5_path:
@@ -117,8 +114,9 @@ def main(argv=None) -> None:
         t5 = T5Embedder.from_pretrained(args.t5_path, model_max_length=args.max_length,
                                         device=args.device)
         print(f"caption features -> {extract_caption_t5(args.root, meta, t5, args.batch)}")
-    if args.vae_path:
-        vae = load_diffusers_vae(args.vae_path, device=args.device)
+    if args.vae_path or args.vae_flax:
+        vae = (load_flax_vae(args.vae_flax, device=args.device) if args.vae_flax
+               else load_diffusers_vae(args.vae_path, device=args.device))
         out = extract_img_vae(args.root, meta, vae, args.resolution, args.multi_scale, args.batch)
         print(f"vae latents -> {out}")
 

@@ -40,8 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--noise-dir", default="noise")
     p.add_argument("--base-latent-dir", default="base_latents")
     p.add_argument("--save-img", action="store_true",
-                   help="also decode and save PNGs (needs --vae-path)")
-    p.add_argument("--vae-flax", default=None, help="a JAX VAE directory (not read by the port)")
+                   help="also decode and save PNGs (needs --vae-flax or --vae-path)")
+    p.add_argument("--vae-flax", default=None, help="a VAE directory of scripts.train_vae")
     p.add_argument("--vae-path", default=None, help="a diffusers VAE .safetensors")
     p.add_argument("--scale-factor", type=float, default=0.13025)
     p.add_argument("--img-dir", default="DMD_images")
@@ -79,17 +79,13 @@ def main(argv=None):
     from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
-    if args.vae_flax:
-        raise NotImplementedError(
-            "--vae-flax reads a VAE written by scripts/train_vae.py, which the port does not "
-            "read (ROADMAP.md, Queue 1, 'The remaining front ends'); pass --vae-path")
     if os.path.isdir(args.model_path) and not any(
             f.endswith(".safetensors") for f in os.listdir(args.model_path)):
         raise NotImplementedError(
             f"--model-path {args.model_path} is an orbax directory, which the port does not "
             "read (ROADMAP.md, Queue 3, 'What the port does not read')")
-    if args.save_img and not args.vae_path:
-        raise SystemExit("--save-img needs --vae-path")
+    if args.save_img and not (args.vae_flax or args.vae_path):
+        raise SystemExit("--save-img needs --vae-flax or --vae-path")
     device = resolve_device(args.device)
     with open(os.path.join(args.data_root, "data_info.json")) as f:
         meta = json.load(f)
@@ -103,10 +99,15 @@ def main(argv=None):
                             load_ema=args.load_ema)
     vae = None
     if args.save_img:
-        from pixart_sigma_tpu_torch.models.vae import VAEConfig, load_diffusers_vae
+        from pixart_sigma_tpu_torch.models.vae import (
+            VAEConfig,
+            load_diffusers_vae,
+            load_flax_vae,
+        )
 
-        vae = load_diffusers_vae(args.vae_path, VAEConfig.sdxl(scaling_factor=args.scale_factor),
-                                 device=device)
+        vae = (load_flax_vae(args.vae_flax, device=device) if args.vae_flax else
+               load_diffusers_vae(args.vae_path, VAEConfig.sdxl(scaling_factor=args.scale_factor),
+                                  device=device))
     pipe = PixArtPipeline(model, vae=vae, scale_factor=args.scale_factor,
                           base_resolution=image_size, device=device)
     L = model.cfg.model_max_length

@@ -10,11 +10,13 @@ teacher, and the fake-score network, which is trained. Per step:
      both without gradients; coeff = (fake - real)·sqrt(b / a); the
      normalised gradient trick, mse(x0, detached(x0 - weight·coeff)) with a
      detached weight;
-  3. the fake-score network's eps-MSE on the detached x0.
+  3. optionally, the LPIPS regression: the first max(B // 2, 1) x0
+     decoded (`decode_fn`) and clipped to [-1, 1] against the teacher's
+     `base_latent` decoded likewise, `lpips_fn` averaged and weighed by
+     `regression_weight` (the CLI, as JAX's, passes no `lpips_fn`);
+  4. the fake-score network's eps-MSE on the detached x0.
 
-Each network has its own optimizer. JAX's optional LPIPS regression of the
-decoded x0 (`lpips_fn`), which its CLI never passes, waits for LPIPS
-(ROADMAP.md, Queue 1, 'Evaluation').
+Each network has its own optimizer.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from pixart_sigma_tpu_torch.diffusion.schedules import extract
 
 
 def make_dmd_train_steps(model_cfg, diffusion: GaussianDiffusion, *, start_ts: int = 400,
-                         cfg_scale: float = 4.5,
+                         cfg_scale: float = 4.5, regression_weight: float = 0.25,
+                         lpips_fn: Optional[Callable] = None,
+                         decode_fn: Optional[Callable] = None,
                          generator_optimizer: Optional[torch.optim.Optimizer] = None,
                          fake_optimizer: Optional[torch.optim.Optimizer] = None
                          ) -> Tuple[Callable, Callable, Callable]:
@@ -39,8 +43,10 @@ def make_dmd_train_steps(model_cfg, diffusion: GaussianDiffusion, *, start_ts: i
     `generator_optimizer`; fake_step(fake, x0, batch, *, generator=None,
     t=None, noise=None) -> metrics, one update by `fake_optimizer`;
     one_step_generate(model, noise, y, y_mask) -> x0. batch: init_noise, y,
-    y_mask, uncond_y. t (in [1, start_ts)) and then the noise come from
-    `generator` unless given."""
+    y_mask, uncond_y, and base_latent for the regression. t (in [1,
+    start_ts)) and then the noise come from `generator` unless given.
+    lpips_fn(img, base_img) -> [B] distances; decode_fn(latents) -> images
+    in [-1, 1] (the caller's VAE decode of scaled latents)."""
     acp = diffusion.coef.alphas_cumprod
     C = model_cfg.in_channels
 
@@ -88,11 +94,21 @@ def make_dmd_train_steps(model_cfg, diffusion: GaussianDiffusion, *, start_ts: i
                             + 1e-5)
             target = x0 - weight * coeff
         dm_loss = ((x0 - target) ** 2).mean()
+        metrics = {"dm_loss": float(dm_loss.detach())}
+        loss = dm_loss
+        if lpips_fn is not None and decode_fn is not None and "base_latent" in batch:
+            rb = max(x0.shape[0] // 2, 1)
+            imgs = decode_fn(x0[:rb]).clamp(-1.0, 1.0)
+            with torch.no_grad():
+                base = decode_fn(batch["base_latent"][:rb]).clamp(-1.0, 1.0)
+            reg = lpips_fn(imgs, base).mean() * regression_weight
+            metrics["lpips_loss"] = float(reg.detach())
+            loss = loss + reg
         generator_optimizer.zero_grad(set_to_none=True)
-        dm_loss.backward()
+        loss.backward()
         generator_optimizer.step()
-        dm = float(dm_loss.detach())
-        return {"dm_loss": dm, "loss": dm}, x0.detach()
+        metrics["loss"] = float(loss.detach())
+        return metrics, x0.detach()
 
     def fake_step(fake, x0, batch: Dict[str, torch.Tensor], *,
                   generator: Optional[torch.Generator] = None,

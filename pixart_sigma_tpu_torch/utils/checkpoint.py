@@ -3,8 +3,9 @@
 - `state_dict_from_jax`: the JAX package's PixArt param tree (nested dicts of
   arrays, scan-stacked `blocks_scan_<g>` or unrolled `blocks_<i>`) -> the
   port's state dict, which uses the upstream `.pth` names.
-- `vae_state_dict_from_jax`: the JAX AutoencoderKL param tree -> diffusers
-  AutoencoderKL names (the port's VAE module names).
+- `vae_state_dict_from_jax` / `vae_state_dict_to_jax`: the JAX
+  AutoencoderKL param tree <-> diffusers AutoencoderKL names (the port's VAE
+  module names).
 - `t5_state_dict_from_jax`: the JAX T5Encoder param tree -> HF
   `T5EncoderModel` names (the port's T5 module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
@@ -160,66 +161,95 @@ def jax_param_path(name: str, cfg) -> str:
     return f"{module}/{leaf}" if module else leaf
 
 
+def _vae_names(vae_cfg, encoder: bool):
+    """(diffusers name, JAX param path, kind) of every VAE weight; kind is
+    "conv" (HWIO <-> OIHW), "linear" (transposed) or "" (as is)."""
+    n_blocks = len(vae_cfg.block_out_channels)
+    out = []
+
+    def conv(name, path):
+        out.extend([(f"{name}.weight", path + ("kernel",), "conv"),
+                    (f"{name}.bias", path + ("bias",), "")])
+
+    def norm(name, path):
+        out.extend([(f"{name}.weight", path + ("scale",), ""),
+                    (f"{name}.bias", path + ("bias",), "")])
+
+    def linear(name, path):
+        out.extend([(f"{name}.weight", path + ("kernel",), "linear"),
+                    (f"{name}.bias", path + ("bias",), "")])
+
+    def resnet(name, path, shortcut):
+        norm(f"{name}.norm1", path + ("norm1",))
+        conv(f"{name}.conv1", path + ("conv1",))
+        norm(f"{name}.norm2", path + ("norm2",))
+        conv(f"{name}.conv2", path + ("conv2",))
+        if shortcut:
+            conv(f"{name}.conv_shortcut", path + ("conv_shortcut",))
+
+    def mid(name, path):
+        resnet(f"{name}.mid_block.resnets.0", path + ("mid_res_0",), False)
+        attn = path + ("mid_attn",)
+        norm(f"{name}.mid_block.attentions.0.group_norm", attn + ("norm",))
+        for proj in ("to_q", "to_k", "to_v"):
+            linear(f"{name}.mid_block.attentions.0.{proj}", attn + (proj,))
+        linear(f"{name}.mid_block.attentions.0.to_out.0", attn + ("to_out",))
+        resnet(f"{name}.mid_block.resnets.1", path + ("mid_res_1",), False)
+        norm(f"{name}.conv_norm_out", path + ("conv_norm_out",))
+        conv(f"{name}.conv_in", path + ("conv_in",))
+        conv(f"{name}.conv_out", path + ("conv_out",))
+
+    ch = vae_cfg.block_out_channels
+    if encoder:
+        mid("encoder", ("encoder",))
+        for i in range(n_blocks):
+            for j in range(vae_cfg.layers_per_block):
+                cin = ch[max(i - 1, 0)] if j == 0 else ch[i]
+                resnet(f"encoder.down_blocks.{i}.resnets.{j}", ("encoder", f"down_{i}_res_{j}"),
+                       cin != ch[i])
+            if i < n_blocks - 1:
+                conv(f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                     ("encoder", f"down_{i}_downsample"))
+        conv("quant_conv", ("quant_conv",))
+    mid("decoder", ("decoder",))
+    rev = list(reversed(ch))
+    for i in range(n_blocks):
+        for j in range(vae_cfg.layers_per_block + 1):
+            cin = rev[max(i - 1, 0)] if j == 0 else rev[i]
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", ("decoder", f"up_{i}_res_{j}"),
+                   cin != rev[i])
+        if i < n_blocks - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", ("decoder", f"up_{i}_upsample"))
+    conv("post_quant_conv", ("post_quant_conv",))
+    return out
+
+
 def vae_state_dict_from_jax(params: Dict[str, Any], vae_cfg) -> Dict[str, torch.Tensor]:
     """JAX AutoencoderKL params -> diffusers names (the inverse of the JAX
     package's `diffusers_vae_to_flax`). The encoder is mapped when present."""
     params = _numpy_tree(params)
-    n_blocks = len(vae_cfg.block_out_channels)
     sd: Dict[str, np.ndarray] = {}
-
-    def conv(name, tree):  # HWIO -> OIHW
-        sd[f"{name}.weight"] = tree["kernel"].transpose(3, 2, 0, 1)
-        sd[f"{name}.bias"] = tree["bias"]
-
-    def norm(name, tree):
-        sd[f"{name}.weight"] = tree["scale"]
-        sd[f"{name}.bias"] = tree["bias"]
-
-    def linear(name, tree):
-        sd[f"{name}.weight"] = tree["kernel"].T
-        sd[f"{name}.bias"] = tree["bias"]
-
-    def resnet(name, tree):
-        norm(f"{name}.norm1", tree["norm1"])
-        conv(f"{name}.conv1", tree["conv1"])
-        norm(f"{name}.norm2", tree["norm2"])
-        conv(f"{name}.conv2", tree["conv2"])
-        if "conv_shortcut" in tree:
-            conv(f"{name}.conv_shortcut", tree["conv_shortcut"])
-
-    def attn(name, tree):
-        norm(f"{name}.group_norm", tree["norm"])
-        for proj in ("to_q", "to_k", "to_v"):
-            linear(f"{name}.{proj}", tree[proj])
-        linear(f"{name}.to_out.0", tree["to_out"])
-
-    def mid(name, tree):
-        resnet(f"{name}.mid_block.resnets.0", tree["mid_res_0"])
-        attn(f"{name}.mid_block.attentions.0", tree["mid_attn"])
-        resnet(f"{name}.mid_block.resnets.1", tree["mid_res_1"])
-        norm(f"{name}.conv_norm_out", tree["conv_norm_out"])
-        conv(f"{name}.conv_in", tree["conv_in"])
-        conv(f"{name}.conv_out", tree["conv_out"])
-
-    if "encoder" in params:
-        enc = params["encoder"]
-        mid("encoder", enc)
-        for i in range(n_blocks):
-            for j in range(vae_cfg.layers_per_block):
-                resnet(f"encoder.down_blocks.{i}.resnets.{j}", enc[f"down_{i}_res_{j}"])
-            if i < n_blocks - 1:
-                conv(f"encoder.down_blocks.{i}.downsamplers.0.conv",
-                     enc[f"down_{i}_downsample"])
-        conv("quant_conv", params["quant_conv"])
-    dec = params["decoder"]
-    mid("decoder", dec)
-    for i in range(n_blocks):
-        for j in range(vae_cfg.layers_per_block + 1):
-            resnet(f"decoder.up_blocks.{i}.resnets.{j}", dec[f"up_{i}_res_{j}"])
-        if i < n_blocks - 1:
-            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", dec[f"up_{i}_upsample"])
-    conv("post_quant_conv", params["post_quant_conv"])
+    for name, path, kind in _vae_names(vae_cfg, encoder="encoder" in params):
+        v = params
+        for part in path:
+            v = v[part]
+        sd[name] = v.transpose(3, 2, 0, 1) if kind == "conv" else v.T if kind == "linear" else v
     return _tensors(sd)
+
+
+def vae_state_dict_to_jax(sd: Dict[str, torch.Tensor], vae_cfg) -> Dict[str, Any]:
+    """diffusers-named VAE weights (encoder and decoder) -> the JAX package's
+    AutoencoderKL param tree of f32 numpy arrays (the inverse of
+    `vae_state_dict_from_jax`)."""
+    tree: Dict[str, Any] = {}
+    for name, path, kind in _vae_names(vae_cfg, encoder=True):
+        v = sd[name].detach().float().cpu().numpy()
+        v = v.transpose(2, 3, 1, 0) if kind == "conv" else v.T if kind == "linear" else v
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+    return tree
 
 
 def load_pth(model: nn.Module, path: str, load_ema: bool = False) -> nn.Module:

@@ -1,6 +1,7 @@
 """The CUDA attention kernels (forward, with the logsumexp, and backward;
 flash and headsmajor included) against their plain PyTorch versions, on the
-card.
+card; the bits/dim loop through them; InceptionV3 and LPIPS on the card
+against the CPU.
 
 Marked `gpu`; each test skips without a card. The file imports no JAX, so it
 also runs where JAX is not installed:
@@ -657,3 +658,75 @@ def test_int8_product_refuses_what_int_mm_does_not_take(cuda):
                  (q(32, 64), q(36, 64).t()), (q(64, 32).t(), q(40, 64).t())):
         with pytest.raises(ValueError):
             int8_accumulate(a, b)
+
+
+def test_calc_bpd_loop_runs_the_kernels(toy_pipeline):
+    """The bits/dim over a 6-step spaced chain: one onepass and one
+    allheads launch per block and model call, against plain attention
+    within 2e-2 per timestep (relative L2 over the batch)."""
+    from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
+    from pixart_sigma_tpu_torch.diffusion.noise import generator_noise
+
+    model, dev = toy_pipeline.model, torch.device("cuda")
+    diffusion = IDDPM(timestep_respacing="6").to(dev)
+    y, mask = toy_pipeline.t5.get_text_embeddings(["a red cat", "a dog"])
+    x0 = torch.rand((2, 16, 16, 4), generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
+
+    def bpd():
+        fn = lambda x, t: model(x, t.float(), y.to(dev), mask.to(dev)).float()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with torch.no_grad():
+            return diffusion.calc_bpd_loop(fn, x0, generator_noise(gen),
+                                           timestep_map=diffusion.timestep_map)
+
+    for c in (onepass_attention, crossattn_allheads):
+        c.launches = 0
+    got = bpd()
+    assert [onepass_attention.launches, crossattn_allheads.launches] == [12, 12]
+    for mod in model.modules():
+        if hasattr(mod, "attn_impl"):
+            mod.attn_impl = "reference"
+    try:
+        want = bpd()
+    finally:
+        for mod in model.modules():
+            if hasattr(mod, "attn_impl"):
+                mod.attn_impl = "auto"
+    rel = (got["vb"] - want["vb"]).norm(dim=0) / want["vb"].norm(dim=0)
+    assert torch.isfinite(got["total_bpd"]).all() and float(rel.max()) <= 2e-2
+
+
+@pytest.mark.parametrize("side", [128, 300])
+def test_inception_on_the_card_matches_the_cpu(cuda, side):
+    """The fixed-seed random extractor, f32 with TF32 off, through the resize
+    to 299 (an enlargement, and a shrink): relative L2 <= 1e-3."""
+    from pixart_sigma_tpu_torch.models.inception import (
+        extract_activations,
+        random_inception_params,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        imgs = np.random.RandomState(4).uniform(0, 1, (3, side, side, 3)).astype(np.float32)
+        got = extract_activations(random_inception_params(0, cuda), imgs, batch=2)
+        want = extract_activations(random_inception_params(0, "cpu"), imgs, batch=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-3
+
+
+def test_lpips_on_the_card_matches_the_cpu(cuda):
+    from pixart_sigma_tpu_torch.models.lpips import build_lpips
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        x0, x1 = (torch.from_numpy(np.random.RandomState(s).uniform(
+            -1, 1, (2, 64, 64, 3)).astype(np.float32)) for s in (5, 6))
+        with torch.no_grad():
+            got = build_lpips(cuda)(x0.to(cuda), x1.to(cuda)).cpu()
+            want = build_lpips("cpu")(x0, x1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert float((got - want).norm() / want.norm()) <= 1e-3

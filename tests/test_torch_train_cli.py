@@ -9,7 +9,8 @@ CPU, as JAX's scripts/train.py is driven.
   weights give the same first-step loss, bit for bit;
 - `--resume-from latest` after 2 steps gives the weights and EMA of 3
   uninterrupted steps, bit for bit;
-- a `vae_pretrained` directory raises;
+- a `vae_pretrained` directory is read as `scripts.train_vae` writes it,
+  and raises without its files;
 - the five parallelism keys of the JAX trainer raise when they differ from
   their defaults, and no shipped config sets one.
 """
@@ -140,12 +141,22 @@ def test_resume_from_latest_is_bit_exact(files):
 
 
 def test_a_vae_directory_raises(files, tmp_path):
+    """Without vae_config.json and vae_params.msgpack the directory raises;
+    with them (as `scripts.train_vae` writes them) its VAE is loaded."""
+    from pixart_sigma_tpu_torch.models.vae import save_flax_vae
+
     (tmp_path / "toy_vae").mkdir()
     config = tmp_path / "dir_vae.py"
     config.write_text(f"_base_ = [{files['config']!r}]\n"
                       f"vae_pretrained = {str(tmp_path / 'toy_vae')!r}\n")
-    with pytest.raises(NotImplementedError, match="remaining front ends"):
+    with pytest.raises(FileNotFoundError, match="vae_config.json"):
         train_cli.main([str(config), "--work-dir", str(tmp_path / "w"), "--device", "cpu"])
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    save_flax_vae(vae, str(tmp_path / "toy_vae"))
+    got = train_cli.load_vae(read_config(str(config)), torch.device("cpu"))
+    assert got.cfg == vae.cfg
+    for k, v in vae.state_dict().items():
+        assert torch.equal(got.state_dict()[k], v), k
 
 
 @pytest.mark.parametrize("key,value", [

@@ -181,8 +181,23 @@ def test_extract_features_round_trip(tmp_path, encoders, multi_scale):
 
 
 def test_extract_features_refuses_a_jax_vae_directory(tmp_path):
+    """--vae-flax reads the directory `scripts.train_vae` writes (the files
+    hold its encoder's posteriors); a directory without them is refused."""
+    from pixart_sigma_tpu_torch.models.vae import save_flax_vae
     from pixart_sigma_tpu_torch.tools.extract_features import main
 
-    root = write_image_dataset(str(tmp_path), SIZES[:1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--root", root, "--vae-flax", str(tmp_path), "--device", "cpu"])
+    root = write_image_dataset(str(tmp_path / "data"), SIZES[:2])
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="vae_config.json"):
+        main(["--root", root, "--vae-flax", str(tmp_path / "empty"), "--device", "cpu"])
+    vae = build_vae(VAEConfig.small_test(), device="cpu")
+    save_flax_vae(vae, str(tmp_path / "vae"))
+    main(["--root", root, "--vae-flax", str(tmp_path / "vae"), "--resolution", "256",
+          "--device", "cpu"])
+    out = os.path.join(root, "img_sdxl_vae_features_256resolution_new")
+    got = {f: np.load(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+    with open(os.path.join(root, "data_info.json")) as f:
+        extract_img_vae(root, json.load(f), vae, 256)
+    assert len(got) == 2
+    for f, arr in got.items():
+        np.testing.assert_array_equal(arr, np.load(os.path.join(out, f)))
