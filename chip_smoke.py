@@ -194,13 +194,23 @@ Phases, each printing its own lines:
 31. the offline toy workflow (docs/toy_workflow.md), cut in length:
    make_toy_dataset (512 images), train_vae (small, 200 steps),
    extract_features --vae-flax, the training CLI on
-   configs/toy/pixart_toy_img128.py (250 steps at B = 64), inference --vae-flax (64
+   configs/toy/pixart_toy_img128.py (150 steps at B = 64), inference --vae-flax (64
    samples, 20 steps), compute_fid (real vs real, vs the samples, vs
    uniform noise: the samples must score below the noise) and one prompt
    through the interface REPL on stdin; on the trained model, one training
    step at B = 64 and one CFG forward of 2 x 32 rows through the kernels
    against plain attention (fault: the padding of the last key tile left
-   unmasked); the loader and a held batch's step at the config's B = 256.
+   unmasked); the loader (threads, and `loader_processes`) and a held
+   batch's step at the config's B = 256;
+32. multi-rank training (parallel/): (a) the 1024px config at full width
+   and depth from features, B = 4, 3 steps each of the plain Trainer, then
+   over one NCCL rank (`initialize_distributed`) DDP (bit for bit the
+   plain run), FSDP2 and tensor parallelism (the parameters' and EMA's
+   change against the plain run's; faults: the sharded parameters or
+   their EMA left unchanged), the FSDP and tensor steps traced; (b) DDP on
+   two gloo processes sharing the card (`chip_smoke.py --gloo-ddp-rank`),
+   the masked toy config at 2 rows a rank against one process (fault: both
+   ranks on rank 0's rows).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -3359,8 +3369,9 @@ TOY_CONFIG = "configs/toy/pixart_toy_img128.py"
 # 4000-step VAE, 2000 DiT steps at B = 256, 96 samples), and the DiT's batch:
 # at the config's 256 the loader alone takes ~0.5 s a batch (its threads
 # parse 512 small .npy/.npz files under the GIL), a held batch's train_step
-# ~0.06 s (toy_loader_reading; PERF.md)
-TOY_IMAGES, TOY_VAE_STEPS, TOY_DIT_STEPS, TOY_SAMPLES = 512, 200, 250, 64
+# ~0.06 s (toy_loader_reading; PERF.md). The DiT's 150 steps (250 before
+# phase 32 came) keep the script near 800 s on the card.
+TOY_IMAGES, TOY_VAE_STEPS, TOY_DIT_STEPS, TOY_SAMPLES = 512, 200, 150, 64
 TOY_DIT_BATCH = 64
 TOY_SCALE = 0.3264  # the toy config's scale factor
 # phase 31's kernels at its own shapes (Dh = 64, 64 tokens, 12 caption
@@ -3883,21 +3894,39 @@ def run_toy_gates(dev, fa, trainer) -> dict:
 
 def toy_loader_reading(card, trainer) -> None:
     """The toy config's B = 256 without the step: the loader alone over one
-    epoch (2 batches of 256 feature items) with its worker threads and with
-    one, and train_step alone on a held batch, traced. (Phase 31 trains at
-    TOY_DIT_BATCH: PERF.md.)"""
+    epoch (2 batches of 256 feature items) with its worker threads, with
+    one, and with as many spawned processes (`loader_processes`, start-up
+    included), and train_step alone on a held batch, traced. (Phase 31
+    trains at TOY_DIT_BATCH: PERF.md.)"""
+    import numpy as np
+
     from pixart_sigma_tpu_torch.training.train_step import train_step
 
     trainer.config.train_batch_size = 256
     loader = trainer.build_loader()
     threads = loader.num_workers
-    per_batch = {}
-    for workers in (threads, 1):
-        loader.num_workers = workers
+    per_batch, after_first = {}, {}
+    for key, workers, procs in ((threads, threads, False), (1, 1, False),
+                                ("processes", threads, True)):
+        loader.num_workers, loader.use_processes = workers, procs
         loader.batch_sampler.set_epoch(0)
         t0 = time.perf_counter()
-        batches = list(loader)
-        per_batch[workers] = (time.perf_counter() - t0) / len(batches)
+        got, stamps = [], []
+        for batch in loader:
+            got.append(batch)
+            stamps.append(time.perf_counter())
+        per_batch[key] = (stamps[-1] - t0) / len(got)
+        # the second batch's wait: the pool is up and the first is read
+        after_first[key] = (stamps[-1] - stamps[0]) / max(1, len(got) - 1)
+        if procs:
+            same = all(np.array_equal(a[k], b[k]) for a, b in zip(batches, got)
+                       for k in a if isinstance(a[k], np.ndarray))
+            if len(got) != len(batches) or not same:
+                raise SystemExit("toy loader: the process pool's batches differ from the "
+                                 "threads'")
+        else:
+            batches = got
+    loader.use_processes = False
     batch = trainer.prepare_batch(batches[0], 0)
     step = lambda: train_step(trainer.state, trainer.diffusion, batch,
                               generator=trainer.generator,
@@ -3905,7 +3934,11 @@ def toy_loader_reading(card, trainer) -> None:
     s, _ = median_s(step)
     log(f"[time] {card}: the toy loader alone at B = 256 (one epoch, {len(batches)} batches "
         f"of 256 feature items): {per_batch[threads]:.4f} s/batch with {threads} threads, "
-        f"{per_batch[1]:.4f} with 1; train_step alone on a held batch: {s:.4f} s")
+        f"{per_batch[1]:.4f} with 1, {per_batch['processes']:.4f} with {threads} processes "
+        f"(loader_processes, their start-up included; the same batches); after the first "
+        f"batch {after_first[threads]:.4f}, {after_first[1]:.4f} and "
+        f"{after_first['processes']:.4f} s/batch; train_step alone on a held batch: "
+        f"{s:.4f} s")
     trace(step, "one toy train_step at B = 256 on a held batch", card)
 
 
@@ -4068,6 +4101,298 @@ def run_evaluation(dev, card, fa, images, base_latents) -> dict:
         log(f"[toy] phase 31: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 32: multi-rank training (parallel/), on the one card
+
+PARALLEL_STEPS = 3
+# phase 32a: the sharded Trainers on one NCCL rank against the plain Trainer
+# from the same weights and draws. Over one rank FSDP2's collectives are
+# copies and DTensor's local products are the plain ones, so DDP, FSDP and
+# tensor parallelism must each equal the plain run bit for bit: parameters,
+# EMA and losses. Beside it is logged the relative L2 of the run's change of
+# the parameters (and of the EMA), all tensors together, against the plain
+# run's (the keys' bias left out: its gradient is rounding noise,
+# `_key_bias_free`). Two planted faults on the sharded parameters must be
+# rejected: one element of one of them a float32 ulp off (the least fault
+# there is), and their EMA held in bfloat16 (a half-precision policy).
+# phase 32b: DDP on 2 ranks sharing the card over gloo, the masked toy
+# config (every zero-initialised projection perturbed) at a global batch
+# of 4 against one process: the same reading over the parameters and the
+# EMA; the planted fault "both ranks take rank 0's rows" must read beyond.
+GLOO_TOL = 0.1
+
+
+def _changes(tr) -> tuple:
+    """({name: parameter}, {name: EMA}) of a Trainer on one rank, whole
+    (a one-rank shard is the tensor) and detached on the card."""
+    from pixart_sigma_tpu_torch.parallel.sharded import local, shard_dims
+
+    named = dict(tr.model.named_parameters())
+    if any(shard_dims(p) for p in named.values()):
+        raise SystemExit("parallel: a one-rank shard is not the whole tensor")
+    return ({n: local(p).detach().clone() for n, p in named.items()},
+            {n: e.detach().clone() for n, e in tr.state.ema.items()})
+
+
+def _key_bias_free(name: str, t, hidden: int):
+    """`t` without the keys' bias in self- and cross-attention: softmax is
+    invariant to a per-query shift of its logits, so their gradient is zero
+    and what is computed is rounding noise, which CAME's and Adam's
+    normalised updates turn into +-lr whatever its size."""
+    if name.endswith("attn.qkv.bias"):
+        return __import__("torch").cat([t[:hidden], t[2 * hidden:]])
+    if name.endswith("cross_attn.kv_linear.bias"):
+        return t[hidden:]
+    return t
+
+
+def _change_reading(got: dict, want: dict, init: dict, names, hidden: int) -> tuple:
+    """How far the change from `init` of the tensors `got` is from that of
+    `want` over `names`, the keys' bias left out: (relative L2 over all of
+    them together, the worst single tensor's, its name). Tensors the
+    reference leaves unchanged count in the first only."""
+    num = den = 0.0
+    worst = (0.0, None)
+    for n in names:
+        ref = _key_bias_free(n, want[n].float() - init[n].float(), hidden)
+        err = float((_key_bias_free(n, got[n].float() - init[n].float(), hidden) - ref).norm())
+        norm = float(ref.norm())
+        num, den = num + err**2, den + norm**2
+        if norm > 0 and err / norm >= worst[0]:
+            worst = (err / norm, n)
+    return (num**0.5 / max(den**0.5, 1e-30),) + worst
+
+
+def _same_run(params: dict, ema: dict, hist: list, ref: dict) -> bool:
+    """Parameters, EMA and losses of a run equal the reference's bit for bit."""
+    import torch
+
+    return (all(torch.equal(params[n], ref["params"][n]) for n in params)
+            and all(torch.equal(ema[n], ref["ema"][n]) for n in ema)
+            and [h["loss"] for h in hist] == [h["loss"] for h in ref["hist"]])
+
+
+def _planted_faults(params: dict, ema: dict, sharded: list) -> dict:
+    """{fault: (parameters, EMA)}: one element of the first sharded
+    parameter a float32 ulp off; the sharded parameters' EMA rounded to
+    bfloat16."""
+    import torch
+
+    n0 = sharded[0]
+    ulp = params[n0].clone()
+    flat = ulp.view(-1)
+    flat[:1] = torch.nextafter(flat[:1], torch.full_like(flat[:1], float("inf")))
+    half = {n: ema[n].to(torch.bfloat16).to(ema[n].dtype) for n in sharded}
+    return {f"one ulp in {n0}": ({**params, n0: ulp}, ema),
+            "the EMA of the sharded parameters in bf16": (params, {**ema, **half})}
+
+
+def run_parallel_one_rank(dev, card, fa, tmp: str) -> dict:
+    """32a: TRAIN_CONFIG (XL-2 1024px KV-compress, full width and depth) from
+    features at B = 4: the plain Trainer, then after
+    `initialize_distributed` over one NCCL rank DDP (mesh data = 1), FSDP
+    (use_fsdp, the default fsdp_min_size: FSDP2's fully_shard per block and
+    at the root) and tensor parallelism (use_tensor_parallel, tensor = 1:
+    parallelize_module on the blocks' projections), 3 steps each from the
+    same `.pth` and the same draws."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+    from pixart_sigma_tpu_torch.parallel.dist import initialize_distributed
+    from pixart_sigma_tpu_torch.parallel.sharded import is_sharded
+    from pixart_sigma_tpu_torch.training.train_step import train_step
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 12, resolution=1024,
+                          valid_tokens=(3, 19), seed=0)
+    pth = os.path.join(tmp, "init.pth")
+    init = {n: t.to(dev) for n, t in random_weights(dev, TRAIN_CONFIG, 5, pth=pth).items()}
+    runs = (("plain", {}), ("ddp", dict(mesh=dict(data=1))),
+            ("fsdp", dict(use_fsdp=True)),
+            ("tensor", dict(use_tensor_parallel=True, mesh=dict(data=1, tensor=1))))
+    out, ref = {}, None
+    for tag, over in runs:
+        if tag == "ddp":
+            with contextlib.closing(__import__("socket").socket()) as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            initialize_distributed(f"tcp://localhost:{port}", 1, 0, device=dev)
+            log(f"[parallel] process group: NCCL, world 1, tcp://localhost:{port}")
+        cfg = features_config(tmp, config=TRAIN_CONFIG, train_batch_size=4, load_from=pth, **over)
+        tr = Trainer(cfg, os.path.join(tmp, tag), device=dev)
+        sharded = [n for n, p in tr.model.named_parameters() if is_sharded(p)]
+        launches, hist, peak = counted_train(fa, tr, PARALLEL_STEPS)
+        params, ema = _changes(tr)
+        secs = [h["seconds"] for h in hist[1:]]
+        mc = tr.model.cfg
+        expect = run_launches(mc, [h["hw"] for h in hist])
+        fixed = {k: PARALLEL_STEPS * v for k, v in TRAIN_STEP_LAUNCHES.items()}
+        log(f"[parallel] {tag}: {len(sharded)} of {len(params)} parameters sharded "
+            f"(DTensors); losses {[round(h['loss'], 6) for h in hist]}, grad norms "
+            f"{[round(h['grad_norm'], 5) for h in hist]}; launches {launches} (reckoned "
+            f"{expect})")
+        log(f"[time] {card}: parallel {tag} step at latents {hist[0]['hw']} (B = 4, depth "
+            f"{mc.depth}): {sum(secs) / len(secs):.4f} s/step (steps after the first: "
+            f"{times(secs)} s), peak memory {peak:.2f} GiB")
+        if launches != expect or launches != fixed:
+            raise SystemExit(f"parallel {tag}: launches {launches}, {fixed} expected")
+        if not all(np.isfinite(h["loss"]) for h in hist):
+            raise SystemExit(f"parallel {tag}: the loss is not finite")
+        if tag == "plain":
+            ref = dict(hist=hist, params=params, ema=ema)
+        else:
+            same = _same_run(params, ema, hist, ref)
+            log(f"[parallel] {tag} against plain: parameters, EMA and losses equal bit for "
+                f"bit: {same}")
+            if tag != "ddp":
+                if not sharded:
+                    raise SystemExit(f"parallel {tag}: no parameter is sharded")
+                D = mc.hidden_size
+                p_read = _change_reading(params, ref["params"], init, params, D)
+                e_read = _change_reading(ema, ref["ema"], init, ema, D)
+                log(f"[parallel] {tag} against plain: change of the parameters, relative L2 "
+                    f"{p_read[0]:.3e} (worst tensor {p_read[1]:.3e}, {p_read[2]}), of the EMA "
+                    f"{e_read[0]:.3e} (worst {e_read[1]:.3e}, {e_read[2]})")
+                for fault, (fp, fe) in _planted_faults(params, ema, sharded).items():
+                    caught = not _same_run(fp, fe, hist, ref)
+                    reading = max(_change_reading(fp, ref["params"], init, params, D)[0],
+                                  _change_reading(fe, ref["ema"], init, ema, D)[0])
+                    log(f"[parallel] {tag}: planted fault '{fault}': relative L2 "
+                        f"{reading:.3e}, rejected: {caught}")
+                    if not caught:
+                        raise SystemExit(f"parallel {tag}: the gate misses a planted fault")
+            if not same:
+                raise SystemExit(f"parallel {tag}: differs from the plain Trainer")
+        if tag in ("fsdp", "tensor"):
+            batch = tr.prepare_batch(next(iter(tr.build_loader())))
+            trace(lambda: train_step(tr.state, tr.diffusion, batch, generator=tr.generator,
+                                     grad_clip=cfg.gradient_clip),
+                  f"one {tag} step on one rank, latents {tuple(batch['latents'].shape[1:3])}, "
+                  "B = 4", card)
+        out[tag] = launches
+        del tr, params, ema
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def gloo_ddp_worker(rank: int, spec_path: str) -> int:
+    """One of phase 32b's two ranks (`chip_smoke.py --gloo-ddp-rank R SPEC`):
+    gloo over the one card, the masked toy config at 2 rows a rank, then
+    the same with the planted fault; rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+
+    from pixart_sigma_tpu_torch.ops import flash_attention as fa
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", world_size=2,
+                            rank=rank)
+    results = {}
+    for fault in (False, True):
+        cfg = features_config(spec["root"], config=MASKED_TOY_CONFIG, train_batch_size=2,
+                              mesh=dict(data=2), load_from=spec["load_from"])
+        cfg.data = dict(cfg.data, root="toy")
+        tr = Trainer(cfg, os.path.join(spec["root"], f"gloo_{fault}"), device=spec["device"])
+        if fault:
+            tr.batch_rank = 0  # planted: both ranks read (and draw for) rank 0's rows
+        reset_train_counts(fa)
+        tr.train(max_steps=PARALLEL_STEPS)
+        params, ema = _changes(tr)
+        results[fault] = dict(params={n: t.cpu() for n, t in params.items()},
+                              ema={n: t.cpu() for n, t in ema.items()},
+                              hist=[{k: v for k, v in h.items() if k != "hw"} for h in tr.history],
+                              launches=train_counts(fa))
+    if rank == 0:
+        torch.save(results, spec["out"])
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_gloo(dev, card, fa, tmp: str) -> dict:
+    """32b: two processes on the one card, DDP over gloo (NCCL refuses two
+    ranks on one GPU), against the plain Trainer at the global batch."""
+    import torch
+
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    write_feature_dataset(os.path.join(tmp, "toy"), [(128, 128)] * 8, resolution=128,
+                          multi_scale=False, caption_channels=64, max_length=12, seed=2)
+    pth = os.path.join(tmp, "toy_init.pth")
+    random_weights(dev, MASKED_TOY_CONFIG, 7, pth=pth)  # every parameter in the gradient's path
+    spec = dict(store=os.path.join(tmp, "store"), root=tmp, out=os.path.join(tmp, "gloo.pt"),
+                device=str(dev), load_from=pth)
+    spec_path = os.path.join(tmp, "gloo.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-ddp-rank",
+                               str(r), spec_path], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            log(text[-4000:])
+            raise SystemExit(f"parallel gloo: rank {r} exited {p.returncode}")
+    got = torch.load(spec["out"], weights_only=False)
+    cfg = features_config(tmp, config=MASKED_TOY_CONFIG, train_batch_size=4, load_from=pth)
+    cfg.data = dict(cfg.data, root="toy")
+    tr = Trainer(cfg, os.path.join(tmp, "gloo_one"), device=dev)
+    init = {n: p.detach().cpu().clone() for n, p in tr.model.named_parameters()}
+    tr.train(max_steps=PARALLEL_STEPS)
+    want_p = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+    want_e = {n: e.detach().cpu() for n, e in tr.state.ema.items()}
+    read = {}
+    D = tr.model.cfg.hidden_size
+    for fault in (False, True):
+        r = got[fault]
+        read[fault] = max(_change_reading(r["params"], want_p, init, init, D),
+                          _change_reading(r["ema"], want_e, init, init, D))
+    losses = [round(h["loss"], 6) for h in got[False]["hist"]]
+    log(f"[parallel] gloo DDP, 2 ranks on one card, masked toy config ({tr.model.cfg.depth} "
+        f"blocks of {tr.model.cfg.hidden_size}), 2 rows a rank: losses {losses}, one process "
+        f"at B = 4 {[round(h['loss'], 6) for h in tr.history]}; rank 0's launches "
+        f"{got[False]['launches']}")
+    log(f"[parallel] gloo DDP against one process: change of the parameters or the EMA, "
+        f"relative L2 {read[False][0]:.3e} (worst tensor {read[False][1]:.3e}, "
+        f"{read[False][2]}), tol {GLOO_TOL}; planted fault 'both ranks take rank 0's rows' "
+        f"{read[True][0]:.3e}")
+    log(f"[time] {card}: parallel gloo: the two processes' wall time {wall:.1f} s (start-up, "
+        "build of both Trainers, 2 x 3 steps; not a scaling figure)")
+    if read[False][0] > GLOO_TOL or read[True][0] <= GLOO_TOL:
+        raise SystemExit("parallel gloo: DDP differs from one process, or the gate misses "
+                         "the planted fault")
+    if not any(got[False]["launches"].values()):
+        raise SystemExit("parallel gloo: the kernels did not run")
+    return got[False]["launches"]
+
+
+def run_parallel(dev, card, fa) -> dict:
+    """Phase 32: 32a (one NCCL rank, full width) and 32b (two gloo ranks)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pixart_parallel_")
+    try:
+        out = run_parallel_one_rank(dev, card, fa, tmp)
+        torch.cuda.empty_cache()
+        out["gloo_rank0"] = run_parallel_gloo(dev, card, fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[parallel] phase 32: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -4545,6 +4870,12 @@ def main() -> int:
     log(f"[evaluation] phases 27-31: {time.perf_counter() - t0:.1f} s")
     for entry in entries:
         entry["launches_evaluation"] = {run: c[entry["name"]] for run, c in launches_eval.items()}
+
+    # ---- 32. multi-rank training: one NCCL rank at full width, two gloo ranks -----
+    launches_parallel = run_parallel(dev, card, fa)
+    for entry in entries:
+        entry["launches_parallel"] = {run: c[entry["name"]]
+                                      for run, c in launches_parallel.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))
@@ -4553,4 +4884,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-ddp-rank"]:  # phase 32b's ranks
+        sys.exit(gloo_ddp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -1,6 +1,6 @@
-"""Aspect-ratio bucket batch samplers; port of AspectRatioBatchSampler and
-BalancedAspectRatioBatchSampler of pixart_sigma_tpu/data/sampler.py (the
-per-process sampler waits for multi-process training)."""
+"""Aspect-ratio bucket batch samplers and the per-rank view of a global one;
+port of AspectRatioBatchSampler, BalancedAspectRatioBatchSampler and
+ShardedBatchSampler of pixart_sigma_tpu/data/sampler.py."""
 
 from __future__ import annotations
 
@@ -146,3 +146,38 @@ class SimpleBatchSampler:
 
     def __len__(self) -> int:
         return max(1, self.n // self.batch_size)
+
+
+class ShardedBatchSampler:
+    """One rank's view of a global batch sampler (sharded training).
+
+    Every rank builds the same global batch sequence (same seed, same
+    `set_epoch`) from a sampler made at the global batch size, B_local x
+    num_replicas, and rank r keeps the contiguous slice
+    [r B_local, (r + 1) B_local), so the ranks' slices in rank order are the
+    one-rank global batch. A short trailing batch is dropped, so every rank
+    steps in lockstep."""
+
+    def __init__(self, global_sampler, local_batch_size: int, num_replicas: int, rank: int):
+        if not 0 <= rank < num_replicas:
+            raise ValueError(f"rank {rank} of {num_replicas}")
+        self.global_sampler = global_sampler
+        self.local_batch_size = local_batch_size
+        self.num_replicas = num_replicas
+        self.rank = rank
+
+    def set_epoch(self, epoch: int) -> None:
+        self.global_sampler.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[List[int]]:
+        lo = self.rank * self.local_batch_size
+        for batch in self.global_sampler:
+            if len(batch) == self.local_batch_size * self.num_replicas:
+                yield batch[lo:lo + self.local_batch_size]
+
+    def __len__(self) -> int:
+        """The full global batches of this epoch (the wrapped sampler's
+        iteration is seeded by (seed, epoch), so this preview is what
+        `__iter__` yields)."""
+        full = self.local_batch_size * self.num_replicas
+        return sum(1 for batch in self.global_sampler if len(batch) == full)

@@ -341,7 +341,7 @@ def refuse_unported(args) -> None:
     """The options of the JAX entry points that the port does not run."""
     if getattr(args, "seq_parallel", 0) and args.seq_parallel > 1:
         raise NotImplementedError(
-            "--seq-parallel needs the parallelism of ROADMAP.md, Queue 1, 'Parallelism', "
+            "--seq-parallel needs sequence parallelism (ROADMAP.md, Queue 1, 'Parallelism'), "
             "which the port does not have yet")
 
 

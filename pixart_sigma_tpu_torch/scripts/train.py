@@ -13,7 +13,13 @@ directory) when the data holds prompts (`load_t5_feat=False`).
         [--load-from M.pth] [--resume-from latest] [--max-steps N] [--debug] \\
         [--data-root DIR] [--features] [--device cpu]
 
-runs on the card unless given `--device cpu`.
+runs on the card unless given `--device cpu`. Under torchrun,
+
+    torchrun --nproc-per-node N -m pixart_sigma_tpu_torch.scripts.train CONFIG
+
+trains on N cards (NCCL), or over gloo with `--device cpu`, sharded as the
+config's `mesh`, `use_fsdp` and `use_tensor_parallel` say; `train_batch_size`
+is then the batch of one rank.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import os
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train PixArt on one card")
+    p = argparse.ArgumentParser(description="Train PixArt on one card or, under torchrun, "
+                                             "on several")
     p.add_argument("config", help="python config file")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--load-from", default=None, help=".pth/safetensors weights")
@@ -57,12 +64,14 @@ def load_vae(config, device):
 def main(argv=None):
     args = parse_args(argv)
     from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.parallel.dist import initialize_distributed
     from pixart_sigma_tpu_torch.training.trainer import Trainer, refuse_parallelism
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
     config = read_config(args.config)
     refuse_parallelism(config)
     device = resolve_device(args.device)
+    initialize_distributed(device=device)
     if args.work_dir:
         config.work_dir = args.work_dir
     if args.load_from:

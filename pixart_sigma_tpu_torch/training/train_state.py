@@ -1,7 +1,10 @@
 """Training state: the model's f32 parameters, the optimizer, an EMA copy, the
 step counters and the gradient accumulator. Port of
 pixart_sigma_tpu/training/train_state.py, with the semantics of the JAX
-trainer's `optax.MultiSteps` wrapper for gradient accumulation."""
+trainer's `optax.MultiSteps` wrapper for gradient accumulation. The EMA and
+the accumulator of a sharded parameter are held as its local shard, cut
+as the parameter is (`parallel.sharded`), as JAX shards them with the
+parameters."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
+from pixart_sigma_tpu_torch.parallel.sharded import full_state, local, set_grad, take_shard, shard_dims
 from pixart_sigma_tpu_torch.training.optim import clip_by_global_norm
 
 
@@ -37,6 +41,14 @@ class TrainState:
                  schedule: Callable[[int], float], ema: bool = True, ema_rate: float = 0.9999,
                  ema_warmup: bool = True, accumulation_steps: int = 1):
         self.model = model
+        # what a sharded step needs besides (`Trainer` sets them): the module
+        # it calls (DDP's wrapper), the parameters whose gradients it
+        # averages itself, and the batch ranks' group, count and index
+        self.forward = model
+        self.sync_params: list = []
+        self.batch_group = None
+        self.batch_ranks = 1
+        self.batch_rank = 0
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = 0
@@ -46,7 +58,7 @@ class TrainState:
         self.accumulation_steps = accumulation_steps
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         if ema:
-            self.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+            self.ema = {n: local(p).detach().clone() for n, p in model.named_parameters()}
         self._acc: Optional[Dict[str, torch.Tensor]] = None  # running mean of micro grads
 
     @property
@@ -74,15 +86,16 @@ class TrainState:
         if self.accumulation_steps > 1:
             i = self.mini_step
             if self._acc is None:
-                self._acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named}
+                self._acc = {n: torch.zeros_like(local(p), dtype=torch.float32)
+                             for n, p in named}
             for n, p in named:
                 if p.grad is not None:
                     acc = self._acc[n]
-                    acc.add_((p.grad.float() - acc) / (i + 1))
+                    acc.add_((local(p.grad).float() - acc) / (i + 1))
             emit = i == self.accumulation_steps - 1
             if emit:
                 for n, p in named:
-                    p.grad = self._acc[n].to(p.dtype)
+                    set_grad(p, self._acc[n].to(p.dtype))
                 self._acc = None
                 grad_norm = None  # the average's
         else:
@@ -99,20 +112,33 @@ class TrainState:
             if self.ema_warmup and ema_rate is None:
                 rate = warmup_ema_rate(rate, self.step)
             for n, p in self.model.named_parameters():
-                self.ema[n].mul_(rate).add_(p, alpha=1.0 - rate)
+                self.ema[n].mul_(rate).add_(local(p), alpha=1.0 - rate)
         self.step += 1
+
+    def full_ema(self) -> Dict[str, torch.Tensor]:
+        """The EMA as whole tensors on the CPU (a collective when sharded)."""
+        return full_state(self.ema.items(), dict(self.model.named_parameters()))
+
+    def load_full_ema(self, weights: Dict[str, torch.Tensor]) -> None:
+        """Set the EMA from whole tensors, cut to this rank's shards."""
+        params = dict(self.model.named_parameters())
+        for n, e in weights.items():
+            self.ema[n].copy_(take_shard(e, shard_dims(params[n])))
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resumed run needs besides the weights, the EMA and the
-        optimizer state: the counters and a partly filled accumulator."""
+        optimizer state: the counters and a partly filled accumulator,
+        whole (a collective when sharded)."""
         out: Dict[str, Any] = {"step": self.step, "opt_step": self.opt_step}
         if self._acc is not None:
-            out["grad_accumulator"] = {n: a.detach().cpu() for n, a in self._acc.items()}
+            out["grad_accumulator"] = full_state(self._acc.items(),
+                                                 dict(self.model.named_parameters()))
         return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.step, self.opt_step = int(state["step"]), int(state["opt_step"])
         acc = state.get("grad_accumulator")
         if acc is not None:
-            dev = next(self.model.parameters()).device
-            self._acc = {n: a.to(dev) for n, a in acc.items()}
+            params = dict(self.model.named_parameters())
+            self._acc = {n: take_shard(a, shard_dims(params[n])).to(local(params[n]).device)
+                         for n, a in acc.items()}

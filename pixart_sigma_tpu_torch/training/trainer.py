@@ -1,6 +1,6 @@
-"""The single-card training loop: config -> data -> steps -> checkpoints.
+"""The training loop: config -> data -> (sharded) steps -> checkpoints.
 
-Port of pixart_sigma_tpu/training/trainer.py for one device: the iDDPM loss
+Port of pixart_sigma_tpu/training/trainer.py: the iDDPM loss
 with the learned range variance (optionally the SNR-switching objective,
 Min-SNR-gamma weights, masked-token training), uniform or
 loss-second-moment timestep sampling, the global-norm clip, CAME, Lion or
@@ -12,10 +12,19 @@ sampling on the EMA weights, and `.pth` checkpoints in the upstream dialect
 from which a run resumes where it stopped. Runs on the card unless
 `device="cpu"`; without a card it raises. Batches of images and prompts
 (`load_vae_feat` / `load_t5_feat` False) are encoded on the fly by the
-VAE and the T5 encoder given to the Trainer. Not ported: multi-host and
-sharded training (a config that asks for it raises, `refuse_parallelism`),
-and reading the JAX trainer's orbax checkpoints. The training CLI is
-`pixart_sigma_tpu_torch.scripts.train`; `main` here is the same CLI.
+VAE and the T5 encoder given to the Trainer.
+
+Over torch.distributed's ranks (`parallel.dist.initialize_distributed`,
+one card each) the config's `mesh`, `use_fsdp`, `use_tensor_parallel` and
+`fsdp_min_size` shard the run as the JAX trainer's GSPMD step does
+(`parallel.mesh`): `train_batch_size` is the batch of one rank, and the
+global batch, split over the data x fsdp ranks, gives what one rank would
+compute at the global batch. Checkpoints stay the upstream `.pth` with
+whole tensors, written by rank 0, so a run saved on R ranks resumes on
+any number. `loader_processes` reads with a process pool. Not ported:
+sequence parallelism (`refuse_parallelism`) and reading the JAX trainer's
+orbax checkpoints. The training CLI is `pixart_sigma_tpu_torch.scripts.
+train`; `main` here is the same CLI.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pixart_sigma_tpu_torch.config import Config, read_config
 from pixart_sigma_tpu_torch.data.aspect import aspect_ratio_table
@@ -34,6 +44,7 @@ from pixart_sigma_tpu_torch.data.loader import DataLoader
 from pixart_sigma_tpu_torch.data.sampler import (
     AspectRatioBatchSampler,
     BalancedAspectRatioBatchSampler,
+    ShardedBatchSampler,
     SimpleBatchSampler,
 )
 from pixart_sigma_tpu_torch.diffusion.dpm_solver import (
@@ -47,6 +58,13 @@ from pixart_sigma_tpu_torch.diffusion.timestep_sampler import create_named_sched
 from pixart_sigma_tpu_torch.models.builder import build_model_from_config
 from pixart_sigma_tpu_torch.models.pixart import init_weights
 from pixart_sigma_tpu_torch.models.vae import posterior_sample
+from pixart_sigma_tpu_torch.parallel import mesh as mesh_lib
+from pixart_sigma_tpu_torch.parallel.dist import (
+    all_gather_tensor,
+    is_main_process,
+    sync_global_devices,
+)
+from pixart_sigma_tpu_torch.parallel.sharded import full_state, local, shard_dims, take_shard
 from pixart_sigma_tpu_torch.pipelines.pipeline import decode_to_uint8
 from pixart_sigma_tpu_torch.training.lr_schedule import build_lr_schedule
 from pixart_sigma_tpu_torch.training.optim import auto_scale_lr, block_stacks, build_optimizer
@@ -73,23 +91,28 @@ _FSDP_MIN_SIZE = 2**16  # the JAX trainer's default
 
 
 def refuse_parallelism(config: Config) -> None:
-    """Raise for the JAX trainer's parallelism keys set away from their
-    defaults (configs/PixArt_xl2_internal.py): a mesh axis above 1 other
-    than `data`, `use_fsdp`, `use_tensor_parallel`, another `fsdp_min_size`,
-    and `loader_processes` (the process-pool loader). The port trains on one
-    card with the thread loader, and never ignores them silently."""
-    where = "(ROADMAP.md, Queue 1, 'Parallelism')"
+    """Raise for what of the JAX trainer's parallelism the port does not
+    run: a `seq` mesh axis above 1 (sequence parallelism). The other keys
+    take effect, and are never ignored silently."""
+    mesh = config.get("mesh") or {}
+    if mesh.get("seq", 1) not in (1, None):
+        raise NotImplementedError(f"mesh axis seq={mesh['seq']}: sequence parallelism is not "
+                                  "ported (ROADMAP.md, Queue 1, 'Parallelism')")
+
+
+def _needs_ranks(config: Config) -> Optional[str]:
+    """The first parallelism key set away from its default, or None: those
+    act on torch.distributed's ranks."""
     mesh = config.get("mesh") or {}
     for axis, size in mesh.items():
-        if axis != "data" and size not in (1, None):
-            raise NotImplementedError(f"mesh axis {axis}={size}: sharded training is not "
-                                      f"ported {where}")
-    for key in ("use_fsdp", "use_tensor_parallel", "loader_processes"):
+        if size not in (1, -1, None):
+            return f"mesh {axis}={size}"
+    for key in ("use_fsdp", "use_tensor_parallel"):
         if config.get(key, False):
-            raise NotImplementedError(f"{key}=True is not ported {where}")
+            return f"{key}=True"
     if config.get("fsdp_min_size", _FSDP_MIN_SIZE) != _FSDP_MIN_SIZE:
-        raise NotImplementedError(f"fsdp_min_size={config.fsdp_min_size}: FSDP is not ported "
-                                  f"{where}")
+        return f"fsdp_min_size={config.fsdp_min_size}"
+    return None
 
 
 def build_dataset(config: Config):
@@ -108,7 +131,8 @@ def build_dataset(config: Config):
 
 
 class Trainer:
-    """config -> data -> steps -> checkpoints on one device.
+    """config -> data -> steps -> checkpoints, on one device or sharded over
+    the ranks of an initialised process group.
 
     `vae` (a port `AutoencoderKL`) encodes image-mode batches
     (`load_vae_feat=False`) and turns validation latents into PNGs; without
@@ -123,18 +147,29 @@ class Trainer:
     mask and the caption drops come from `generator` (seeded with seed + 1)
     in that order. Its state, the resampler's ring and the accumulator are
     saved in each checkpoint, so a resumed run draws what an uninterrupted
-    one would."""
+    one would. Every rank draws the same global numbers (`train_step`), so
+    one generator state serves every world size.
+
+    With a process group the model is sharded by `parallel.mesh.shard_model`
+    over the config's mesh (DDP when only the batch is split); without one,
+    the parallelism keys away from their defaults raise."""
 
     def __init__(self, config: Config, work_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda", vae=None, t5=None):
         refuse_parallelism(config)
+        if not dist.is_initialized() and _needs_ranks(config):
+            raise RuntimeError(
+                f"{_needs_ranks(config)} acts on torch.distributed's ranks, and no process "
+                "group is initialised: start the run under torchrun, or call "
+                "pixart_sigma_tpu_torch.parallel.dist.initialize_distributed first")
         self.device = resolve_device(device)
         self.config = config
         self.vae = vae
         self.t5 = t5
         self.work_dir = work_dir or config.work_dir
         os.makedirs(self.work_dir, exist_ok=True)
-        config.dump(os.path.join(self.work_dir, "config.py.dump"))
+        if is_main_process():
+            config.dump(os.path.join(self.work_dir, "config.py.dump"))
         self.logger = get_logger(self.work_dir)
         self.metrics = MetricsWriter(self.work_dir)
         self.tracker = Tracker(self.work_dir, config.get("report_to"))
@@ -143,6 +178,13 @@ class Trainer:
         if config.get("load_from"):
             self.logger.info(f"loading weights from {config.load_from}")
             load_checkpoint(config.load_from, self.model)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.logger.info(f"model params: {n_params / 1e6:.1f} M on {self.device}")
+        self.mesh, self.batch_group, self.batch_ranks, self.batch_rank = None, None, 1, 0
+        self._forward, self._sync_params, self._sharded = self.model, set(), False
+        self._plain_model = None  # an unsharded copy for validation sampling
+        if dist.is_initialized():
+            self._shard(config)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         self.diffusion = IDDPM(timestep_respacing=[config.train_sampling_steps],
                                learn_sigma=True, rescale_learned_sigmas=True,
@@ -153,16 +195,31 @@ class Trainer:
             self.schedule_sampler = create_named_schedule_sampler(
                 name, self.diffusion.num_timesteps, device=self.device)
         opt_cfg = dict(config.optimizer)
-        if config.get("auto_lr"):
+        if config.get("auto_lr"):  # by the world batch: per-rank batch x batch ranks
             self._base_lr, self.lr_scale_ratio = auto_scale_lr(
-                opt_cfg.pop("lr"), config.train_batch_size, rule=config.auto_lr["rule"])
+                opt_cfg.pop("lr"), config.train_batch_size * self.batch_ranks,
+                rule=config.auto_lr["rule"])
         else:
             self._base_lr, self.lr_scale_ratio = opt_cfg.pop("lr"), 1.0
         self._opt_cfg = opt_cfg
         self.state: Optional[TrainState] = None
         self.history: List[Dict[str, Any]] = []
-        n_params = sum(p.numel() for p in self.model.parameters())
-        self.logger.info(f"model params: {n_params / 1e6:.1f} M on {self.device}")
+
+    def _shard(self, config: Config) -> None:
+        """The mesh over the world's ranks and the model sharded on it."""
+        fsdp, tensor = config.get("use_fsdp", False), config.get("use_tensor_parallel", False)
+        self.mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**(config.get("mesh") or {})),
+                                        self.device.type)
+        self.batch_group = mesh_lib.batch_group(self.mesh)
+        self.batch_ranks = mesh_lib.batch_ranks(self.mesh)
+        self.batch_rank = mesh_lib.batch_rank(self.mesh)
+        self._forward, self._sync_params = mesh_lib.shard_model(
+            self.model, self.mesh, fsdp=fsdp, tensor=tensor,
+            min_size=config.get("fsdp_min_size", _FSDP_MIN_SIZE), batch_group=self.batch_group)
+        self._sharded = fsdp or tensor
+        sizes = dict(zip(mesh_lib.AXES, self.mesh.mesh.shape))
+        self.logger.info(f"mesh: {sizes}, use_fsdp={fsdp}, use_tensor_parallel={tensor}, "
+                         f"batch rank {self.batch_rank} of {self.batch_ranks}")
 
     def build_state(self, total_steps: int) -> TrainState:
         """The LR schedule over `total_steps`, the optimizer (parameters whose
@@ -191,13 +248,18 @@ class Trainer:
         self.state = TrainState(self.model, optimizer, schedule, ema=True,
                                 ema_rate=cfg.ema_rate, ema_warmup=cfg.get("ema_warmup", True),
                                 accumulation_steps=cfg.get("gradient_accumulation_steps", 1))
+        self.state.forward = self._forward
+        self.state.sync_params = [p for p in self.model.parameters() if p in self._sync_params]
+        self.state.batch_group = self.batch_group
+        self.state.batch_ranks, self.state.batch_rank = self.batch_ranks, self.batch_rank
         return self.state
 
     def maybe_resume(self) -> int:
         """Restore the checkpoint `resume_from.checkpoint` names ("latest": the
         newest of this run's) and return its step, or 0. `load_ema` starts the
         weights from the EMA, `resume_optimizer` and `resume_lr_scheduler`
-        (the LR schedule's position) restore those, as upstream."""
+        (the LR schedule's position) restore those, as upstream. The whole
+        tensors of the `.pth` are cut to this rank's shards."""
         opts = self.config.get("resume_from") or {}
         path = opts.get("checkpoint")
         if path == "latest":
@@ -208,13 +270,12 @@ class Trainer:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         ema = ckpt.get("state_dict_ema")
         weights = ema if opts.get("load_ema", False) and ema is not None else ckpt["state_dict"]
-        self.model.load_state_dict(weights, strict=True)
+        self.load_weights(weights)
         if self.state.ema is not None:
-            for n, e in (ema or weights).items():
-                self.state.ema[n].copy_(e)
+            self.state.load_full_ema(ema or weights)
         self.state.load_state_dict(ckpt["train_state"])
         if opts.get("resume_optimizer", True):
-            self.state.optimizer.load_state_dict(ckpt["optimizer"])
+            self.state.optimizer.load_full_state_dict(ckpt["optimizer"])
         if not opts.get("resume_lr_scheduler", True):
             self.state.opt_step = 0
         self.generator.set_state(ckpt["generator"])
@@ -222,19 +283,36 @@ class Trainer:
             self.schedule_sampler.load_state_dict(ckpt["schedule_sampler"])
         return self.state.step
 
+    @torch.no_grad()
+    def load_weights(self, weights: Dict[str, torch.Tensor]) -> None:
+        """Whole weights (every key of the model) into this rank's shards."""
+        params = dict(self.model.named_parameters())
+        if set(weights) != set(params):
+            raise KeyError(f"checkpoint keys differ from the model's: missing "
+                           f"{sorted(set(params) - set(weights))[:4]}, unexpected "
+                           f"{sorted(set(weights) - set(params))[:4]}")
+        for n, p in params.items():
+            local(p).copy_(take_shard(weights[n], shard_dims(p)))
+
     def build_loader(self) -> DataLoader:
+        """The global batch sampler (at the per-rank batch x batch ranks),
+        of which each rank keeps its slice."""
         cfg = self.config
         dataset = build_dataset(cfg)
+        global_bs = cfg.train_batch_size * self.batch_ranks
         if cfg.get("multi_scale"):
             cls = (BalancedAspectRatioBatchSampler if cfg.get("balanced_sampler")
                    else AspectRatioBatchSampler)
-            sampler = cls(dataset, cfg.train_batch_size,
+            sampler = cls(dataset, global_bs,
                           aspect_ratio_table(cfg.aspect_ratio_type or cfg.image_size),
                           valid_num=cfg.get("valid_num", 0), seed=cfg.seed)
         else:
-            sampler = SimpleBatchSampler(len(dataset), cfg.train_batch_size, seed=cfg.seed,
-                                         dataset=dataset)
-        return DataLoader(dataset, sampler, num_workers=cfg.get("num_workers", 4))
+            sampler = SimpleBatchSampler(len(dataset), global_bs, seed=cfg.seed, dataset=dataset)
+        if self.batch_ranks > 1:
+            sampler = ShardedBatchSampler(sampler, cfg.train_batch_size, self.batch_ranks,
+                                          self.batch_rank)
+        return DataLoader(dataset, sampler, num_workers=cfg.get("num_workers", 4),
+                          use_processes=cfg.get("loader_processes", False))
 
     @torch.no_grad()
     def _encode_images(self, images, step: int,
@@ -242,9 +320,12 @@ class Trainer:
         """On-the-fly VAE encoding of image-mode batches [B, H, W, 3]: the
         posterior sample mean + exp(logvar / 2) eps when the config's
         `sample_posterior` (default True), else the mean. eps comes from a
-        generator on the device seeded from (seed, step), so a resumed run
-        draws what an uninterrupted one would, and never from the trainer's
-        own generator; `noise` gives it instead."""
+        generator on the device seeded from (seed, step), and the batch rank
+        when the batch is split (as JAX folds in the process index: each
+        slice of the batch draws its own; ranks of one tensor group share
+        their rows and their draw), so a resumed run draws what an
+        uninterrupted one would, and never from the trainer's own
+        generator; `noise` gives it instead."""
         if self.vae is None:
             raise ValueError("the dataset yields images (load_vae_feat=False) but the Trainer "
                              "has no VAE: pass vae= or train on precomputed features")
@@ -253,7 +334,8 @@ class Trainer:
         if not self.config.get("sample_posterior", True):
             return mean.float()
         if noise is None:
-            seed = int(np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0])
+            key = [self.config.seed, step] + ([self.batch_rank] if self.batch_ranks > 1 else [])
+            seed = int(np.random.SeedSequence(key).generate_state(1)[0])
             gen = torch.Generator(device=self.device).manual_seed(seed)
             noise = torch.randn(mean.shape, generator=gen, device=self.device)
         return posterior_sample(mean, logvar, noise).float()
@@ -343,9 +425,10 @@ class Trainer:
         self.tracker.add_scalars(step, avg)
         if np.isfinite(avg["loss"]):
             return
-        # the NaN watchdog: parameter health, then the first module whose
-        # output overflows in one forward of this batch
-        params = dict(self.model.named_parameters())
+        # the NaN watchdog: parameter health (of this rank's shards), then
+        # the first module whose output overflows in one forward of this
+        # batch (every rank sees the global loss, so every rank runs it)
+        params = {n: local(p) for n, p in self.model.named_parameters()}
         self.logger.error(f"non-finite loss at step {step}; parameter health:\n"
                           + format_health_report(params))
         bad = find_nonfinite(params)
@@ -365,19 +448,23 @@ class Trainer:
         (deterministic_validation) or the step, unless given. Writes
         validation_step_<step>_<i>.png through the VAE, or
         validation_step_<step>.npy without one; returns the latents divided
-        by the scale factor."""
+        by the scale factor. Sharded, every rank gathers the global batch's
+        first captions and the whole weights and samples with an unsharded
+        copy of the model; rank 0 writes."""
         cfg = self.config
         ns = NoiseScheduleVP("discrete",
                              betas=named_beta_schedule("linear", cfg.train_sampling_steps))
+        if self.batch_ranks > 1:  # the global batch's first captions, as JAX's
+            batch_dev = {k: all_gather_tensor(batch_dev[k], self.batch_group)
+                         for k in ("latents", "y", "y_mask")}
         latents = batch_dev["latents"]
         n = min(2, latents.shape[0])
-        weights = self.state.ema if self.state.ema is not None else dict(
-            self.model.named_parameters())
+        model, weights = self._sampling_weights()
         y = batch_dev["y"][:n]
         mask = torch.cat([batch_dev["y_mask"][:n]] * 2, dim=0)
         null_y = weights["y_embedder.y_embedding"][None].expand(y.shape).to(y.dtype)
         apply_fn = lambda x, t, c: torch.func.functional_call(
-            self.model, weights, (x, t, c, mask))[..., :4]
+            model, weights, (x, t, c, mask))[..., :4]
         model_fn = make_cfg_model_fn(apply_fn, ns, condition=y, uncondition=null_y,
                                      cfg_scale=cfg.get("cfg_scale", 4.5))
         if noise is None:
@@ -386,6 +473,8 @@ class Trainer:
             noise = torch.randn(latents[:n].shape, generator=gen, device=self.device)
         out = DPMSolver(model_fn, ns).sample(noise.to(self.device), steps=14, order=2)
         out = out / cfg.scale_factor
+        if not is_main_process():
+            return out.cpu().numpy()
         if self.vae is not None:
             imgs = decode_to_uint8(self.vae, out)
             for i, img in enumerate(imgs):
@@ -398,20 +487,43 @@ class Trainer:
             self.logger.info(f"validation latents -> {path}")
         return out.cpu().numpy()
 
+    def _sampling_weights(self):
+        """(a module, the EMA weights, or the parameters without an EMA, to
+        call it with): the model and its own tensors, or when sharded an
+        unsharded copy and the gathered whole tensors."""
+        if not self._sharded:
+            return self.model, (self.state.ema if self.state.ema is not None
+                                else dict(self.model.named_parameters()))
+        if self.state.ema is not None:
+            full = self.state.full_ema()
+        else:
+            full = full_state(((n, local(p)) for n, p in self.model.named_parameters()),
+                              dict(self.model.named_parameters()))
+        if self._plain_model is None:
+            self._plain_model = build_model_from_config(self.config, device=self.device,
+                                                        train=True)
+        return self._plain_model, {n: t.to(self.device) for n, t in full.items()}
+
     def save(self, step: int, epoch: int) -> str:
         """Write checkpoints/epoch_{epoch}_step_{step}.pth: f32 weights, EMA,
         optimizer state (which `utils.checkpoint.load_pth` reads), and the
         step counters, accumulator, generator and resampler states that
-        `maybe_resume` restores."""
+        `maybe_resume` restores. Every rank calls it: sharded tensors are
+        gathered whole, and rank 0 writes."""
         path = os.path.join(self.work_dir, "checkpoints", f"epoch_{epoch}_step_{step}.pth")
+        sd = self.model.state_dict()
+        weights = full_state(((n, local(t)) for n, t in sd.items()), sd)
+        ema = self.state.full_ema() if self.state.ema is not None else None
+        optimizer = self.state.optimizer.full_state_dict()
         extra: Dict[str, Any] = {"train_state": self.state.state_dict(),
                                  "generator": self.generator.get_state()}
         if self.schedule_sampler is not None:
             extra["schedule_sampler"] = {k: v.cpu() for k, v in
                                          self.schedule_sampler.state_dict().items()}
-        save_pth(path, self.model.state_dict(), self.state.ema,
-                 self.state.optimizer.state_dict(), step=step, epoch=epoch, **extra)
-        self.logger.info(f"saved checkpoint: {path}")
+        if is_main_process():
+            save_pth(path, weights, ema, optimizer, step=step, epoch=epoch, **extra)
+            self.logger.info(f"saved checkpoint: {path}")
+        sync_global_devices("save")
         return path
 
 

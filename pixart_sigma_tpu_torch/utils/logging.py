@@ -1,7 +1,9 @@
 """Training logs: a file-and-stream logger, windowed metric averages, a
 JSONL metrics stream and an optional experiment tracker.
 
-Port of pixart_sigma_tpu/utils/logging.py for one process. `Tracker` writes
+Port of pixart_sigma_tpu/utils/logging.py. Files, metrics and the tracker
+are written by rank 0 only; the other ranks log errors to the stream.
+`Tracker` writes
 scalars and validation images to TensorBoard (`report_to="tensorboard"`);
 a backend that is not installed, or any other name, raises and names itself,
 where the JAX package warns and goes on without it.
@@ -16,17 +18,25 @@ import time
 from collections import defaultdict
 from typing import Any, Dict, Optional
 
+from pixart_sigma_tpu_torch.parallel.dist import is_main_process
+
 
 def get_logger(work_dir: str) -> logging.Logger:
-    """A logger for one run: INFO to the stream and to work_dir/train.log."""
+    """A logger for one run: INFO to the stream and to work_dir/train.log on
+    rank 0; errors only, to the stream, on the other ranks."""
     logger = logging.getLogger(f"pixart_sigma_tpu_torch.trainer.{work_dir}")
     if not logger.handlers:
         logger.setLevel(logging.INFO)
         logger.propagate = False
         fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s", "%H:%M:%S")
-        os.makedirs(work_dir, exist_ok=True)
-        for handler in (logging.StreamHandler(),
-                        logging.FileHandler(os.path.join(work_dir, "train.log"))):
+        stream = logging.StreamHandler()
+        handlers = [stream]
+        if is_main_process():
+            os.makedirs(work_dir, exist_ok=True)
+            handlers.append(logging.FileHandler(os.path.join(work_dir, "train.log")))
+        else:
+            stream.setLevel(logging.ERROR)
+        for handler in handlers:
             handler.setFormatter(fmt)
             logger.addHandler(handler)
     return logger
@@ -51,13 +61,18 @@ class LogBuffer:
 
 
 class MetricsWriter:
-    """Append-only JSONL metrics: one {"step", "time", metrics...} per line."""
+    """Append-only JSONL metrics: one {"step", "time", metrics...} per line,
+    written by rank 0."""
 
     def __init__(self, work_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(work_dir, exist_ok=True)
         self.path = os.path.join(work_dir, filename)
+        self.enabled = is_main_process()
+        if self.enabled:
+            os.makedirs(work_dir, exist_ok=True)
 
     def write(self, step: int, metrics: Dict[str, Any]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:
@@ -65,7 +80,8 @@ class MetricsWriter:
 
 
 class Tracker:
-    """Scalars and validation images to TensorBoard under work_dir/tb."""
+    """Scalars and validation images to TensorBoard under work_dir/tb, from
+    rank 0."""
 
     def __init__(self, work_dir: str, report_to: Optional[str] = None):
         self._writer = None
@@ -73,6 +89,8 @@ class Tracker:
             return
         if report_to != "tensorboard":
             raise ValueError(f"report_to={report_to!r}: only 'tensorboard' is supported")
+        if not is_main_process():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError as e:

@@ -27,7 +27,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert {"pixart_sigma_tpu_torch/models/t5.py", "pixart_sigma_tpu_torch/data/transforms.py",
             "pixart_sigma_tpu_torch/tools/extract_features.py",
             "pixart_sigma_tpu_torch/ops/quant.py", "pixart_sigma_tpu_torch/scripts/serve.py",
-            "pixart_sigma_tpu_torch/scripts/inference.py"} <= names
+            "pixart_sigma_tpu_torch/scripts/inference.py",
+            "pixart_sigma_tpu_torch/parallel/__init__.py",
+            "pixart_sigma_tpu_torch/parallel/dist.py", "pixart_sigma_tpu_torch/parallel/mesh.py",
+            "pixart_sigma_tpu_torch/parallel/sharded.py"} <= names
     for path in PORT_FILES:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -49,3 +52,11 @@ def test_package_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_parallel_worker_imports_no_jax():
+    """The multi-rank tests' worker processes import torch and the port
+    only (the JAX references are computed in the test process)."""
+    path = ROOT / "tests" / "torch_parallel_worker.py"
+    bad = FORBIDDEN.intersection(_imported_roots(path))
+    assert not bad, sorted(bad)

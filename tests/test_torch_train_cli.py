@@ -164,13 +164,16 @@ def test_a_vae_directory_raises(files, tmp_path):
     ("use_fsdp", True),
     ("use_tensor_parallel", True),
     ("fsdp_min_size", 1024),
-    ("loader_processes", True),
 ])
 def test_parallelism_keys_away_from_their_defaults_raise(key, value, tmp_path):
+    """They act on torch.distributed's ranks: without a process group they
+    raise and say how to start one (the multi-rank runs are in
+    tests/test_torch_parallel_*.py; `loader_processes` needs no ranks)."""
     cfg = read_config(TOY)
     refuse_parallelism(cfg)  # the defaults pass
     cfg[key] = value
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    refuse_parallelism(cfg)  # and so do these keys: they are ported
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         Trainer(cfg, str(tmp_path), device="cpu")
 
 
