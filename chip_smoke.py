@@ -202,15 +202,27 @@ Phases, each printing its own lines:
    against plain attention (fault: the padding of the last key tile left
    unmasked); the loader (threads, and `loader_processes`) and a held
    batch's step at the config's B = 256;
-32. multi-rank training (parallel/): (a) the 1024px config at full width
-   and depth from features, B = 4, 3 steps each of the plain Trainer, then
+32. multi-rank training (parallel/): (a) the 1024px config at full width,
+   cut to depth 8 (layers 4-7 compressed; the script's length), from
+   features, B = 4, 3 steps each of the plain Trainer, then
    over one NCCL rank (`initialize_distributed`) DDP (bit for bit the
    plain run), FSDP2 and tensor parallelism (the parameters' and EMA's
    change against the plain run's; faults: the sharded parameters or
    their EMA left unchanged), the FSDP and tensor steps traced; (b) DDP on
    two gloo processes sharing the card (`chip_smoke.py --gloo-ddp-rank`),
    the masked toy config at 2 rows a rank against one process (fault: both
-   ranks on rank 0's rows).
+   ranks on rank 0's rows);
+33. sequence parallelism on two gloo processes sharing the card
+   (`chip_smoke.py --seq-rank`; gloo's all-gather, reduce-scatter and
+   send/recv of CUDA tensors staged through host memory, the compute on the
+   card): (a) `scripts.inference --seq-parallel 2` at 1024px, full width
+   and depth, 20-step DPM-Solver++ with CFG, against the one-process CLI
+   (fault: rank 1's shard one token row early); (b) seqshard (the flash
+   kernel on a 8192-query shard against 16384 keys) and ring attention at
+   the 2K shape against plain attention; (c) two Trainer steps over seq 2
+   at full width, depth 2, against one process (fault: the gradients
+   averaged over seq, not summed); (d) each rank's launches against the
+   single-card reckoning at its shard.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -1317,6 +1329,8 @@ def backward_times(cases, fa, card, launches: dict, errs: dict) -> list:
     for label, N, M, lengths, flash in (("self", 4096, 4096, None, False),
                                         ("self", 4096, 1024, None, False),
                                         ("cross", 4096, 300, (19, 12, 7, 3), False),
+                                        ("self seq shard", 2048, 4096, None, False),
+                                        ("cross seq shard", 2048, 300, (19, 12, 7, 3), False),
                                         ("flash 2K", 16384, 16384, None, True),
                                         ("onepass 2K", 16384, 4096, None, False)):
         if lengths is None:
@@ -1615,7 +1629,10 @@ def run_hires(dev, card, fa, cases, t5, vae, prompt, negative, max_err) -> dict:
     # ---- 8. the flash kernel's times at the path shapes
     B, H, Dh = 2, 16, 72
     rows = []
-    for N, M, iters in ((16384, 16384, 20), (65536, 65536, 3), (65536, 16384, 5)):
+    # N = 8192, M = 16384: a rank's query shard of the 2K self-attention over
+    # 2 seq ranks (phase 33)
+    for N, M, iters in ((16384, 16384, 20), (8192, 16384, 20), (65536, 65536, 3),
+                        (65536, 16384, 5)):
         q, k, v = cases.onepass(B, N, M)
         kern = lambda: fa.flash_attention(q, k, v)
         sub = 1024  # the plain version holds [H, rows, M] f32 logits
@@ -4108,6 +4125,10 @@ def run_evaluation(dev, card, fa, images, base_latents) -> dict:
 # phase 32: multi-rank training (parallel/), on the one card
 
 PARALLEL_STEPS = 3
+# phase 32a's model: the 1024px config at full width, cut from 28 blocks to
+# 8 to keep the script near its length since phase 33 came (the checks are
+# bit for bit whatever the depth; the full-depth s/step are in PERF.md)
+PARALLEL_MODEL = dict(depth=8, kv_compress_layers=(4, 5, 6, 7))
 # phase 32a: the sharded Trainers on one NCCL rank against the plain Trainer
 # from the same weights and draws. Over one rank FSDP2's collectives are
 # copies and DTensor's local products are the plain ones, so DDP, FSDP and
@@ -4191,8 +4212,8 @@ def _planted_faults(params: dict, ema: dict, sharded: list) -> dict:
 
 
 def run_parallel_one_rank(dev, card, fa, tmp: str) -> dict:
-    """32a: TRAIN_CONFIG (XL-2 1024px KV-compress, full width and depth) from
-    features at B = 4: the plain Trainer, then after
+    """32a: TRAIN_CONFIG (XL-2 1024px KV-compress) at full width and depth
+    PARALLEL_MODEL, from features at B = 4: the plain Trainer, then after
     `initialize_distributed` over one NCCL rank DDP (mesh data = 1), FSDP
     (use_fsdp, the default fsdp_min_size: FSDP2's fully_shard per block and
     at the root) and tensor parallelism (use_tensor_parallel, tensor = 1:
@@ -4210,7 +4231,9 @@ def run_parallel_one_rank(dev, card, fa, tmp: str) -> dict:
     write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 12, resolution=1024,
                           valid_tokens=(3, 19), seed=0)
     pth = os.path.join(tmp, "init.pth")
-    init = {n: t.to(dev) for n, t in random_weights(dev, TRAIN_CONFIG, 5, pth=pth).items()}
+    config = write_config(os.path.join(tmp, "parallel.py"), TRAIN_CONFIG,
+                          model_overrides=dict(PARALLEL_MODEL))
+    init = {n: t.to(dev) for n, t in random_weights(dev, config, 5, pth=pth).items()}
     runs = (("plain", {}), ("ddp", dict(mesh=dict(data=1))),
             ("fsdp", dict(use_fsdp=True)),
             ("tensor", dict(use_tensor_parallel=True, mesh=dict(data=1, tensor=1))))
@@ -4222,7 +4245,7 @@ def run_parallel_one_rank(dev, card, fa, tmp: str) -> dict:
                 port = s.getsockname()[1]
             initialize_distributed(f"tcp://localhost:{port}", 1, 0, device=dev)
             log(f"[parallel] process group: NCCL, world 1, tcp://localhost:{port}")
-        cfg = features_config(tmp, config=TRAIN_CONFIG, train_batch_size=4, load_from=pth, **over)
+        cfg = features_config(tmp, config=config, train_batch_size=4, load_from=pth, **over)
         tr = Trainer(cfg, os.path.join(tmp, tag), device=dev)
         sharded = [n for n, p in tr.model.named_parameters() if is_sharded(p)]
         launches, hist, peak = counted_train(fa, tr, PARALLEL_STEPS)
@@ -4230,7 +4253,8 @@ def run_parallel_one_rank(dev, card, fa, tmp: str) -> dict:
         secs = [h["seconds"] for h in hist[1:]]
         mc = tr.model.cfg
         expect = run_launches(mc, [h["hw"] for h in hist])
-        fixed = {k: PARALLEL_STEPS * v for k, v in TRAIN_STEP_LAUNCHES.items()}
+        # TRAIN_STEP_LAUNCHES per block (28 blocks, each alike in its launches)
+        fixed = {k: PARALLEL_STEPS * v * mc.depth // 28 for k, v in TRAIN_STEP_LAUNCHES.items()}
         log(f"[parallel] {tag}: {len(sharded)} of {len(params)} parameters sharded "
             f"(DTensors); losses {[round(h['loss'], 6) for h in hist]}, grad norms "
             f"{[round(h['grad_norm'], 5) for h in hist]}; launches {launches} (reckoned "
@@ -4396,6 +4420,341 @@ def run_parallel(dev, card, fa) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 33: sequence parallelism, two gloo ranks sharing the card
+
+# (a) scripts.inference --seq-parallel 2 at 1024px (28 x 1152, KV compression
+# on 14-27), 20-step DPM-Solver++, CFG 4.5, 2 prompts, against the
+# one-process run from the same weights and seed: relative L2 of the
+# latents, at most SEQ_SERVE_TOL (every sound run has read 0, bit for bit:
+# each query row and product row meets the arithmetic it meets in one
+# process), and the planted fault "rank 1's shard shifted by one token row"
+# must read beyond (at SEQ_FAULT_STEPS, against as many steps in one
+# process: gloo's staged transport costs seconds a model call). (b)
+# seqshard (the flash kernel on the shard) and ring attention at the 2K
+# shape, N = 16384 over 2 ranks, B*H = 16, against attention_reference on
+# picked heads and rows, with the kernel gates. (c) two Trainer steps over
+# seq 2 at full width, depth 2 (layer 1 compressed), B = 2 from 1024px
+# features, against one process, each reading under its own limit: the
+# relative difference of the gradients' global norm (before the clip) at
+# each step, and the relative L2 of the last step's clipped gradients and
+# of the parameters' change, all tensors together (the keys' bias left
+# out). The planted fault "the seq sum's gradients scaled by
+# SEQ_FAULT_SCALE" must fail a limit: it moves the norm by its scale, while
+# the 0.01 clip and CAME leave the update as it was. (d) each rank's
+# launches equal the single-card reckoning at its shard
+# (`forward_launches`, `step_launches`).
+SEQ_SERVE_TOL = 1e-6
+# (the gradients' norm, the clipped gradients, the parameters' change):
+# sound readings 1.8e-5, 2.3e-3, 2.7e-3 on the card; bf16 products summed
+# over other splits round the gradients otherwise, their norm far less
+SEQ_TRAIN_TOLS = (1e-3, 1e-2, 1e-2)
+SEQ_FAULT_SCALE = 1.005
+SEQ_TRAIN_MODEL = dict(depth=2, kv_compress_layers=(1,))
+SEQ_FAULT_STEPS = 2
+SEQ_TRAIN_STEPS = 2  # the first at the schedule's LR 0 (JAX's warm-up rule)
+SEQ_2K = 16384
+SEQ_PICKS = ((0, slice(0, 512)), (9, slice(4000, 4512)), (15, slice(7680, 8192)))
+
+
+# the shapes a seq rank hands each kernel (phase 3 checks them, phase 33 runs them)
+SEQ_SHARD_SHAPES = {
+    "onepass": "N = 2048 (4096 over 2 ranks) against M = 4096 and 1024 gathered keys",
+    "allheads": "N = 2048 against M = 300 caption keys",
+    "headsmajor": "N = 2048 against M = 300 (forced only)",
+    "flash_forward": "N = 8192 (16384 over 2 ranks) against M = 16384 gathered keys",
+    "flash_bwd_dkv": "N = 2048 against M = 4096 and 300 keys (the training shard)",
+    "flash_bwd_dq": "N = 2048 against M = 4096 and 300 keys (the training shard)",
+}
+
+
+def seq_cli(root: str, pth: str, save: str, seq: bool, steps: int = 20) -> list:
+    argv = ["--config", TRAIN_CONFIG, "--model-path", pth, "--txt-file",
+            os.path.join(root, "prompts.txt"), "--pseudo-t5", "4096", "--bs", "2",
+            "--save-root", save, "--device", "cuda", "--steps", str(steps)]
+    return argv + (["--seq-parallel", "2"] if seq else [])
+
+
+def seq_latents(save: str, steps: int = 20):
+    import numpy as np
+
+    return np.stack([np.load(os.path.join(save, f"{i:05d}_dpm-solver_{steps}.jpg.npy"))
+                     for i in (0, 1)])
+
+
+def seq_train_config(root: str, pth: str, seq: bool):
+    mesh = dict(mesh=dict(data=1, seq=2)) if seq else {}
+    return features_config(root, train_batch_size=2, load_from=pth,
+                           lr_schedule_args=dict(num_warmup_steps=0),
+                           model_overrides=dict(SEQ_TRAIN_MODEL), **mesh)
+
+
+def _timed(fn, n: int = 3) -> list:
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def seq_rank_worker(rank: int, spec_path: str) -> int:
+    """One of phase 33's two ranks (`chip_smoke.py --seq-rank R SPEC`): (a)
+    the inference CLI under --seq-parallel 2, then with the planted fault on
+    rank 1; (b) the 2K attention; (c) a Trainer step over seq 2, then with
+    the planted fault. Rank 0 writes the results."""
+    import torch
+
+    from pixart_sigma_tpu_torch.ops import flash_attention as fa
+    from pixart_sigma_tpu_torch.ops.attention import ring_attention, seq_sharded_attention
+    from pixart_sigma_tpu_torch.parallel import dist as pdist
+    from pixart_sigma_tpu_torch.parallel.mesh import SeqContext
+    from pixart_sigma_tpu_torch.scripts import inference
+    from pixart_sigma_tpu_torch.training import train_step
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # gloo: NCCL refuses two ranks on one card; the CLI and the Trainer join this group
+    pdist.initialize_distributed(f"tcp://127.0.0.1:{spec['port']}", 2, rank, device="cuda",
+                                 backend="gloo", timeout=600)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root, out = spec["root"], {}
+    plain_shard, plain_sum = SeqContext.shard, train_step.sum_over_seq
+
+    def shifted(self, x, dim=1):  # planted: this rank's tokens one latent row early
+        if x.shape[dim] != spec["tokens"]:
+            return plain_shard(self, x, dim)
+        n = self.shard_len(x.shape[dim])
+        return x.narrow(dim, self.rank * n - spec["row"], n)
+
+    for fault in (False, True):  # (a)
+        if fault and rank == 1:
+            SeqContext.shard = shifted
+        reset_train_counts(fa)
+        pdist.TRANSPORTS.clear()
+        steps = SEQ_FAULT_STEPS if fault else 20
+        seconds = _timed(lambda: inference.main(
+            seq_cli(root, spec["pth"], os.path.join(root, f"seq_{fault}"), True, steps)), 1)[0]
+        out["serve", fault] = dict(seconds=seconds, launches=train_counts(fa),
+                                   transports=dict(pdist.TRANSPORTS))
+        SeqContext.shard = plain_shard
+
+    seq = SeqContext(torch.distributed.group.WORLD, 2, rank)  # (b)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, SEQ_2K, 16, 72), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    ql, kl, vl = (seq.shard(x) for x in (q, k, v))
+    reset_train_counts(fa)
+    got = {"seqshard": seq_sharded_attention(ql, kl, vl, seq=seq)}
+    launches = train_counts(fa)
+    got["ring"] = ring_attention(ql, kl, vl, seq=seq)
+    torch.cuda.synchronize()
+    reads = {}
+    for name, o in got.items():
+        rs = []
+        for h, rows in SEQ_PICKS:
+            want = fa.attention_reference(ql[:, rows, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1])
+            rs.append(readings(o[:, rows, h:h + 1], want))
+        reads[name] = tuple(max(r[i] for r in rs) for i in range(3))
+    del got
+    times_ = {"seqshard": _timed(lambda: seq_sharded_attention(ql, kl, vl, seq=seq)),
+              "ring": _timed(lambda: ring_attention(ql, kl, vl, seq=seq))}
+    out["attention"] = dict(readings=reads, launches=launches, seconds=times_)
+    del q, k, v, ql, kl, vl
+    torch.cuda.empty_cache()
+
+    def scaled_sum(state):  # planted: the seq sum's gradients a little too large
+        plain_sum(state)
+        for p in state.model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(SEQ_FAULT_SCALE)
+
+    for fault in (False, True):  # (c)
+        if fault:
+            train_step.sum_over_seq = scaled_sum
+        tr = Trainer(seq_train_config(root, spec["pth_train"], True),
+                     os.path.join(root, f"train_{fault}"), device="cuda")
+        reset_train_counts(fa)
+        tr.train(max_steps=SEQ_TRAIN_STEPS)
+        train_step.sum_over_seq = plain_sum
+        named = list(tr.model.named_parameters())
+        out["train", fault] = dict(launches=train_counts(fa),
+                                   grads=_grads(tr.model),
+                                   params={n: p.detach().float().cpu() for n, p in named},
+                                   hist=[{k: v for k, v in h.items() if k != "hw"}
+                                         for h in tr.history])
+        del tr
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(out, spec["out"])
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _rel(got: dict, want: dict, names, hidden: int, init: dict = None) -> float:
+    """Relative L2 of `got` against `want` over `names` together (their
+    change from `init` when given), the keys' bias left out."""
+    import torch
+
+    if init is None:
+        init = {n: torch.zeros_like(want[n]) for n in names}
+    return _change_reading(got, want, init, names, hidden)[0]
+
+
+def _grads(model) -> dict:
+    """{name: the parameter's gradient (zeros where none flowed), f32 on the
+    host}."""
+    import torch
+
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().float().cpu()
+            for n, p in model.named_parameters()}
+
+
+def run_seq_parallel(dev, card, fa) -> dict:
+    """Phase 33: two processes on the one card over gloo (NCCL refuses two
+    ranks on one GPU), the compute on the card, gloo's transport of CUDA
+    tensors for all-gather, reduce-scatter and send/recv staged through host
+    memory (`parallel.dist`)."""
+    import numpy as np
+    import socket
+
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.scripts import inference
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pixart_seq_")
+    try:
+        with open(os.path.join(tmp, "prompts.txt"), "w") as f:
+            f.write("a watercolor painting of a lighthouse on a cliff at dusk\n"
+                    "a small robot reading a book in a sunlit library full of plants\n")
+        pth, pth_train = os.path.join(tmp, "xl2.pth"), os.path.join(tmp, "xl2_depth2.pth")
+        random_weights(dev, TRAIN_CONFIG, 33, pth=pth)
+        cfg_train = write_config(os.path.join(tmp, "depth2.py"), TRAIN_CONFIG,
+                                 model_overrides=dict(SEQ_TRAIN_MODEL))
+        init = random_weights(dev, cfg_train, 34, pth=pth_train)
+        write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 4, resolution=1024,
+                              seed=3)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        spec = dict(root=tmp, pth=pth, pth_train=pth_train, port=port, tokens=64 * 64, row=64,
+                    out=os.path.join(tmp, "seq.pt"))
+        spec_path = os.path.join(tmp, "seq.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seq-rank",
+                                   str(r), spec_path], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                log(text[-6000:])
+                raise SystemExit(f"seq parallel: rank {r} exited {p.returncode}")
+        got = torch.load(spec["out"], weights_only=False)
+
+        # (a) against one process from the same weights and seed
+        reset_train_counts(fa)
+        t_one = _timed(lambda: inference.main(seq_cli(tmp, pth, os.path.join(tmp, "one"),
+                                                      False)), 1)[0]
+        one_launches = train_counts(fa)
+        inference.main(seq_cli(tmp, pth, os.path.join(tmp, "one_short"), False, SEQ_FAULT_STEPS))
+        read = {}
+        for fault, one, steps in ((False, "one", 20), (True, "one_short", SEQ_FAULT_STEPS)):
+            want = seq_latents(os.path.join(tmp, one), steps)
+            got_ = seq_latents(os.path.join(tmp, f"seq_{fault}"), steps)
+            read[fault] = float(np.linalg.norm(got_ - want) / np.linalg.norm(want))
+        mc = build_model_from_config(read_config(TRAIN_CONFIG), device="meta").cfg
+        per_rank = forward_launches(mc, (128, 128), 20)
+        serve = got["serve", False]
+        log(f"[seq] (a) scripts.inference --seq-parallel 2, 1024px 28 x 1152, 20 steps CFG 4.5, "
+            f"2 prompts, 2 gloo ranks on the card: latents vs one process relative L2 "
+            f"{read[False]:.3e} (tol {SEQ_SERVE_TOL}); planted fault 'rank 1's shard one token "
+            f"row early' {read[True]:.3e} ({SEQ_FAULT_STEPS} steps); rank 0's launches {serve['launches']} (one process "
+            f"{one_launches}); transports {serve['transports']}")
+        log(f"[time] {card}: seq (a): the CLI's wall, model build and load included: 2 ranks "
+            f"{serve['seconds']:.1f} s, one process {t_one:.1f} s")
+        if not np.isfinite(want).all() or read[False] > SEQ_SERVE_TOL or \
+                read[True] <= SEQ_SERVE_TOL:
+            raise SystemExit("seq parallel (a): the sharded trajectory differs from one process, "
+                             "or the gate misses the planted fault")
+        check_launches("seq", serve["launches"], per_rank)
+        if one_launches != per_rank:
+            raise SystemExit(f"seq parallel (a): one process launched {one_launches}")
+
+        # (b) the 2K attention
+        att = got["attention"]
+        for name, r in att["readings"].items():
+            log(f"[seq] (b) {name} attention over 2 ranks, B*H=16 N=M={SEQ_2K}, rank 0's rows "
+                f"on heads 0/9/15 vs attention_reference: max|err| {r[0]:.3e}, elementwise "
+                f"{r[1]:.3e} (tol {ELEM_TOL}), relative L2 {r[2]:.3e} (tol {L2_TOL}); s per call "
+                f"{times(att['seconds'][name])}")
+        log(f"[seq] (b) seqshard's launches on rank 0 {att['launches']} (flash 1: queries "
+            f"{SEQ_2K // 2} against {SEQ_2K} keys)")
+        if not all(passes(r) for r in att["readings"].values()) or \
+                att["launches"]["flash_forward"] != 1:
+            raise SystemExit("seq parallel (b): 2K attention disagrees with its plain version")
+
+        # (c) one Trainer step against one process
+        tr = Trainer(seq_train_config(tmp, pth_train, False), os.path.join(tmp, "train_one"),
+                     device=dev)
+        tr.train(max_steps=SEQ_TRAIN_STEPS)
+        named = list(tr.model.named_parameters())
+        grads = _grads(tr.model)
+        params = {n: p.detach().float().cpu() for n, p in named}
+        names, D = [n for n, _ in named], tr.model.cfg.hidden_size
+        reads = {}
+        for fault in (False, True):
+            r = got["train", fault]
+            reads[fault] = (max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                                for a, b in zip(r["hist"], tr.history)),
+                            _rel(r["grads"], grads, names, D),
+                            _rel(r["params"], params, names, D, init))
+        want_steps = run_launches(tr.model.cfg, [(128, 128)] * SEQ_TRAIN_STEPS)
+        sound = got["train", False]
+        log(f"[seq] (c) {SEQ_TRAIN_STEPS} Trainer steps over seq 2, 1152 wide, depth 2 (layer 1 "
+            f"compressed), B = 2 at 1024px, vs one process: the gradients' norm {reads[False][0]:.3e}, the clipped "
+            f"gradients {reads[False][1]:.3e}, the parameters' change {reads[False][2]:.3e} (tols "
+            f"{SEQ_TRAIN_TOLS}); planted fault 'the seq sum scaled by {SEQ_FAULT_SCALE}' "
+            f"{', '.join(f'{x:.3e}' for x in reads[True])}; losses "
+            f"{[round(h['loss'], 6) for h in sound['hist']]} vs "
+            f"{[round(h['loss'], 6) for h in tr.history]}; grad norms "
+            f"{[round(h['grad_norm'], 6) for h in sound['hist']]} vs "
+            f"{[round(h['grad_norm'], 6) for h in tr.history]}")
+        log(f"[time] {card}: seq (c): the step's seconds over 2 ranks "
+            f"{times(h['seconds'] for h in sound['hist'])} s, one process "
+            f"{times(h['seconds'] for h in tr.history)} s")
+        within = lambda r: all(x <= tol for x, tol in zip(r, SEQ_TRAIN_TOLS))
+        if not within(reads[False]) or within(reads[True]):
+            raise SystemExit("seq parallel (c): the sharded step differs from one process, or "
+                             "the gate misses the planted fault")
+        check_launches("seq", sound["launches"], want_steps)
+        log(f"[time] {card}: seq: the two processes' wall {wall:.1f} s (start-up, (a) twice, "
+            "(b), (c) twice)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[seq] phase 33: {time.perf_counter() - t_phase:.1f} s")
+    return dict(serve=dict(serve["launches"]), train=dict(sound["launches"]),
+                attention_2k=dict(att["launches"]))
+
+
 def main() -> int:
     try:
         import torch
@@ -4465,13 +4824,17 @@ def main() -> int:
     cases = Cases(dev)
     errs = {"onepass": [], "allheads": []}
     all_ok = True
+    # N = 2048: a sequence-parallel rank's query shard (4096 tokens over 2
+    # ranks) against the whole keys, phase 33's launches
     for N, M, dtype in ((4096, 4096, torch.bfloat16), (4096, 1024, torch.bfloat16),
+                        (2048, 4096, torch.bfloat16), (2048, 1024, torch.bfloat16),
                         (1000, 300, torch.bfloat16), (1000, 300, torch.float32)):
         q, k, v = cases.onepass(4, N, M, dtype=dtype)
         got = fa.onepass_attention(q, k, v)
         torch.cuda.synchronize()
         err, ok = compare(
-            f"onepass B*H=64 N={N} M={M} Dh=72{' f32' if dtype == torch.float32 else ''}",
+            f"onepass B*H=64 N={N} M={M} Dh=72{' f32' if dtype == torch.float32 else ''}"
+            f"{' (a seq shard)' if N == 2048 else ''}",
             got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, fa.KEY_TILE))
         errs["onepass"].append(err)
         all_ok &= ok
@@ -4491,6 +4854,7 @@ def main() -> int:
                    (4096, 300, (300, 40, 5, 0), torch.bfloat16),
                    (4096, 300, (300, (256, 300), 77, 3), torch.bfloat16))
     for N, M, lengths, dtype in cross_cases + (
+            (2048, 300, (300, 120, 77, 1), torch.bfloat16),  # a seq shard's queries
             (1000, 77, (77, 40, 5, 1), torch.bfloat16),
             (1000, 77, (77, 40, 5, 1), torch.float32),
             (1008, 300, CAPTIONS_512, torch.bfloat16)):
@@ -4515,6 +4879,9 @@ def main() -> int:
         ("flash 2K path B*H=32 N=M=16384, heads 0/9/15, rows [0, 512) and [9000, 9512)",
          2, 16384, 16384, None, torch.bfloat16,
          [(b, h, r) for b in (0, 1) for h in (0, 9, 15) for r in halves], 6400),
+        ("flash 2K seq shard B*H=16 N=8192 M=16384, heads 0/9/15, rows [0, 512) and "
+         "[7000, 7512)", 1, 8192, 16384, None, torch.bfloat16,
+         [(0, h, r) for h in (0, 9, 15) for r in (slice(0, 512), slice(7000, 7512))], 6400),
         ("flash B*H=32 N=1000 M=8200", 2, 1000, 8200, None, torch.bfloat16,
          [(b, h, slice(None)) for b in (0, 1) for h in range(16)], 3200),
         ("flash B*H=32 N=1000 M=8200 f32", 2, 1000, 8200, None, torch.float32,
@@ -4551,6 +4918,9 @@ def main() -> int:
     for label, N, M, lengths, dtype, cross in (
         ("self B*H=64 N=4096 M=4096", 4096, 4096, None, torch.bfloat16, False),
         ("self B*H=64 N=4096 M=1024", 4096, 1024, None, torch.bfloat16, False),
+        ("self B*H=64 N=2048 M=4096 (a seq shard)", 2048, 4096, None, torch.bfloat16, False),
+        ("cross B*H=64 N=2048 M=300 valid=(300, 120, 19, 3) (a seq shard)", 2048, 300,
+         (300, 120, 19, 3), torch.bfloat16, True),
         ("cross B*H=64 N=4096 M=300 valid=(300, 120, 19, 3)", 4096, 300, (300, 120, 19, 3),
          torch.bfloat16, True),
         ("cross B*H=64 N=4096 M=300 valid=(300, [256, 300), 77, 3)", 4096, 300,
@@ -4707,10 +5077,11 @@ def main() -> int:
     # tiles) streams through the two K/V stages for every query tile
     mask_long = torch.ones((4, 300), dtype=torch.bool, device=dev)
     cross_shapes = ((4, 4096, 300, mask_path), (2, 16384, 300, mask_2k),
-                    (4, 4096, 300, mask_long))
+                    (4, 4096, 300, mask_long), (4, 2048, 300, mask_path))
     entries = []
     for name, shapes in (
-        ("onepass", ((4, 4096, 4096, None), (4, 4096, 1024, None))),
+        ("onepass", ((4, 4096, 4096, None), (4, 4096, 1024, None), (4, 2048, 4096, None),
+                     (4, 2048, 1024, None))),
         ("allheads", cross_shapes),
         ("headsmajor", cross_shapes),
     ):
@@ -4871,11 +5242,19 @@ def main() -> int:
     for entry in entries:
         entry["launches_evaluation"] = {run: c[entry["name"]] for run, c in launches_eval.items()}
 
-    # ---- 32. multi-rank training: one NCCL rank at full width, two gloo ranks -----
+    # ---- 32. multi-rank training: one NCCL rank at full width, two gloo ranks ----
     launches_parallel = run_parallel(dev, card, fa)
     for entry in entries:
         entry["launches_parallel"] = {run: c[entry["name"]]
                                       for run, c in launches_parallel.items()}
+
+    # ---- 33. sequence parallelism: two gloo ranks sharing the card ----------
+    torch.cuda.empty_cache()
+    launches_seq = run_seq_parallel(dev, card, fa)
+    for entry in entries:
+        entry["launches_seq_parallel"] = {run: c[entry["name"]]
+                                          for run, c in launches_seq.items()}
+        entry["seq_shard_shapes"] = SEQ_SHARD_SHAPES[entry["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))
@@ -4886,4 +5265,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-ddp-rank"]:  # phase 32b's ranks
         sys.exit(gloo_ddp_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--seq-rank"]:  # phase 33's ranks
+        sys.exit(seq_rank_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pixart_sigma_tpu_torch.ops.attention import attention
+from pixart_sigma_tpu_torch.ops.attention import attention, seq_attention
 from pixart_sigma_tpu_torch.ops.quant import int8_matmul_quantized, quantize_weight
 
 
@@ -221,7 +221,16 @@ class SelfAttentionKVCompress(nn.Module):
     'conv' (depthwise conv k = s = sr, then a learned LayerNorm), 'ave' /
     'uniform' (strided subsample), 'uniform_every' (every sr-th token).
     QK-norm is a LayerNorm over the full model dim before the head split.
+
+    `seq` (a `parallel.mesh.SeqContext`, set by `models.pixart.
+    set_seq_parallel`) makes x this rank's token shard of the (h, w) grid
+    `hw`: the keys are compressed on the shard when its rows are whole and
+    divide by sr (then the compressed K/V are gathered, sr^2 times fewer
+    bytes), else gathered first and compressed whole; `ops.attention.
+    seq_attention` runs the attention.
     """
+
+    seq = None
 
     def __init__(self, dim: int, num_heads: int, sampling: Optional[str] = None,
                  sr_ratio: int = 1, qk_norm: bool = False, attn_impl: str = "auto",
@@ -255,17 +264,41 @@ class SelfAttentionKVCompress(nn.Module):
         t = self.sr(t.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
         return self.norm(t)
 
+    def _local_rows(self, H: int, W: int) -> bool:
+        """Whether each seq shard compresses its own tokens to its share of
+        the whole grid's compressed keys."""
+        s, sr = self.seq.size, self.sr_ratio
+        if (H * W) % s:
+            return False
+        if self.sampling == "uniform_every":
+            return (H * W // s) % sr == 0
+        return H % s == 0 and (H // s) % sr == 0
+
     def forward(self, x: torch.Tensor, hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         B, N, C = x.shape
         H, W = hw if hw is not None else (int(N**0.5), int(N**0.5))
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         if hasattr(self, "q_norm"):
             q, k = self.q_norm(q), self.k_norm(k)
+        heads = lambda t: t.unflatten(-1, (self.num_heads, C // self.num_heads))
+        if self.seq is not None:
+            return self.proj(self._seq_attention(heads, q, k, v, H, W).reshape(B, N, C))
         if self.compress:
             k, v = self._downsample(k, H, W), self._downsample(v, H, W)
-        heads = lambda t: t.unflatten(-1, (self.num_heads, C // self.num_heads))
         out = attention(heads(q), heads(k), heads(v), impl=self.attn_impl)
         return self.proj(out.reshape(B, N, C))
+
+    def _seq_attention(self, heads, q, k, v, H: int, W: int) -> torch.Tensor:
+        n_tokens, kv_sharded = H * W, True
+        n_keys = n_tokens
+        if self.compress and self._local_rows(H, W):
+            k, v = (self._downsample(t, H // self.seq.size, W) for t in (k, v))
+            n_keys = k.shape[1] * self.seq.size
+        elif self.compress:
+            k, v = (self._downsample(self.seq.gather_kv(t, n_tokens), H, W) for t in (k, v))
+            n_keys, kv_sharded = k.shape[1], False
+        return seq_attention(heads(q), heads(k), heads(v), self.seq, n_tokens=n_tokens,
+                             n_keys=n_keys, kv_sharded=kv_sharded, impl=self.attn_impl)
 
 
 class MultiHeadCrossAttention(nn.Module):
@@ -343,3 +376,121 @@ class PixArtBlock(nn.Module):
         x = x + gate_msa * self.attn(t2i_modulate(self.norm1(x), shift_msa, scale_msa), hw)
         x = x + self.cross_attn(x, y, y_mask, kv=cross_kv)
         return x + gate_mlp * self.mlp(t2i_modulate(self.norm2(x), shift_mlp, scale_mlp))
+
+
+# The auxiliary blocks of the JAX package (models/layers.py:531-705), with
+# the upstream PixArt_blocks.py module names; `utils.checkpoint.
+# aux_state_dict_from_jax` carries a JAX param tree of any of them over.
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Classic DiT adaLN modulation, [B, D] shift and scale over the tokens."""
+    return x * (1 + scale[:, None]) + shift[:, None]
+
+
+class _AdaLNProjection(nn.Module):
+    """LayerNorm (no affine), then adaLN modulation from the conditioning
+    (SiLU -> Linear to 2 x `width`), then a Linear."""
+
+    norm_name = "norm_final"
+
+    def __init__(self, width: int, cond_width: int, out_features: int):
+        super().__init__()
+        self.add_module(self.norm_name, nn.LayerNorm(width, elementwise_affine=False, eps=1e-6))
+        self.linear = Linear(width, out_features)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(cond_width, 2 * width))
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.adaLN_modulation(c.to(x.dtype)).chunk(2, dim=-1)
+        x = getattr(self, self.norm_name)(x)
+        return self.linear(modulate(x, shift, scale))
+
+
+class FinalLayer(_AdaLNProjection):
+    """DiT final layer with per-sample adaLN: shift and scale from the
+    conditioning through SiLU + Linear (T2IFinalLayer uses a shared table)."""
+
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+        super().__init__(hidden_size, hidden_size, patch_size**2 * out_channels)
+
+
+class MaskFinalLayer(_AdaLNProjection):
+    """The final layer of masked-token decoding, whose conditioning width
+    `c_emb_size` may differ from the feature width."""
+
+    def __init__(self, final_hidden_size: int, c_emb_size: int, patch_size: int,
+                 out_channels: int):
+        super().__init__(final_hidden_size, c_emb_size, patch_size**2 * out_channels)
+
+
+class DecoderLayer(_AdaLNProjection):
+    """adaLN-modulated projection into a decoder width (MAE-style heads)."""
+
+    norm_name = "norm_decoder"
+
+    def __init__(self, hidden_size: int, decoder_hidden_size: int):
+        super().__init__(hidden_size, hidden_size, decoder_hidden_size)
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding with classifier-free label dropout: row
+    `num_classes` is the learned null class, there when `dropout_prob` > 0.
+    In training each label is dropped with probability `dropout_prob`,
+    drawn from `generator`; `force_drop_ids == 1` drops it."""
+
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.0):
+        super().__init__()
+        self.num_classes, self.dropout_prob = num_classes, dropout_prob
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
+
+    def forward(self, labels: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if (train and self.dropout_prob > 0) or force_drop_ids is not None:
+            if self.dropout_prob <= 0:
+                raise ValueError("force_drop_ids requires dropout_prob > 0 (the null-class "
+                                 "embedding row only exists when CFG dropout is enabled)")
+            if force_drop_ids is None:
+                dev = generator.device if generator is not None else labels.device
+                u = torch.rand(labels.shape, generator=generator, device=dev)
+                drop = (u < self.dropout_prob).to(labels.device)
+            else:
+                drop = force_drop_ids == 1
+            labels = torch.where(drop, self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
+class CaptionEmbedderDoubleBr(nn.Module):
+    """Double-branch caption embedder: a global embedding of the token
+    mean (projected by an MLP) beside the per-token caption, each with its
+    own learned null (`embedding`, `y_embedding`) swapped in when the
+    caption is dropped (probability `uncond_prob` in training, from
+    `generator`; or `force_drop_ids == 1`). Returns (global embedding
+    [B, hidden], caption [B, 1, L, C])."""
+
+    def __init__(self, in_channels: int, hidden_size: int, uncond_prob: float = 0.1,
+                 token_num: int = 120):
+        super().__init__()
+        self.uncond_prob = uncond_prob
+        self.embedding = nn.Parameter(torch.randn(1, in_channels) / 10**0.5)
+        self.y_embedding = nn.Parameter(torch.randn(token_num, in_channels) / 10**0.5)
+        self.proj = Mlp(in_channels, hidden_size, hidden_size)
+
+    def forward(self, caption: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if caption.ndim == 3:
+            caption = caption[:, None]
+        global_caption = caption.mean(dim=2).reshape(caption.shape[0], -1)
+        if (train and self.uncond_prob > 0) or force_drop_ids is not None:
+            if force_drop_ids is None:
+                dev = generator.device if generator is not None else caption.device
+                u = torch.rand((caption.shape[0],), generator=generator, device=dev)
+                drop = (u < self.uncond_prob).to(caption.device)
+            else:
+                drop = force_drop_ids == 1
+            global_caption = torch.where(drop[:, None], self.embedding.to(global_caption.dtype),
+                                         global_caption)
+            caption = torch.where(drop[:, None, None, None], self.y_embedding.to(caption.dtype),
+                                  caption)
+        return self.proj(global_caption), caption

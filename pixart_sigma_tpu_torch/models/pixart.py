@@ -26,6 +26,16 @@ the blocks' projections and MLPs as dynamic int8 products (`QuantLinear`);
 `cache_span=(k1, k2)` lets a call reuse the summed residual of layers
 [k1, k2) from an earlier call (delta block caching, `forward(block_cache=,
 use_block_cache=)`).
+
+Sequence parallelism (`set_seq_parallel`, JAX's `seq_constraint`): under a
+seq group each rank runs the blocks on its contiguous shard of the tokens,
+cut after the position embedding (and after the token mask, drawn on the
+whole token set), and the final layer's output is gathered whole before
+`unpatchify`, replicated as in JAX. Tokens that do not divide the group are
+padded at the end (`parallel.mesh.SeqContext`); their self-attention takes
+JAX's chunked route (`ops.attention.seq_dispatch`). A block cache holds the
+rank's shard. Every rank's parameter gradients are then partial sums over
+its tokens, which the training step sums over the group.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from pixart_sigma_tpu_torch.models.layers import (
     Linear,
     PatchEmbed,
     PixArtBlock,
+    SelfAttentionKVCompress,
     SizeEmbedder,
     T2IFinalLayer,
     TimestepEmbedder,
@@ -138,6 +149,8 @@ def _save_ops(ops, ctx, op, *args, **kwargs):
 class PixArt(nn.Module):
     """The DiT denoiser. Call with NHWC latents; returns the f32 NHWC prediction."""
 
+    seq = None  # a parallel.mesh.SeqContext under sequence parallelism
+
     def __init__(self, cfg: PixArtConfig):
         super().__init__()
         if cfg.cache_span is not None and not 0 <= cfg.cache_span[0] < cfg.cache_span[1] \
@@ -227,6 +240,12 @@ class PixArt(nn.Module):
             mask_info = get_mask(B, h * w, cfg.mask_ratio, cfg.mask_type, generator=generator,
                                  noise=mask_noise, device=x.device)
             x = mask_out_token(x, mask_info["ids_keep"])
+        seq, n_kept = self.seq, x.shape[1]
+        # the blocks' token grid; the kept tokens of a mask have none (and
+        # no KV compression), a row of them tells the attention their count
+        grid = (h, w) if mask_info is None else (1, n_kept)
+        if seq is not None:
+            x = seq.shard(x)
         t = self.t_embedder(timestep)  # [B, D]
         if cfg.micro_condition:
             if img_hw is None or aspect_ratio is None:
@@ -249,10 +268,10 @@ class PixArt(nn.Module):
                 block = self.blocks[i]
                 kv = None if cross_kv is None else cross_kv[i]
                 if remat:  # recompute the block in the backward, keeping what the policy saves
-                    x = checkpoint(block, x, y, t0, y_mask, kv, (h, w), use_reentrant=False,
+                    x = checkpoint(block, x, y, t0, y_mask, kv, grid, use_reentrant=False,
                                    preserve_rng_state=False, context_fn=context_fn)
                 else:
-                    x = block(x, y, t0, y_mask, cross_kv=kv, hw=(h, w))
+                    x = block(x, y, t0, y_mask, cross_kv=kv, hw=grid)
             return x
 
         if block_cache is None:
@@ -267,8 +286,14 @@ class PixArt(nn.Module):
                 x, new_cache = out, (out - x).to(block_cache.dtype)
             x = run_range(x, k2, cfg.depth)
         if mask_info is not None:
+            if seq is not None:  # the kept tokens whole, to put back on the grid
+                x = seq.gather_kv(x, n_kept)
             x = unmask_tokens(x, mask_info["ids_restore"], self.mask_token)
+            if seq is not None:
+                x = seq.shard(x)
         x = self.final_layer(x, t)
+        if seq is not None:
+            x = seq.gather(x, h * w)
         out = self.unpatchify(x, h, w).float()
         if block_cache is not None:
             return out, new_cache
@@ -296,6 +321,18 @@ class PixArt(nn.Module):
     def forward_with_dpmsolver(self, x, timestep, y, y_mask=None, **kwargs):
         """Only the eps half of the output."""
         return self(x, timestep, y, y_mask, **kwargs)[..., : self.cfg.in_channels]
+
+
+def set_seq_parallel(model: PixArt, seq) -> PixArt:
+    """Run `model` under the seq group `seq` (a `parallel.mesh.
+    SeqContext`; None: on the whole token set), the explicit counterpart of
+    JAX's ambient seq mesh: the model and its self-attention layers read
+    it."""
+    model.seq = seq
+    for mod in model.modules():
+        if isinstance(mod, SelfAttentionKVCompress):
+            mod.seq = seq
+    return model
 
 
 def precompute_cross_kv(model: PixArt, y: torch.Tensor) -> list:

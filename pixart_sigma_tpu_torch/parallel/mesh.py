@@ -9,8 +9,9 @@ ranks (one card each) where JAX's are over devices:
            too, so the batch is split over (data, fsdp) jointly
   tensor - Megatron tensor parallelism of the blocks' attention and MLP
            projections; the ranks of one tensor group see the same rows
-  seq    - sequence parallelism, not ported (ROADMAP.md, Queue 1,
-           'Parallelism')
+  seq    - sequence (context) parallelism: the token dim of the model's
+           activations split over the ranks of a seq group, which share
+           their batch rows (`SeqContext`)
 
 The rules are pure functions of (parameter name, shape, axis sizes,
 min_size, model config) and give JAX's answers: `param_placement` reads a
@@ -20,22 +21,27 @@ maps the axis JAX shards back to the torch tensor. `shard_model` applies
 them: `parallelize_module` for the tensor axis, FSDP2's `fully_shard` per
 block and at the root for the fsdp axis (over a 2-D (data, fsdp) mesh that
 is HSDP), DDP when the batch ranks are the only parallelism.
+
+JAX carries the seq axis as the ambient mesh that the model's sharding
+constraints read; the port carries it explicitly: `seq_context(mesh)` is
+this rank's seq group, which the pipeline and the Trainer hand to the model
+(`models.pixart.set_seq_parallel`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from pixart_sigma_tpu_torch.parallel.dist import all_gather_tensor, gather_replicated
 from pixart_sigma_tpu_torch.utils.checkpoint import jax_param_path
 
 AXES = ("data", "fsdp", "tensor", "seq")
-_SEQ = "sequence parallelism is not ported (ROADMAP.md, Queue 1, 'Parallelism')"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +69,6 @@ def build_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
 
     config = config or MeshConfig()
-    if config.seq != 1:
-        raise NotImplementedError(f"mesh seq={config.seq}: {_SEQ}")
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs an initialised process group "
                            "(parallel.dist.initialize_distributed)")
@@ -76,9 +80,68 @@ def axis_size(mesh, axis: str) -> int:
     return mesh.size(AXES.index(axis))
 
 
+def seq_axis_size(mesh) -> int:
+    """The size of the mesh's seq axis (1 without a mesh)."""
+    return 1 if mesh is None else axis_size(mesh, "seq")
+
+
+def batch_shard_axes(mesh) -> Tuple[str, ...]:
+    """The axes the batch is split over beside seq: data and fsdp where
+    above size 1."""
+    return tuple(a for a in ("data", "fsdp") if mesh is not None and axis_size(mesh, a) > 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqContext:
+    """This rank's place in its seq group: the token dim of the model's
+    activations is cut into `size` contiguous shards of `shard_len(n)`
+    tokens, and this rank holds shard `rank` (so whole latent rows when the
+    grid's height divides `size`). A token count that does not divide
+    `size` is padded at the end with zero tokens; the padding is dropped
+    from every gather (`gather`, `gather_kv`), so it is never a key and
+    never an output."""
+
+    group: Any
+    size: int
+    rank: int
+
+    def shard_len(self, n: int) -> int:
+        return -(-n // self.size)
+
+    def shard(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's shard of a whole (replicated) `x` along `dim`; the
+        gradient of the rest is zero, so each rank's is a partial one."""
+        n = self.shard_len(x.shape[dim])
+        pad = n * self.size - x.shape[dim]
+        if pad:
+            shape = list(x.shape)
+            shape[dim] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+        return x.narrow(dim, self.rank * n, n)
+
+    def gather(self, x: torch.Tensor, n: int, dim: int = 1) -> torch.Tensor:
+        """The whole first `n` tokens from the shards, for a result every
+        rank uses alike (the output): the backward keeps the local slice."""
+        return gather_replicated(x, self.group, dim).narrow(dim, 0, n)
+
+    def gather_kv(self, x: torch.Tensor, n: int, dim: int = 1) -> torch.Tensor:
+        """The whole first `n` tokens from the shards, for values each rank
+        uses for its own queries (K/V): the backward reduce-scatters the
+        ranks' partial gradients to the owners."""
+        return all_gather_tensor(x, self.group, dim).narrow(dim, 0, n)
+
+
+def seq_context(mesh) -> Optional[SeqContext]:
+    """This rank's `SeqContext` on the mesh's seq axis, or None when it has
+    one rank."""
+    if seq_axis_size(mesh) == 1:
+        return None
+    return SeqContext(mesh.get_group("seq"), axis_size(mesh, "seq"), mesh.get_local_rank("seq"))
+
+
 def batch_ranks(mesh) -> int:
     """How many slices the global batch is split into: data x fsdp."""
-    return axis_size(mesh, "data") * axis_size(mesh, "fsdp")
+    return math.prod(axis_size(mesh, a) for a in batch_shard_axes(mesh))
 
 
 def batch_rank(mesh) -> int:
@@ -169,35 +232,51 @@ def jax_leaf(name: str, shape: Sequence[int], cfg) -> Tuple[Tuple[int, ...], Lis
     return jshape, to_torch
 
 
+def leaf_spec(jshape: Sequence[int], names: Tuple[str, ...], *, fsdp_size: int = 1,
+              tp_size: int = 1, fsdp: bool = False, tensor: bool = False,
+              min_size: int = 2**16) -> Tuple[Optional[int], Optional[int]]:
+    """JAX's `param_sharding` rule on one leaf of the JAX tree, of shape
+    `jshape` at the path `names`: (the axis sharded over 'tensor', the axis
+    sharded over 'fsdp'), each None when none is. The tensor rule first,
+    then fsdp on the largest remaining axis divisible by the fsdp size, for
+    leaves of at least `min_size` elements."""
+    if not jshape:
+        return None, None
+    taken = taken_f = None
+    if tensor:
+        axis = _tp_axis(names, len(jshape))
+        if axis is not None and jshape[axis] % tp_size == 0:
+            taken = axis
+    if fsdp and math.prod(jshape) >= min_size:
+        for axis in sorted(range(len(jshape)), key=lambda i: -jshape[i]):
+            if axis != taken and jshape[axis] % fsdp_size == 0:
+                taken_f = axis
+                break
+    return taken, taken_f
+
+
 def param_placement(name: str, shape: Sequence[int], cfg, *, fsdp_size: int = 1,
                     tp_size: int = 1, fsdp: bool = False, tensor: bool = False,
                     min_size: int = 2**16) -> Dict[str, Optional[int]]:
     """{"tensor": torch dim or None, "fsdp": torch dim or None} for port
-    parameter `name`, JAX's `param_sharding` read back onto the torch
-    tensor: the tensor rule first, then fsdp on the largest remaining axis
-    of the JAX leaf divisible by the fsdp size, for leaves of at least
-    `min_size` elements (a scan stack's whole size). Over one rank every
-    axis divides, so the same parameters are sharded as over more and each
-    shard is the whole tensor (JAX's spec over a size-1 axis is the same)."""
+    parameter `name`: `leaf_spec` on the JAX leaf that holds it (a scan
+    stack's whole size counts against `min_size`), read back onto the torch
+    tensor. Over one rank every axis divides, so the same parameters are
+    sharded as over more and each shard is the whole tensor (JAX's spec
+    over a size-1 axis is the same)."""
     jshape, to_torch = jax_leaf(name, shape, cfg)
+    names = tuple(jax_param_path(name, cfg).split("/"))
+    t_axis, f_axis = leaf_spec(jshape, names, fsdp_size=fsdp_size, tp_size=tp_size,
+                               fsdp=fsdp, tensor=tensor, min_size=min_size)
     out: Dict[str, Optional[int]] = {"tensor": None, "fsdp": None}
-    if not jshape:
-        return out
-    taken = None
-    if tensor:
-        names = tuple(jax_param_path(name, cfg).split("/"))
-        axis = _tp_axis(names, len(jshape))
-        if axis is not None and jshape[axis] % tp_size == 0:
-            taken, out["tensor"] = axis, to_torch[axis]
-    if fsdp and math.prod(jshape) >= min_size:
-        for axis in sorted(range(len(jshape)), key=lambda i: -jshape[i]):
-            if axis != taken and jshape[axis] % fsdp_size == 0:
-                if to_torch[axis] is None:
-                    raise NotImplementedError(
-                        f"{name}: JAX shards axis {axis} of its leaf {jshape}, which is no "
-                        "axis of the torch parameter")
-                out["fsdp"] = to_torch[axis]
-                break
+    if t_axis is not None:
+        out["tensor"] = to_torch[t_axis]
+    if f_axis is not None:
+        if to_torch[f_axis] is None:
+            raise NotImplementedError(
+                f"{name}: JAX shards axis {f_axis} of its leaf {tuple(jshape)}, which is no "
+                "axis of the torch parameter")
+        out["fsdp"] = to_torch[f_axis]
     return out
 
 
@@ -246,8 +325,11 @@ def shard_model(model: nn.Module, mesh, *, fsdp: bool = False, tensor: bool = Fa
     Returns (the module a training step calls, the parameters whose
     gradients the caller must average over the batch ranks): those FSDP
     leaves whole (under `min_size`), or every parameter when tensor
-    parallelism is on without FSDP. With neither, the step calls DDP over
-    `batch_group`, which averages every gradient itself."""
+    parallelism is on without FSDP, or when the mesh has a seq axis (the
+    step sums the gradients over the seq group besides; DDP over the batch
+    group would run its reductions inside the backward, among the seq
+    group's collectives). Otherwise the step calls DDP over `batch_group`,
+    which averages every gradient itself."""
     cfg = model.cfg
     if tensor:
         from torch.distributed.tensor.parallel import parallelize_module
@@ -279,7 +361,7 @@ def shard_model(model: nn.Module, mesh, *, fsdp: bool = False, tensor: bool = Fa
                         ignored_params={p for p in block.parameters() if p in ignored})
         fully_shard(model, mesh=fsdp_mesh, shard_placement_fn=placement, ignored_params=ignored)
         return model, ignored
-    if tensor:
+    if tensor or seq_axis_size(mesh) > 1:
         return model, set(model.parameters())
     from torch.nn.parallel import DistributedDataParallel
 

@@ -122,12 +122,12 @@ def sharded_sum(values: Sequence[Tuple[torch.Tensor, Sequence[ShardDim]]]) -> to
     return total
 
 
-def average_gradients(params: Iterable[torch.nn.Parameter], group) -> None:
-    """Average the (local) gradients of `params` over `group`, one
-    all-reduce per dtype."""
+def average_gradients(params: Iterable[torch.nn.Parameter], group, mean: bool = True) -> None:
+    """Average (or with `mean` False sum) the (local) gradients of `params`
+    over `group`, one all-reduce per dtype."""
     if group is None or dist.get_world_size(group) == 1:
         return
-    n = dist.get_world_size(group)
+    n = dist.get_world_size(group) if mean else 1
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in params:
         if p.grad is not None:
@@ -136,7 +136,8 @@ def average_gradients(params: Iterable[torch.nn.Parameter], group) -> None:
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=group)
-        flat.div_(n)
+        if n > 1:
+            flat.div_(n)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))

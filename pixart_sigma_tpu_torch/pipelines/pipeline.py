@@ -16,6 +16,15 @@ layers recomputed only on refresh steps (`_build_dpm_cached`).
 The stochastic samplers take their per-step noise from `noise_fn(k, shape)`
 (`diffusion/noise.py`): by default a `torch.Generator` on the device, seeded
 with `seed`, which also draws the initial latents when none are given.
+
+With a `mesh` (`parallel.mesh.build_mesh` over the initialised ranks, JAX's
+pipeline `mesh`) every rank runs the call: the batch is split over the
+data x fsdp ranks (every rank draws the whole batch's noise and keeps its
+rows), the tokens over the seq ranks (the model's `set_seq_parallel`), and
+the latents are gathered whole on every rank; the VAE decodes on rank 0,
+which alone returns images (the others return None). The adaptive block
+cache's drift is reduced over every rank before the host reads it, so all
+take the same refresh decisions, those of the whole batch as in JAX.
 """
 
 from __future__ import annotations
@@ -41,8 +50,9 @@ from pixart_sigma_tpu_torch.diffusion.lcm import LCMScheduler
 from pixart_sigma_tpu_torch.diffusion.noise import NoiseFn, generator_noise
 from pixart_sigma_tpu_torch.diffusion.sa_solver import SASolver
 from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
-from pixart_sigma_tpu_torch.models.pixart import precompute_cross_kv
+from pixart_sigma_tpu_torch.models.pixart import precompute_cross_kv, set_seq_parallel
 from pixart_sigma_tpu_torch.models.vae import tiled_decode
+from pixart_sigma_tpu_torch.parallel.dist import all_gather_tensor, mean_abs_ratio
 from pixart_sigma_tpu_torch.utils.device import resolve_device
 from pixart_sigma_tpu_torch.utils.prompt import prepare_prompt_ar
 
@@ -81,6 +91,7 @@ class PixArtPipeline:
         num_train_timesteps: int = 1000,
         base_resolution: int = 1024,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -90,6 +101,13 @@ class PixArtPipeline:
         self.betas = named_beta_schedule(beta_schedule, num_train_timesteps)
         self.ns = NoiseScheduleVP("discrete", betas=self.betas)
         self.base_resolution = base_resolution
+        self.mesh, self.batch_group, self.batch_ranks, self.batch_rank = mesh, None, 1, 0
+        if mesh is not None:
+            from pixart_sigma_tpu_torch.parallel import mesh as mesh_lib
+
+            set_seq_parallel(model, mesh_lib.seq_context(mesh))
+            self.batch_group = mesh_lib.batch_group(mesh)
+            self.batch_ranks, self.batch_rank = mesh_lib.batch_ranks(mesh), mesh_lib.batch_rank(mesh)
 
     # sampler name -> the method that builds its guided trajectory; lcm and dmd run
     # unguided on the prompts' captions
@@ -104,7 +122,9 @@ class PixArtPipeline:
         y, mask = self.t5.get_text_embeddings(list(prompts))
         return y.to(self.device), mask.to(self.device)
 
-    def _latents_to_images(self, latents: torch.Tensor) -> np.ndarray:
+    def _latents_to_images(self, latents: torch.Tensor) -> Optional[np.ndarray]:
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return None
         if self.vae is None:
             return latents.cpu().numpy()
         return decode_to_uint8(self.vae, latents / self.scale_factor)
@@ -134,14 +154,15 @@ class PixArtPipeline:
         """Generate images [B, H, W, 3] uint8 (or latents [B, H/8, W/8, 4]).
         Prompts may carry `--ar h:w` / `--hw h:w` flags. `noise_fn(k, shape)`
         replaces the seeded generator's per-step draws."""
-        if sampler not in self.SAMPLERS:
-            raise ValueError(f"unknown sampler {sampler}")
+        self.check_call(prompts, height=height, width=width,
+                        num_inference_steps=num_inference_steps, sampler=sampler,
+                        block_cache_interval=block_cache_interval,
+                        block_cache_threshold=block_cache_threshold,
+                        block_cache_schedule=block_cache_schedule)
         schedule = (None if block_cache_schedule is None
                     else tuple(sorted(set(int(i) for i in block_cache_schedule))))
         cache_on = (block_cache_interval >= 2 or block_cache_threshold is not None
                     or schedule is not None)
-        if cache_on and sampler != "dpm-solver":
-            raise ValueError(f"block caching requires sampler='dpm-solver' (got {sampler!r})")
         if isinstance(prompts, str):
             prompts = [prompts]
         B = len(prompts)
@@ -189,6 +210,9 @@ class PixArtPipeline:
         else:
             x = torch.randn((B, h, w, 4), generator=gen, device=dev, dtype=torch.float32)
         noise_fn = noise_fn or generator_noise(gen)
+        if self.batch_ranks > 1:
+            x, y, y_mask, null_y, mask_full, img_hw, aspect, noise_fn = self._rows(
+                x, y, y_mask, null_y, null_mask, img_hw, aspect, noise_fn)
         if sampler == "lcm":
             out = self._build_lcm(num_inference_steps)(x, y, y_mask, img_hw, aspect, noise_fn)
         elif sampler == "dmd":
@@ -200,9 +224,57 @@ class PixArtPipeline:
         else:
             run = getattr(self, self.GUIDED[sampler])(num_inference_steps, guidance_scale)
             out = run(x, y, null_y, mask_full, img_hw, aspect, noise_fn)
+        if self.batch_ranks > 1:
+            out = all_gather_tensor(out, self.batch_group, dim=0)
         if return_latents:
             return out.cpu().numpy()
         return self._latents_to_images(out)
+
+    def check_call(self, prompts, *, height: Optional[int] = None,
+                   width: Optional[int] = None, num_inference_steps: int = 20,
+                   sampler: str = "dpm-solver", block_cache_interval: int = 0,
+                   block_cache_threshold: Optional[float] = None,
+                   block_cache_schedule: Optional[Sequence[int]] = None, **_) -> None:
+        """Raise ValueError for the arguments of a call that `__call__`
+        refuses (it checks them first, before any work or collective): an
+        unknown sampler, no steps, a side the patches do not tile, block
+        caching off DPM-Solver++, without the model's `cache_span` or with a
+        schedule that does not start at step 0 or passes the last step."""
+        if sampler not in self.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler}")
+        if num_inference_steps < 1:
+            raise ValueError(f"num_inference_steps {num_inference_steps} < 1")
+        tile = 8 * self.model.cfg.patch_size
+        if height is not None and width is not None and (
+                self.model.cfg.multi_scale or height == width):
+            if min(height, width) < tile or height % tile or width % tile:
+                raise ValueError(f"{height} x {width} is not a multiple of {tile} pixels "
+                                 "(the latent patches)")
+        schedule = (None if block_cache_schedule is None
+                    else sorted(set(int(i) for i in block_cache_schedule)))
+        if block_cache_interval >= 2 or block_cache_threshold is not None or schedule is not None:
+            if sampler != "dpm-solver":
+                raise ValueError(f"block caching requires sampler='dpm-solver' (got {sampler!r})")
+            if self.model.cfg.cache_span is None:
+                raise ValueError("block caching needs a model built with cache_span "
+                                 "(the turbo serving config sets (7, 21))")
+            if block_cache_threshold is None and schedule is not None and (
+                    schedule[:1] != [0] or schedule[-1] >= num_inference_steps):
+                raise ValueError("block_cache_schedule must hold step 0 (the cache starts "
+                                 f"empty) and no step past {num_inference_steps - 1}")
+
+    def _rows(self, x, y, y_mask, null_y, null_mask, img_hw, aspect, noise_fn):
+        """This batch rank's rows of the call's tensors, and a `noise_fn`
+        that draws the whole batch's noise and keeps the rows."""
+        B, n = x.shape[0], self.batch_ranks
+        if B % n:
+            raise ValueError(f"a batch of {B} does not split over {n} batch ranks of the mesh")
+        rows = slice(self.batch_rank * (B // n), (self.batch_rank + 1) * (B // n))
+        y, y_mask, null_y, null_mask = y[rows], y_mask[rows], null_y[rows], null_mask[rows]
+        whole = noise_fn
+        noise = lambda k, shape: whole(k, (shape[0] * n,) + tuple(shape[1:]))[rows]
+        return (x[rows], y, y_mask, null_y, torch.cat([null_mask, y_mask], dim=0),
+                img_hw[rows], aspect[rows], noise)
 
     def _apply_eps(self, x, t_vec, cond, mask, img_hw, aspect, cross_kv=None, **cache):
         """The model's eps channels; given `block_cache` and `use_block_cache`
@@ -252,9 +324,6 @@ class PixArtPipeline:
         guidance and model time are `make_cfg_model_fn`'s helpers; the batch
         is always [uncond, cond], the cache's layout."""
         cfg = self.model.cfg
-        if cfg.cache_span is None:
-            raise ValueError("block caching needs a model built with cache_span "
-                             "(the turbo serving config sets (7, 21))")
         adaptive = adaptive_threshold is not None
         if adaptive:
             refresh = np.zeros(steps, bool)
@@ -262,12 +331,11 @@ class PixArtPipeline:
         elif schedule is not None:
             refresh = np.zeros(steps, bool)
             refresh[np.asarray(sorted(set(schedule)), int)] = True
-            if not refresh[0]:
-                raise ValueError("block_cache_schedule must hold step 0 (the cache starts "
-                                 "empty)")
         else:
             refresh = np.asarray([i % interval == 0 for i in range(steps)])
         ns = self.ns
+        # every rank's drift together, so all refresh alike
+        group = None if self.mesh is None else torch.distributed.group.WORLD
 
         def run(x, y, null_y, mask, img_hw, aspect, noise_fn):
             kvs = self._hoisted_kv(torch.cat([null_y, y], dim=0))
@@ -275,7 +343,7 @@ class PixArtPipeline:
             def state_model_fn(xi, t_cont, state, use_cache):
                 if adaptive:
                     cache, x_prev, drift = state
-                    rel = (xi - x_prev).abs().mean() / (x_prev.abs().mean() + 1e-8)
+                    rel = mean_abs_ratio(xi - x_prev, x_prev, group)
                     drift = drift + rel
                     use_cache = use_cache and bool(drift < adaptive_threshold)
                     if not use_cache:
@@ -292,6 +360,8 @@ class PixArtPipeline:
 
             p = cfg.patch_size
             n_tokens = (x.shape[1] // p) * (x.shape[2] // p)
+            if self.model.seq is not None:  # the cache holds this rank's token shard
+                n_tokens = self.model.seq.shard_len(n_tokens)
             state = torch.zeros((2 * x.shape[0], n_tokens, cfg.hidden_size), dtype=cfg.dtype,
                                 device=x.device)
             if adaptive:

@@ -13,7 +13,10 @@ runs on the card; `--device cpu` runs on the CPU. The model comes from
 the micro-conditions at 1024px). `--turbo` is `--int8` plus block caching
 at interval 2 for dpm-solver; `--block-cache-threshold` and
 `--block-cache-schedule` pick the other refresh policies, over the layers of
-`--cache-span`.
+`--cache-span`. `--seq-parallel N` splits each trajectory's tokens over N
+ranks under torchrun (`torchrun --nproc-per-node N -m pixart_sigma_tpu_torch.
+scripts.inference --seq-parallel N ...`): every rank runs every chunk, and
+rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from pixart_sigma_tpu_torch.scripts.serve import load_encoders, refuse_unported
+from pixart_sigma_tpu_torch.scripts.serve import add_seq_parallel_args, load_encoders, seq_mesh
 
 PE_INTERP = {256: 0.5, 512: 1.0, 1024: 2.0, 2048: 4.0}
 DEFAULT_STEPS = {"dpm-solver": 20, "deis": 20, "sde-dpm-solver": 20,
@@ -68,8 +71,7 @@ def parse_args(argv=None):
                    help="--int8 + --block-cache-interval 2 (dpm-solver only)")
     p.add_argument("--int8", action="store_true",
                    help="dynamic int8 (W8A8) projection and MLP matmuls")
-    p.add_argument("--seq-parallel", type=int, default=0, metavar="N",
-                   help="shard the token dim over N devices (not ported)")
+    add_seq_parallel_args(p)
     p.add_argument("--load-ema", action="store_true", help="load the checkpoint's EMA weights")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -102,14 +104,15 @@ def build_model(args, device):
 def main(argv=None):
     args = parse_args(argv)
     import numpy as np
+    import torch
 
     from pixart_sigma_tpu_torch.data.aspect import get_chunks
     from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
     from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
-    refuse_unported(args)
     device = resolve_device(args.device)
+    mesh = seq_mesh(args, device)
     if args.turbo:
         args.int8 = True
         if args.sampling_algo == "dpm-solver":
@@ -123,11 +126,13 @@ def main(argv=None):
     scale = args.scale_factor or (0.13025 if args.version == "sigma" else 0.18215)
     t5, y_null_row, vae = load_encoders(args, model, scale, device)
     pipe = PixArtPipeline(model, t5=t5, vae=vae, scale_factor=scale, base_resolution=base_res,
-                          device=device)
+                          device=device, mesh=mesh)
+    writes = mesh is None or torch.distributed.get_rank() == 0
 
     with open(args.txt_file) as f:
         prompts = [ln.strip() for ln in f if ln.strip()]
-    os.makedirs(args.save_root, exist_ok=True)
+    if writes:
+        os.makedirs(args.save_root, exist_ok=True)
     steps = args.steps or DEFAULT_STEPS[args.sampling_algo]
     schedule = (None if not args.block_cache_schedule
                 else [int(v) for v in args.block_cache_schedule.split(",")])
@@ -141,7 +146,7 @@ def main(argv=None):
                       block_cache_interval=args.block_cache_interval,
                       block_cache_threshold=args.block_cache_threshold,
                       block_cache_schedule=schedule)
-        for j, img in enumerate(images):
+        for j, img in enumerate(images if writes else ()):
             name = f"{idx + j:05d}_{args.sampling_algo}_{steps}.jpg"
             if vae is None:
                 np.save(os.path.join(args.save_root, name + ".npy"), img)
@@ -150,7 +155,8 @@ def main(argv=None):
 
                 Image.fromarray(img).save(os.path.join(args.save_root, name))
         idx += len(chunk)
-    print(f"wrote {idx} samples to {args.save_root}")
+    if writes:
+        print(f"wrote {idx} samples to {args.save_root}")
 
 
 if __name__ == "__main__":

@@ -24,6 +24,22 @@ caching at interval 2):
         --model-path model.pth --pseudo-t5 4096 --vae-path sdxl_vae.safetensors --port 8000
 
 and on the CPU with `--device cpu` and a small config.
+
+`--seq-parallel N` splits each trajectory's tokens over N ranks (sequence
+parallelism, `PixArtPipeline(mesh=)`), one process per rank under torchrun:
+
+    torchrun --nproc-per-node N -m pixart_sigma_tpu_torch.scripts.serve \
+        --seq-parallel N --config ... --model-path model.pth --pseudo-t5 4096
+
+(a world of W ranks splits the batch over W / N data groups besides). Rank 0
+runs the HTTP server and the batcher and broadcasts each batch's call to the
+other ranks, which run it with it; rank 0 answers. A request the pipeline
+would refuse is answered 400 (`check_opts`), and a call it refuses fails
+for its batch alone, on rank 0 before the broadcast (`RankedPipe`). A call
+that fails once broadcast, or a rank that fails, ends the run with a
+non-zero exit: the others' collectives fail on its closed connections, and
+idle ranks hear a heartbeat within the group's timeout (`RANK_TIMEOUT`), so
+no rank waits forever.
 """
 
 from __future__ import annotations
@@ -32,9 +48,12 @@ import argparse
 import base64
 import io
 import json
+import math
 import queue
+import sys
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 
@@ -266,6 +285,28 @@ f.onsubmit = async (e) => {
 </script>"""
 
 
+# the largest side and step count a request may ask for
+MAX_SIDE = 4096
+MAX_STEPS = 1000
+
+
+def check_opts(opts: dict, samplers) -> dict:
+    """`opts` of a request, or ValueError (a 400) for what the pipeline
+    would refuse or could not run: an unknown sampler, steps outside 1 to
+    MAX_STEPS, a side that is not a positive multiple of 16 up to MAX_SIDE,
+    a guidance scale that is not finite."""
+    if opts["sampler"] not in samplers:
+        raise ValueError(f"sampler must be one of {', '.join(samplers)}")
+    if not 1 <= opts["steps"] <= MAX_STEPS:
+        raise ValueError(f"steps must be 1 to {MAX_STEPS}")
+    for side in ("height", "width"):
+        if not (0 < opts[side] <= MAX_SIDE and opts[side] % 16 == 0):
+            raise ValueError(f"{side} must be a multiple of 16 from 16 to {MAX_SIDE}")
+    if not math.isfinite(opts["cfg_scale"]):
+        raise ValueError("cfg_scale must be finite")
+    return opts
+
+
 def make_handler(batcher, pipe, info):
     decoded = pipe.vae is not None
 
@@ -306,14 +347,14 @@ def make_handler(batcher, pipe, info):
                 prompts = [prompts] if isinstance(prompts, str) else list(prompts)
                 if not prompts or not all(isinstance(p, str) for p in prompts):
                     raise ValueError("prompt must be a string or a non-empty list of strings")
-                opts = dict(
+                opts = check_opts(dict(
                     height=int(req.get("height", info["resolution"])),
                     width=int(req.get("width", info["resolution"])),
                     steps=int(req.get("steps", 20)),
                     cfg_scale=float(req.get("cfg_scale", 4.5)),
                     sampler=str(req.get("sampler", "dpm-solver")),
                     seed=int(req.get("seed", 0)),
-                )
+                ), pipe.SAMPLERS)
             except Exception as e:  # noqa: BLE001
                 self._json(400, {"error": f"bad request: {e}"})
                 return
@@ -337,12 +378,120 @@ def make_handler(batcher, pipe, info):
     return Handler
 
 
-def refuse_unported(args) -> None:
-    """The options of the JAX entry points that the port does not run."""
-    if getattr(args, "seq_parallel", 0) and args.seq_parallel > 1:
-        raise NotImplementedError(
-            "--seq-parallel needs sequence parallelism (ROADMAP.md, Queue 1, 'Parallelism'), "
-            "which the port does not have yet")
+# seconds a rank waits in one collective before it fails (and the run ends);
+# idle ranks hear rank 0's heartbeat (`RankedPipe`) far sooner
+RANK_TIMEOUT = 600.0
+
+
+def add_seq_parallel_args(p) -> None:
+    p.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                   help="shard the token dim over N ranks per trajectory (run under torchrun)")
+
+
+def seq_mesh(args, device):
+    """The ("data", "fsdp", "tensor", "seq") mesh of `--seq-parallel N`
+    (`MeshConfig(data=-1, seq=N)`, as the JAX entry points build it) over
+    torchrun's ranks (or the process group already initialised), or None
+    without the flag."""
+    if not (args.seq_parallel and args.seq_parallel > 1):
+        return None
+    from pixart_sigma_tpu_torch.parallel.dist import initialize_distributed
+    from pixart_sigma_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    if not initialize_distributed(device=device, timeout=RANK_TIMEOUT):
+        raise RuntimeError(f"--seq-parallel {args.seq_parallel} runs one process per rank: "
+                           f"start it under torchrun --nproc-per-node {args.seq_parallel}")
+    return build_mesh(MeshConfig(data=-1, seq=args.seq_parallel), device.type)
+
+
+def _to_cpu(kwargs: dict) -> dict:
+    import torch
+
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in kwargs.items()}
+
+
+class RankedPipe:
+    """Rank 0's pipeline when every rank runs each call: the call (prompts
+    and arguments, tensors on the host) is broadcast to the other ranks
+    (`follow`) before rank 0 runs it, and while idle a heartbeat is
+    broadcast every `heartbeat_s`, so the others wait in no collective
+    longer than that.
+
+    A call the pipeline refuses (`check_call`, which `__call__` runs before
+    any collective, alike on every rank) is refused here, before the
+    broadcast: it fails for its batch and no rank runs it. A call that
+    fails once broadcast may leave the ranks at different collectives, so
+    it, like a heartbeat that fails (a rank died), is kept in `failed` and
+    `on_failure` is called."""
+
+    def __init__(self, pipe, heartbeat_s: float = 10.0, on_failure=None):
+        self.pipe = pipe
+        self.failed = None
+        self.on_failure = on_failure
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._beat = threading.Thread(target=self._heartbeat, args=(heartbeat_s,), daemon=True)
+        self._beat.start()
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def _send(self, msg):
+        from pixart_sigma_tpu_torch.parallel.dist import broadcast_object
+
+        try:
+            broadcast_object(msg)
+        except Exception as e:  # noqa: BLE001
+            self._fail(e)
+            raise
+
+    def _fail(self, e):
+        if self.failed is None:
+            self.failed = e
+            if self.on_failure is not None:
+                self.on_failure()
+
+    def __call__(self, prompts, **kwargs):
+        kwargs = _to_cpu(kwargs)
+        with self._lock:
+            if self.failed is not None:
+                raise RuntimeError(f"a rank failed: {self.failed}")
+            self.pipe.check_call(prompts, **kwargs)
+            self._send(("call", list(prompts), kwargs))
+            try:
+                return self.pipe(prompts, **kwargs)
+            except Exception as e:  # noqa: BLE001
+                self._fail(e)
+                raise
+
+    def _heartbeat(self, period: float):
+        while not self._stop.wait(period):
+            with self._lock:
+                if self.failed is not None:
+                    return
+                try:
+                    self._send(("heartbeat",))
+                except Exception:  # noqa: BLE001
+                    return
+
+    def close(self):
+        self._stop.set()
+        with self._lock:
+            if self.failed is None:
+                self._send(("stop",))
+
+
+def follow(pipe) -> None:
+    """A rank other than 0: run every call rank 0 broadcasts, until it
+    stops."""
+    from pixart_sigma_tpu_torch.parallel.dist import broadcast_object
+
+    while True:
+        msg = broadcast_object(None)
+        if msg[0] == "stop":
+            return
+        if msg[0] == "call":
+            pipe(msg[1], **msg[2])
 
 
 def load_encoders(args, model, scale: float, device):
@@ -375,15 +524,16 @@ def load_encoders(args, model, scale: float, device):
 
 
 def build_pipeline(args):
-    """(pipeline, null-caption row, resolution, config) from the flags."""
+    """(pipeline, null-caption row, resolution, config) from the flags; with
+    `--seq-parallel` every rank builds it over the mesh."""
     from pixart_sigma_tpu_torch.config import read_config
     from pixart_sigma_tpu_torch.models.builder import build_model_from_config
     from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
     from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
-    refuse_unported(args)
     device = resolve_device(args.device)
+    mesh = seq_mesh(args, device)
     config = read_config(args.config)
     overrides = {}
     if args.int8 or args.turbo:
@@ -400,7 +550,7 @@ def build_pipeline(args):
     scale = args.scale_factor or config.get("scale_factor", 0.13025)
     t5, y_null_row, vae = load_encoders(args, model, scale, device)
     pipe = PixArtPipeline(model, t5=t5, vae=vae, scale_factor=scale, base_resolution=res,
-                          device=device)
+                          device=device, mesh=mesh)
     return pipe, y_null_row, res, config
 
 
@@ -432,8 +582,7 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="dynamic int8 (W8A8) projection and MLP matmuls")
     p.add_argument("--max-wait-ms", type=int, default=25)
-    p.add_argument("--seq-parallel", type=int, default=0, metavar="N",
-                   help="shard the token dim over N devices (not ported)")
+    add_seq_parallel_args(p)
     p.add_argument("--turbo", action="store_true",
                    help="int8 W8A8 + delta block caching at interval 2")
     p.add_argument("--block-cache-interval", type=int, default=None,
@@ -444,19 +593,36 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    pipe, y_null_row, res, config = build_pipeline(args)
-    gen_kwargs = server_settings(args, config)
-    info = {"resolution": res, "model": args.model_path, "turbo": bool(gen_kwargs)}
+def serve(pipe, args, y_null_row=None, gen_kwargs=None, info=None) -> int:
+    """Serve `pipe` over HTTP until interrupted; returns the exit code.
+    Under a process group (`--seq-parallel`) rank 0 serves and the other
+    ranks follow its calls; a failed rank makes it 1."""
+    from pixart_sigma_tpu_torch.parallel.dist import process_count, process_index
+
+    if process_index() > 0:
+        try:
+            follow(pipe)
+        except Exception:  # noqa: BLE001 - the run ends, not this rank alone
+            traceback.print_exc()
+            return 1
+        return 0
+    res = pipe.base_resolution
+    server = None
+    ranked = process_count() > 1
+    if ranked:
+        pipe = RankedPipe(pipe, on_failure=lambda: threading.Thread(
+            target=lambda: server is not None and server.shutdown(), daemon=True).start())
+    batch_ranks = getattr(pipe, "batch_ranks", 1)
     batcher = MicroBatcher(pipe, y_null_row=y_null_row, max_wait_ms=args.max_wait_ms,
+                           batch_sizes=tuple(sorted({-(-b // batch_ranks) * batch_ranks
+                                                     for b in (1, 2, 4, 8, 12)})),
                            max_batch=args.max_batch, queue_depth=args.queue_depth,
                            gen_kwargs=gen_kwargs)
     if args.warmup:
         batcher.submit("warmup", dict(height=res, width=res, steps=20, cfg_scale=4.5,
                                       sampler="dpm-solver", seed=0))
         print("warmup done", flush=True)
-    server = ThreadingHTTPServer((args.host, args.port), make_handler(batcher, pipe, info))
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(batcher, pipe, info or {"resolution": res}))
     print(f"serving on http://{args.host}:{server.server_address[1]} "
           f"(max_batch={args.max_batch})", flush=True)
     try:
@@ -466,6 +632,20 @@ def main(argv=None):
     finally:
         server.server_close()
         batcher.shutdown()
+        if ranked and pipe.failed is None:
+            pipe.close()
+    if ranked and pipe.failed is not None:
+        print(f"a rank failed, ending the run: {pipe.failed}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    pipe, y_null_row, res, config = build_pipeline(args)
+    gen_kwargs = server_settings(args, config)
+    info = {"resolution": res, "model": args.model_path, "turbo": bool(gen_kwargs)}
+    sys.exit(serve(pipe, args, y_null_row, gen_kwargs, info))
 
 
 if __name__ == "__main__":

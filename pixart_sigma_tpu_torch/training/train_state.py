@@ -43,9 +43,11 @@ class TrainState:
         self.model = model
         # what a sharded step needs besides (`Trainer` sets them): the module
         # it calls (DDP's wrapper), the parameters whose gradients it
-        # averages itself, and the batch ranks' group, count and index
+        # averages itself, the batch ranks' group, count and index, and the
+        # seq group over which it sums the gradients
         self.forward = model
         self.sync_params: list = []
+        self.seq_group = None
         self.batch_group = None
         self.batch_ranks = 1
         self.batch_rank = 0

@@ -113,6 +113,13 @@ def _draws(state: TrainState, diffusion: GaussianDiffusion, latents: torch.Tenso
                    force_drop_ids=pick(force_drop_ids), mask_noise=pick(mask_noise))
 
 
+def sum_over_seq(state: TrainState) -> None:
+    """Sum each parameter's (local) gradient over the seq group, where each
+    rank's is the part of its tokens."""
+    average_gradients([p for p in state.model.parameters() if p.requires_grad],
+                      state.seq_group, mean=False)
+
+
 def train_step(state: TrainState, diffusion: GaussianDiffusion, batch: Dict[str, torch.Tensor],
                *, generator: Optional[torch.Generator] = None, t: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,
@@ -136,6 +143,7 @@ def train_step(state: TrainState, diffusion: GaussianDiffusion, batch: Dict[str,
                            mask_loss_coef=mask_loss_coef)
     terms["loss"].backward()
     average_gradients(state.sync_params, state.batch_group)
+    sum_over_seq(state)
     grad_norm = global_norm([p for p in state.model.parameters() if p.requires_grad])
     state.apply_gradients(grad_clip, grad_norm)
     per_sample = terms.pop("per_sample")

@@ -21,9 +21,11 @@ one card each) the config's `mesh`, `use_fsdp`, `use_tensor_parallel` and
 global batch, split over the data x fsdp ranks, gives what one rank would
 compute at the global batch. Checkpoints stay the upstream `.pth` with
 whole tensors, written by rank 0, so a run saved on R ranks resumes on
-any number. `loader_processes` reads with a process pool. Not ported:
-sequence parallelism (`refuse_parallelism`) and reading the JAX trainer's
-orbax checkpoints. The training CLI is `pixart_sigma_tpu_torch.scripts.
+any number. A `seq` axis splits the tokens of each image over the ranks of
+a seq group (`parallel.mesh.SeqContext`), beside data and fsdp; with
+tensor parallelism it is refused (`refuse_parallelism`). `loader_processes`
+reads with a process pool. Not ported: reading the JAX trainer's orbax
+checkpoints. The training CLI is `pixart_sigma_tpu_torch.scripts.
 train`; `main` here is the same CLI.
 """
 
@@ -56,7 +58,7 @@ from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
 from pixart_sigma_tpu_torch.diffusion.schedules import named_beta_schedule
 from pixart_sigma_tpu_torch.diffusion.timestep_sampler import create_named_schedule_sampler
 from pixart_sigma_tpu_torch.models.builder import build_model_from_config
-from pixart_sigma_tpu_torch.models.pixart import init_weights
+from pixart_sigma_tpu_torch.models.pixart import init_weights, set_seq_parallel
 from pixart_sigma_tpu_torch.models.vae import posterior_sample
 from pixart_sigma_tpu_torch.parallel import mesh as mesh_lib
 from pixart_sigma_tpu_torch.parallel.dist import (
@@ -92,12 +94,15 @@ _FSDP_MIN_SIZE = 2**16  # the JAX trainer's default
 
 def refuse_parallelism(config: Config) -> None:
     """Raise for what of the JAX trainer's parallelism the port does not
-    run: a `seq` mesh axis above 1 (sequence parallelism). The other keys
-    take effect, and are never ignored silently."""
+    run: a `seq` mesh axis above 1 together with tensor parallelism. The
+    other keys take effect, and are never ignored silently."""
     mesh = config.get("mesh") or {}
-    if mesh.get("seq", 1) not in (1, None):
-        raise NotImplementedError(f"mesh axis seq={mesh['seq']}: sequence parallelism is not "
-                                  "ported (ROADMAP.md, Queue 1, 'Parallelism')")
+    seq = mesh.get("seq") or 1
+    if seq > 1 and (config.get("use_tensor_parallel", False)
+                    or (mesh.get("tensor") or 1) > 1):
+        raise NotImplementedError(
+            f"mesh seq={seq} with tensor parallelism: the port shards the tokens beside the "
+            "data and fsdp axes only (ROADMAP.md, Queue 3)")
 
 
 def _needs_ranks(config: Config) -> Optional[str]:
@@ -181,6 +186,7 @@ class Trainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"model params: {n_params / 1e6:.1f} M on {self.device}")
         self.mesh, self.batch_group, self.batch_ranks, self.batch_rank = None, None, 1, 0
+        self.seq = None
         self._forward, self._sync_params, self._sharded = self.model, set(), False
         self._plain_model = None  # an unsharded copy for validation sampling
         if dist.is_initialized():
@@ -213,6 +219,8 @@ class Trainer:
         self.batch_group = mesh_lib.batch_group(self.mesh)
         self.batch_ranks = mesh_lib.batch_ranks(self.mesh)
         self.batch_rank = mesh_lib.batch_rank(self.mesh)
+        self.seq = mesh_lib.seq_context(self.mesh)
+        set_seq_parallel(self.model, self.seq)
         self._forward, self._sync_params = mesh_lib.shard_model(
             self.model, self.mesh, fsdp=fsdp, tensor=tensor,
             min_size=config.get("fsdp_min_size", _FSDP_MIN_SIZE), batch_group=self.batch_group)
@@ -251,6 +259,7 @@ class Trainer:
         self.state.forward = self._forward
         self.state.sync_params = [p for p in self.model.parameters() if p in self._sync_params]
         self.state.batch_group = self.batch_group
+        self.state.seq_group = None if self.seq is None else self.seq.group
         self.state.batch_ranks, self.state.batch_rank = self.batch_ranks, self.batch_rank
         return self.state
 

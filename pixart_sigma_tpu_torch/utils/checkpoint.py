@@ -132,6 +132,32 @@ _TOP_MODULES = {"t_embedder.mlp.0": "t_embedder/fc1", "t_embedder.mlp.2": "t_emb
 _LAYER_NORMS = ("attn/q_norm", "attn/k_norm", "attn/sr_norm")
 
 
+def aux_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX param tree of one auxiliary block (`FinalLayer`,
+    `MaskFinalLayer`, `DecoderLayer`, `LabelEmbedder`,
+    `CaptionEmbedderDoubleBr` of models/layers.py) -> the port module's
+    state dict: Dense kernels transposed to Linear weights, the adaLN Dense
+    into its `nn.Sequential` slot, the Embed table to `nn.Embedding`, raw
+    params as they are."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            name = {"adaLN_modulation": "adaLN_modulation.1"}.get(key, key)
+            if not isinstance(val, dict):
+                out[prefix + name] = np.asarray(val)
+            elif "kernel" in val:
+                out[prefix + name + ".weight"] = np.asarray(val["kernel"]).T
+                out[prefix + name + ".bias"] = np.asarray(val["bias"])
+            elif set(val) == {"embedding"}:
+                out[prefix + name + ".weight"] = np.asarray(val["embedding"])
+            else:
+                walk(val, prefix + name + ".")
+
+    walk(params.get("params", params), "")
+    return _tensors(out)
+
+
 def jax_param_path(name: str, cfg) -> str:
     """The path of port parameter `name` in the JAX param tree of `cfg`:
     module names joined by "/", blocks in their scan group (`blocks_scan_<g>`,

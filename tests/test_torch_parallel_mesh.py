@@ -224,15 +224,20 @@ def test_process_loader_yields_the_thread_batches(tmp_path):
 
 
 def test_what_is_not_ported_still_raises(tmp_path):
-    """A `seq` axis names the ROADMAP item; so does --seq-parallel (in
+    """A `seq` axis with tensor parallelism names itself; a `seq` axis alone
+    needs ranks, as the other axes do (--seq-parallel in
     tests/test_torch_serve.py)."""
     cfg = read_config(TOY)
-    cfg["mesh"] = dict(data=-1, fsdp=1, tensor=1, seq=2)
-    with pytest.raises(NotImplementedError, match="Queue 1, 'Parallelism'"):
+    cfg["mesh"] = dict(data=-1, fsdp=1, tensor=2, seq=2)
+    with pytest.raises(NotImplementedError, match="seq=2 with tensor parallelism"):
         refuse_parallelism(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1, 'Parallelism'"):
+    with pytest.raises(NotImplementedError, match="seq=2 with tensor parallelism"):
         Trainer(cfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, 'Parallelism'"):
+    cfg["mesh"] = dict(data=-1, fsdp=1, tensor=1, seq=2)
+    refuse_parallelism(cfg)
+    with pytest.raises(RuntimeError, match="mesh seq=2 acts on torch.distributed's ranks"):
+        Trainer(cfg, str(tmp_path), device="cpu")
+    with pytest.raises(RuntimeError, match="initialised process group"):
         tmesh.build_mesh(tmesh.MeshConfig(seq=2), "cpu")
 
 

@@ -1,8 +1,10 @@
 """The sharded training step against the JAX step on one device, which the
-JAX package's own DP, FSDP and TP steps equal (tests/test_fsdp.py): one
-step on 2 gloo ranks with fsdp = 2, and one with tensor = 2, from perturbed
-JAX weights, with JAX's draws passed in (t, noise, caption drops) for the
-global batch of 4. Each rank holds 2 rows (fsdp) or all 4 (tensor). The
+JAX package's own DP, FSDP, TP and seq steps equal (tests/test_fsdp.py,
+tests/test_seq_parallel.py): one step on 2 gloo ranks with fsdp = 2, one
+with tensor = 2 and one with seq = 2, from perturbed JAX weights, with
+JAX's draws passed in (t, noise, caption drops) for the global batch of 4.
+Each rank holds 2 rows (fsdp) or all 4 (tensor; seq, with half the tokens:
+its gradients summed over the seq ranks give the gradient norm). The
 gradients' global norm and the loss, the CAME update behind a 0.01 clip and
 the EMA are compared with JAX (the port's gradients differ from JAX's by
 float rounding, 3e-4 relative, as in tests/test_torch_training.py), and
@@ -37,6 +39,7 @@ LR, CLIP, EMA_RATE, HIDDEN = 1e-3, 0.01, 0.9999, 128
 CASES = {
     "fsdp2": dict(mesh=dict(data=1, fsdp=2), use_fsdp=True, fsdp_min_size=4096),
     "tensor2": dict(mesh=dict(data=1, tensor=2), use_tensor_parallel=True),
+    "seq2": dict(mesh=dict(data=1, seq=2)),
 }
 
 

@@ -18,7 +18,7 @@ server in-process on a loopback port, and the batch inference CLI.
 - `inference.py` on a two-line prompt file writes `.npy` latents equal to
   the pipeline's calls with seed + index within 1e-5.
 - The turbo config reads through the port's config reader as through JAX's;
-  the refusals of `--seq-parallel 2`, an orbax path and the card default
+  `--seq-parallel 2` outside torchrun, the refusals of an orbax path and the card default
   without a card (`--vae-flax` is read since the VAE trainer came:
   `tests/test_torch_toy_workflow.py`).
 """
@@ -407,10 +407,10 @@ def test_entry_points_refuse_what_the_port_does_not_run(toy_files, tmp_path):
     prompts.write_text("a\n")
     cli = ["--model-path", pth, "--txt-file", str(prompts), "--config", config,
            "--save-root", str(tmp_path / "o"), "--device", "cpu"]
-    for extra, match in ((["--seq-parallel", "2"], "Queue 1, 'Parallelism'"),):
-        with pytest.raises(NotImplementedError, match=match):
+    for extra, match in ((["--seq-parallel", "2"], "under torchrun --nproc-per-node 2"),):
+        with pytest.raises(RuntimeError, match=match):
             serve.build_pipeline(_serve_args(config, pth, *extra))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(RuntimeError, match=match):
             inference.main(cli + extra)
     orbax = tmp_path / "checkpoints" / "step_10"
     orbax.mkdir(parents=True)
