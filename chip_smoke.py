@@ -3,7 +3,8 @@
 512px training paths, with the trainer's features, the T5-XXL and SDXL-VAE
 encoders, the turbo serving modes and the HTTP server, the training CLI,
 the fine-tuning and distillation loops, the evaluation (bits/dim, FID,
-LPIPS), the VAE trainer and the offline toy workflow, on one CUDA card.
+LPIPS), the VAE trainer and the offline toy workflow, and the attention
+kernels at every head dim up to 128, on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -222,7 +223,23 @@ Phases, each printing its own lines:
    the 2K shape against plain attention; (c) two Trainer steps over seq 2
    at full width, depth 2, against one process (fault: the gradients
    averaged over seq, not summed); (d) each rank's launches against the
-   single-card reckoning at its shard.
+   single-card reckoning at its shard;
+34. every head dim up to 128 (run after phase 5b): (a) each of the six
+   kernels at Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120 and 128 with
+   H = 1152 / Dh heads at the 1024px shapes, masked and unmasked, bf16 and
+   f32, held to its plain version on three picked heads under phase 3's
+   limits (the backward pair after the onepass forward), with planted
+   faults: a key tile skipped, K's columns [64, 128) dropped (width 128),
+   the padded head dim's logit scale (a head dim off a multiple of 8), lse
+   + 1 and a query tile skipped (backward); each kernel's time at Dh = 128
+   and 96 beside its plain version, `sdpa` and the bound; (b) the 20-step
+   1024px DPM-Solver++ trajectory of XL-2 at full width and depth with 9
+   heads (Dh = 128, self-attention on flash) and 12 (Dh = 96) against plain
+   attention on the card (fault: K's columns [64, 128) dropped in plain
+   attention), launches against `forward_launches`; (c) one 1024px training
+   step of the 9-head model at depth 4 (B = 2), its gradients per 128-row
+   tile against plain attention (faults: dK's columns [64, 128) zeroed, dQ
+   without its ln 2 factor).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -825,7 +842,8 @@ def step_launches(mc, hw) -> dict:
     """Kernel launches of one training micro-step of model config `mc` on a
     latent of `hw`, reckoned from the kernels' gates as this script reads
     them, not from the port's dispatch: a block's self-attention runs flash
-    past 4096 padded keys (128-key tiles), else onepass; its cross-attention
+    past 4096 padded keys (128-key tiles) or at a head dim of 128, else
+    onepass (`self_attention_kernel`); its cross-attention
     (at most 512 caption keys) allheads; a checkpointed block whose remat
     policy does not keep the attention outputs ("nothing", "dots",
     "dots_no_batch") runs both forwards again in the backward; each backward
@@ -839,10 +857,11 @@ def step_launches(mc, hw) -> dict:
     runs = 2 if mc.grad_checkpointing and mc.remat_policy in ("nothing", "dots",
                                                               "dots_no_batch") else 1
     out = dict.fromkeys(TRAIN_COUNTERS, 0)
+    dh = mc.hidden_size // mc.num_heads
     for i in range(mc.depth):
         sr = mc.sr_ratio(i)
         keys = n if sr == 1 else (h // sr) * (w // sr)
-        out["flash_forward" if -(-keys // 128) * 128 > 4096 else "onepass"] += runs
+        out[self_attention_kernel(keys, dh)] += runs
         out["allheads"] += runs
         out["onepass"] += 1
         out["flash_bwd_dkv"] += 2
@@ -1049,6 +1068,28 @@ def gradient_check(dev, fa) -> None:
         raise SystemExit("256px training gradients disagree with plain attention")
 
 
+def output_fault(fa, attr: str, keys: int, edit):
+    """A context manager factory planting `edit` on the output of the backward
+    wrapper `attr` of `fa` (flash_bwd_dq or flash_bwd_dkv) in its launches over
+    `keys` keys (the self-attention's; the cross-attention's pass as they
+    are)."""
+    @contextlib.contextmanager
+    def patch():
+        orig = getattr(fa, attr)
+
+        def faulty(q, k, *args, **kwargs):
+            got = orig(q, k, *args, **kwargs)
+            return edit(got) if k.shape[1] == keys else got
+
+        faulty.launches = 0  # the wrapper counts on the module's name
+        setattr(fa, attr, faulty)
+        try:
+            yield
+        finally:
+            setattr(fa, attr, orig)
+    return patch
+
+
 def gradient_check_2k(dev, fa) -> dict:
     """The 2K gradient gate: one training step's gradients through the
     kernels, flash's autograd Function in the model, against plain
@@ -1063,26 +1104,8 @@ def gradient_check_2k(dev, fa) -> dict:
     Two planted faults in flash's backward must each fail it: dQ without its
     ln 2 chain factor, and dQ of the last query tile (the 66 tail rows)
     zeroed. Returns the launches."""
-    import contextlib
-
     n = 65 * 66
-
-    def flash_dq_fault(edit):
-        @contextlib.contextmanager
-        def patch():
-            orig = fa.flash_bwd_dq
-
-            def faulty(q, k, *args, **kwargs):
-                dq = orig(q, k, *args, **kwargs)
-                return edit(dq) if k.shape[1] == n else dq  # flash's: keys are all tokens
-
-            faulty.launches = 0  # the wrapper counts on the module's name
-            fa.flash_bwd_dq = faulty
-            try:
-                yield
-            finally:
-                fa.flash_bwd_dq = orig
-        return patch
+    flash_dq_fault = lambda edit: output_fault(fa, "flash_bwd_dq", n, edit)
 
     def zero_tail(dq):
         dq[:, n - n % fa.BWD_KEY_TILE:] = 0
@@ -2673,14 +2696,16 @@ def check_launches(tag: str, got: dict, want: dict, some: bool = True) -> None:
 
 def forward_launches(mc, hw, calls: int) -> dict:
     """Launches of `calls` no-grad model calls on a latent of `hw`: each
-    block's self-attention (onepass up to 4096 padded keys, flash past) and
-    its caption cross-attention (allheads), once per call."""
+    block's self-attention (`self_attention_kernel`: onepass up to 4096
+    padded keys below a head dim of 128, flash otherwise) and its caption
+    cross-attention (allheads), once per call."""
     h, w = hw[0] // mc.patch_size, hw[1] // mc.patch_size
     out = dict.fromkeys(TRAIN_COUNTERS, 0)
+    dh = mc.hidden_size // mc.num_heads
     for i in range(mc.depth):
         sr = mc.sr_ratio(i)
         keys = h * w if sr == 1 else (h // sr) * (w // sr)
-        out["flash_forward" if -(-keys // 128) * 128 > 4096 else "onepass"] += calls
+        out[self_attention_kernel(keys, dh)] += calls
         out["allheads"] += calls
     return out
 
@@ -4755,6 +4780,416 @@ def run_seq_parallel(dev, card, fa) -> dict:
                 attention_2k=dict(att["launches"]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: every head dim up to 128. The kernels run a head dim at the padded
+# width 64, 80 or 128 (csrc/hopper_common.cuh); one off a multiple of 8 is
+# zero-padded by the wrapper, with the true head dim's softmax scale.
+
+HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128)
+# (b): XL-2 at its published width of 1152 with 9 heads (Dh = 128: its
+# self-attention runs flash, past the onepass gate) and with 12 (Dh = 96)
+HEAD_DIM_MODELS = (9, 12)
+# (b)'s limit, relative L2 of the 20-step 1024px latents through the kernels
+# against plain attention on the card; the planted fault, K's columns
+# [64, 128) dropped in every attention call of the plain run, must read
+# above it (readings in PERF.md)
+HEAD_DIM_PATH_TOL = 3e-2
+HEAD_DIM_CAPTIONS = (300, (256, 300), 77, 3)  # phase 3's caption masks, one not a prefix
+
+
+def heads_of(dh: int) -> int:
+    """Heads that keep H * Dh near XL-2's 1152."""
+    return max(1, round(1152 / dh))
+
+
+def picked_heads(H: int) -> list:
+    """The heads the plain versions are held to: first, middle and last."""
+    return sorted({0, H // 2, H - 1})
+
+
+def drop_columns(x):
+    """x with its head-dim columns [64, 128) set to 0."""
+    x = x.clone()
+    x[..., 64:] = 0
+    return x
+
+
+def self_attention_kernel(keys: int, dh: int) -> str:
+    """The kernel a block's self-attention runs, by the kernels' gates: onepass
+    up to 4096 padded keys with a head dim below its 128-lane padding,
+    flash otherwise."""
+    return "flash_forward" if -(-keys // 128) * 128 > 4096 or dh % 128 == 0 else "onepass"
+
+
+COLUMNS_FAULT = "K columns [64, 128) dropped"
+
+
+def head_dim_faults(dh: int) -> list:
+    """The faults planted at head dim dh besides the generic ones: K's
+    columns [64, 128) dropped (width 128), and the logit scale of the padded
+    head dim (a head dim off a multiple of 8)."""
+    return ([COLUMNS_FAULT] if dh > 80 else []) + (
+        [f"logit scale of the padded head dim {dh + (-dh % 8)}"] if dh % 8 else [])
+
+
+def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tuple[float, bool]:
+    """One forward kernel (`name`) at head dim dh, H = heads_of(dh), on every
+    head, held to its plain version on the picked heads (q/k/v rounded to
+    bf16 as the kernel reads them), and the planted faults: key tile
+    [128, 256) skipped and those of `head_dim_faults`; onepass and flash
+    also their lse."""
+    torch_ = sys.modules["torch"]
+    H = heads_of(dh)
+    heads = picked_heads(H)
+    if name in ("allheads", "headsmajor"):
+        qf, kf, vf, mask, _ = cases.allheads(B, N, M, lengths, H, dh, dtype=dtype)
+        q, k, v = (x.unflatten(-1, (H, dh)) for x in (qf, kf, vf))
+    else:
+        q, k, v = cases.onepass(B, N, M, H, dh, dtype=dtype)
+        mask = None if lengths is None else cases.lengths_mask(lengths, M)
+    lse = None
+    if name == "onepass":
+        out, lse = fa._onepass_forward(q, k, v, None if mask is None else fa.mask_bias(mask),
+                                       with_lse=True)
+    elif name == "flash":
+        q = fa._flash_scale_q(q)  # the plain versions below take the pre-scaled q
+        out, lse = fa._flash_forward(q, k, v, fa._flash_madd(mask, dtype),
+                                     fa._flash_tail(M, None), with_lse=True)
+    elif name == "allheads":
+        out = fa.crossattn_allheads(qf, kf, vf, mask, H).unflatten(-1, (H, dh))
+    else:
+        out = fa.crossattn_headsmajor(q, k, v, mask)
+    torch_.cuda.synchronize()
+    pick = lambda x: x[:, :, heads]
+    pq, pk, pv = (pick(x).to(torch_.bfloat16).to(dtype) for x in (q, k, v))
+
+    def plain(q_, k_, keep=None):
+        m = mask if keep is None else (keep if mask is None else keep & mask)
+        if name == "onepass":
+            return fa._plain_forward(q_, k_, pv, None if m is None else fa.mask_bias(m))
+        if name == "flash":
+            return flash_plain(fa, q_, k_, pv, fa._flash_madd(m, dtype))
+        ref = fa.attention_reference if name == "allheads" else fa.headsmajor_reference
+        return ref(q_, k_, pv, m), None
+
+    want, lse_want = plain(pq, pk)
+    faults = {}
+    if M > 256:
+        keep = torch_.ones((B, M), dtype=torch_.bool, device=q.device)
+        keep[:, 128:256] = False
+        faults["key tile [128, 256) skipped"] = plain(pq, pk, keep)[0]
+    padded_scale = ((pq.float() * (dh / (dh + (-dh % 8))) ** 0.5).to(dtype), pk)
+    for fault in head_dim_faults(dh):
+        faults[fault] = plain(*((pq, drop_columns(pk)) if fault == COLUMNS_FAULT
+                                else padded_scale))[0]
+    label = (f"Dh={dh} {name} B={B} H={H} N={N} M={M}"
+             f"{'' if lengths is None else f' valid={lengths}'}"
+             f"{' f32' if dtype == torch_.float32 else ''}, heads {heads}")
+    err, ok = compare(label, pick(out), want, faults)
+    if lse is not None:
+        got = lse[:, heads]
+        finite = torch_.isfinite(lse_want)
+        ok &= bool(torch_.equal(finite, torch_.isfinite(got)))
+        ok &= check_lse(label, got[finite], lse_want[finite])
+    return err, ok
+
+
+def check_head_dim_backward(fa, cases, dh, B, N, M, lengths, dtype) -> tuple[dict, bool]:
+    """The onepass forward with its lse, then dkv and dq, at head dim dh on
+    every head, held to the plain backward on the picked heads, with its
+    planted faults: query tile [64, 128) skipped, lse + 1, and those of
+    `head_dim_faults` (the padded head dim's scale is the plain backward's
+    logit scale and chain factor). Returns ({kernel: max |err|}, ok)."""
+    torch_ = sys.modules["torch"]
+    H = heads_of(dh)
+    heads = picked_heads(H)
+    if lengths is None:
+        q, k, v = cases.onepass(B, N, M, H, dh, dtype=dtype)
+        madd = None
+    else:
+        qf, kf, vf, mask, _ = cases.allheads(B, N, M, lengths, H, dh, dtype=dtype)
+        q, k, v = (x.unflatten(-1, (H, dh)) for x in (qf, kf, vf))
+        madd = fa.mask_bias(mask)
+    do = cases.randn(B, N, H, dh, dtype=dtype)
+    out, lse = fa._onepass_forward(q, k, v, madd, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    madd_b = None if madd is None else madd.to(dtype).float()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, madd_b, lse, delta)
+    dq = fa.flash_bwd_dq(q, k, v, do, madd_b, lse, delta)
+    torch_.cuda.synchronize()
+    pick = lambda x: x[:, :, heads]
+    pq, pk, pv, pdo = (pick(x).to(torch_.bfloat16).to(dtype) for x in (q, k, v, do))
+    lse_p, delta_p = lse[:, heads], delta[:, heads]
+    ref = lambda q_=pq, k_=pk, l=lse_p, scales=(None, None): fa.flash_backward_reference(
+        q_, k_, pv, madd_b, l, delta_p, pdo, *scales)
+    want = ref()
+    skipped = lse_p.clone()
+    skipped[:, :, 64:128] = float("inf")
+    faults = {"query tile [64, 128) skipped": ref(l=skipped), "lse + 1": ref(l=lse_p + 1)}
+    dp = dh + (-dh % 8)
+    for fault in head_dim_faults(dh):
+        faults[fault] = (ref(k_=drop_columns(pk)) if fault == COLUMNS_FAULT else
+                         ref(scales=(dp**-0.5 * fa.LOG2E, dp**-0.5)))
+    label = (f"Dh={dh} backward B={B} H={H} N={N} M={M}"
+             f"{'' if lengths is None else f' valid={lengths}'}"
+             f"{' f32' if dtype == torch_.float32 else ''}, heads {heads}")
+    errs, ok = {}, True
+    for kname, got, idx in (("dkv", dk, 1), ("dkv", dv, 2), ("dq", dq, 0)):
+        err, good = compare(f"{label} d{'qkv'[idx]}", pick(got), want[idx],
+                            {f: o[idx] for f, o in faults.items()})
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        ok &= good
+    return errs, ok
+
+
+def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
+    """At head dim dh, H = 1152 / dh: each kernel's time at the 1024px shapes
+    (onepass at N = M = 4096 and M = 1024, flash at N = M = 4096, allheads and
+    headsmajor on the trajectory's captions, dkv and dq at N = M = 4096),
+    its plain version's, `scaled_dot_product_attention`'s (forward, or its
+    backward for dkv and dq; timed only) and the bound, which H * Dh = 1152
+    makes the Dh = 72 rows' bound. Returns {kernel: [row]}."""
+    import torch
+    import torch.nn.functional as F
+
+    H, B = 1152 // dh, 4
+    rows = {}
+
+    def row(name, N, M, valid, ms, plain_ms, lib_ms, flops, nbytes, extra=""):
+        b_ms, by = bound_ms(flops, nbytes)
+        log(f"[time] {card}: Dh={dh} {name} B={B} H={H} N={N} M={M}{extra}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}")
+        rows.setdefault(name, []).append(dict(head_dim=dh, heads=H, B=B, N=N, M=M,
+                                              valid_keys=valid, ms=ms, plain_ms=plain_ms,
+                                              bound_ms=b_ms, bound_by=by, library_ms=lib_ms))
+
+    for name, N, M, mask in (("onepass", 4096, 4096, None), ("onepass", 4096, 1024, None),
+                             ("flash_forward", 4096, 4096, None),
+                             ("allheads", 4096, 300, mask_path),
+                             ("headsmajor", 4096, 300, mask_path)):
+        if mask is None:
+            q, k, v = cases.onepass(B, N, M, H, dh)
+            valid = B * M
+        else:
+            qf, kf, vf, _, _ = cases.allheads(B, N, M, (M,) * B, H, dh)
+            q, k, v = (x.unflatten(-1, (H, dh)) for x in (qf, kf, vf))
+            valid = int(mask.sum())
+        kern, plain = {
+            "onepass": (lambda: fa.onepass_attention(q, k, v),
+                        lambda: fa.attention_reference(q, k, v)),
+            "flash_forward": (lambda: fa.flash_attention(q, k, v),
+                              lambda: fa.flash_reference_with_lse(q, k, v)),
+            "allheads": (lambda: fa.crossattn_allheads(qf, kf, vf, mask, H),
+                         lambda: fa.attention_reference(q, k, v, mask)),
+            "headsmajor": (lambda: fa.crossattn_headsmajor(q, k, v, mask),
+                           lambda: fa.headsmajor_reference(q, k, v, mask)),
+        }[name]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        am = None if mask is None else mask[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1), cuda_ms(lib)
+        row(name, N, M, valid, ms, plain_ms, lib_ms, 4.0 * H * N * valid * dh,
+            2.0 * (2 * B * N * H * dh + 2 * valid * H * dh),
+            "" if mask is None else f" ({valid} valid keys of {B * M})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    N = M = 4096
+    q, k, v = cases.onepass(B, N, M, H, dh)
+    do = cases.randn(B, N, H, dh)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt)
+    do_t = do.transpose(1, 2).contiguous()
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t, retain_graph=True))
+    del qt, kt, vt, out_t, do_t
+    q, lse, delta, scales, *_ = backward_launch(fa, q, k, v, do, False)
+    args = (q, k, v, do, None, lse, delta, *scales)
+    plain_ms = cuda_ms(lambda: fa.flash_backward_reference(q, k, v, None, lse, delta, do),
+                       iters=3, warmup=1)
+    io = 2.0 * 4 * B * N * H * dh + 4.0 * 2 * B * H * N
+    for name, products in (("flash_bwd_dkv", 4), ("flash_bwd_dq", 3)):
+        fn = getattr(fa, name)
+        row(name, N, M, B * M, cuda_ms(lambda: fn(*args)), plain_ms, lib_ms,
+            products * 2.0 * H * N * B * M * dh, io + 2.0 * (2 if products == 4 else 1) * B * N * H * dh)
+    del q, k, v, do, lse, delta, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
+    """(b): the 1024px 20-step DPM-Solver++ trajectory with CFG 4.5 of XL-2 at
+    full width and depth (28 blocks of 1152, KV compression conv x2 on layers
+    14-27, 300-token captions) with 9 and with 12 heads, seeded random
+    weights (zero-initialised leaves perturbed), through the kernels against
+    plain attention on the card; the launches against `forward_launches`,
+    and the planted fault. Returns {heads: launches}."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
+    from pixart_sigma_tpu_torch.ops import attention as attention_module
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+
+    @contextlib.contextmanager
+    def k_columns_dropped():
+        orig = attention_module.attention_reference
+        attention_module.attention_reference = (
+            lambda q, k, v, key_mask=None: orig(q, drop_columns(k), v, key_mask))
+        try:
+            yield
+        finally:
+            attention_module.attention_reference = orig
+
+    call = dict(num_inference_steps=20, guidance_scale=4.5, negative_prompt=negative, seed=0,
+                return_latents=True)
+    out = {}
+    for heads in HEAD_DIM_MODELS:
+        model = PixArtMS_XL_2(
+            input_size=128, pe_interpolation=2.0, model_max_length=300,
+            kv_compress_sampling="conv", kv_compress_scale=2,
+            kv_compress_layers=tuple(range(14, 28)), num_heads=heads, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        init_weights(model, gen)
+        perturb_zero_leaves(model, gen)
+        pipe = PixArtPipeline(model, t5=t5, vae=vae, device=dev)
+        dh = model.cfg.hidden_size // heads
+        t0 = time.perf_counter()
+        reset_train_counts(fa)
+        lat_k = pipe(prompts, **call)
+        counts = train_counts(fa)
+        t1 = time.perf_counter()
+        set_attn_impl(model, "reference")
+        lat_r = pipe(prompts, **call)
+        t2 = time.perf_counter()
+        with k_columns_dropped():
+            lat_f = pipe(prompts, **call)
+        set_attn_impl(model, "auto")
+        rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
+        rel_f = float(np.linalg.norm(lat_f - lat_r) / np.linalg.norm(lat_r))
+        want = forward_launches(model.cfg, (128, 128), 20)
+        log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}), 20 steps CFG 4.5: "
+            f"latents {tuple(lat_k.shape)}, kernels vs plain attention on the card: relative L2 "
+            f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [64, 128) dropped "
+            f"in plain attention: {rel_f:.3e} "
+            f"{'rejected' if rel_f > HEAD_DIM_PATH_TOL else 'NOT REJECTED'}; trajectory through "
+            f"the kernels {t1 - t0:.2f} s, through plain attention {t2 - t1:.2f} s")
+        check_launches("heads", counts, want)
+        if not np.isfinite(lat_k).all() or lat_k.std() == 0 or lat_k.shape != (2, 128, 128, 4):
+            raise SystemExit(f"{heads}-head trajectory latents are wrong or not finite")
+        if not rel <= HEAD_DIM_PATH_TOL < rel_f:
+            raise SystemExit(f"{heads}-head trajectory: the kernels disagree with plain "
+                             "attention, or the gate misses the planted fault")
+        out[heads] = counts
+        del pipe, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def head_dim_gradients(dev, fa) -> dict:
+    """(c): one 1024px training step of the 9-head (Dh = 128) model cut to
+    depth 4 (KV compression on layers 2-3, B = 2, 4096 tokens, so layers 0-1
+    run flash at width 128 and its backward), through the kernels against
+    plain attention: the parameters' gradients (GRAD_REL_TOL over all and
+    for the worst) and the gradient of q, k and v of layers 0-1 per image and
+    128-row tile (GRAD_TILE_TOL). Planted faults in the flash backward:
+    dK's columns [64, 128) zeroed, and dQ without its ln 2 chain factor.
+    Returns the launches."""
+    n = 64 * 64
+
+    def fails(r) -> bool:
+        rel, worst, tile = r
+        return not (rel <= GRAD_REL_TOL and worst[0] <= GRAD_REL_TOL and tile[0] <= GRAD_TILE_TOL)
+
+    def dk_columns(dkdv):
+        dk, dv = dkdv
+        return drop_columns(dk), dv
+
+    hw = (128, 128)
+    sound, launches, mc, faulty = step_gradients(
+        dev, fa, dict(input_size=128, pe_interpolation=2.0, depth=4, num_heads=9,
+                      model_max_length=300, kv_compress_sampling="conv", kv_compress_scale=2,
+                      kv_compress_layers=(2, 3)),
+        hw, (19, 3), (120, 731), (0, 1),
+        {"dK columns [64, 128) zeroed": output_fault(fa, "flash_bwd_dkv", n, dk_columns),
+         "dQ without the ln 2 chain factor": output_fault(fa, "flash_bwd_dq", n,
+                                                          lambda dq: dq / fa.LN2)},
+        watch=(0, 1))
+    expect = step_launches(mc, hw)
+    log(f"[heads] (c) 9-head model (Dh = 128), depth 4, B = 2, latents {hw} ({n} tokens, 1024 "
+        f"compressed): launches {launches}, reckoned {expect}")
+    for name, r in [("none (sound)", sound)] + list(faulty.items()):
+        rel, worst, tile = r
+        log(f"[heads] (c) planted fault {name}: parameters relative L2 {rel:.3e} over all, "
+            f"worst {worst[1]} {worst[0]:.3e} (tol {GRAD_REL_TOL}); q/k/v gradient of layers "
+            f"0-1, worst tile {tile[1]} {tile[0]:.3e} (tol {GRAD_TILE_TOL}): "
+            f"{'rejected' if fails(r) else 'passes'}")
+    if launches != expect or launches["flash_forward"] == 0:
+        raise SystemExit(f"head-dim gradient gate launches {launches}, reckoned {expect}")
+    if fails(sound):
+        raise SystemExit("Dh = 128 training gradients disagree with plain attention")
+    if not all(fails(r) for r in faulty.values()):
+        raise SystemExit("the Dh = 128 gradient gate missed a planted fault")
+    return launches
+
+
+def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -> dict:
+    """Phase 34: (a) each kernel at every head dim of HEAD_DIMS against its
+    plain version, with the planted faults; (b) the 9- and 12-head 1024px
+    trajectories; (c) the 9-head training step's gradients; and the times
+    at Dh = 128 and 96. Returns {"errs": {kernel: {dh: max |err|}},
+    "launches": {heads: ...}, "train": launches, "times": {kernel: rows}}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"[heads] (a) every kernel at head dims {HEAD_DIMS}, H = 1152 / Dh heads, the 1024px "
+        "shapes, bf16 and f32; the widths the kernels run them at: "
+        f"{ {dh: fa.head_dim_width(dh + (-dh % 8)) for dh in HEAD_DIMS} }")
+    errs = {name: {} for name in ("onepass", "flash_forward", "allheads", "headsmajor",
+                                  "flash_bwd_dkv", "flash_bwd_dq")}
+    ok = True
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dh in HEAD_DIMS:
+        for name, B, N, M, lengths, dtype in (
+                ("onepass", 4, 4096, 4096, None, bf16),
+                ("onepass", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
+                ("onepass", 2, 1000, 1008, None, f32),
+                ("flash", 4, 4096, 4096, None, bf16),
+                ("flash", 2, 4096, 2500, (2500, 1100), bf16),
+                ("flash", 2, 1000, 1300, None, f32),
+                ("allheads", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
+                ("allheads", 4, 1000, 77, (77, 40, 5, 1), f32),
+                ("headsmajor", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
+                ("headsmajor", 4, 1000, 77, (77, 40, 5, 1), f32)):
+            err, good = check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype)
+            key = "flash_forward" if name == "flash" else name
+            errs[key][dh] = max(errs[key].get(dh, 0.0), err)
+            ok &= good
+        for B, N, M, lengths, dtype in ((4, 4096, 4096, None, bf16),
+                                        (4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
+                                        (2, 1000, 300, (300, 40), f32)):
+            bwd_errs, good = check_head_dim_backward(fa, cases, dh, B, N, M, lengths, dtype)
+            for kname, err in bwd_errs.items():
+                key = f"flash_bwd_{kname}"
+                errs[key][dh] = max(errs[key].get(dh, 0.0), err)
+            ok &= good
+        torch.cuda.empty_cache()
+    log(f"[heads] (a): {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise SystemExit("a kernel disagrees with its plain version at some head dim, or the "
+                         "check missed a planted fault")
+    times_ = {}
+    for dh in (128, 96):
+        for name, rows in head_dim_times(fa, cases, card, dh, mask_path).items():
+            times_.setdefault(name, []).extend(rows)
+    t_b = time.perf_counter()
+    launches = head_dim_paths(dev, card, fa, t5, vae, prompts, negative)
+    log(f"[heads] (b): {time.perf_counter() - t_b:.1f} s")
+    train = head_dim_gradients(dev, fa)
+    torch.cuda.empty_cache()
+    log(f"[heads] phase 34: {time.perf_counter() - t_phase:.1f} s")
+    return dict(errs=errs, launches=launches, train=train, times=times_)
+
+
 def main() -> int:
     try:
         import torch
@@ -4803,17 +5238,18 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line for w in ("Compiling entry", "Used", "spill", "C7514", "arning")):
                 log(f"  {name}: {line.strip()}")
-    smem_onepass = _build.load("onepass_attention").onepass_attention_smem_bytes()
-    smem_cross = _build.load("cross_attention").cross_attention_smem_bytes()
     bwd = _build.load("flash_backward")
-    smem_flash = _build.load("flash_forward").flash_forward_smem_bytes()
-    log(f"  dynamic shared memory per block: onepass {smem_onepass} B, "
-        f"allheads and headsmajor {smem_cross} B, dkv {bwd.flash_bwd_dkv_smem_bytes()} B, "
-        f"dq {bwd.flash_bwd_dq_smem_bytes()} B, flash {smem_flash} B")
+    for width in fa.WIDTHS:
+        log(f"  dynamic shared memory per block at width {width}: onepass "
+            f"{_build.load('onepass_attention').onepass_attention_smem_bytes(width)} B, "
+            f"allheads and headsmajor "
+            f"{_build.load('cross_attention').cross_attention_smem_bytes(width)} B, dkv "
+            f"{bwd.flash_bwd_dkv_smem_bytes(width)} B, dq {bwd.flash_bwd_dq_smem_bytes(width)} B, "
+            f"flash {_build.load('flash_forward').flash_forward_smem_bytes(width)} B")
     # each checks its key tile and stages against the wrapper's
     fa._onepass_lib(), fa._flash_lib(), fa._cross_lib(), fa._backward_lib()
     log(f"  keys per tile: onepass and flash {fa.KEY_TILE} (a ring of {fa.KEY_STAGES} K/V "
-        f"stages), allheads and headsmajor {fa.CROSS_KEY_TILE} (an extent of up to "
+        f"stages by width), allheads and headsmajor {fa.CROSS_KEY_TILE} (an extent of up to "
         f"{fa.CROSS_KEY_STAGES} tiles resident, longer ones streamed), dkv and dq "
         f"{fa.BWD_KEY_TILE} (dq's ring {fa.BWD_KEY_STAGES} stages); the planted skipped "
         "tile, the extent faults and the spike inputs follow them")
@@ -5161,6 +5597,9 @@ def main() -> int:
     del pipe, model
     torch.cuda.empty_cache()
 
+    # ---- 34. every head dim up to 128 ----------------------------------------
+    head_dims = run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path)
+
     # ---- 6.-8. the 2K and 4K paths, the flash kernel's times ----------------
     entries.append(run_hires(dev, card, fa, cases, t5, vae, prompts[0], negative,
                              max(errs["flash_forward"])))
@@ -5255,6 +5694,14 @@ def main() -> int:
         entry["launches_seq_parallel"] = {run: c[entry["name"]]
                                           for run, c in launches_seq.items()}
         entry["seq_shard_shapes"] = SEQ_SHARD_SHAPES[entry["name"]]
+    for entry in entries:
+        name = entry["name"]
+        entry["widths"] = list(fa.WIDTHS)
+        entry["head_dims_max_abs_err"] = head_dims["errs"][name]
+        entry["launches_head_dims"] = {f"{h} heads": c[name]
+                                       for h, c in head_dims["launches"].items()}
+        entry["launches_head_dims"]["9-head training step"] = head_dims["train"][name]
+        entry["head_dim_shapes"] = head_dims["times"].get(name, [])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

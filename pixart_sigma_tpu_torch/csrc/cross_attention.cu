@@ -57,22 +57,27 @@
 //   running max into the exponent; the two consumer warpgroups run
 //   independently, so one's softmax overlaps the other's products.
 //
-// f32 inputs are rounded to bf16 by the Python wrapper (the tensor cores
-// multiply in bf16 anyway). Needs dh % 8 == 0, dh <= 80, 16-byte aligned
-// strides and 1 <= M <= 512, which the wrapper checks.
+// Head dims up to 128, at the padded width 64, 80 or 128 as in
+// onepass_attention.cu; at width 128 the two resident K/V stages sit beside
+// three Q buffers (five at widths 64 and 80). f32 inputs are rounded to
+// bf16 by the Python wrapper (the tensor cores multiply in bf16 anyway),
+// which also pads a head dim that is not a multiple of 8 with zero columns
+// (a heads-major copy: a head of the flat layout is then not 16-byte
+// aligned). Needs dh % 8 == 0, dh <= 128, 16-byte aligned strides and
+// 1 <= M <= 512, which the wrapper checks.
 
 #include "hopper_attention.cuh"
 
-template <typename TOut>
+template <typename TOut, bool kWide>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     allheads_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, true, true>(maps, a);
+  hopper::attention_body<TOut, true, true, kWide>(maps, a);
 }
 
-template <typename TOut>
+template <typename TOut, bool kWide>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     headsmajor_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, true, true>(maps, a);
+  hopper::attention_body<TOut, true, true, kWide>(maps, a);
 }
 
 // q/k/v are bf16 [B, rows, H, dh] views given by their element strides
@@ -88,8 +93,9 @@ extern "C" int allheads_attention(const void* q, const void* k, const void* v,
                                   long long k_sh, long long v_sb, long long v_sn, long long v_sh,
                                   long long o_sb, long long o_sn, long long o_sh, float scale,
                                   void* stream) {
-  return hopper::launch_cross(allheads_kernel<attn::bf16>, allheads_kernel<float>, q, k, v, mask,
-                              mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+  return hopper::launch_cross(allheads_kernel<attn::bf16, false>, allheads_kernel<float, false>,
+                              allheads_kernel<attn::bf16, true>, allheads_kernel<float, true>,
+                              q, k, v, mask, mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
                               {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale,
                               static_cast<cudaStream_t>(stream));
 }
@@ -101,15 +107,22 @@ extern "C" int headsmajor_attention(const void* q, const void* k, const void* v,
                                     long long k_sn, long long k_sh, long long v_sb,
                                     long long v_sn, long long v_sh, long long o_sb,
                                     long long o_sn, long long o_sh, float scale, void* stream) {
-  return hopper::launch_cross(headsmajor_kernel<attn::bf16>, headsmajor_kernel<float>, q, k, v,
-                              mask, mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+  return hopper::launch_cross(headsmajor_kernel<attn::bf16, false>,
+                              headsmajor_kernel<float, false>, headsmajor_kernel<attn::bf16, true>,
+                              headsmajor_kernel<float, true>, q, k, v, mask, mask_sb, o, f32, B,
+                              H, N, M, dh, {q_sb, q_sn, q_sh},
                               {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale,
                               static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile (the unit of the
-// extent) and the K/V stages that hold a resident extent; the wrapper checks
-// the last two against its own.
-extern "C" int cross_attention_smem_bytes() { return hopper::Ring<true>::smem_bytes; }
+// extent) and the K/V stages that hold a resident extent at the padded width
+// `width` (64, 80 or 128); the wrapper checks the last two against its own.
+extern "C" int cross_attention_smem_bytes(int width) {
+  return width == 128 ? hopper::Ring<true, true>::smem_bytes
+                      : hopper::Ring<true, false>::smem_bytes;
+}
 extern "C" int cross_attention_key_tile() { return hopper::kKeys; }
-extern "C" int cross_attention_key_stages() { return hopper::Ring<true>::stages; }
+extern "C" int cross_attention_key_stages(int width) {
+  return width == 128 ? hopper::Ring<true, true>::stages : hopper::Ring<true, false>::stages;
+}

@@ -72,6 +72,20 @@
 // useful). At the caption shape (M = 300, 3-19 valid keys) the work over the
 // extent is one key tile per caption and the bytes of q, dO, lse, delta and
 // dQ bound.
+//
+// Head dims up to 128, at the padded width 64, 80 or 128 (hopper_common.cuh;
+// the Python wrapper pads a head dim that is not a multiple of 8 with zero
+// columns). Width 128 (80 < dh <= 128) changes three things, as its
+// accumulators no longer fit beside the overlap of the narrower widths in
+// the 240 registers a consumer thread gets:
+// - every K-major operand past column 64 is a second 128B atom (Q, dO, K,
+//   V), so the products run 4 + 4 k-steps and dQ, dK, dV are N = 128;
+// - the sweeps do not overlap tile j's S and dP with tile j - 1's gradient
+//   product: each tile's products are issued and waited for in turn (dq:
+//   S, dP 128 + dQ 64 registers live instead of 224), and dkv reads K and V
+//   as shared-memory A operands instead of register fragments;
+// - the rings shrink to fit 227 KB: dq one Q buffer and two K/V stages for
+//   every key count, dkv one K/V buffer and four q/dO stages.
 
 #include "hopper_common.cuh"
 
@@ -99,17 +113,20 @@ constexpr int kQAtom = kQTile * 128;   // a 64-row 128B atom (8 KB)
 // of at most kShortKeys keys (captions), whose items are one to four tiles
 // long, take two Q buffers and two stages, so the next item's Q and dO
 // arrive while this one's few tiles run.
+// Width 128 (kWide) holds columns [64, 128) of Q, dO and V as a second
+// 128B atom each, one Q buffer and two stages for every key count.
 constexpr int kShortKeys = 512;
 
-template <int kQBufs>
+template <int kQBufs, bool kWide>
 struct DqRing {
-  static constexpr int qbufs = kQBufs;
-  static constexpr int stages = kQBufs == 1 ? 3 : 2;
-  static constexpr int q_tail = kMainBytes, do_main = kMainBytes + kTailBytes,
-                       do_tail = 2 * kMainBytes + kTailBytes;
-  static constexpr int q_bytes = 2 * (kMainBytes + kTailBytes);
+  static constexpr int hi = kWide ? kMainBytes : kTailBytes;  // columns past 64 (K-major)
+  static constexpr int qbufs = kWide ? 1 : kQBufs;
+  static constexpr int stages = kWide || kQBufs == 2 ? 2 : 3;
+  static constexpr int q_tail = kMainBytes, do_main = kMainBytes + hi,
+                       do_tail = 2 * kMainBytes + hi;
+  static constexpr int q_bytes = 2 * (kMainBytes + hi);
   static constexpr int k_hi = kMainBytes, v_main = 2 * kMainBytes, v_tail = 3 * kMainBytes,
-                       bias = 3 * kMainBytes + kTailBytes;
+                       bias = 3 * kMainBytes + hi;
   static constexpr int stage_bytes = bias + 1024;
   static constexpr int stages_offset = qbufs * q_bytes;
   static constexpr int bar_offset = stages_offset + stages * stage_bytes;
@@ -128,21 +145,24 @@ struct DqRing {
   }
 };
 
-// dkv_kernel's shared memory: two K/V buffers (K main, K tail, V main, V
-// tail), the q/dO stages (q columns [0, 64) and [64, 128), dO the same, the
+// dkv_kernel's shared memory: the K/V buffers (K main, K past 64, V main,
+// V past 64; two buffers, or one at width 128, whose parts past 64 are 128B
+// atoms), the q/dO stages (q columns [0, 64) and [64, 128), dO the same, the
 // tile's 64 lse and 64 delta), then the barriers full[stages],
-// empty[stages], kvfull[2], kvempty[2].
+// empty[stages], kvfull[kvbufs], kvempty[kvbufs].
+template <bool kWide>
 struct DkvRing {
+  static constexpr int hi = kWide ? kMainBytes : kTailBytes;
   static constexpr int stages = 4;
-  static constexpr int k_tail = kMainBytes, v_main = kMainBytes + kTailBytes,
-                       v_tail = 2 * kMainBytes + kTailBytes;
-  static constexpr int kv_bytes = 2 * (kMainBytes + kTailBytes);
+  static constexpr int kvbufs = kWide ? 1 : 2;
+  static constexpr int k_tail = kMainBytes, v_main = kMainBytes + hi, v_tail = 2 * kMainBytes + hi;
+  static constexpr int kv_bytes = 2 * (kMainBytes + hi);
   static constexpr int q_hi = kQAtom, do_lo = 2 * kQAtom, do_hi = 3 * kQAtom,
                        lse = 4 * kQAtom, delta = 4 * kQAtom + 4 * kQTile;
   static constexpr int stage_bytes = 4 * kQAtom + 1024;
-  static constexpr int stages_offset = 2 * kv_bytes;
+  static constexpr int stages_offset = kvbufs * kv_bytes;
   static constexpr int bar_offset = stages_offset + stages * stage_bytes;
-  static constexpr int smem_bytes = bar_offset + (2 * stages + 4) * 8 + 1024;
+  static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * kvbufs) * 8 + 1024;
   static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
 
   __device__ static uint32_t full(uint32_t base, int s) { return base + bar_offset + 8 * s; }
@@ -153,15 +173,16 @@ struct DkvRing {
     return base + bar_offset + 8 * (2 * stages + i);
   }
   __device__ static uint32_t kvempty(uint32_t base, int i) {
-    return base + bar_offset + 8 * (2 * stages + 2 + i);
+    return base + bar_offset + 8 * (2 * stages + kvbufs + i);
   }
 };
 
 // TMA descriptors of the bf16 [B, rows, H, dh] views: 64-column boxes with
 // the 128B swizzle (read at column 0 and, as a second atom, at column 64),
-// and 16-column boxes with the 32B swizzle for the K-major tails. dq_kernel
-// uses q, q_tail, dout, dout_tail (128-row boxes), k, v and v_tail;
-// dkv_kernel q and dout (64-row boxes), k, k_tail, v and v_tail.
+// and 16-column boxes with the 32B swizzle for the K-major tails at width
+// 80. dq_kernel uses q, q_tail, dout, dout_tail (128-row boxes), k, v and
+// v_tail; dkv_kernel q and dout (64-row boxes), k, k_tail, v and v_tail.
+// Width 128 uses no tail map.
 struct Maps {
   CUtensorMap q, q_tail, dout, dout_tail, k, k_tail, v, v_tail;
 };
@@ -209,11 +230,11 @@ __device__ __forceinline__ void ld_shared_v2(uint32_t addr, float& x, float& y) 
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(addr));
 }
 
-// acc, a wgmma m64n80 accumulator (n64 when dh <= 64; per warp w and lane
-// 4 g + t, acc[4 c + e] holds row 16 w + g (+ 8 for e >= 2), column
-// 8 c + 2 t + (e & 1)), into rows r0 and r0 + 8 below `rows` of `out`.
-template <typename TOut>
-__device__ __forceinline__ void store_rows(const float (&acc)[40], void* out,
+// acc, a wgmma m64nW accumulator (n64 when dh <= 64, n80, n128; per warp
+// w and lane 4 g + t, acc[4 c + e] holds row 16 w + g (+ 8 for e >= 2),
+// column 8 c + 2 t + (e & 1)), into rows r0 and r0 + 8 below `rows` of `out`.
+template <typename TOut, int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], void* out,
                                            const attn::Strides& s, int b, int h, int r0,
                                            int rows, int dh) {
   const int t = threadIdx.x & 3;
@@ -221,7 +242,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[40], void* out,
   TOut* o0 = base + static_cast<long long>(r0) * s.sn;
   TOut* o1 = o0 + 8 * s.sn;
 #pragma unroll
-  for (int c = 0; c < 10; ++c) {
+  for (int c = 0; c < N / 4; ++c) {
     const int col = 8 * c + 2 * t;
     if (col < dh) {  // dh % 8 == 0, so col + 1 < dh too
       if (r0 < rows) attn::store_pair(o0 + col, acc[4 * c], acc[4 * c + 1]);
@@ -276,9 +297,11 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[5][4], uint32_t main, uint3
 
 // ---------------------------------------------------------------- dq
 
-template <typename TOut, bool kTail, int kQBufs>
+template <typename TOut, int W, int kQBufs>
 __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg) {
-  using R = DqRing<kQBufs>;
+  constexpr bool kTail = W == 80, kWide = W == 128;
+  constexpr int kAcc = hopper::acc_regs(W);
+  using R = DqRing<kQBufs, kWide>;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -287,7 +310,7 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
   auto slot = [&](int j) { return (it + j) % R::stages; };
   auto stage = [&](int j) { return base + R::stages_offset + slot(j) * R::stage_bytes; };
 
-  float s[64], dp[64], dq[40];
+  float s[64], dp[64], dq[kAcc];
   uint32_t ds[8][4];
 #pragma unroll
   for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;
@@ -310,13 +333,21 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     const uint64_t dv = hopper::smem_desc(st + R::v_main, 1024, kSwizzle128);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_main + 2 * kk, dk + 2 * kk, kk > 0);
-    if (kTail) {
-      hopper::wgmma_ss_n128(s, dq_tail, hopper::smem_desc(st + R::k_hi, 1024, kSwizzle128), 1);
+    const uint64_t dk_hi = hopper::smem_desc(st + R::k_hi, 1024, kSwizzle128);
+    if (kTail) hopper::wgmma_ss_n128(s, dq_tail, dk_hi, 1);
+    if (kWide) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_main + 2 * kk, dv + 2 * kk, kk > 0);
     if (kTail) {
       hopper::wgmma_ss_n128(dp, do_tail, hopper::smem_desc(st + R::v_tail, 256, kSwizzle32), 1);
+    }
+    if (kWide) {
+      const uint64_t dv_hi = hopper::smem_desc(st + R::v_tail, 1024, kSwizzle128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_tail + 2 * kk, dv_hi + 2 * kk, 1);
     }
     hopper::wgmma_commit();
   };
@@ -325,13 +356,7 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
   auto issue_dq = [&](int j) {
     const uint64_t dk = hopper::smem_desc(stage(j), 1024, kSwizzle128, R::k_hi);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      if (kTail) {
-        hopper::wgmma_rs_n80(dq, ds[kk], dk + kk * (16 * 128 / 16));
-      } else {
-        hopper::wgmma_rs_n64(dq, ds[kk], dk + kk * (16 * 128 / 16));
-      }
-    }
+    for (int kk = 0; kk < 8; ++kk) hopper::wgmma_rs_mn<W>(dq, ds[kk], dk + kk * (16 * 128 / 16));
     hopper::wgmma_commit();
   };
   // P = exp2(s * scale + bias - lse) and, in dp, dS = P (dP - delta) ds_scale
@@ -367,15 +392,42 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     dl0 = r0 < a.N ? __ldg(delta + r0) : 0.f;
     dl1 = r0 + 8 < a.N ? __ldg(delta + r0 + 8) : 0.f;
 #pragma unroll
-    for (int i = 0; i < 40; ++i) dq[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) dq[i] = 0.f;
     const int qi = n % R::qbufs;
     const uint32_t qbuf = base + qi * R::q_bytes;
     dq_main = hopper::smem_desc(qbuf + wg * (kMainBytes / 2), 1024, kSwizzle128);
-    dq_tail = hopper::smem_desc(qbuf + R::q_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
     do_main = hopper::smem_desc(qbuf + R::do_main + wg * (kMainBytes / 2), 1024, kSwizzle128);
-    do_tail = hopper::smem_desc(qbuf + R::do_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
+    if (kWide) {
+      dq_tail = hopper::smem_desc(qbuf + R::q_tail + wg * (kMainBytes / 2), 1024, kSwizzle128);
+      do_tail = hopper::smem_desc(qbuf + R::do_tail + wg * (kMainBytes / 2), 1024, kSwizzle128);
+    } else {
+      dq_tail = hopper::smem_desc(qbuf + R::q_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
+      do_tail = hopper::smem_desc(qbuf + R::do_tail + wg * (kTailBytes / 2), 256, kSwizzle32);
+    }
     hopper::mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q and dO
 
+    if constexpr (kWide) {
+      // each tile's products in turn: S and dP, their gradients, then dQ
+      for (int j = 0; j < ntiles; ++j) {
+        acquire(j);
+        issue_sdp(j);
+        hopper::wgmma_wait<0>();
+        hopper::hold(s);
+        hopper::hold(dp);
+        grads(j);
+        pack_a(ds, dp);
+        if (j + 1 == ntiles && lane == 0) hopper::mbar_arrive(R::qempty(base, qi));
+        hopper::wgmma_fence();
+        issue_dq(j);
+        hopper::wgmma_wait<0>();
+        hopper::hold(dq);
+        hopper::hold(ds);
+        release(j);
+      }
+      it += ntiles;
+      store_rows<TOut>(dq, a.dq, a.dqs, b, h, r0, a.N, a.dh);
+      continue;
+    }
     acquire(0);
     issue_sdp(0);
     hopper::wgmma_wait<0>();
@@ -410,14 +462,15 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
   }
 }
 
-template <bool kTail, int kQBufs>
+template <int W, int kQBufs>
 __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint32_t base) {
-  using R = DqRing<kQBufs>;
+  constexpr bool kHi = W > 64, kWide = W == 128;  // columns past 64; as a second 128B atom
+  using R = DqRing<kQBufs, kWide>;
   const int lane = threadIdx.x & 31;
   const bool issue = lane == 0;
   const int ntq = (a.N + kRows - 1) / kRows, runs = ntq * a.B * a.H;
-  const uint32_t q_bytes = kTail ? R::q_bytes : 2 * kMainBytes;
-  const uint32_t tile_bytes = kTail ? 3 * kMainBytes + kTailBytes : 2 * kMainBytes;
+  const uint32_t q_bytes = kHi ? R::q_bytes : 2 * kMainBytes;
+  const uint32_t tile_bytes = kHi ? 3 * kMainBytes + R::hi : 2 * kMainBytes;
   int it = 0, n = 0, ext_b = -1, ntiles = 0;
   for (int r = blockIdx.x; r < runs; r += gridDim.x, ++n) {
     const int bh = r / ntq, tq = r - bh * ntq;
@@ -430,9 +483,11 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
       hopper::mbar_expect_tx(qfull, q_bytes);
       hopper::tma_load(qbuf, &maps.q, qfull, 0, h, q0, b);
       hopper::tma_load(qbuf + R::do_main, &maps.dout, qfull, 0, h, q0, b);
-      if (kTail) {
-        hopper::tma_load(qbuf + R::q_tail, &maps.q_tail, qfull, kMainCols, h, q0, b);
-        hopper::tma_load(qbuf + R::do_tail, &maps.dout_tail, qfull, kMainCols, h, q0, b);
+      if (kHi) {
+        hopper::tma_load(qbuf + R::q_tail, kWide ? &maps.q : &maps.q_tail, qfull, kMainCols, h,
+                         q0, b);
+        hopper::tma_load(qbuf + R::do_tail, kWide ? &maps.dout : &maps.dout_tail, qfull,
+                         kMainCols, h, q0, b);
       }
     }
     if (b != ext_b) {  // while the first Q copies are in flight
@@ -452,9 +507,10 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
         hopper::mbar_tx(full, tile_bytes);
         hopper::tma_load(st, &maps.k, full, 0, h, key0, b);
         hopper::tma_load(st + R::v_main, &maps.v, full, 0, h, key0, b);
-        if (kTail) {
+        if (kHi) {
           hopper::tma_load(st + R::k_hi, &maps.k, full, kMainCols, h, key0, b);
-          hopper::tma_load(st + R::v_tail, &maps.v_tail, full, kMainCols, h, key0, b);
+          hopper::tma_load(st + R::v_tail, kWide ? &maps.v : &maps.v_tail, full, kMainCols, h,
+                           key0, b);
         }
       }
       __syncwarp();  // lane 0 has seen the stage free
@@ -487,9 +543,11 @@ __device__ __forceinline__ void dkv_item(const Args& a, int r, int nkt, int& bh,
   }
 }
 
-template <typename TOut, bool kTail>
+template <typename TOut, int W>
 __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg) {
-  using R = DkvRing;
+  constexpr bool kTail = W == 80, kWide = W == 128;
+  constexpr int kAcc = hopper::acc_regs(W);
+  using R = DkvRing<kWide>;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -499,7 +557,7 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
   auto slot = [&](int i) { return (it + i) % R::stages; };
   auto stage = [&](int i) { return base + R::stages_offset + slot(i) * R::stage_bytes; };
 
-  float s[32], dp[32], dk[40], dv[40];
+  float s[32], dp[32], dk[kAcc], dv[kAcc];
   uint32_t pt[4][4], dst[4][4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
@@ -507,7 +565,10 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) pt[i][e] = dst[i][e] = 0u;
-  uint32_t ka[5][4], va[5][4];  // this warpgroup's K and V rows as wgmma A fragments
+  // this warpgroup's K and V rows as wgmma A fragments (widths 64 and 80),
+  // or (width 128) the descriptors of its 64 rows of K and V in shared memory
+  uint32_t ka[kWide ? 1 : 5][4], va[kWide ? 1 : 5][4];
+  uint64_t k_lo = 0, k_hi = 0, v_lo = 0, v_hi = 0;
   float bias0, bias1;
 
   auto acquire = [&](int i) {
@@ -522,16 +583,30 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
     const uint32_t st = stage(i);
     const uint64_t bq = hopper::smem_desc(st, 1024, kSwizzle128);
     const uint64_t bo = hopper::smem_desc(st + R::do_lo, 1024, kSwizzle128);
+    if constexpr (kWide) {
+      const uint64_t bq_hi = hopper::smem_desc(st + R::q_hi, 1024, kSwizzle128);
+      const uint64_t bo_hi = hopper::smem_desc(st + R::do_hi, 1024, kSwizzle128);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(s, ka[kk], bq + 2 * kk, kk > 0);
-    if (kTail) {
-      hopper::wgmma_rs_n64_kmajor(s, ka[4], hopper::smem_desc(st + R::q_hi, 1024, kSwizzle128), 1);
-    }
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n64(s, k_lo + 2 * kk, bq + 2 * kk, kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(dp, va[kk], bo + 2 * kk, kk > 0);
-    if (kTail) {
-      hopper::wgmma_rs_n64_kmajor(dp, va[4], hopper::smem_desc(st + R::do_hi, 1024, kSwizzle128),
-                                  1);
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n64(s, k_hi + 2 * kk, bq_hi + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n64(dp, v_lo + 2 * kk, bo + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n64(dp, v_hi + 2 * kk, bo_hi + 2 * kk, 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(s, ka[kk], bq + 2 * kk, kk > 0);
+      if (kTail) {
+        hopper::wgmma_rs_n64_kmajor(s, ka[4], hopper::smem_desc(st + R::q_hi, 1024, kSwizzle128),
+                                    1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n64_kmajor(dp, va[kk], bo + 2 * kk, kk > 0);
+      if (kTail) {
+        hopper::wgmma_rs_n64_kmajor(dp, va[4],
+                                    hopper::smem_desc(st + R::do_hi, 1024, kSwizzle128), 1);
+      }
     }
     hopper::wgmma_commit();
   };
@@ -543,13 +618,8 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
     const uint64_t bo = hopper::smem_desc(st + R::do_lo, 1024, kSwizzle128, R::q_hi);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      if (kTail) {
-        hopper::wgmma_rs_n80(dv, pt[kk], bo + kk * (16 * 128 / 16));
-        hopper::wgmma_rs_n80(dk, dst[kk], bq + kk * (16 * 128 / 16));
-      } else {
-        hopper::wgmma_rs_n64(dv, pt[kk], bo + kk * (16 * 128 / 16));
-        hopper::wgmma_rs_n64(dk, dst[kk], bq + kk * (16 * 128 / 16));
-      }
+      hopper::wgmma_rs_mn<W>(dv, pt[kk], bo + kk * (16 * 128 / 16));
+      hopper::wgmma_rs_mn<W>(dk, dst[kk], bq + kk * (16 * 128 / 16));
     }
     hopper::wgmma_commit();
   };
@@ -583,65 +653,97 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
     }
     const int r0 = kt * kKeys + 64 * wg + 16 * warp + g;  // this thread's keys r0, r0 + 8
 #pragma unroll
-    for (int i = 0; i < 40; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.f;
     if (kt < ntiles) {  // else every key lies past the extent: dK = dV = 0
-      const int kb = n & 1;
+      const int kb = n % R::kvbufs;
       const uint32_t kv = base + kb * R::kv_bytes;
       bias0 = key_bias(a, b, r0);
       bias1 = key_bias(a, b, r0 + 8);
-      hopper::mbar_wait(R::kvfull(base, kb), (n >> 1) & 1);
-      load_a<kTail>(ka, kv, kv + R::k_tail, 64 * wg + 16 * warp + g, t);
-      load_a<kTail>(va, kv + R::v_main, kv + R::v_tail, 64 * wg + 16 * warp + g, t);
+      hopper::mbar_wait(R::kvfull(base, kb), (n / R::kvbufs) & 1);
+      if constexpr (kWide) {
+        // each tile's products in turn, K and V read from shared memory; the
+        // K/V buffer is free once the last S^T and dP^T are done
+        const uint32_t rows = wg * (kMainBytes / 2);  // this warpgroup's 64 keys
+        k_lo = hopper::smem_desc(kv + rows, 1024, kSwizzle128);
+        k_hi = hopper::smem_desc(kv + R::k_tail + rows, 1024, kSwizzle128);
+        v_lo = hopper::smem_desc(kv + R::v_main + rows, 1024, kSwizzle128);
+        v_hi = hopper::smem_desc(kv + R::v_tail + rows, 1024, kSwizzle128);
+        for (int i = 0; i < nqt; ++i) {
+          acquire(i);
+          issue_sdp(i);
+          hopper::wgmma_wait<0>();
+          hopper::hold(s);
+          hopper::hold(dp);
+          if (i + 1 == nqt && lane == 0) hopper::mbar_arrive(R::kvempty(base, kb));
+          grads(i);
+          pack_a(pt, s);
+          pack_a(dst, dp);
+          hopper::wgmma_fence();
+          issue_dkv(i);
+          hopper::wgmma_wait<0>();
+          hopper::hold(dk);
+          hopper::hold(dv);
+          hopper::hold(pt);
+          hopper::hold(dst);
+          release(i);
+        }
+        it += nqt;
+        ++n;
+      } else {
+        load_a<kTail>(ka, kv, kv + R::k_tail, 64 * wg + 16 * warp + g, t);
+        load_a<kTail>(va, kv + R::v_main, kv + R::v_tail, 64 * wg + 16 * warp + g, t);
 
-      acquire(0);
-      issue_sdp(0);
-      hopper::wgmma_wait<0>();
-      hopper::hold(s);
-      hopper::hold(dp);
-      grads(0);
-      pack_a(pt, s);
-      pack_a(dst, dp);
-      for (int i = 1; i < nqt; ++i) {
-        acquire(i);
-        issue_sdp(i);
-        issue_dkv(i - 1);
-        hopper::wgmma_wait<1>();
+        acquire(0);
+        issue_sdp(0);
+        hopper::wgmma_wait<0>();
         hopper::hold(s);
         hopper::hold(dp);
-        grads(i);
+        grads(0);
+        pack_a(pt, s);
+        pack_a(dst, dp);
+        for (int i = 1; i < nqt; ++i) {
+          acquire(i);
+          issue_sdp(i);
+          issue_dkv(i - 1);
+          hopper::wgmma_wait<1>();
+          hopper::hold(s);
+          hopper::hold(dp);
+          grads(i);
+          hopper::wgmma_wait<0>();
+          hopper::hold(dk);
+          hopper::hold(dv);
+          hopper::hold(pt);
+          hopper::hold(dst);
+          release(i - 1);
+          pack_a(pt, s);
+          pack_a(dst, dp);
+        }
+        hopper::wgmma_fence();
+        issue_dkv(nqt - 1);
         hopper::wgmma_wait<0>();
         hopper::hold(dk);
         hopper::hold(dv);
-        hopper::hold(pt);
-        hopper::hold(dst);
-        release(i - 1);
-        pack_a(pt, s);
-        pack_a(dst, dp);
+        release(nqt - 1);
+        if (lane == 0) hopper::mbar_arrive(R::kvempty(base, kb));
+        it += nqt;
+        ++n;
       }
-      hopper::wgmma_fence();
-      issue_dkv(nqt - 1);
-      hopper::wgmma_wait<0>();
-      hopper::hold(dk);
-      hopper::hold(dv);
-      release(nqt - 1);
-      if (lane == 0) hopper::mbar_arrive(R::kvempty(base, kb));
-      it += nqt;
-      ++n;
     }
     store_rows<TOut>(dk, a.dk, a.dks, b, h, r0, a.M, a.dh);
     store_rows<TOut>(dv, a.dv, a.dvs, b, h, r0, a.M, a.dh);
   }
 }
 
-template <bool kTail>
+template <int W>
 __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uint32_t base) {
-  using R = DkvRing;
+  constexpr bool kHi = W > 64, kWide = W == 128;  // columns past 64; as a second 128B atom
+  using R = DkvRing<kWide>;
   const int lane = threadIdx.x & 31;
   const bool issue = lane == 0;
   const int nkt = (a.M + kKeys - 1) / kKeys, nqt = (a.N + kQTile - 1) / kQTile;
   const int runs = nkt * a.B * a.H;
-  const uint32_t kv_bytes = kTail ? R::kv_bytes : 2 * kMainBytes;
-  const uint32_t tile_bytes = kTail ? 4 * kQAtom : 2 * kQAtom;
+  const uint32_t kv_bytes = kHi ? R::kv_bytes : 2 * kMainBytes;
+  const uint32_t tile_bytes = kHi ? 4 * kQAtom : 2 * kQAtom;
   int it = 0, n = 0, ext_b = -1, ntiles = 0;
   for (int r = blockIdx.x; r < runs; r += gridDim.x) {
     int bh, kt;
@@ -652,18 +754,22 @@ __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uin
       ext_b = b;
     }
     if (kt >= ntiles) continue;  // the consumers write zeros
-    const int kb = n & 1;
+    const int kb = n % R::kvbufs;
     const int key0 = kt * kKeys;
     if (issue) {
       const uint32_t kv = base + kb * R::kv_bytes;
       const uint32_t kvfull = R::kvfull(base, kb);
-      if (n >= 2) hopper::mbar_wait(R::kvempty(base, kb), ((n >> 1) - 1) & 1);
+      if (n >= R::kvbufs) {
+        hopper::mbar_wait(R::kvempty(base, kb), ((n / R::kvbufs) - 1) & 1);
+      }
       hopper::mbar_expect_tx(kvfull, kv_bytes);
       hopper::tma_load(kv, &maps.k, kvfull, 0, h, key0, b);
       hopper::tma_load(kv + R::v_main, &maps.v, kvfull, 0, h, key0, b);
-      if (kTail) {
-        hopper::tma_load(kv + R::k_tail, &maps.k_tail, kvfull, kMainCols, h, key0, b);
-        hopper::tma_load(kv + R::v_tail, &maps.v_tail, kvfull, kMainCols, h, key0, b);
+      if (kHi) {
+        hopper::tma_load(kv + R::k_tail, kWide ? &maps.k : &maps.k_tail, kvfull, kMainCols, h,
+                         key0, b);
+        hopper::tma_load(kv + R::v_tail, kWide ? &maps.v : &maps.v_tail, kvfull, kMainCols, h,
+                         key0, b);
       }
     }
     const float* lse = a.lse + static_cast<long long>(bh) * a.N;
@@ -685,7 +791,7 @@ __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uin
         hopper::mbar_tx(full, tile_bytes);
         hopper::tma_load(st, &maps.q, full, 0, h, q0, b);
         hopper::tma_load(st + R::do_lo, &maps.dout, full, 0, h, q0, b);
-        if (kTail) {
+        if (kHi) {
           hopper::tma_load(st + R::q_hi, &maps.q, full, kMainCols, h, q0, b);
           hopper::tma_load(st + R::do_hi, &maps.dout, full, kMainCols, h, q0, b);
         }
@@ -711,10 +817,10 @@ __device__ __forceinline__ uint32_t smem_base() {
   return (attn::smem_addr(smem_raw) + 1023) & ~1023u;
 }
 
-template <typename TOut, bool kTail, int kQBufs>
+template <typename TOut, int W, int kQBufs>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ Maps maps, const Args a) {
-  using R = DqRing<kQBufs>;
+  using R = DqRing<kQBufs, W == 128>;
   const uint32_t base = smem_base();
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
@@ -731,24 +837,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x < 2 * 128 + 32) dq_produce<kTail, kQBufs>(maps, a, base);
+    if (threadIdx.x < 2 * 128 + 32) dq_produce<W, kQBufs>(maps, a, base);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    dq_consume<TOut, kTail, kQBufs>(a, base, wg);
+    dq_consume<TOut, W, kQBufs>(a, base, wg);
   }
 }
 
-template <typename TOut, bool kTail>
+template <typename TOut, int W>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ Maps maps, const Args a) {
-  using R = DkvRing;
+  using R = DkvRing<W == 128>;
   const uint32_t base = smem_base();
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
       hopper::mbar_init(R::full(base, s), 1);   // the producer's arrive, after lse and delta
       hopper::mbar_init(R::empty(base, s), 8);  // lane 0 of each consumer warp
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < R::kvbufs; ++i) {
       hopper::mbar_init(R::kvfull(base, i), 1);
       hopper::mbar_init(R::kvempty(base, i), 8);
     }
@@ -758,22 +864,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x < 2 * 128 + 32) dkv_produce<kTail>(maps, a, base);
+    if (threadIdx.x < 2 * 128 + 32) dkv_produce<W>(maps, a, base);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    dkv_consume<TOut, kTail>(a, base, wg);
+    dkv_consume<TOut, W>(a, base, wg);
   }
 }
 
 // ---------------------------------------------------------------- host
 
 // A bf16 view as a 64-column 128B-swizzled map of `box_rows` rows and, with
-// `tail` and dh > 64, its 16-column 32B-swizzled map for columns [64, 80).
+// `tail` at width 80, its 16-column 32B-swizzled map for columns [64, 80).
 inline int encode_view(CUtensorMap* main, CUtensorMap* tail, const void* ptr, int B, int rows,
                        int H, int dh, const attn::Strides& s, int box_rows) {
   int err = hopper::encode(main, ptr, B, rows, H, dh, s, kMainCols, CU_TENSOR_MAP_SWIZZLE_128B,
                            box_rows);
-  if (!err && tail != nullptr && dh > kMainCols)
+  if (!err && tail != nullptr && hopper::width_of(dh) == 80)
     err = hopper::encode(tail, ptr, B, rows, H, dh, s, kTailCols, CU_TENSOR_MAP_SWIZZLE_32B,
                          box_rows);
   return err;
@@ -807,7 +913,24 @@ inline attn::Strides strided(const long long* strides, int i) {
 }
 
 inline bool valid_shape(int N, int M, int dh) {
-  return N >= 1 && M >= 1 && dh % 8 == 0 && dh <= kMainCols + kTailCols;
+  return N >= 1 && M >= 1 && dh >= 1 && dh % 8 == 0 && dh <= hopper::kMaxHeadDim;
+}
+
+template <typename TOut, int W>
+int run_dkv(long long items, const Maps& maps, const Args& a, cudaStream_t st) {
+  return run(dkv_kernel<TOut, W>, DkvRing<W == 128>::smem_bytes, items, maps, a, st);
+}
+
+// dq at width W: two Q buffers for short key sweeps (captions) at widths 64
+// and 80, else one
+template <typename TOut, int W>
+int run_dq(long long items, int M, const Maps& maps, const Args& a, cudaStream_t st) {
+  if constexpr (W != 128) {
+    if (M <= kShortKeys) {
+      return run(dq_kernel<TOut, W, 2>, DqRing<2, false>::smem_bytes, items, maps, a, st);
+    }
+  }
+  return run(dq_kernel<TOut, W, 1>, DqRing<1, W == 128>::smem_bytes, items, maps, a, st);
 }
 
 }  // namespace bwd
@@ -838,13 +961,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                scale, ds_scale};
   const long long items = static_cast<long long>((M + kKeys - 1) / kKeys) * B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bytes = DkvRing::smem_bytes;
-  if (dh > kMainCols) {
-    return f32 ? run(dkv_kernel<float, true>, bytes, items, maps, a, st)
-               : run(dkv_kernel<bf16, true>, bytes, items, maps, a, st);
+  switch (hopper::width_of(dh)) {
+    case 64:
+      return f32 ? run_dkv<float, 64>(items, maps, a, st) : run_dkv<bf16, 64>(items, maps, a, st);
+    case 80:
+      return f32 ? run_dkv<float, 80>(items, maps, a, st) : run_dkv<bf16, 80>(items, maps, a, st);
+    default:
+      return f32 ? run_dkv<float, 128>(items, maps, a, st)
+                 : run_dkv<bf16, 128>(items, maps, a, st);
   }
-  return f32 ? run(dkv_kernel<float, false>, bytes, items, maps, a, st)
-             : run(dkv_kernel<bf16, false>, bytes, items, maps, a, st);
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -865,28 +990,30 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                scale, ds_scale};
   const long long items = static_cast<long long>((N + kRows - 1) / kRows) * B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= kShortKeys) {
-    const int bytes = DqRing<2>::smem_bytes;
-    if (dh > kMainCols) {
-      return f32 ? run(dq_kernel<float, true, 2>, bytes, items, maps, a, st)
-                 : run(dq_kernel<bf16, true, 2>, bytes, items, maps, a, st);
-    }
-    return f32 ? run(dq_kernel<float, false, 2>, bytes, items, maps, a, st)
-               : run(dq_kernel<bf16, false, 2>, bytes, items, maps, a, st);
+  switch (hopper::width_of(dh)) {
+    case 64:
+      return f32 ? run_dq<float, 64>(items, M, maps, a, st)
+                 : run_dq<bf16, 64>(items, M, maps, a, st);
+    case 80:
+      return f32 ? run_dq<float, 80>(items, M, maps, a, st)
+                 : run_dq<bf16, 80>(items, M, maps, a, st);
+    default:
+      return f32 ? run_dq<float, 128>(items, M, maps, a, st)
+                 : run_dq<bf16, 128>(items, M, maps, a, st);
   }
-  const int bytes = DqRing<1>::smem_bytes;
-  if (dh > kMainCols) {
-    return f32 ? run(dq_kernel<float, true, 1>, bytes, items, maps, a, st)
-               : run(dq_kernel<bf16, true, 1>, bytes, items, maps, a, st);
-  }
-  return f32 ? run(dq_kernel<float, false, 1>, bytes, items, maps, a, st)
-             : run(dq_kernel<bf16, false, 1>, bytes, items, maps, a, st);
 }
 
-// Dynamic shared memory of one block (bytes); keys per K/V tile (the unit of
-// the key extent, and the keys of one dkv item) and the depth of dq's K/V
-// ring, which the wrapper checks against its own.
-extern "C" int flash_bwd_dkv_smem_bytes() { return bwd::DkvRing::smem_bytes; }
-extern "C" int flash_bwd_dq_smem_bytes() { return bwd::DqRing<1>::smem_bytes; }
+// Dynamic shared memory of one block (bytes) at the padded width `width`
+// (64, 80 or 128); keys per K/V tile (the unit of the key extent, and the
+// keys of one dkv item) and the depth of dq's K/V ring over long key sweeps
+// at that width, which the wrapper checks against its own.
+extern "C" int flash_bwd_dkv_smem_bytes(int width) {
+  return width == 128 ? bwd::DkvRing<true>::smem_bytes : bwd::DkvRing<false>::smem_bytes;
+}
+extern "C" int flash_bwd_dq_smem_bytes(int width) {
+  return width == 128 ? bwd::DqRing<1, true>::smem_bytes : bwd::DqRing<1, false>::smem_bytes;
+}
 extern "C" int flash_backward_key_tile() { return bwd::kKeys; }
-extern "C" int flash_backward_key_stages() { return bwd::DqRing<1>::stages; }
+extern "C" int flash_backward_key_stages(int width) {
+  return width == 128 ? bwd::DqRing<1, true>::stages : bwd::DqRing<1, false>::stages;
+}

@@ -40,16 +40,29 @@
 // head's K/V (4.7 MB at 16384 keys) in the 50 MB L2 instead of reading it
 // from HBM once per query tile.
 //
-// Reads bf16 q/k/v in place through their strides; the Python wrapper
-// rounds f32 inputs to bf16 first. Needs dh % 8 == 0, dh <= 80 and 16-byte
-// aligned strides, which TMA requires and the wrapper checks.
+// Head dims up to 128, at the padded width 64, 80 or 128 as in
+// onepass_attention.cu. Reads bf16 q/k/v in place through their strides;
+// the Python wrapper rounds f32 inputs to bf16 first and pads a head dim
+// that is not a multiple of 8 with zero columns. Needs dh % 8 == 0,
+// dh <= 128 and 16-byte aligned strides, which TMA requires and the
+// wrapper checks.
 
 #include "hopper_attention.cuh"
 
-template <typename TOut, bool kMask>
+template <typename TOut, bool kMask, bool kWide>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, kMask, false>(maps, a);
+  hopper::attention_body<TOut, kMask, false, kWide>(maps, a);
+}
+
+template <bool kWide>
+int flash_run(const hopper::Launch& l, bool f32, bool mask, cudaStream_t s) {
+  if (f32) {
+    return mask ? hopper::run<false, kWide>(flash_fwd_kernel<float, true, kWide>, l, s)
+                : hopper::run<false, kWide>(flash_fwd_kernel<float, false, kWide>, l, s);
+  }
+  return mask ? hopper::run<false, kWide>(flash_fwd_kernel<attn::bf16, true, kWide>, l, s)
+              : hopper::run<false, kWide>(flash_fwd_kernel<attn::bf16, false, kWide>, l, s);
 }
 
 // q (pre-scaled, so `scale` is 1 on the flash path), k and v are bf16; o is
@@ -71,16 +84,18 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, const 
                                   scale, attn::kMaskedLogit, tail);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    return madd ? hopper::run<false>(flash_fwd_kernel<float, true>, l, s)
-                : hopper::run<false>(flash_fwd_kernel<float, false>, l, s);
-  }
-  return madd ? hopper::run<false>(flash_fwd_kernel<attn::bf16, true>, l, s)
-              : hopper::run<false>(flash_fwd_kernel<attn::bf16, false>, l, s);
+  return hopper::width_of(dh) == 128 ? flash_run<true>(l, f32, madd, s)
+                                     : flash_run<false>(l, f32, madd, s);
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
-// ring's depth (the wrapper checks the last two against its own).
-extern "C" int flash_forward_smem_bytes() { return hopper::Ring<false>::smem_bytes; }
+// ring's depth at the padded width `width` (64, 80 or 128; the wrapper
+// checks the last two against its own).
+extern "C" int flash_forward_smem_bytes(int width) {
+  return width == 128 ? hopper::Ring<false, true>::smem_bytes
+                      : hopper::Ring<false, false>::smem_bytes;
+}
 extern "C" int flash_forward_key_tile() { return hopper::kKeys; }
-extern "C" int flash_forward_key_stages() { return hopper::Ring<false>::stages; }
+extern "C" int flash_forward_key_stages(int width) {
+  return width == 128 ? hopper::Ring<false, true>::stages : hopper::Ring<false, false>::stages;
+}

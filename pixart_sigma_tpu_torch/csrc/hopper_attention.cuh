@@ -50,15 +50,21 @@
 // device memory. On these one-tile key loops the consumers do not take
 // turns (kPingPong).
 //
-// The head dim (a multiple of 8 up to 80) is split in two column chunks, as
-// a 128-byte TMA swizzle row holds 64 bf16: columns [0, 64) in 128-byte rows
-// with the 128B swizzle; for Q and K (K-major) columns [64, 80) in 32-byte
-// rows with the 32B swizzle, so Q.K^T runs 4 + 1 k-steps of 16; for V
-// (MN-major, whose swizzle atom is 64 columns wide) columns [64, 128) as a
-// second 128B atom, so P.V is one N = 80 product per 16 keys. TMA
-// zero-fills the columns past dh and the rows past N or M, so the padding
-// never reaches device memory, and clips a stored box to the same bounds;
-// with dh <= 64 the second chunks are skipped.
+// The head dim (a multiple of 8 up to 128) is split in two column chunks,
+// as a 128-byte TMA swizzle row holds 64 bf16, and runs at one of three
+// padded widths (hopper_common.cuh): columns [0, 64) in 128-byte rows with
+// the 128B swizzle; for V (MN-major, whose swizzle atom is 64 columns wide)
+// columns [64, 128) as a second 128B atom, so P.V is one N = 80 (or 128)
+// product per 16 keys. For Q and K (K-major), at width 80 columns [64, 80)
+// in 32-byte rows with the 32B swizzle, so Q.K^T runs 4 + 1 k-steps of 16;
+// at width 128 columns [64, 128) as a second 128B atom, 4 + 4 k-steps. At
+// width 64 the second chunks are skipped. TMA zero-fills the columns past
+// dh and the rows past N or M, so the padding never reaches device memory,
+// and clips a stored box to the same bounds. Widths 64 and 80 share one
+// shared-memory layout (Ring<kCross, false>); width 128's K/V stage is
+// 64 KB, so its self-attention ring holds three stages beside one Q buffer
+// and its cross mode's two stages beside three Q buffers (Ring<kCross,
+// true>).
 //
 // The softmax runs in f32 in log2 units: one FFMA folds the logit scale and
 // the running max into each exponent (exp2(s * scale - m)). With a key mask
@@ -88,23 +94,27 @@ constexpr int kTailTile = kKeys * kTailCols * 2;  // 4096 B
 static_assert(kRows == kKeys, "Q and K/V chunks share one TMA box");
 // One stage (each part 1024-byte aligned): K main, V main, V columns
 // [64, 128) as a second 128B-swizzled atom right after V main (TMA
-// zero-fills the columns past dh), so that one wgmma of N = 80 reads both,
-// and the K tail.
+// zero-fills the columns past dh), so that one wgmma of N = 80 or 128
+// reads both, and K's columns past 64 (a 32B-swizzled tail at width 80, a
+// second 128B atom at width 128).
 constexpr int kVOff = kMainTile, kVTailOff = 2 * kMainTile, kKTailOff = 3 * kMainTile;
-constexpr int kStageBytes = 3 * kMainTile + kTailTile;
-constexpr int kQBytes = kMainTile + kTailTile;  // one Q buffer: main, tail
 constexpr int kBiasBytes = kKeys * 4;
 constexpr int kCrossMaxKeys = 512;   // caption keys the cross mode takes
 
-// The block's shared memory: the Q buffers, the K/V stages, each stage's
-// 128 mask biases, then the barriers full[stages], empty[stages],
-// qfull[qbufs] and qempty[qbufs]; 1024 bytes of slack to align the base.
-template <bool kCross>
+// The block's shared memory: the Q buffers (main, then the columns past
+// 64), the K/V stages, each stage's 128 mask biases, then the barriers
+// full[stages], empty[stages], qfull[qbufs] and qempty[qbufs]; 1024 bytes
+// of slack to align the base. kWide: width 128, else widths 64 and 80.
+template <bool kCross, bool kWide>
 struct Ring {
-  static constexpr int stages = kCross ? 2 : 3;  // K/V tiles in flight (cross: resident)
-  static constexpr int qbufs = kCross ? 5 : 2;
-  static constexpr int stages_offset = qbufs * kQBytes;
-  static constexpr int bias_offset = stages_offset + stages * kStageBytes;
+  static constexpr int hi_bytes = kWide ? kMainTile : kTailTile;  // Q or K columns past 64
+  static constexpr int stage_bytes = 3 * kMainTile + hi_bytes;
+  static constexpr int q_bytes = kMainTile + hi_bytes;
+  // K/V tiles in flight (cross: resident)
+  static constexpr int stages = kCross ? 2 : 3;
+  static constexpr int qbufs = kCross ? (kWide ? 3 : 5) : (kWide ? 1 : 2);
+  static constexpr int stages_offset = qbufs * q_bytes;
+  static constexpr int bias_offset = stages_offset + stages * stage_bytes;
   static constexpr int bar_offset = bias_offset + stages * kBiasBytes;
   static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * qbufs) * 8 + 1024;
   static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
@@ -122,9 +132,10 @@ struct Ring {
 };
 
 // TMA descriptors of the bf16 [B, rows, H, dh] views: 64-column boxes with
-// the 128B swizzle (V's second chunk is the same box at column 64), and
-// 16-column boxes with the 32B swizzle for the tails of Q and K; for the
-// output of the cross mode, the same two boxes of 64 rows (one consumer's).
+// the 128B swizzle (the second chunk of V, and of every operand at width
+// 128, is the same box at column 64), and 16-column boxes with the 32B
+// swizzle for the tails of Q and K at width 80; for the output of the
+// cross mode, the same boxes of 64 rows (one consumer's).
 struct Maps {
   CUtensorMap q, q_tail, k, k_tail, v, o, o_tail;
 };
@@ -223,12 +234,14 @@ __device__ __forceinline__ void write_tile_bias(uint32_t dst, const Args& a, int
 // fragment of P, so P never leaves registers.
 
 // The consumer warpgroup `wg` (0 or 1): its 64 query rows of each item
-// against the item's keys. kTail: dh > 64, so the products also run columns
-// [64, 80).
-template <typename TOut, bool kMask, bool kTail, bool kCross>
+// against the item's keys, at width W: 64 (columns [0, 64)), 80 (also the
+// 32B-swizzled columns [64, 80)) or 128 (also the atom of columns [64, 128)).
+template <typename TOut, bool kMask, int W, bool kCross>
 __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_t base, int wg,
                                         const Work& wk) {
-  using R = Ring<kCross>;
+  constexpr bool kTail = W == 80, kWide = W == 128;
+  constexpr int kAcc = acc_regs(W), kChunks = kAcc / 4;  // 8-column chunks of O
+  using R = Ring<kCross, kWide>;
   // a bf16 output of the cross mode leaves by TMA store from the Q buffer
   constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
   // the consumers take turns on the tensor cores along long key loops; on
@@ -241,16 +254,16 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   // ring position `it` + tile j of the current item
   int it = 0;
   auto slot = [&](int j) { return (it + j) % R::stages; };
-  auto stage = [&](int j) { return base + R::stages_offset + slot(j) * kStageBytes; };
+  auto stage = [&](int j) { return base + R::stages_offset + slot(j) * R::stage_bytes; };
 
-  float s[64], o[40];
+  float s[64], o[kAcc];
   uint32_t p[8][4];
 #pragma unroll
   for (int i = 0; i < 64; ++i) s[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
   float m_0, m_1, l_0, l_1;
-  uint64_t dq, dq_tail;
+  uint64_t dq, dq_tail;  // Q columns [0, 64) and past 64
   const float sc = kMask ? 1.f : a.scale;  // the scale left after the mask step
 
   // Tile j has arrived and it is this warpgroup's turn on the tensor cores.
@@ -273,6 +286,11 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
     if (kTail) wgmma_ss_n128(s, dq_tail, smem_desc(st + kKTailOff, 256, kSwizzle32), 1);
+    if (kWide) {
+      const uint64_t dk_hi = smem_desc(st + kKTailOff, 1024, kSwizzle128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
+    }
     wgmma_commit();
   };
   // O += P.V of tile j (P of that tile in p), one commit group: a k-step
@@ -280,13 +298,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   auto issue_pv = [&](int j) {
     const uint64_t dv = smem_desc(stage(j) + kVOff, 1024, kSwizzle128, kVTailOff - kVOff);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      if (kTail) {
-        wgmma_rs_n80(o, p[kk], dv + kk * (16 * 128 / 16));
-      } else {
-        wgmma_rs_n64(o, p[kk], dv + kk * (16 * 128 / 16));
-      }
-    }
+    for (int kk = 0; kk < 8; ++kk) wgmma_rs_mn<W>(o, p[kk], dv + kk * (16 * 128 / 16));
     wgmma_commit();
   };
   // Tile j's softmax on its logits in s: the new row max mn and, in s,
@@ -352,7 +364,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
     l_0 = l_0 * a0 + ls0;
     l_1 = l_1 * a1 + ls1;
 #pragma unroll
-    for (int c = 0; c < 10; ++c) {
+    for (int c = 0; c < kChunks; ++c) {
       o[4 * c] *= a0;
       o[4 * c + 1] *= a0;
       o[4 * c + 2] *= a1;
@@ -385,13 +397,14 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       // is released once its P.V is done
       const bool last_of_run = !resident || tq + 1 == t1;
       const int qi = n % R::qbufs;
-      const uint32_t qbuf = base + qi * kQBytes;
+      const uint32_t qbuf = base + qi * R::q_bytes;
       dq = smem_desc(qbuf + wg * (kMainTile / 2), 1024, kSwizzle128);
-      dq_tail = smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
+      dq_tail = kWide ? smem_desc(qbuf + kMainTile + wg * (kMainTile / 2), 1024, kSwizzle128)
+                      : smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
       m_0 = m_1 = a.m0;
       l_0 = l_1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 40; ++i) o[i] = 0.f;
+      for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
       mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q
 
       float mn0, mn1, ls0, ls1;
@@ -453,18 +466,21 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
         // in Q's swizzled layout: 16-byte chunk c of row r at c ^ (r & 7) in
         // the 128-byte rows, at c ^ ((r >> 2) & 1) in the 32-byte ones
         const uint32_t main = qbuf + wg * (kMainTile / 2);
-        const uint32_t tail = qbuf + kMainTile + wg * (kTailTile / 2);
+        const uint32_t tail = kWide ? qbuf + kMainTile + wg * (kMainTile / 2)
+                                    : qbuf + kMainTile + wg * (kTailTile / 2);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int lr = 16 * warp + g + 8 * e;  // row in this warpgroup's half
           const float inv = e ? i1 : i0;
 #pragma unroll
-          for (int c = 0; c < 10; ++c) {
-            if (c < 8 || kTail) {
+          for (int c = 0; c < kChunks; ++c) {
+            if (c < 8 || W > 64) {
               const uint32_t v =
                   attn::pack_bf16(o[4 * c + 2 * e] * inv, o[4 * c + 2 * e + 1] * inv);
-              const uint32_t at = c < 8 ? main + lr * 128 + ((c ^ (lr & 7)) << 4)
-                                        : tail + lr * 32 + (((c - 8) ^ ((lr >> 2) & 1)) << 4);
+              const uint32_t at =
+                  c < 8   ? main + lr * 128 + ((c ^ (lr & 7)) << 4)
+                  : kWide ? tail + lr * 128 + (((c - 8) ^ (lr & 7)) << 4)
+                          : tail + lr * 32 + (((c - 8) ^ ((lr >> 2) & 1)) << 4);
               st_shared(at + 4 * t, v);
             }
           }
@@ -476,6 +492,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
           if (row < a.N) {
             tma_store(&maps.o, main, 0, h, row, b);
             if (kTail) tma_store(&maps.o_tail, tail, kMainCols, h, row, b);
+            if (kWide) tma_store(&maps.o, tail, kMainCols, h, row, b);
           }
           // the previous item's store has read its buffer: release that one
           tma_store_commit_wait_read<1>();
@@ -486,7 +503,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
         TOut* o0 = out + static_cast<long long>(r0) * a.os.sn;
         TOut* o1 = out + static_cast<long long>(r1) * a.os.sn;
 #pragma unroll
-        for (int c = 0; c < 10; ++c) {
+        for (int c = 0; c < kChunks; ++c) {
           const int col = 8 * c + 2 * t;
           if (col < a.dh) {  // dh % 8 == 0, so col + 1 < dh too
             if (r0 < a.N) attn::store_pair(o0 + col, o[4 * c] * i0, o[4 * c + 1] * i0);
@@ -503,10 +520,11 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
 
 // The kernel's body: the producer's loads, or a consumer's rows. The grid
 // is persistent (block_work), and the producer loads the next items' Q and
-// K/V tiles while the consumers finish the current one.
-template <typename TOut, bool kMask, bool kCross>
+// K/V tiles while the consumers finish the current one. kWide: width 128
+// (80 < dh <= 128), else widths 64 and 80, told apart at run time.
+template <typename TOut, bool kMask, bool kCross, bool kWide>
 __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) {
-  using R = Ring<kCross>;
+  using R = Ring<kCross, kWide>;
   constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (attn::smem_addr(smem_raw) + 1023) & ~1023u;
@@ -534,9 +552,9 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
     // one thread loads; in the cross mode its whole warp finds the extents
     if (kCross ? threadIdx.x < 2 * 128 + 32 : threadIdx.x == 2 * 128) {
       const bool issue = !kCross || threadIdx.x == 2 * 128;
-      const uint32_t chunk = has_tail ? kMainTile + kTailTile : kMainTile;
+      const uint32_t chunk = has_tail ? R::q_bytes : kMainTile;
       const uint32_t tile_bytes =
-          (has_tail ? kStageBytes : 2 * kMainTile) + (a.madd ? kBiasBytes : 0);
+          (has_tail ? R::stage_bytes : 2 * kMainTile) + (a.madd ? kBiasBytes : 0);
       int it = 0;  // ring position of the next K/V tile to load
       int n = 0;
       int ntiles = wk.ntiles;
@@ -550,11 +568,12 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
           if (issue) {
             const int qi = n % R::qbufs;
             if (n >= R::qbufs) mbar_wait(R::qempty(base, qi), ((n / R::qbufs) - 1) & 1);
-            const uint32_t qbuf = base + qi * kQBytes;
+            const uint32_t qbuf = base + qi * R::q_bytes;
             mbar_expect_tx(R::qfull(base, qi), chunk);
             tma_load(qbuf, &maps.q, R::qfull(base, qi), 0, h, q0, b);
             if (has_tail) {
-              tma_load(qbuf + kMainTile, &maps.q_tail, R::qfull(base, qi), kMainCols, h, q0, b);
+              tma_load(qbuf + kMainTile, kWide ? &maps.q : &maps.q_tail, R::qfull(base, qi),
+                       kMainCols, h, q0, b);
             }
           }
           if (kCross && tq == t0) {  // the run's extent, while its first Q tile is in flight
@@ -573,7 +592,7 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
             const uint32_t full = R::full(base, s);
             if (issue) {
               if (pos >= R::stages) mbar_wait(R::empty(base, s), ((pos / R::stages) - 1) & 1);
-              const uint32_t st = base + R::stages_offset + s * kStageBytes;
+              const uint32_t st = base + R::stages_offset + s * R::stage_bytes;
               const int key0 = j * kKeys;
               if (kCross) {
                 mbar_tx(full, tile_bytes);
@@ -584,7 +603,8 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
               tma_load(st + kVOff, &maps.v, full, 0, h, key0, b);
               if (has_tail) {
                 tma_load(st + kVTailOff, &maps.v, full, kMainCols, h, key0, b);
-                tma_load(st + kKTailOff, &maps.k_tail, full, kMainCols, h, key0, b);
+                tma_load(st + kKTailOff, kWide ? &maps.k : &maps.k_tail, full, kMainCols, h,
+                         key0, b);
               }
               if (a.madd) {
                 bulk_load(base + R::bias_offset + s * kBiasBytes,
@@ -606,10 +626,12 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    if (has_tail) {
-      consume<TOut, kMask, true, kCross>(maps, a, base, wg, wk);
+    if constexpr (kWide) {
+      consume<TOut, kMask, 128, kCross>(maps, a, base, wg, wk);
+    } else if (has_tail) {
+      consume<TOut, kMask, 80, kCross>(maps, a, base, wg, wk);
     } else {
-      consume<TOut, kMask, false, kCross>(maps, a, base, wg, wk);
+      consume<TOut, kMask, 64, kCross>(maps, a, base, wg, wk);
     }
   }
 }
@@ -629,7 +651,7 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
                    const attn::Strides& qs, const attn::Strides& ks, const attn::Strides& vs,
                    const attn::Strides& os, float scale, float m0, int tail,
                    bool cross = false, bool o_maps = false) {
-  if (N < 1 || M < 1 || tail < 0 || dh % 8 || dh > kMainCols + kTailCols)
+  if (N < 1 || M < 1 || tail < 0 || dh < 1 || dh % 8 || dh > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   l = Launch{};
   struct View {
@@ -647,7 +669,7 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
     if (x.main == &l.maps.o && !o_maps) break;
     int err = encode(x.main, x.ptr, B, x.rows, H, dh, *x.s, kMainCols,
                      CU_TENSOR_MAP_SWIZZLE_128B, x.box_rows);
-    if (!err && x.rest && dh > kMainCols)
+    if (!err && x.rest && width_of(dh) == 80)
       err = encode(x.rest, x.ptr, B, x.rows, H, dh, *x.s, kTailCols, CU_TENSOR_MAP_SWIZZLE_32B,
                    x.box_rows);
     if (err) return err;
@@ -668,9 +690,9 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
   return 0;
 }
 
-template <bool kCross, typename Kernel>
+template <bool kCross, bool kWide, typename Kernel>
 int run(Kernel* kernel, const Launch& l, cudaStream_t stream) {
-  constexpr int bytes = Ring<kCross>::smem_bytes;
+  constexpr int bytes = Ring<kCross, kWide>::smem_bytes;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -682,13 +704,15 @@ int run(Kernel* kernel, const Launch& l, cudaStream_t stream) {
 // required ([B, M] bytes, nonzero = valid, batch stride kmask_sb, keys
 // contiguous), the running max starts from -inf and the TPU's padding of
 // K/V to pad128(M) keys joins the denominator; a bf16 output is stored
-// through TMA, an f32 one directly.
-template <typename KernelBf16, typename KernelF32>
-int launch_cross(KernelBf16* bf16_kernel, KernelF32* f32_kernel, const void* q, const void* k,
-                 const void* v, const unsigned char* kmask, long long kmask_sb, void* o, int f32,
-                 int B, int H, int N, int M, int dh, const attn::Strides& qs,
-                 const attn::Strides& ks, const attn::Strides& vs, const attn::Strides& os,
-                 float scale, cudaStream_t stream) {
+// through TMA, an f32 one directly. `kernels` are the instantiations
+// <bf16, narrow>, <f32, narrow>, <bf16, wide>, <f32, wide>: widths 64 and 80,
+// and width 128.
+template <typename K0, typename K1, typename K2, typename K3>
+int launch_cross(K0* bf16_kernel, K1* f32_kernel, K2* bf16_wide_kernel, K3* f32_wide_kernel,
+                 const void* q, const void* k, const void* v, const unsigned char* kmask,
+                 long long kmask_sb, void* o, int f32, int B, int H, int N, int M, int dh,
+                 const attn::Strides& qs, const attn::Strides& ks, const attn::Strides& vs,
+                 const attn::Strides& os, float scale, cudaStream_t stream) {
   if (M > kCrossMaxKeys || kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Launch l;
   const int tail = (M + kKeys - 1) / kKeys * kKeys - M;
@@ -698,7 +722,11 @@ int launch_cross(KernelBf16* bf16_kernel, KernelF32* f32_kernel, const void* q, 
   if (err) return err;
   l.args.kmask = kmask;
   l.args.kmask_sb = kmask_sb;
-  return f32 ? run<true>(f32_kernel, l, stream) : run<true>(bf16_kernel, l, stream);
+  if (width_of(dh) == 128) {
+    return f32 ? run<true, true>(f32_wide_kernel, l, stream)
+               : run<true, true>(bf16_wide_kernel, l, stream);
+  }
+  return f32 ? run<true, false>(f32_kernel, l, stream) : run<true, false>(bf16_kernel, l, stream);
 }
 
 }  // namespace hopper

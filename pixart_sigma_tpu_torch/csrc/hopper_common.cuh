@@ -6,17 +6,19 @@
 // strided bf16 [B, rows, H, dh] views.
 //
 // Operand layouts in shared memory: a 128-byte TMA swizzle row holds 64
-// bf16, so the head dim (a multiple of 8 up to 80) is split in column
-// chunks. A K-major operand (the product's reduction runs along the head
-// dim) takes columns [0, 64) as 128-byte rows with the 128B swizzle, one
-// k-step of 16 columns 32 bytes further on, and columns [64, 80) either as
-// 32-byte rows with the 32B swizzle or as the first 16 columns of a second
-// 128B-swizzled 64-column atom. An MN-major operand (the head dim is the
-// product's N) takes two 128B atoms, columns [0, 64) and [64, 128), the
-// leading byte offset of its descriptor pointing from the first to the
-// second. A tile stored as two 128B atoms is therefore readable both ways.
-// TMA zero-fills columns past dh and rows past the view, so the padding
-// never reaches device memory.
+// bf16, so the head dim (a multiple of 8 up to 128) is split in column
+// chunks, and the kernels are built for three padded widths (Width):
+// 64 (dh <= 64), 80 (dh <= 80) and 128 (dh <= 128). A K-major operand (the
+// product's reduction runs along the head dim) takes columns [0, 64) as
+// 128-byte rows with the 128B swizzle, one k-step of 16 columns 32 bytes
+// further on; columns [64, 80) (width 80) either as 32-byte rows with the
+// 32B swizzle or as the first 16 columns of a second 128B-swizzled
+// 64-column atom, and columns [64, 128) (width 128) as that second atom.
+// An MN-major operand (the head dim is the product's N) takes two 128B
+// atoms, columns [0, 64) and [64, 128), the leading byte offset of its
+// descriptor pointing from the first to the second. A tile stored as two
+// 128B atoms is therefore readable both ways. TMA zero-fills columns past
+// dh and rows past the view, so the padding never reaches device memory.
 #pragma once
 
 #include <cuda.h>
@@ -31,6 +33,13 @@ namespace hopper {
 constexpr int kMainCols = 64;  // head-dim columns [0, 64): 128-byte rows, 128B swizzle
 constexpr int kTailCols = 16;  // columns [64, 80) of a K-major operand: 32-byte rows, 32B swizzle
 constexpr int kEncodeError = 10000;  // + CUresult of a failed tensor-map encode
+constexpr int kMaxHeadDim = 128;
+
+// The padded width a head dim of dh runs at, and the f32 registers of a
+// wgmma m64nW accumulator row pair per thread at that width (widths 64 and
+// 80 share one layout: 10 column chunks of 8).
+__host__ __device__ constexpr int width_of(int dh) { return dh <= 64 ? 64 : dh <= 80 ? 80 : 128; }
+__host__ __device__ constexpr int acc_regs(int width) { return width == 128 ? 64 : 40; }
 
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -253,6 +262,63 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
         "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128]: as wgmma_rs_n64, B the two
+// 64-column swizzle atoms whole.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (+)= A[64 x 16] . B[16 x W] at width W: A from registers, B MN-major
+// in shared memory (two 64-column atoms past width 64).
+template <int W>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[acc_regs(W)], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (W == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else if constexpr (W == 80) {
+    wgmma_rs_n80(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
+  }
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------- host

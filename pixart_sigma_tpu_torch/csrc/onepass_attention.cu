@@ -24,20 +24,35 @@
 // (one FFMA and one ex2 per logit, the scale and max folded together) runs
 // while the other warpgroup's products, and its own P.V, are in flight.
 //
+// Head dims up to 128: dh runs at the padded width 64, 80 or 128
+// (hopper_common.cuh), each its own instantiation; at width 128 a K/V stage
+// is 64 KB, so the ring holds three stages beside one Q buffer.
+//
 // Reads bf16 q/k/v in place through their strides (the qkv projection's
 // output, with no transpose or copy); the Python wrapper rounds f32 inputs
-// to bf16 first, as the tensor cores multiply in bf16 anyway. Needs
-// dh % 8 == 0, dh <= 80 and 16-byte aligned strides, which TMA requires and
-// the wrapper checks.
+// to bf16 first, as the tensor cores multiply in bf16 anyway, and pads a
+// head dim that is not a multiple of 8 with zero columns. Needs
+// dh % 8 == 0, dh <= 128 and 16-byte aligned strides, which TMA requires
+// and the wrapper checks.
 
 #include <limits>
 
 #include "hopper_attention.cuh"
 
-template <typename TOut, bool kMask>
+template <typename TOut, bool kMask, bool kWide>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     onepass_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, kMask, false>(maps, a);
+  hopper::attention_body<TOut, kMask, false, kWide>(maps, a);
+}
+
+template <bool kWide>
+int onepass_run(const hopper::Launch& l, bool f32, bool mask, cudaStream_t s) {
+  if (f32) {
+    return mask ? hopper::run<false, kWide>(onepass_kernel<float, true, kWide>, l, s)
+                : hopper::run<false, kWide>(onepass_kernel<float, false, kWide>, l, s);
+  }
+  return mask ? hopper::run<false, kWide>(onepass_kernel<attn::bf16, true, kWide>, l, s)
+              : hopper::run<false, kWide>(onepass_kernel<attn::bf16, false, kWide>, l, s);
 }
 
 // q/k/v are bf16; o is bf16, or f32 when `f32` is non-zero. `madd` is null
@@ -58,16 +73,18 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
                                   scale, -std::numeric_limits<float>::infinity(), tail);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    return madd ? hopper::run<false>(onepass_kernel<float, true>, l, s)
-                : hopper::run<false>(onepass_kernel<float, false>, l, s);
-  }
-  return madd ? hopper::run<false>(onepass_kernel<attn::bf16, true>, l, s)
-              : hopper::run<false>(onepass_kernel<attn::bf16, false>, l, s);
+  return hopper::width_of(dh) == 128 ? onepass_run<true>(l, f32, madd, s)
+                                     : onepass_run<false>(l, f32, madd, s);
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
-// ring's depth (the wrapper checks the last two against its own).
-extern "C" int onepass_attention_smem_bytes() { return hopper::Ring<false>::smem_bytes; }
+// ring's depth at the padded width `width` (64, 80 or 128; the wrapper
+// checks the last two against its own).
+extern "C" int onepass_attention_smem_bytes(int width) {
+  return width == 128 ? hopper::Ring<false, true>::smem_bytes
+                      : hopper::Ring<false, false>::smem_bytes;
+}
 extern "C" int onepass_attention_key_tile() { return hopper::kKeys; }
-extern "C" int onepass_attention_key_stages() { return hopper::Ring<false>::stages; }
+extern "C" int onepass_attention_key_stages(int width) {
+  return width == 128 ? hopper::Ring<false, true>::stages : hopper::Ring<false, false>::stages;
+}

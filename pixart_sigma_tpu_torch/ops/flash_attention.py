@@ -39,6 +39,12 @@ PyTorch version (`onepass_reference_with_lse`, `flash_reference_with_lse`,
 `headsmajor_reference`, `flash_backward_reference`); on a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its launches in
 `<wrapper>.launches`.
+
+The kernels take every head dim up to 128 (MAX_HEAD_DIM), each run at the
+padded width 64, 80 or 128 (`head_dim_width`); a head dim that is not a
+multiple of 8 is zero-padded to one by the wrapper (`pad_head_dim`), with the
+softmax scale kept the true head dim's, and the outputs and gradients are
+sliced back. A wider head dim raises a ValueError.
 """
 
 from __future__ import annotations
@@ -58,18 +64,23 @@ ONEPASS_MAX_KV = 4096  # padded keys, as the TPU gate (onepass_supported)
 ALLHEADS_MAX_KV = 512  # caption keys the allheads kernel takes
 HEADSMAJOR_MAX_KV = 512  # caption keys the headsmajor kernel takes
 HEADSMAJOR_ROWS = 128  # unit of headsmajor's block_q (the kernel's query tile)
-MAX_HEAD_DIM = 80  # the kernels pad the head dim to 80 in shared memory
+MAX_HEAD_DIM = 128  # the widest head dim the kernels take
+# The padded head dims the kernels are built for (csrc/hopper_common.cuh):
+# a head dim runs at the first that holds it
+WIDTHS = (64, 80, 128)
 KEY_TILE = 128  # keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
-KEY_STAGES = 3  # depth of their K/V ring; both are checked against the library at load
+# depth of their K/V ring at each width; both are checked against the library at load
+KEY_STAGES = {64: 3, 80: 3, 128: 3}
 # The allheads and headsmajor kernels: keys per tile, the unit of the key
 # extent they visit, and the K/V stages that hold an extent resident (longer
-# ones stream); checked against the library at load
+# ones stream) at each width; checked against the library at load
 CROSS_KEY_TILE = 128
-CROSS_KEY_STAGES = 2
+CROSS_KEY_STAGES = {64: 2, 80: 2, 128: 2}
 # The backward pair: keys per K/V tile (the unit of its key extent, and the
-# keys of one dK/dV item) and the depth of dq's K/V ring; checked at load
+# keys of one dK/dV item) and the depth of dq's K/V ring over long key sweeps
+# at each width; checked at load
 BWD_KEY_TILE = 128
-BWD_KEY_STAGES = 3
+BWD_KEY_STAGES = {64: 3, 80: 3, 128: 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -240,8 +251,28 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_head_dim(name: str, dh: int) -> None:
-    if dh % 8 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} must be a multiple of 8 and <= 80")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take 1 to {MAX_HEAD_DIM} "
+                         "(ROADMAP Queue 3)")
+
+
+def head_dim_width(dh: int) -> int:
+    """The padded width (WIDTHS) a head dim of dh runs at."""
+    return next(w for w in WIDTHS if dh <= w)
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """x with its head dim (the last) zero-padded to a multiple of 8, as the
+    kernels read 16-byte rows; x itself when it is one. Zero columns of q
+    and k add nothing to a logit, and those of v and dO give zero columns of
+    the output and of every gradient, which the wrappers slice off."""
+    pad = -x.shape[-1] % 8
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, pad))
+
+
+def _unpad(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """x [..., Dh padded] cut back to its first dh columns, contiguous."""
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -298,17 +329,18 @@ def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Ten
     return x.float().contiguous()
 
 
-def _check_key_geometry(lib, name: str, tile: int = KEY_TILE, stages: int = KEY_STAGES):
+def _check_key_geometry(lib, name: str, tile: int = KEY_TILE, stages=KEY_STAGES):
     """`lib` (onepass_attention or flash_forward with KEY_TILE and KEY_STAGES;
     cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES; flash_backward
-    with BWD_KEY_TILE and BWD_KEY_STAGES), once its keys per tile and K/V
-    stages are found to be `tile` and `stages`, by which `_tile_bias` pads
-    the mask of onepass and flash, and the tests and the planted faults pick
-    their key counts."""
-    got = (getattr(lib, f"{name}_key_tile")(), getattr(lib, f"{name}_key_stages")())
+    with BWD_KEY_TILE and BWD_KEY_STAGES), once its keys per tile and its K/V
+    stages at each width of WIDTHS are found to be `tile` and `stages`
+    ({width: stages}), by which `_tile_bias` pads the mask of onepass and
+    flash, and the tests and the planted faults pick their key counts."""
+    got = (getattr(lib, f"{name}_key_tile")(),
+           {w: getattr(lib, f"{name}_key_stages")(w) for w in WIDTHS})
     if got != (tile, stages):
-        raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through {got[1]} "
-                           f"stages, the wrapper expects {tile} and {stages}")
+        raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through "
+                           f"{got[1]} stages by width, the wrapper expects {tile} and {stages}")
     return lib
 
 
@@ -374,19 +406,20 @@ def _onepass_forward(q, k, v, madd, with_lse: bool):
     M = k.shape[1]
     _check_cuda("onepass_attention", q, k, v)
     _check_head_dim("onepass_attention", Dh)
-    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
-    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    out = torch.empty((B, N, H, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
+    q, k, v = (_tma_operand(pad_head_dim(x)) for x in (q, k, v))
+    Dp = q.shape[-1]
     madd = _tile_bias(madd, B, M, "onepass_attention madd")
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     err = _onepass_lib().onepass_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        out.dtype == torch.float32, B, H, N, M, Dh, *q.stride()[:3], *k.stride()[:3],
+        out.dtype == torch.float32, B, H, N, M, Dp, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
     )
     if err:
         raise RuntimeError(f"onepass_attention kernel launch failed: {_hopper_error(err)}")
     onepass_attention.launches += 1
-    return out, lse
+    return _unpad(out, Dh), lse
 
 
 def onepass_attention(
@@ -418,12 +451,14 @@ onepass_attention.launches = 0
 def _cross_operands(q, k, v, n_heads: Optional[int] = None):
     """q, k, v as the allheads and headsmajor kernels read them through TMA:
     [B, rows, H, Dh] views (the flat [B, rows, C] layout split into heads
-    when `n_heads` is given), each through `_tma_operand`. The flat q and
-    the column slices of the hoisted [B, M, 2C] caption K/V are read in
-    place."""
+    when `n_heads` is given), each through `pad_head_dim` and `_tma_operand`.
+    The flat q and the column slices of the hoisted [B, M, 2C] caption K/V
+    are read in place; with a head dim that is not a multiple of 8 (a head
+    of the flat layout then starts off a 16-byte boundary) they become
+    padded heads-major copies."""
     if n_heads is not None:
         q, k, v = (x.unflatten(-1, (n_heads, x.shape[-1] // n_heads)) for x in (q, k, v))
-    return _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    return tuple(_tma_operand(pad_head_dim(x)) for x in (q, k, v))
 
 
 def _key_bytes(key_mask: torch.Tensor, device: torch.device, name: str) -> torch.Tensor:
@@ -437,18 +472,19 @@ def _key_bytes(key_mask: torch.Tensor, device: torch.device, name: str) -> torch
     return mask if mask.stride(-1) == 1 else mask.contiguous()
 
 
-def _cross_launch(name: str, q, k, v, key_mask, out) -> None:
+def _cross_launch(name: str, q, k, v, key_mask, out, dh: int) -> None:
     """One launch of the allheads or headsmajor kernel (`name`, an entry
-    point of the cross_attention library) on [B, rows, H, Dh] views from
-    `_cross_operands`, writing out, a [B, N, H, Dh] view of bf16 or f32;
-    key_mask is the [B, M] mask (True = valid)."""
-    B, N, H, Dh = q.shape
+    point of the cross_attention library) on [B, rows, H, Dp] views from
+    `_cross_operands`, writing out, a [B, N, H, Dp] view of bf16 or f32;
+    key_mask is the [B, M] mask (True = valid). The logit scale is that of
+    the true head dim dh (Dp is dh padded to a multiple of 8)."""
+    B, N, H, Dp = q.shape
     M = k.shape[1]
     mask = _key_bytes(key_mask, q.device, name)
     err = getattr(_cross_lib(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask.stride(0),
-        out.data_ptr(), out.dtype == torch.float32, B, H, N, M, Dh, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
+        out.data_ptr(), out.dtype == torch.float32, B, H, N, M, Dp, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], dh**-0.5 * LOG2E, _stream(q),
     )
     if err:
         raise RuntimeError(f"{name} kernel launch failed: {_hopper_error(err)}")
@@ -465,11 +501,10 @@ def _allheads_forward(q, k, v, key_mask, n_heads: int):
     _check_head_dim("crossattn_allheads", Dh)
     if M > ALLHEADS_MAX_KV:
         raise ValueError(f"crossattn_allheads: {M} keys > {ALLHEADS_MAX_KV}")
-    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
-    _cross_launch("allheads_attention", *_cross_operands(q, k, v, n_heads),
-                  key_mask, out.unflatten(-1, (n_heads, Dh)))
+    out = torch.empty((B, N, n_heads, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
+    _cross_launch("allheads_attention", *_cross_operands(q, k, v, n_heads), key_mask, out, Dh)
     crossattn_allheads.launches += 1
-    return out
+    return _unpad(out, Dh).flatten(2)
 
 
 def crossattn_allheads(
@@ -500,14 +535,14 @@ crossattn_allheads.launches = 0
 
 
 def _backward_operands(name, q, k, v, do, madd, lse, delta):
-    """The backward kernels' operands: q, k, v and dO through `_tma_operand`
-    (bf16, views read in place), the [B, M] mask bias, lse and delta as
-    contiguous f32 rows."""
+    """The backward kernels' operands: q, k, v and dO through `pad_head_dim`
+    and `_tma_operand` (bf16, views read in place), the [B, M] mask bias, lse
+    and delta as contiguous f32 rows."""
     B, N, H, _ = q.shape
     M = k.shape[1]
     if do.shape != q.shape:
         raise ValueError(f"{name}: dout {do.shape} != q {q.shape}")
-    return (tuple(_tma_operand(x) for x in (q, k, v, do)),
+    return (tuple(_tma_operand(pad_head_dim(x)) for x in (q, k, v, do)),
             _f32_rows(madd, (B, M), f"{name} madd"), _f32_rows(lse, (B, H, N), f"{name} lse"),
             _f32_rows(delta, (B, H, N), f"{name} delta"))
 
@@ -541,23 +576,23 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     scale and ds_scale as in `flash_backward_reference`."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[1:]
-    dtype = q.dtype
+    dtype, Dh = q.dtype, q.shape[-1]
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dkv", q, k, v, do, madd, lse,
                                                      delta)
-    B, N, H, Dh = q.shape
+    B, N, H, Dp = q.shape
     M = k.shape[1]
-    dk = torch.empty((B, M, H, Dh), dtype=dtype, device=q.device)
+    dk = torch.empty((B, M, H, Dp), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = _backward_lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dtype == torch.float32,
-        B, H, N, M, Dh, _strides(q, k, v, do, None, dk, dv),
+        B, H, N, M, Dp, _strides(q, k, v, do, None, dk, dv),
         *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, Dh), _unpad(dv, Dh)
 
 
 flash_bwd_dkv.launches = 0
@@ -568,22 +603,22 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     """dq [B, N, H, Dh]; the arguments of `flash_bwd_dkv`."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, madd, lse, delta, do, scale, ds_scale)[0]
-    dtype = q.dtype
+    dtype, Dh = q.dtype, q.shape[-1]
     (q, k, v, do), madd, lse, delta = _backward_args("flash_bwd_dq", q, k, v, do, madd, lse,
                                                      delta)
-    B, N, H, Dh = q.shape
+    B, N, H, Dp = q.shape
     M = k.shape[1]
-    dq = torch.empty((B, N, H, Dh), dtype=dtype, device=q.device)
+    dq = torch.empty((B, N, H, Dp), dtype=dtype, device=q.device)
     err = _backward_lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dtype == torch.float32,
-        B, H, N, M, Dh, _strides(q, k, v, do, dq, None, None),
+        B, H, N, M, Dp, _strides(q, k, v, do, dq, None, None),
         *_backward_scales(Dh, scale, ds_scale), _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, Dh)
 
 
 flash_bwd_dq.launches = 0
@@ -670,19 +705,19 @@ def _flash_forward(q, k, v, madd, tail: int, with_lse: bool):
     M = k.shape[1]
     _check_cuda("flash_attention", q, k, v)
     _check_head_dim("flash_attention", Dh)
-    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
-    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    out = torch.empty((B, N, H, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
+    q, k, v = (_tma_operand(pad_head_dim(x)) for x in (q, k, v))
     madd = _tile_bias(madd, B, M, "flash_attention madd")
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     err = _flash_lib().flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        out.dtype == torch.float32, B, H, N, M, Dh, tail, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q),
+        out.dtype == torch.float32, B, H, N, M, q.shape[-1], tail, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {_hopper_error(err)}")
     flash_attention.launches += 1
-    return out, lse
+    return _unpad(out, Dh), lse
 
 
 def flash_attention(
@@ -784,10 +819,10 @@ def crossattn_headsmajor(
     _check_head_dim("crossattn_headsmajor", Dh)
     if M > HEADSMAJOR_MAX_KV:
         raise ValueError(f"crossattn_headsmajor: {M} keys > {HEADSMAJOR_MAX_KV}")
-    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
-    _cross_launch("headsmajor_attention", *_cross_operands(q, k, v), key_mask, out)
+    out = torch.empty((B, N, H, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
+    _cross_launch("headsmajor_attention", *_cross_operands(q, k, v), key_mask, out, Dh)
     crossattn_headsmajor.launches += 1
-    return out
+    return _unpad(out, Dh)
 
 
 crossattn_headsmajor.launches = 0

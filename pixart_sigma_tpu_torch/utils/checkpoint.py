@@ -41,6 +41,8 @@ _DROPPED = ("pos_embed", "base_model.pos_embed", "model.pos_embed")
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):  # a bfloat16 leaf of `flax_msgpack.from_bytes`
+        return tree.float().numpy()
     return np.asarray(tree, dtype=np.float32)
 
 

@@ -4,10 +4,15 @@ plain Python.
 The subset a parameter tree needs: maps with str keys, nested, whose leaves
 are numpy arrays (msgpack ext type 1: a packed (shape, dtype name, C-order
 bytes) triple) or numpy scalars (ext type 3, the same triple of a 0-d
-array). The writer packs each item in msgpack's shortest form, as
-`msgpack.packb` does, so a tree in flax's key order gives flax's bytes.
-Flax splits an array beyond 2**30 bytes into chunks; such files are
-refused, and the writer refuses such arrays.
+array). A bfloat16 leaf, which numpy has no dtype for, is a torch.bfloat16
+tensor here, read through its uint16 bits (a scalar as a 0-d tensor) and
+written as an array.
+The writer packs each item in msgpack's shortest form, as `msgpack.packb`
+does, so a tree in flax's key order gives flax's bytes. An array beyond
+MAX_CHUNK_SIZE bytes is flax's chunked array: a map {CHUNKED_KEY: True,
+"shape": {"0": d0, ...}, "chunks": {"0": flat chunk, ...}} of 1-D chunks of
+MAX_CHUNK_SIZE bytes (in elements, rounded down), written and read as flax
+writes and reads it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import struct
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
@@ -59,8 +65,18 @@ def _pack_uint(out: bytearray, n: int) -> None:
         out += b"\xcf" + struct.pack(">Q", n)
 
 
-def _array_payload(arr: np.ndarray) -> bytes:
-    """flax's `_ndarray_to_bytes`: packb((shape, dtype name, bytes))."""
+def _bf16_bits(x: torch.Tensor) -> np.ndarray:
+    """A torch.bfloat16 tensor's bits as a uint16 numpy array of its shape."""
+    return x.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _array_payload(arr) -> bytes:
+    """flax's `_ndarray_to_bytes`: packb((shape, dtype name, bytes)); a
+    torch.bfloat16 tensor is written as "bfloat16" with its bits."""
+    if isinstance(arr, torch.Tensor):
+        name, arr = "bfloat16", _bf16_bits(arr)
+    else:
+        name = arr.dtype.name
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be written")
     out = bytearray(b"\x93")
@@ -68,7 +84,7 @@ def _array_payload(arr: np.ndarray) -> bytes:
                                     (0xDD, ">I", 0xFFFFFFFF)))
     for d in arr.shape:
         _pack_uint(out, int(d))
-    _pack_str(out, arr.dtype.name)
+    _pack_str(out, name)
     data = arr.tobytes("C")
     _head(out, len(data), 0, -1, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
                                   (0xC6, ">I", 0xFFFFFFFF)))
@@ -88,6 +104,16 @@ def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
     out += payload
 
 
+def _chunked(arr) -> Dict[str, Any]:
+    """flax's `_chunk`: the array as its flat chunks of MAX_CHUNK_SIZE bytes."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.element_size()
+                      if isinstance(arr, torch.Tensor) else MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.shape[0], size)]
+    return {CHUNKED_KEY: True, "shape": {str(i): int(d) for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
 def _pack(out: bytearray, x: Any) -> None:
     if isinstance(x, dict):
         _head(out, len(x), 0x80, 15, ((None, "", 0), (0xDE, ">H", 0xFFFF),
@@ -97,11 +123,19 @@ def _pack(out: bytearray, x: Any) -> None:
                 raise TypeError(f"map keys must be str, got {type(k).__name__}")
             _pack_str(out, k)
             _pack(out, v)
-    elif isinstance(x, np.ndarray):
-        if x.size * x.dtype.itemsize > MAX_CHUNK_SIZE:
-            raise ValueError(f"an array of {x.nbytes} bytes would be chunked, which this "
-                             "writer does not do")
-        _pack_ext(out, EXT_NDARRAY, _array_payload(x))
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        _pack_uint(out, x)
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        if isinstance(x, torch.Tensor) and x.dtype != torch.bfloat16:
+            raise TypeError(f"a torch tensor leaf must be bfloat16, got {x.dtype}")
+        nbytes = (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                  else x.size * x.dtype.itemsize)
+        if nbytes > MAX_CHUNK_SIZE:
+            _pack(out, _chunked(x))
+        else:
+            _pack_ext(out, EXT_NDARRAY, _array_payload(x))
     elif isinstance(x, np.generic):
         _pack_ext(out, EXT_NPSCALAR, _array_payload(np.asarray(x)))
     else:
@@ -109,8 +143,8 @@ def _pack(out: bytearray, x: Any) -> None:
 
 
 def to_bytes(tree: Dict[str, Any]) -> bytes:
-    """A nested dict of numpy arrays -> the bytes `flax.serialization.to_bytes`
-    writes for it."""
+    """A nested dict of numpy arrays (and torch.bfloat16 tensors) -> the
+    bytes `flax.serialization.to_bytes` writes for it."""
     out = bytearray()
     _pack(out, tree)
     return bytes(out)
@@ -173,10 +207,16 @@ class _Reader:
         for _ in range(n):
             k = self.read()
             out[k] = self.read()
-        if CHUNKED_KEY in out:
-            raise NotImplementedError("a chunked array (flax writes arrays beyond 2**30 bytes "
-                                      "in chunks) is not read here")
-        return out
+        return _unchunked(out) if CHUNKED_KEY in out else out
+
+
+def _unchunked(d: Dict[str, Any]):
+    """flax's `_unchunk`: the array of a chunked map."""
+    shape = tuple(d["shape"][str(i)] for i in range(len(d["shape"])))
+    chunks = [d["chunks"][str(i)] for i in range(len(d["chunks"]))]
+    if isinstance(chunks[0], torch.Tensor):
+        return torch.cat(chunks).reshape(shape)
+    return np.concatenate(chunks).reshape(shape)
 
 
 def _ext(code: int, payload: bytes):
@@ -187,14 +227,16 @@ def _ext(code: int, payload: bytes):
     if isinstance(name, bytes):
         name = name.decode()
     if name == "bfloat16":
-        raise ValueError("bfloat16 arrays need ml_dtypes, which the port does not use")
+        bits = np.frombuffer(data, dtype=np.int16).reshape(shape).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
     arr = np.frombuffer(data, dtype=np.dtype(name)).reshape(shape).copy()
     return arr[()] if code == EXT_NPSCALAR else arr
 
 
 def from_bytes(data: bytes) -> Any:
     """The tree of a file written by `flax.serialization.to_bytes` (or
-    `to_bytes` here): nested dicts of numpy arrays."""
+    `to_bytes` here): nested dicts of numpy arrays (torch.bfloat16 tensors
+    for bfloat16 leaves), chunked arrays joined."""
     r = _Reader(data)
     tree = r.read()
     if r.pos != len(r.data):

@@ -20,6 +20,7 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     KEY_STAGES,
     KEY_TILE,
     TMA_ENCODE_ERROR,
+    WIDTHS,
     _backward_operands,
     _check_key_geometry,
     _cross_operands,
@@ -35,12 +36,23 @@ def _rand(*shape, dtype=torch.bfloat16):
     return torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(dtype)
 
 
+def _shift(stages: dict, d: int, widths=WIDTHS) -> dict:
+    """Per-width stages with `d` added at `widths`."""
+    return {w: s + d if w in widths else s for w, s in stages.items()}
+
+
+def _geometry_lib(name: str, tile: int, stages: dict):
+    """A stand-in library reporting `tile` and, per width, `stages`."""
+    return types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
+                                    f"{name}_key_stages": lambda width: stages[width]})
+
+
 def _tma_readable(x: torch.Tensor) -> bool:
     return (x.dtype == torch.bfloat16 and x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(0 < s * 2 < 2**40 and s * 2 % 16 == 0 for s in x.stride()[:-1]))
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128)])
 def test_qkv_column_slices_are_read_in_place(heads, dh):
     """q, k and v sliced from one qkv projection output are no copies: their
     row stride is 3 H dh and head stride dh elements, multiples of 16 bytes."""
@@ -102,11 +114,11 @@ def test_launch_errors_name_their_cause():
 @pytest.mark.parametrize("tile,stages,ok", [
     (KEY_TILE, KEY_STAGES, True),
     (KEY_TILE // 2, KEY_STAGES, False),  # the mask bias would be padded to the wrong tile
-    (KEY_TILE, KEY_STAGES + 1, False),
+    (KEY_TILE, _shift(KEY_STAGES, 1), False),
+    (KEY_TILE, _shift(KEY_STAGES, -1, (128,)), False),  # one width's ring of another depth
 ])
 def test_library_key_geometry_is_checked(name, tile, stages, ok):
-    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
-                                   f"{name}_key_stages": lambda: stages})
+    lib = _geometry_lib(name, tile, stages)
     if ok:
         assert _check_key_geometry(lib, name) is lib
     else:
@@ -114,7 +126,7 @@ def test_library_key_geometry_is_checked(name, tile, stages, ok):
             _check_key_geometry(lib, name)
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128)])
 def test_cross_operands_read_flat_q_and_hoisted_kv_in_place(heads, dh):
     """The allheads kernel's operands: the flat [B, N, C] q and the column
     slices of the hoisted [B, M, 2C] caption K/V (rows 4 C bytes apart) are
@@ -126,6 +138,21 @@ def test_cross_operands_read_flat_q_and_hoisted_kv_in_place(heads, dh):
         view = x.unflatten(-1, (heads, dh))
         assert got.data_ptr() == x.data_ptr() and got.stride() == view.stride()
         assert got.shape == view.shape and _tma_readable(got)
+
+
+@pytest.mark.parametrize("heads,dh", [(32, 36), (4, 18), (3, 1)])
+def test_cross_operands_pad_a_head_dim_off_8(heads, dh):
+    """A head dim that is not a multiple of 8: every operand, the flat q and
+    the caption K/V column slices too, becomes a heads-major copy zero-padded
+    to the next multiple of 8, which TMA can read."""
+    C = heads * dh
+    q, kv = _rand(2, 37, C), _rand(2, 300, 2 * C)
+    flat = (q, kv[..., :C], kv[..., C:])
+    dp = dh + (-dh % 8)
+    for got, x in zip(_cross_operands(*flat, n_heads=heads), flat):
+        view = x.unflatten(-1, (heads, dh))
+        assert got.shape == view.shape[:-1] + (dp,) and _tma_readable(got)
+        assert torch.equal(got[..., :dh], view) and not got[..., dh:].any()
 
 
 def test_cross_operands_of_headsmajor_views():
@@ -144,14 +171,14 @@ def test_cross_operands_of_headsmajor_views():
     (CROSS_KEY_TILE, CROSS_KEY_STAGES, True),
     (64, CROSS_KEY_STAGES, False),  # the extent and the planted faults would use the wrong tile
     (2 * CROSS_KEY_TILE, CROSS_KEY_STAGES, False),
-    (CROSS_KEY_TILE, CROSS_KEY_STAGES + 1, False),  # a resident extent of another length
-    (CROSS_KEY_TILE, CROSS_KEY_STAGES - 1, False),
-    (64, 2 * CROSS_KEY_STAGES, False),  # the same keys resident, in other tiles
+    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, 1), False),  # a resident extent of another length
+    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, -1), False),
+    (64, {w: 2 * s for w, s in CROSS_KEY_STAGES.items()}, False),  # the same keys, other tiles
+    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, -1, (128,)), False),  # width 128's alone
 ])
 def test_cross_library_key_geometry_is_checked(tile, stages, ok):
     name = "cross_attention"  # the library of allheads_attention and headsmajor_attention
-    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
-                                   f"{name}_key_stages": lambda: stages})
+    lib = _geometry_lib(name, tile, stages)
     if ok:
         assert _check_key_geometry(lib, name, CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
     else:
@@ -180,7 +207,7 @@ def test_cross_key_mask_is_read_as_bytes(M):
         _key_bytes(mask, torch.device("meta"), "test")
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (12, 96), (9, 128)])
 def test_backward_operands_read_qkv_slices_in_place(heads, dh):
     """The backward pair reads q, k and v sliced from one qkv projection
     output, and dO, in place (bf16, TMA-readable strides); the mask bias,
@@ -225,12 +252,12 @@ def test_backward_operands_round_f32_and_copy_unreadable_views():
     (BWD_KEY_TILE, BWD_KEY_STAGES, True),
     (64, BWD_KEY_STAGES, False),  # the extent and its planted fault would use the wrong tile
     (2 * BWD_KEY_TILE, BWD_KEY_STAGES, False),
-    (BWD_KEY_TILE, BWD_KEY_STAGES - 1, False),
+    (BWD_KEY_TILE, _shift(BWD_KEY_STAGES, -1), False),
+    (BWD_KEY_TILE, _shift(BWD_KEY_STAGES, 1, (128,)), False),  # width 128 as the narrower ones
 ])
 def test_backward_library_key_geometry_is_checked(tile, stages, ok):
     name = "flash_backward"  # the library of flash_bwd_dkv and flash_bwd_dq
-    lib = types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
-                                   f"{name}_key_stages": lambda: stages})
+    lib = _geometry_lib(name, tile, stages)
     if ok:
         assert _check_key_geometry(lib, name, BWD_KEY_TILE, BWD_KEY_STAGES) is lib
     else:

@@ -24,6 +24,8 @@ import torch
 
 from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV, attention
 from pixart_sigma_tpu_torch.ops.flash_attention import (
+    BWD_KEY_STAGES,
+    BWD_KEY_TILE,
     CROSS_KEY_STAGES,
     CROSS_KEY_TILE,
     KEY_STAGES,
@@ -117,18 +119,29 @@ def _check_forward(kernel, q, k, v, mask=None):
 
 
 # The onepass and flash kernels (csrc/hopper_attention.cuh) stream keys in
-# tiles of KEY_TILE through a ring of KEY_STAGES, and split the head dim into
-# columns [0, 64) and [64, 80): the cases below sit on either side of both.
+# tiles of KEY_TILE through a ring of KEY_STAGES[width] stages, and split the
+# head dim into columns [0, 64) and [64, 80) (width 80) or [64, 128) (width
+# 128); a head dim off a multiple of 8 is padded by the wrapper: the cases
+# below sit on either side of each.
 HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 200, 1, 2, 72, None),                       # one key
     (2, 200, KEY_TILE - 1, 2, 72, None),
     (2, 200, KEY_TILE + 1, 2, 72, None),
-    (2, 200, KEY_TILE * KEY_STAGES - 1, 2, 72, None),   # the ring's wrap
-    (2, 200, KEY_TILE * KEY_STAGES, 2, 72, None),
-    (2, 200, KEY_TILE * KEY_STAGES + 1, 2, 72, None),
+    (2, 200, KEY_TILE * KEY_STAGES[80] - 1, 2, 72, None),   # the ring's wrap
+    (2, 200, KEY_TILE * KEY_STAGES[80], 2, 72, None),
+    (2, 200, KEY_TILE * KEY_STAGES[80] + 1, 2, 72, None),
     (2, 4080, 1020, 16, 72, None),                  # the 1088x960 training bucket
-    (2, 333, 500, 3, 80, (500, 77)),                # the widest head dim, masked
+    (2, 333, 500, 3, 80, (500, 77)),                # the widest head dim of width 80, masked
     (2, 333, 500, 3, 64, (500, 77)),                # the first column chunk alone
+    (2, 200, KEY_TILE * KEY_STAGES[128] - 1, 2, 128, None),  # width 128's ring wrap
+    (2, 200, KEY_TILE * KEY_STAGES[128] + 1, 2, 128, None),
+    (2, 4096, 1024, 9, 128, None),                  # XL-2 with 9 heads, KV-compressed
+    (2, 333, 500, 3, 128, (500, 77)),               # the widest head dim, masked
+    (2, 333, 500, 3, 96, (500, 77)),                # 12 heads at XL-2's width
+    (2, 333, 500, 3, 88, (500, 77)),                # the narrowest of width 128
+    (2, 333, 500, 3, 36, (500, 77)),                # 32 heads at XL-2's width: padded to 40
+    (2, 200, 300, 2, 18, None),                     # padded to 24
+    (1, 130, 77, 3, 1, None),                       # the narrowest: padded to 8
 ]
 
 
@@ -169,7 +182,7 @@ def test_onepass_kernel_reads_strided_qkv(cuda, B, N, H):
 # CROSS_KEY_STAGES tiles stays resident, a longer one streams. The cases
 # cover both, captions with no valid key (every tile), masks that are not
 # prefixes, and query tiles cut by N.
-CROSS_RESIDENT = CROSS_KEY_TILE * CROSS_KEY_STAGES
+CROSS_RESIDENT = CROSS_KEY_TILE * CROSS_KEY_STAGES[80]
 CROSS_CASES = [  # B, N, M, H, lengths
     (4, 4096, 300, 16, (300, 40, 5, 0)),               # the path width, a caption with no key
     (4, 4096, 300, 16, (19, (256, 300), 77, 3)),       # one caption valid only on [256, 300)
@@ -186,6 +199,12 @@ CROSS_CASES = [  # B, N, M, H, lengths
     *(case + (72,) for case in CROSS_CASES),
     (2, 333, 300, 3, (300, (100, 200)), 64),  # the first column chunk alone
     (2, 200, 77, 4, (77, 9), 8),
+    (4, 4096, 300, 9, (300, 40, 5, 0), 128),  # XL-2 with 9 heads
+    (4, 1000, 300, 12, (19, (256, 300), 77, 3), 96),  # 12 heads
+    (2, 200, CROSS_RESIDENT + 1, 2, ((CROSS_RESIDENT, CROSS_RESIDENT + 1), 0), 128),  # streamed
+    (4, 1000, 300, 32, (300, 120, 77, 1), 36),  # 32 heads: padded heads-major copies
+    (2, 130, 77, 3, (40, 0), 18),
+    (2, 200, 77, 5, (77, 9), 1),
 ])
 def test_allheads_kernel_matches_plain(cuda, B, N, M, H, lengths, Dh):
     rng = np.random.RandomState(2)
@@ -235,6 +254,20 @@ def test_kernels_refuse_other_dtypes(cuda):
         onepass_attention(q.bfloat16(), q.float(), q.float())
 
 
+def test_kernels_refuse_head_dims_past_128(cuda):
+    """Every kernel takes head dims 1 to 128 and names the limit past it."""
+    q = torch.zeros((1, 16, 2, 136), device=cuda, dtype=torch.bfloat16)
+    mask = torch.ones((1, 16), device=cuda, dtype=torch.bool)
+    lse = torch.zeros((1, 2, 16), device=cuda)
+    for call in (lambda: onepass_attention(q, q, q), lambda: flash_attention(q, q, q),
+                 lambda: crossattn_allheads(q.flatten(2), q.flatten(2), q.flatten(2), mask, 2),
+                 lambda: crossattn_headsmajor(q, q, q, mask, 128),
+                 lambda: flash_bwd_dkv(q, q, q, q, None, lse, lse),
+                 lambda: flash_bwd_dq(q, q, q, q, None, lse, lse)):
+        with pytest.raises(ValueError, match="128"):
+            call()
+
+
 # ---------------------------------------------------------------- training
 
 def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
@@ -253,6 +286,12 @@ def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
     (2, 333, 77, 2, 72, (77, 0), torch.float32),     # f32, one row with no valid key
     (2, 333, 300, 2, 72, ((256, 300), 40), torch.bfloat16),  # a caption valid on [256, 300)
     (2, 4080, 1020, 4, 72, None, torch.bfloat16),    # the 1088x960 training bucket
+    (2, 1000, 1008, 3, 128, None, torch.bfloat16),   # width 128
+    (2, 333, 300, 2, 128, ((256, 300), 40), torch.bfloat16),
+    (2, 333, 77, 2, 128, (77, 0), torch.float32),
+    (2, 1000, 1008, 3, 96, None, torch.bfloat16),
+    (2, 333, 300, 2, 36, (300, 17), torch.bfloat16),  # padded to 40
+    (2, 300, 300, 2, 18, None, torch.float32),
 ])
 def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32 inputs: the plain version gets q, k, v and dO rounded to bf16, as
@@ -293,12 +332,13 @@ def test_backward_gradients_past_the_caption_extent_are_zero(cuda):
     assert bool((dk[2, 256:] != 0).any()) and bool((dv[2, 256:] != 0).any())
 
 
-def test_autograd_runs_the_kernels(cuda):
+@pytest.mark.parametrize("Dh", [72, 128, 36])
+def test_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through both forward kernels' autograd Functions on the card
     against torch's autograd of the plain math (f32 inputs, the kernels round
     them to bf16)."""
     rng = np.random.RandomState(6)
-    B, N, M, H, Dh = 2, 200, 77, 2, 72
+    B, N, M, H = 2, 200, 77, 2
     f32 = lambda shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
     q, k, v, g = f32((B, N, H, Dh)), f32((B, M, H, Dh)), f32((B, M, H, Dh)), f32((B, N, H, Dh))
     mask = _lengths_mask((77, 30), M, cuda)
@@ -326,6 +366,9 @@ def test_autograd_runs_the_kernels(cuda):
     (2, 900, 2500, 1, 72, (1700, 0), torch.float32),       # f32: sum(V) / 2560
     (1, 200, 77, 1, 64, None, torch.bfloat16),             # a head dim below the padding
     *(case + (torch.bfloat16,) for case in HOPPER_CASES),
+    (2, 1000, 8200, 1, 128, None, torch.float32),         # width 128
+    (2, 900, 2500, 2, 128, (2500, 0), torch.bfloat16),
+    (2, 900, 2500, 1, 36, (1700, 0), torch.float32),      # padded to 40
 ])
 def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32: the plain version gets the scaled q rounded to bf16, as the
@@ -349,11 +392,12 @@ def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
     _assert_close(got[:, rows], flash_reference_with_lse(q[:, rows], k, v)[0])
 
 
-def test_flash_autograd_runs_the_kernels(cuda):
+@pytest.mark.parametrize("Dh", [72, 128, 36])
+def test_flash_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through the flash Function on the card against torch's
     autograd of the plain version (f32 inputs, rounded to bf16 inside)."""
     rng = np.random.RandomState(9)
-    B, N, M, H, Dh = 2, 200, 300, 2, 72
+    B, N, M, H = 2, 200, 300, 2
     f32 = lambda shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
     q, k, v, g = f32((B, N, H, Dh)), f32((B, M, H, Dh)), f32((B, M, H, Dh)), f32((B, N, H, Dh))
     mask = _lengths_mask((300, 30), M, cuda)
@@ -368,17 +412,22 @@ def test_flash_autograd_runs_the_kernels(cuda):
         _assert_close(a.grad, r.grad)
 
 
-@pytest.mark.parametrize("B,N,M,H,lengths,dtype,block_q", [
-    (4, 4096, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # the 1024px path
-    (4, 1000, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # ragged query tail
-    (2, 130, 77, 2, (40, 0), torch.bfloat16, 128),  # a row with no valid key averages V
-    (2, 333, 77, 2, (77, 5), torch.float32, 512),
-    *(case + (torch.bfloat16, 256) for case in CROSS_CASES),
-    (2, 333, 300, 2, (300, (200, 210)), torch.float32, 128),
+@pytest.mark.parametrize("B,N,M,H,lengths,dtype,block_q,Dh", [
+    *(case + (72,) for case in [
+        (4, 4096, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # the 1024px path
+        (4, 1000, 300, 16, (300, 120, 77, 1), torch.bfloat16, 256),  # ragged query tail
+        (2, 130, 77, 2, (40, 0), torch.bfloat16, 128),  # a row with no valid key averages V
+        (2, 333, 77, 2, (77, 5), torch.float32, 512),
+        *(case + (torch.bfloat16, 256) for case in CROSS_CASES),
+        (2, 333, 300, 2, (300, (200, 210)), torch.float32, 128),
+    ]),
+    (4, 4096, 300, 9, (300, 120, 77, 1), torch.bfloat16, 256, 128),
+    (2, 333, 77, 2, (77, 5), torch.float32, 512, 128),
+    (4, 1000, 300, 12, (300, (256, 300), 77, 0), torch.bfloat16, 256, 96),
+    (4, 1000, 300, 32, (300, 120, 77, 1), torch.bfloat16, 256, 36),
 ])
-def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q):
+def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q, Dh):
     rng = np.random.RandomState(10)
-    Dh = 72
     C = H * Dh
     t = lambda shape, scale=1.0: torch.from_numpy(
         (rng.randn(*shape) * scale).astype(np.float32)).to(cuda, dtype)
@@ -429,6 +478,8 @@ def test_forward_key_tile_is_the_librarys(cuda):
         assert _check_key_geometry(lib, name) is lib
     lib = _build.load("cross_attention")
     assert _check_key_geometry(lib, "cross_attention", CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
+    lib = _build.load("flash_backward")
+    assert _check_key_geometry(lib, "flash_backward", BWD_KEY_TILE, BWD_KEY_STAGES) is lib
 
 
 @pytest.mark.parametrize("M", [4096, 1024])

@@ -90,13 +90,15 @@ def test_msgpack_reads_and_writes_flax_bytes():
 
 
 def test_msgpack_refuses_chunked_arrays(monkeypatch):
+    """Chunked arrays were refused; they are now read and written as flax
+    does (tests/test_torch_flax_msgpack.py holds both directions): a file
+    with one reads back whole, and the writer chunks past MAX_CHUNK_SIZE."""
     monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
-    data = serialization.to_bytes({"w": np.zeros(100, np.float32)})
-    with pytest.raises(NotImplementedError, match="chunked"):
-        flax_msgpack.from_bytes(data)
+    w = np.arange(100, dtype=np.float32)
+    data = serialization.to_bytes({"w": w})
+    np.testing.assert_array_equal(flax_msgpack.from_bytes(data)["w"], w)
     monkeypatch.setattr(flax_msgpack, "MAX_CHUNK_SIZE", 64)
-    with pytest.raises(ValueError, match="chunked"):
-        flax_msgpack.to_bytes({"w": np.zeros(100, np.float32)})
+    assert flax_msgpack.to_bytes({"w": w}) == data
 
 
 def _write_jax_dir(path, cfg, params):
