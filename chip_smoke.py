@@ -61,7 +61,8 @@ Phases, each printing its own lines:
    sampler and decode seconds per image (each the median of 3 calls after
    the checked one, which warms the sampler's shapes) and peak memory, and a 256px
    trajectory held against plain attention with the same seed (so the same
-   noise); torch.profiler breakdowns of the iDDPM and SA-Solver trajectories;
+   noise); torch.profiler breakdowns of the iDDPM and SA-Solver trajectories
+   (cut to TRACED_STEPS);
 6. the 2K path: the model of configs/pixart_sigma_config/
    PixArt_sigma_xl2_img2K_internalms_kvcompress.py (input 256, pe
    interpolation 4, KV compression on layers 14-27) with seeded random
@@ -217,7 +218,7 @@ Phases, each printing its own lines:
    (`chip_smoke.py --seq-rank`; gloo's all-gather, reduce-scatter and
    send/recv of CUDA tensors staged through host memory, the compute on the
    card): (a) `scripts.inference --seq-parallel 2` at 1024px, full width
-   and depth, 20-step DPM-Solver++ with CFG, against the one-process CLI
+   and depth, 10-step DPM-Solver++ with CFG, against the one-process CLI
    (fault: rank 1's shard one token row early); (b) seqshard (the flash
    kernel on a 8192-query shard against 16384 keys) and ring attention at
    the 2K shape against plain attention; (c) two Trainer steps over seq 2
@@ -232,14 +233,33 @@ Phases, each printing its own lines:
    faults: a key tile skipped, K's columns [64, 128) dropped (width 128),
    the padded head dim's logit scale (a head dim off a multiple of 8), lse
    + 1 and a query tile skipped (backward); each kernel's time at Dh = 128
-   and 96 beside its plain version, `sdpa` and the bound; (b) the 20-step
+   and 96 beside its plain version, `sdpa` and the bound; (b) the 10-step
    1024px DPM-Solver++ trajectory of XL-2 at full width and depth with 9
    heads (Dh = 128, self-attention on flash) and 12 (Dh = 96) against plain
    attention on the card (fault: K's columns [64, 128) dropped in plain
    attention), launches against `forward_launches`; (c) one 1024px training
    step of the 9-head model at depth 4 (B = 2), its gradients per 128-row
    tile against plain attention (faults: dK's columns [64, 128) zeroed, dQ
-   without its ln 2 factor).
+   without its ln 2 factor);
+35. the JAX trainer's orbax checkpoints, from the committed fixture
+   tests/fixtures/orbax_small (written by the JAX package; its config.py is
+   a 3-block, 32-wide model of the 1024px KV-compress config): (a) every
+   zarr chunk of its OCDBT store decoded by the C++ decoder
+   (csrc/zstd_decode.cpp, built by the host compiler with the kernels) and
+   by the plain Python one, bit for bit equal to each other and to
+   expected.json's SHA-256 digests, and the same check must reject a chunk
+   with one flipped byte in a compressed block; (b) the C++ decoder's MB/s
+   over the chunks repeated to >= 256 MB of output (a call per chunk, and
+   the chunks joined into one buffer on one thread and on eight threads),
+   the Python decoder's over one pass, and what they give for one f32 tree
+   of PixArt-Sigma-XL-2 and for a CAME resume;
+   (c) the model loaded through `load_checkpoint` on the card, its f32
+   output against the JAX model's in expected.json (plain attention and the
+   kernels), and a 4-step DPM-Solver++ sample through the kernels against
+   plain attention, launches against `forward_launches`; (d) a Trainer
+   resumed with resume_from="latest" in a work dir holding the fixture's
+   checkpoints (step 2), then one step on the kernels: finite loss and
+   gradient norm, launches against `step_launches`.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -303,6 +323,10 @@ MASKED_TOY_CONFIG = "configs/toy/pixart_toy_img128_masked.py"
 # sde-dpm-solver 20; the LCM and DMD apps 4 and 1)
 SAMPLER_STEPS = {"deis": 20, "sde-dpm-solver": 20, "sa-solver": 25, "iddpm": 100,
                  "lcm": 4, "dmd": 1}
+# the traced trajectories (phases 5b, 6 and 20) stop here: the profiler's
+# processing on the host grows with the steps (44 s for iDDPM's 100 and
+# SA-Solver's 25 on the card's host), the per-step shares do not
+TRACED_STEPS = 10
 SAMPLER_TIMED = 3  # warm calls per sampler whose median is its time
 # T5-XXL in bf16 against its f32 copy on the card, per caption over its
 # valid tokens, relative L2 (sound 1.8e-2; dropping layer 0's position bias
@@ -1543,7 +1567,7 @@ def run_samplers(dev, card, fa, pipe, model, prompts, negative) -> dict:
             raise SystemExit(f"{name} 256px trajectory disagrees with plain attention")
     t_trace = time.perf_counter()
     for name in ("iddpm", "sa-solver"):
-        steps = SAMPLER_STEPS[name]
+        steps = min(SAMPLER_STEPS[name], TRACED_STEPS)
         trace(lambda: pipe(prompts, return_latents=True, sampler=name, num_inference_steps=steps,
                            guidance_scale=4.5, negative_prompt=negative, seed=0),
               f"1024px {name} trajectory ({steps} steps, 2 images; device activity only)",
@@ -1618,8 +1642,8 @@ def run_hires(dev, card, fa, cases, t5, vae, prompt, negative, max_err) -> dict:
     launches = counts["flash"]
     log(f"[time] {card}: 2K sampler {t_sample:.4f} s/img, tiled decode {t_decode:.4f} s/img "
         f"(1 image, CFG batch 2, 20 steps), peak memory {peak:.2f} GiB")
-    trace(lambda: pipe([prompt], num_inference_steps=20, **call),
-          "2K 20-step trajectory (1 image, CFG batch 2)", card)
+    trace(lambda: pipe([prompt], num_inference_steps=TRACED_STEPS, **call),
+          f"2K {TRACED_STEPS}-step trajectory (1 image, CFG batch 2)", card)
 
     # ---- 7. 4K through the 2880 table
     # the 2K phase built and warmed every kernel and the decode's tile shape;
@@ -2435,8 +2459,9 @@ def run_turbo(dev, card, fa, prompts, negative) -> tuple:
         f"{SAMPLER_TIMED}, each {[round(v / 2, 4) for v in decode[1]]})")
     for name in ("exact", "turbo"):
         pipe, kw, _ = variants[name]
-        trace_turbo(lambda: pipes[pipe](prompts, **call, **kw),
-                    f"1024px {name} trajectory (20 steps, 2 images)", card)
+        trace_turbo(lambda: pipes[pipe](prompts, **dict(call, num_inference_steps=TRACED_STEPS),
+                                        **kw),
+                    f"1024px {name} trajectory ({TRACED_STEPS} steps, 2 images)", card)
     log(f"[turbo] phase 20: {time.perf_counter() - t_phase:.1f} s")
     del pipes, exact_model
     return launches, quant_model, vae, t5
@@ -4477,6 +4502,9 @@ SEQ_TRAIN_TOLS = (1e-3, 1e-2, 1e-2)
 SEQ_FAULT_SCALE = 1.005
 SEQ_TRAIN_MODEL = dict(depth=2, kv_compress_layers=(1,))
 SEQ_FAULT_STEPS = 2
+# phase 33a's trajectories, cut from 20 steps (PR 14): the 2-rank CLI is bound
+# by gloo's host staging, which a slow host stretches
+SEQ_CLI_STEPS = 10
 SEQ_TRAIN_STEPS = 2  # the first at the schedule's LR 0 (JAX's warm-up rule)
 SEQ_2K = 16384
 SEQ_PICKS = ((0, slice(0, 512)), (9, slice(4000, 4512)), (15, slice(7680, 8192)))
@@ -4493,14 +4521,14 @@ SEQ_SHARD_SHAPES = {
 }
 
 
-def seq_cli(root: str, pth: str, save: str, seq: bool, steps: int = 20) -> list:
+def seq_cli(root: str, pth: str, save: str, seq: bool, steps: int = SEQ_CLI_STEPS) -> list:
     argv = ["--config", TRAIN_CONFIG, "--model-path", pth, "--txt-file",
             os.path.join(root, "prompts.txt"), "--pseudo-t5", "4096", "--bs", "2",
             "--save-root", save, "--device", "cuda", "--steps", str(steps)]
     return argv + (["--seq-parallel", "2"] if seq else [])
 
 
-def seq_latents(save: str, steps: int = 20):
+def seq_latents(save: str, steps: int = SEQ_CLI_STEPS):
     import numpy as np
 
     return np.stack([np.load(os.path.join(save, f"{i:05d}_dpm-solver_{steps}.jpg.npy"))
@@ -4563,7 +4591,7 @@ def seq_rank_worker(rank: int, spec_path: str) -> int:
             SeqContext.shard = shifted
         reset_train_counts(fa)
         pdist.TRANSPORTS.clear()
-        steps = SEQ_FAULT_STEPS if fault else 20
+        steps = SEQ_FAULT_STEPS if fault else SEQ_CLI_STEPS
         seconds = _timed(lambda: inference.main(
             seq_cli(root, spec["pth"], os.path.join(root, f"seq_{fault}"), True, steps)), 1)[0]
         out["serve", fault] = dict(seconds=seconds, launches=train_counts(fa),
@@ -4702,14 +4730,16 @@ def run_seq_parallel(dev, card, fa) -> dict:
         one_launches = train_counts(fa)
         inference.main(seq_cli(tmp, pth, os.path.join(tmp, "one_short"), False, SEQ_FAULT_STEPS))
         read = {}
-        for fault, one, steps in ((False, "one", 20), (True, "one_short", SEQ_FAULT_STEPS)):
+        for fault, one, steps in ((False, "one", SEQ_CLI_STEPS),
+                                  (True, "one_short", SEQ_FAULT_STEPS)):
             want = seq_latents(os.path.join(tmp, one), steps)
             got_ = seq_latents(os.path.join(tmp, f"seq_{fault}"), steps)
             read[fault] = float(np.linalg.norm(got_ - want) / np.linalg.norm(want))
         mc = build_model_from_config(read_config(TRAIN_CONFIG), device="meta").cfg
-        per_rank = forward_launches(mc, (128, 128), 20)
+        per_rank = forward_launches(mc, (128, 128), SEQ_CLI_STEPS)
         serve = got["serve", False]
-        log(f"[seq] (a) scripts.inference --seq-parallel 2, 1024px 28 x 1152, 20 steps CFG 4.5, "
+        log(f"[seq] (a) scripts.inference --seq-parallel 2, 1024px 28 x 1152, {SEQ_CLI_STEPS} "
+            f"steps CFG 4.5, "
             f"2 prompts, 2 gloo ranks on the card: latents vs one process relative L2 "
             f"{read[False]:.3e} (tol {SEQ_SERVE_TOL}); planted fault 'rank 1's shard one token "
             f"row early' {read[True]:.3e} ({SEQ_FAULT_STEPS} steps); rank 0's launches {serve['launches']} (one process "
@@ -4794,6 +4824,20 @@ HEAD_DIM_MODELS = (9, 12)
 # [64, 128) dropped in every attention call of the plain run, must read
 # above it (readings in PERF.md)
 HEAD_DIM_PATH_TOL = 3e-2
+# phase 34b's trajectories, cut from 20 steps (PR 15) to keep the script well
+# inside its time limit since phase 35 came
+HEAD_DIM_PATH_STEPS = 10
+
+# phase 35: the committed orbax fixture, and how much the decoder's rate is
+# timed over (MB of output), and the limits of its model's f32 output
+# against the JAX model's (relative L2): plain attention on the card runs
+# f32 products (TF32 off); the kernels round f32 inputs to bf16 (ROADMAP
+# Queue 3), whose sound readings elsewhere are at most 3.3e-3
+ORBAX_FIXTURE = "tests/fixtures/orbax_small"
+ORBAX_TIMED_BYTES = 256 * 2**20
+ORBAX_PLAIN_TOL = 1e-4
+ORBAX_KERNEL_TOL = L2_TOL
+ORBAX_SAMPLE_STEPS = 4
 HEAD_DIM_CAPTIONS = (300, (256, 300), 77, 3)  # phase 3's caption masks, one not a prefix
 
 
@@ -5017,7 +5061,7 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
 
 
 def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
-    """(b): the 1024px 20-step DPM-Solver++ trajectory with CFG 4.5 of XL-2 at
+    """(b): the 1024px DPM-Solver++ trajectory (HEAD_DIM_PATH_STEPS) with CFG 4.5 of XL-2 at
     full width and depth (28 blocks of 1152, KV compression conv x2 on layers
     14-27, 300-token captions) with 9 and with 12 heads, seeded random
     weights (zero-initialised leaves perturbed), through the kernels against
@@ -5040,7 +5084,8 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         finally:
             attention_module.attention_reference = orig
 
-    call = dict(num_inference_steps=20, guidance_scale=4.5, negative_prompt=negative, seed=0,
+    call = dict(num_inference_steps=HEAD_DIM_PATH_STEPS, guidance_scale=4.5,
+                negative_prompt=negative, seed=0,
                 return_latents=True)
     out = {}
     for heads in HEAD_DIM_MODELS:
@@ -5066,8 +5111,9 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         set_attn_impl(model, "auto")
         rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
         rel_f = float(np.linalg.norm(lat_f - lat_r) / np.linalg.norm(lat_r))
-        want = forward_launches(model.cfg, (128, 128), 20)
-        log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}), 20 steps CFG 4.5: "
+        want = forward_launches(model.cfg, (128, 128), HEAD_DIM_PATH_STEPS)
+        log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}), "
+            f"{HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
             f"latents {tuple(lat_k.shape)}, kernels vs plain attention on the card: relative L2 "
             f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [64, 128) dropped "
             f"in plain attention: {rel_f:.3e} "
@@ -5190,6 +5236,193 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
     return dict(errs=errs, launches=launches, train=train, times=times_)
 
 
+def orbax_chunk_ok(zstd, raw: bytes, want_sha: str) -> bool:
+    """The check of phase 35a: the C++ and the Python decoder give the same
+    bytes, whose SHA-256 is the fixture's digest; a decoder that refuses
+    the frame fails it."""
+    try:
+        cpp = zstd.decompress_native(raw).tobytes()
+        py = zstd.decompress(raw)
+    except zstd.ZstdError:
+        return False
+    return cpp == py and hashlib.sha256(cpp).hexdigest() == want_sha
+
+
+def first_compressed_block(raw: bytes) -> tuple:
+    """(start, size) of the first compressed block of a one-frame zstd chunk,
+    or None."""
+    fhd = raw[4]
+    pos = 5 + (0 if (fhd >> 5) & 1 else 1) + (0, 1, 2, 4)[fhd & 3]
+    pos += (1 if (fhd >> 5) & 1 else 0, 2, 4, 8)[fhd >> 6]
+    while pos + 3 <= len(raw):
+        h = int.from_bytes(raw[pos:pos + 3], "little")
+        kind, size = (h >> 1) & 3, h >> 3
+        if kind == 2:
+            return pos + 3, size
+        pos += 3 + (1 if kind == 1 else size)
+        if h & 1:
+            return None
+    return None
+
+
+def run_orbax(dev, card, fa) -> dict:
+    """Phase 35 (see the module docstring); returns the launches of its
+    sample and of its resumed training step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.config import read_config
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+    from pixart_sigma_tpu_torch.models.builder import build_model_from_config
+    from pixart_sigma_tpu_torch.models.t5 import PseudoT5Embedder
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+    from pixart_sigma_tpu_torch.utils import zstd
+    from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint
+    from pixart_sigma_tpu_torch.utils.ocdbt import OcdbtStore
+
+    t_phase = time.perf_counter()
+    config_path = os.path.join(ORBAX_FIXTURE, "config.py")
+    step_dir = os.path.join(ORBAX_FIXTURE, "checkpoints", "step_2")
+    with open(os.path.join(ORBAX_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)
+
+    # (a) every chunk: C++ = Python = digest; a flipped byte must fail it
+    store = OcdbtStore(step_dir)
+    digest = {".".join(leaf["path"]): leaf["sha256"] for leaf in expected["leaves"]}
+    chunks = {k: store.read(k) for k in store.keys() if not k.endswith("/.zarray")}
+    if sorted(k.rsplit("/", 1)[0] for k in chunks) != sorted(digest):
+        raise SystemExit("orbax: the fixture's chunks are not one per leaf of expected.json")
+    bad = [k for k, raw in chunks.items() if not orbax_chunk_ok(zstd, raw, digest[
+        k.rsplit("/", 1)[0]])]
+    blocks = {k: first_compressed_block(raw) for k, raw in chunks.items()}
+    faulty = max((k for k in chunks if blocks[k]), key=lambda k: blocks[k][1])
+    raw = bytearray(chunks[faulty])
+    start, size = blocks[faulty]
+    raw[start + size // 2] ^= 0x10
+    caught = not orbax_chunk_ok(zstd, bytes(raw), digest[faulty.rsplit("/", 1)[0]])
+    out_bytes = sum(len(zstd.decompress_native(r)) for r in chunks.values())
+    log(f"[orbax] phase 35a: {len(chunks)} chunks ({sum(map(len, chunks.values()))} B stored, "
+        f"{out_bytes} B decoded; {sum(1 for b in blocks.values() if b)} with a compressed "
+        f"block), C++ = Python = expected.json's SHA-256 on {len(chunks) - len(bad)}; planted "
+        f"fault, one byte flipped in {faulty}'s compressed block of {size} B: "
+        f"{'caught' if caught else 'NOT CAUGHT'}")
+    if bad or not caught:
+        raise SystemExit(f"orbax: chunks {bad[:4]} fail the decode check, or the planted fault "
+                         "passes it")
+
+    # (b) the decoders' rates; what they give for PixArt-Sigma-XL-2. The
+    # fixture's chunks are small (2.2 KB decoded on average, where XL-2's run
+    # to MBs), so a call per chunk also times the binding; the same chunks
+    # joined into one buffer of back-to-back frames time the decoder alone
+    raws = list(chunks.values())
+    reps = -(-ORBAX_TIMED_BYTES // out_bytes)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for r in raws:
+            zstd.decompress_native(r)
+    per_chunk = reps * out_bytes / (time.perf_counter() - t0) / 1e6
+    joined = b"".join(raws) * reps
+    t0 = time.perf_counter()
+    zstd.decompress_native(joined, reps * out_bytes)
+    cpp_1 = reps * out_bytes / (time.perf_counter() - t0) / 1e6
+    threads = 8
+    share = b"".join(raws) * -(-reps // threads)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(lambda _: zstd.decompress_native(share), range(threads)))
+    cpp_8 = threads * (len(share) // len(b"".join(raws))) * out_bytes / (
+        time.perf_counter() - t0) / 1e6
+    del joined, share
+    t0 = time.perf_counter()
+    for r in raws:
+        zstd.decompress(r)
+    py_1 = out_bytes / (time.perf_counter() - t0) / 1e6
+    xl2 = build_model_from_config(read_config(TRAIN_CONFIG), device="meta", train=True)
+    n_params = sum(p.numel() for p in xl2.parameters())
+    tree = 4 * n_params  # f32
+    came = 3 * tree  # params, EMA, CAME's momentum (its factored statistics are small)
+    log(f"[orbax] phase 35b: C++ decoder over the fixture's chunks ({reps} passes, "
+        f"{reps * out_bytes / 2**20:.0f} MiB out): {per_chunk:.1f} MB/s a call per chunk, "
+        f"{cpp_1:.1f} MB/s joined into one buffer on one thread, {cpp_8:.1f} MB/s on "
+        f"{threads} threads (host: {os.cpu_count()} cores); Python {py_1:.3f} MB/s (one "
+        f"pass); PixArt-Sigma-XL-2 ({n_params} parameters): one f32 tree "
+        f"{tree / 1e9:.3f} GB -> {tree / 1e6 / cpp_1:.1f} s on one thread, "
+        f"{tree / 1e6 / cpp_8:.1f} s on {threads}, {tree / 1e6 / py_1 / 60:.0f} min in "
+        f"Python; a CAME resume (params, EMA, momentum: {came / 1e9:.2f} GB) "
+        f"{came / 1e6 / cpp_8:.1f} s on {threads} threads; {card}")
+    del xl2
+
+    # (c) the model through load_checkpoint on the card: JAX's f32 output; a sample
+    config = read_config(config_path)
+    model = load_checkpoint(step_dir, build_model_from_config(config, device=dev))
+    inp = {k: torch.tensor(v, device=dev) for k, v in expected["inputs"].items()}
+    want = np.asarray(expected["output"], np.float32)
+    outs = {}
+    with torch.no_grad():
+        for impl in ("reference", "auto"):
+            set_attn_impl(model, impl)
+            outs[impl] = model(inp["x"], inp["t"], inp["y"], inp["mask"]).float().cpu().numpy()
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    rel_plain, rel_kernel = rel(outs["reference"], want), rel(outs["auto"], want)
+    pipe = PixArtPipeline(model, t5=PseudoT5Embedder(32, config.model_max_length), device=dev)
+    call = dict(height=config.image_size, width=config.image_size,
+                num_inference_steps=ORBAX_SAMPLE_STEPS, guidance_scale=4.5, seed=0,
+                negative_prompt="blurry", return_latents=True)
+    prompts = ["a cat on a mat", "a red circle"]
+    lat_k, sample_launches, _, secs = counted(fa, lambda: pipe(prompts, **call))
+    set_attn_impl(model, "reference")
+    lat_r = pipe(prompts, **call)
+    set_attn_impl(model, "auto")
+    rel_sample = rel(lat_k, lat_r)
+    side = config.image_size // 8
+    log(f"[orbax] phase 35c: {config_path} ({model.cfg.depth} blocks x {model.cfg.hidden_size}, "
+        f"{model.cfg.num_heads} heads) from {step_dir} on the card: f32 output vs the JAX "
+        f"model's, relative L2 {rel_plain:.3e} with plain attention (limit {ORBAX_PLAIN_TOL}), "
+        f"{rel_kernel:.3e} through the kernels (limit {ORBAX_KERNEL_TOL}); "
+        f"{ORBAX_SAMPLE_STEPS}-step DPM-Solver++ CFG 4.5 at {config.image_size}px, kernels vs "
+        f"plain attention {rel_sample:.3e} (limit {PATH_REL_TOL}), {secs:.2f} s")
+    check_launches("orbax", sample_launches,
+                   forward_launches(model.cfg, (side, side), ORBAX_SAMPLE_STEPS))
+    if not (rel_plain <= ORBAX_PLAIN_TOL and rel_kernel <= ORBAX_KERNEL_TOL
+            and rel_sample <= PATH_REL_TOL and np.isfinite(lat_k).all()
+            and lat_k.shape == (2, side, side, 4)):
+        raise SystemExit("orbax: the loaded model disagrees with the JAX model's output, or "
+                         "its sample with plain attention")
+    del pipe, model
+
+    # (d) a Trainer resumed from the fixture with "latest", one step on the kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(ORBAX_FIXTURE, "checkpoints"),
+                        os.path.join(tmp, "work", "checkpoints"))
+        data_root = os.path.join(tmp, "data")
+        write_feature_dataset(os.path.join(data_root, config.data["root"]),
+                              [(config.image_size, config.image_size)] * 4,
+                              resolution=config.image_size, caption_channels=32,
+                              max_length=config.model_max_length, valid_tokens=(3, 8))
+        config.update(data_root=data_root, train_batch_size=2, num_workers=2, log_interval=1,
+                      resume_from=dict(checkpoint="latest"))
+        config.data = dict(config.data, load_vae_feat=True, load_t5_feat=True)
+        trainer = Trainer(config, os.path.join(tmp, "work"), device=dev)
+        trainer.build_state(config.num_epochs * 2)
+        resumed = trainer.maybe_resume()
+        _, step_counts, _, secs = counted(fa, lambda: trainer.train(max_steps=1))
+        hist = trainer.history[-1]
+        log(f"[orbax] phase 35d: resume_from='latest' in a work dir of the fixture's "
+            f"checkpoints: step {resumed}; one step on the kernels to step "
+            f"{trainer.state.step}: loss {hist['loss']:.4f}, grad norm {hist['grad_norm']:.4f}, "
+            f"{secs:.2f} s")
+        check_launches("orbax", step_counts, step_launches(trainer.model.cfg, (side, side)))
+        if not (resumed == expected["step"] == 2 and trainer.state.step == 3
+                and np.isfinite(hist["loss"]) and np.isfinite(hist["grad_norm"])):
+            raise SystemExit("orbax: the resumed Trainer did not start at step 2 or its step is "
+                             "not finite")
+    log(f"[orbax] phase 35: {time.perf_counter() - t_phase:.1f} s")
+    return {"sample": sample_launches, "resumed_step": step_counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -5229,9 +5462,10 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(_build.KERNELS + _build.HOST_SOURCES)
     if logs:
-        log(f"[build] {len(logs)} sources in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+        log(f"[build] {len(logs)} sources in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a; "
+            f"the zstd decoder of {_build.HOST_SOURCES} with the host C++ compiler)")
     else:
         log(f"[build] nothing to compile: libraries for these sources are in {_build.BUILD_DIR}")
     for name, text in logs.items():
@@ -5702,6 +5936,11 @@ def main() -> int:
                                        for h, c in head_dims["launches"].items()}
         entry["launches_head_dims"]["9-head training step"] = head_dims["train"][name]
         entry["head_dim_shapes"] = head_dims["times"].get(name, [])
+
+    # ---- 35. the JAX trainer's orbax checkpoints: decode, load, sample, resume ----
+    launches_orbax = run_orbax(dev, card, fa)
+    for entry in entries:
+        entry["launches_orbax"] = {run: c[entry["name"]] for run, c in launches_orbax.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

@@ -35,7 +35,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="PixArt-Sigma batch inference")
     p.add_argument("--config", default=None,
                    help="model config (else PixArtMS-XL-2 at --image-size)")
-    p.add_argument("--model-path", required=True, help="an upstream-dialect .pth")
+    p.add_argument("--model-path", required=True,
+                   help="an upstream-dialect .pth, a diffusers .safetensors, or a JAX run's "
+                        "orbax step_N, checkpoints/ or run directory")
     p.add_argument("--t5-path", default=None, help="a local HF T5 encoder directory")
     p.add_argument("--vae-path", default=None, help="a diffusers VAE .safetensors")
     p.add_argument("--image-size", type=int, default=1024, choices=[256, 512, 1024, 2048])

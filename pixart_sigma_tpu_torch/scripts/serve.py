@@ -565,7 +565,9 @@ def server_settings(args, config) -> dict:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="PixArt-Sigma HTTP server with micro-batching")
     p.add_argument("--config", required=True)
-    p.add_argument("--model-path", required=True, help="an upstream-dialect .pth")
+    p.add_argument("--model-path", required=True,
+                   help="an upstream-dialect .pth, a diffusers .safetensors, or a JAX run's "
+                        "orbax step_N, checkpoints/ or run directory")
     p.add_argument("--load-ema", action="store_true")
     p.add_argument("--t5-path", default=None, help="a local HF T5 encoder directory")
     p.add_argument("--pseudo-t5", type=int, default=None, metavar="DIM")

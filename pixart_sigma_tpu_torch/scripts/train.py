@@ -33,8 +33,10 @@ def parse_args(argv=None):
                                              "on several")
     p.add_argument("config", help="python config file")
     p.add_argument("--work-dir", default=None)
-    p.add_argument("--load-from", default=None, help=".pth/safetensors weights")
-    p.add_argument("--resume-from", default=None, help="a .pth checkpoint or 'latest'")
+    p.add_argument("--load-from", default=None,
+                   help=".pth/safetensors weights, or a JAX run's orbax step_N or run dir")
+    p.add_argument("--resume-from", default=None,
+                   help="a .pth checkpoint, a JAX run's orbax step_N dir, or 'latest'")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--debug", action="store_true", help="batch 2, log every step")
     p.add_argument("--data-root", default=None, help="overrides the config's data_root")

@@ -30,7 +30,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="DMD noise/latent pair generator")
     p.add_argument("--data-root", required=True, help="InternData dir holding data_info.json")
     p.add_argument("--config", default=None, help="teacher model config")
-    p.add_argument("--model-path", required=True, help="teacher checkpoint (.pth / safetensors)")
+    p.add_argument("--model-path", required=True,
+                   help="teacher checkpoint (.pth, safetensors, or an orbax step_N or run dir)")
     p.add_argument("--load-ema", action="store_true")
     p.add_argument("--image-size", type=int, default=512, help="used when no --config is given")
     p.add_argument("--caption-dir", default="caption_features",
@@ -79,11 +80,6 @@ def main(argv=None):
     from pixart_sigma_tpu_torch.utils.checkpoint import load_checkpoint
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
-    if os.path.isdir(args.model_path) and not any(
-            f.endswith(".safetensors") for f in os.listdir(args.model_path)):
-        raise NotImplementedError(
-            f"--model-path {args.model_path} is an orbax directory, which the port does not "
-            "read (ROADMAP.md, Queue 3, 'What the port does not read')")
     if args.save_img and not (args.vae_flax or args.vae_path):
         raise SystemExit("--save-img needs --vae-flax or --vae-path")
     device = resolve_device(args.device)

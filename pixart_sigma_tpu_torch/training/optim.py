@@ -25,13 +25,18 @@ means and its update's RMS, and the gradients' global norm, is reduced
 over the groups that cut it (`parallel.sharded`), so R ranks compute the
 update of one. `full_state_dict` gathers the state into whole tensors, the
 `.pth` layout whatever the sharding; `load_full_state_dict` cuts it again.
+
+`optimizer_state_from_jax` maps the optax state of the JAX trainer's orbax
+checkpoints onto these optimizers, for a resume from a JAX run.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pixart_sigma_tpu_torch.parallel.sharded import (
@@ -45,6 +50,14 @@ from pixart_sigma_tpu_torch.parallel.sharded import (
     shard_dims,
     sharded_sum,
     take_shard,
+)
+from pixart_sigma_tpu_torch.utils.checkpoint import (
+    _first_leaf,
+    _numpy_tree,
+    _unstack_blocks,
+    jax_param_path,
+    repartition_scan_params,
+    state_dict_from_jax,
 )
 
 
@@ -385,3 +398,149 @@ def build_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]], *, name: s
                      eps=eps if isinstance(eps, float) else 1e-10, weight_decay=weight_decay,
                      skip_decay=skip_decay)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+# ----------------------------------------------------- the JAX trainer's state
+_CAME_KEYS = {"count", "exp_avg", "row", "col", "res_row", "res_col"}
+
+
+@dataclass
+class JaxOptimizerState:
+    """The JAX trainer's optax state in the port's terms: `state_dict` for
+    `load_full_state_dict` (whole tensors), the LR schedule's position
+    (`TrainState.opt_step`), and under `optax.MultiSteps` the micro-step
+    within the window and the partly filled accumulator (torch layout, per
+    parameter name; None when the window is empty)."""
+
+    state_dict: dict
+    opt_step: int
+    mini_step: int
+    accumulator: Optional[Dict[str, torch.Tensor]]
+
+
+def _key_paths(tree, prefix=()) -> List[str]:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _key_paths(v, prefix + (k,))]
+    return ["/".join(map(str, prefix))]
+
+
+def _stack_counts(tree) -> Optional[List[int]]:
+    """The layer counts of a JAX tree's `blocks_scan_<g>` stacks (None when
+    its blocks are unrolled)."""
+    groups = sorted((k for k in tree if k.startswith("blocks_scan_")),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    return [_first_leaf(tree[k]).shape[0] for k in groups] or None
+
+
+def _model_layout(tree, cfg):
+    """A param-structured tree of the checkpoint in the model's block layout:
+    scan stacks re-split to its groups, or unstacked for an unrolled one."""
+    tree = repartition_scan_params(_numpy_tree(tree), cfg)
+    if not cfg.scan_blocks and any(k.startswith("blocks_scan_") for k in tree):
+        tree = _unstack_blocks(tree, cfg)
+    return tree
+
+
+def _leaf(tree, path: str) -> np.ndarray:
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _came_view(name: str, p: torch.Tensor, jax_path: str, value: np.ndarray, kind: str,
+               cfg) -> Tuple[str, np.ndarray]:
+    """A CAME statistic of the JAX layout (`kind`: "full", "row" or "col")
+    -> (the port's key, its value in the port's `jax_layout` view): a Dense
+    kernel's view is its transpose, so its row and column statistics trade
+    places; the patch embedding's input dims run (c, p, p) in the view and
+    (p, p, c) in JAX."""
+    if name.endswith("x_embedder.proj.weight"):
+        ps, c = cfg.patch_size, cfg.in_channels
+        if kind == "full":
+            return "exp_avg", value.reshape(ps, ps, c, -1).transpose(3, 2, 0, 1).reshape(
+                value.shape[-1], -1)
+        if kind == "row":
+            return "col", value.reshape(ps, ps, c).transpose(2, 0, 1).reshape(-1)
+        return "row", value
+    if p.ndim == 2 and jax_path.endswith("/kernel"):
+        if kind == "full":
+            return "exp_avg", np.swapaxes(value, -1, -2)
+        return ("col" if kind == "row" else "row"), value
+    return {"full": "exp_avg", "row": "row", "col": "col"}[kind], value
+
+
+def optimizer_state_from_jax(opt_state, optimizer: torch.optim.Optimizer,
+                             named_params: Sequence[Tuple[str, torch.Tensor]], cfg,
+                             accumulation_steps: int = 1) -> JaxOptimizerState:
+    """The optax state of the chains the JAX trainer's `build_optimizer`
+    makes (`[clip_by_global_norm ->] came | lion | adamw`, inside
+    `optax.MultiSteps` when `gradient_accumulation_steps` > 1), as read from
+    its orbax checkpoint (`utils.orbax.read_tree(..., "opt_state")`), mapped
+    onto `optimizer` over the model `cfg`'s parameters: CAME's moments and
+    row/column statistics onto its (scan-stacked) state, optax's `mu`/`nu`
+    onto Lion's and AdamW's, the optimizer's `count` onto the schedule's
+    position. A tree that matches no chain raises and lists its key paths."""
+    tree, mini_step, acc = opt_state, 0, None
+    if isinstance(tree, dict) and "inner_opt_state" in tree:  # optax.MultiSteps
+        mini_step, acc, tree = int(tree["mini_step"]), tree["acc_grads"], tree["inner_opt_state"]
+    if isinstance(tree, dict) and set(tree) == {1}:  # [clip_by_global_norm (no state), opt]
+        tree = tree[1]
+    index = {p: i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    state: Dict[int, dict] = {}
+    if isinstance(optimizer, CAME) and isinstance(tree, dict) and set(tree) == _CAME_KEYS:
+        count = int(tree["count"])
+        want = [c for _, c in cfg.block_groups()] if cfg.scan_blocks else None
+        if _stack_counts(tree["exp_avg"]) != want:
+            raise ValueError(
+                f"CAME factors each scan stack as one tensor: the checkpoint's stacks "
+                f"{_stack_counts(tree['exp_avg'])} are not the model's {want}; resume into a "
+                "model of the same block groups (cache_span, scan_blocks), as JAX's restore "
+                "into its template needs")
+        stats = {k: _numpy_tree(tree[k]) for k in _CAME_KEYS - {"count"}}
+        for n, p in named_params:
+            if p in optimizer._followers:
+                continue
+            members = optimizer._stacks.get(p)
+            path = jax_param_path(n, cfg)
+            view_ndim = jax_layout(n, p).ndim + (members is not None)
+            st = {}
+            for key, kind in (("exp_avg", "full"), ("row", "row"), ("col", "col"),
+                              ("res_row", "row"), ("res_col", "col")):
+                if view_ndim < 2 and key != "exp_avg" and key != "row":
+                    continue  # a vector keeps a full second moment only
+                port_key, v = _came_view(n, p, path, _leaf(stats[key], path), kind, cfg)
+                if key.startswith("res_"):
+                    port_key = "res_" + port_key
+                st[port_key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            want = (tuple(jax_layout(n, p).shape) if members is None
+                    else (len(members),) + tuple(jax_layout(n, p).shape))
+            if tuple(st["exp_avg"].shape) != want:
+                raise ValueError(f"CAME state of {path}: {tuple(st['exp_avg'].shape)}, the "
+                                 f"model's view is {want}")
+            state[index[p]] = st
+    elif (isinstance(optimizer, (Lion, AdamW)) and isinstance(tree, dict) and set(tree) <= {0, 2}
+          and isinstance(tree.get(0), dict)
+          and set(tree[0]) == ({"count", "mu"} if isinstance(optimizer, Lion)
+                               else {"count", "mu", "nu"})):
+        count = int(tree[0]["count"])
+        mu = state_dict_from_jax(_model_layout(tree[0]["mu"], cfg), cfg)
+        nu = (state_dict_from_jax(_model_layout(tree[0]["nu"], cfg), cfg)
+              if isinstance(optimizer, AdamW) else None)
+        for n, p in named_params:
+            st = {"exp_avg": mu[n]}
+            if nu is not None:
+                st = {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            state[index[p]] = st
+    else:
+        raise ValueError(
+            f"the optimizer state matches no chain of the JAX trainer for "
+            f"{type(optimizer).__name__} (clip -> came | lion | adamw, MultiSteps): key paths "
+            f"{_key_paths(opt_state)[:16]}")
+    accumulator = None
+    if mini_step:
+        accumulator = state_dict_from_jax(_model_layout(acc, cfg), cfg)
+    if mini_step >= accumulation_steps:
+        raise ValueError(f"MultiSteps mini_step {mini_step} with {accumulation_steps} "
+                         "accumulation steps")
+    return JaxOptimizerState(dict(optimizer.state_dict(), state=state), count, mini_step,
+                             accumulator)

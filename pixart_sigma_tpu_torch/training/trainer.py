@@ -24,9 +24,8 @@ whole tensors, written by rank 0, so a run saved on R ranks resumes on
 any number. A `seq` axis splits the tokens of each image over the ranks of
 a seq group (`parallel.mesh.SeqContext`), beside data and fsdp; with
 tensor parallelism it is refused (`refuse_parallelism`). `loader_processes`
-reads with a process pool. Not ported: reading the JAX trainer's orbax
-checkpoints. The training CLI is `pixart_sigma_tpu_torch.scripts.
-train`; `main` here is the same CLI.
+reads with a process pool. The training CLI is
+`pixart_sigma_tpu_torch.scripts.train`; `main` here is the same CLI.
 """
 
 from __future__ import annotations
@@ -69,14 +68,22 @@ from pixart_sigma_tpu_torch.parallel.dist import (
 from pixart_sigma_tpu_torch.parallel.sharded import full_state, local, shard_dims, take_shard
 from pixart_sigma_tpu_torch.pipelines.pipeline import decode_to_uint8
 from pixart_sigma_tpu_torch.training.lr_schedule import build_lr_schedule
-from pixart_sigma_tpu_torch.training.optim import auto_scale_lr, block_stacks, build_optimizer
+from pixart_sigma_tpu_torch.training.optim import (
+    auto_scale_lr,
+    block_stacks,
+    build_optimizer,
+    optimizer_state_from_jax,
+)
 from pixart_sigma_tpu_torch.training.train_state import TrainState
 from pixart_sigma_tpu_torch.training.train_step import train_step
+from pixart_sigma_tpu_torch.utils import orbax
 from pixart_sigma_tpu_torch.utils.checkpoint import (
     jax_param_path,
     latest_checkpoint,
     load_checkpoint,
+    repartition_scan_params,
     save_pth,
+    state_dict_from_jax,
 )
 from pixart_sigma_tpu_torch.utils.debug import (
     find_nonfinite,
@@ -265,10 +272,13 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore the checkpoint `resume_from.checkpoint` names ("latest": the
-        newest of this run's) and return its step, or 0. `load_ema` starts the
-        weights from the EMA, `resume_optimizer` and `resume_lr_scheduler`
-        (the LR schedule's position) restore those, as upstream. The whole
-        tensors of the `.pth` are cut to this rank's shards."""
+        newest of this run's, `.pth` or orbax `step_N`) and return its step,
+        or 0. `load_ema` starts the weights from the EMA, `resume_optimizer`
+        and `resume_lr_scheduler` (the LR schedule's position) restore those,
+        as upstream. The whole tensors of the checkpoint are cut to this
+        rank's shards. A JAX trainer's orbax checkpoint (a `step_N`,
+        `checkpoints/` or run directory) restores params, EMA, optimizer
+        state and step as its `restore_train_state` does (`_resume_orbax`)."""
         opts = self.config.get("resume_from") or {}
         path = opts.get("checkpoint")
         if path == "latest":
@@ -276,6 +286,8 @@ class Trainer:
         if not path:
             return 0
         self.logger.info(f"resuming from {path}")
+        if os.path.isdir(path):
+            return self._resume_orbax(path, opts)
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         ema = ckpt.get("state_dict_ema")
         weights = ema if opts.get("load_ema", False) and ema is not None else ckpt["state_dict"]
@@ -291,6 +303,40 @@ class Trainer:
         if self.schedule_sampler is not None and "schedule_sampler" in ckpt:
             self.schedule_sampler.load_state_dict(ckpt["schedule_sampler"])
         return self.state.step
+
+    def _resume_orbax(self, path: str, opts: Dict[str, Any]) -> int:
+        """Resume from the JAX trainer's orbax checkpoint at `path`: params,
+        EMA (or the params without one), the optax state
+        (`optimizer_state_from_jax`: moments, schedule position, a partly
+        filled accumulator) and the step. JAX saves no torch generator and no
+        resampler ring: the generator is seeded from (seed, step) through
+        numpy's SeedSequence, and the ring starts empty, as JAX's restore
+        leaves its own."""
+        step_dir = orbax.resolve_step_dir(path)
+        cfg = self.model.cfg
+        jax_tree = lambda key: repartition_scan_params(orbax.read_tree(step_dir, key), cfg)
+        params = state_dict_from_jax(jax_tree("params"), cfg)
+        ema = (state_dict_from_jax(jax_tree("ema_params"), cfg)
+               if orbax.leaves(step_dir, "ema_params") else None)
+        self.load_weights(ema if opts.get("load_ema", False) and ema is not None else params)
+        if self.state.ema is not None:
+            self.state.load_full_ema(ema or params)
+        step = int(orbax.read_tree(step_dir, "step"))
+        jax_opt = optimizer_state_from_jax(
+            orbax.read_tree(step_dir, "opt_state"), self.state.optimizer,
+            list(self.model.named_parameters()), cfg, self.state.accumulation_steps)
+        if jax_opt.mini_step != step % self.state.accumulation_steps:
+            raise ValueError(f"{step_dir}: MultiSteps mini_step {jax_opt.mini_step} at step "
+                             f"{step} with {self.state.accumulation_steps} accumulation steps")
+        self.state.load_state_dict({"step": step, "opt_step": jax_opt.opt_step,
+                                    "grad_accumulator": jax_opt.accumulator})
+        if opts.get("resume_optimizer", True):
+            self.state.optimizer.load_full_state_dict(jax_opt.state_dict)
+        if not opts.get("resume_lr_scheduler", True):
+            self.state.opt_step = 0
+        seed = np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0]
+        self.generator.manual_seed(int(seed))
+        return step
 
     @torch.no_grad()
     def load_weights(self, weights: Dict[str, torch.Tensor]) -> None:

@@ -10,8 +10,10 @@
   `T5EncoderModel` names (the port's T5 module names).
 - `load_pth`: an upstream-dialect `.pth` straight into a port model.
 - `load_checkpoint`: the entry points' loader, a `.pth` (its EMA weights
-  with `load_ema`) or a diffusers transformer `.safetensors` (a file or a
-  directory of shards); the JAX trainer's orbax directories are refused.
+  with `load_ema`), a diffusers transformer `.safetensors` (a file or a
+  directory of shards) or the JAX trainer's orbax checkpoint (a `step_N`,
+  `checkpoints/` or run directory: `load_orbax_params`, re-split by
+  `repartition_scan_params`).
 - `diffusers_to_torch_state_dict` / `torch_to_diffusers_state_dict`: the
   diffusers `Transformer2DModel` names <-> the upstream `.pth` names (names
   only: qkv and kv_linear split and joined); `load_safetensors_state_dict`
@@ -19,8 +21,8 @@
 - `save_pth`: a training checkpoint in the upstream dialect ({"state_dict",
   "state_dict_ema", "optimizer", "step", "epoch"}, and what a resumed run
   needs besides), which `load_pth` reads; `latest_checkpoint` finds the
-  newest one of a run for `resume_from="latest"`. The JAX trainer's orbax
-  checkpoints are not read.
+  newest checkpoint of a run for `resume_from="latest"`, the port's `.pth`
+  or the JAX trainer's `step_N`.
 - `jax_param_path`: a port parameter's path in the JAX package's param tree
   ("blocks_scan_1/attn/qkv/bias"), which `no_weight_decay_on` matches.
 """
@@ -34,6 +36,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from pixart_sigma_tpu_torch.utils import orbax
 
 _DROPPED = ("pos_embed", "base_model.pos_embed", "model.pos_embed")
 
@@ -408,20 +412,92 @@ def save_safetensors(path: str, sd: Dict[str, torch.Tensor]) -> str:
     return path
 
 
+def load_orbax_params(path: str, load_ema: bool = False) -> Dict[str, Any]:
+    """The params of the JAX trainer's orbax checkpoint at `path` (a `step_N`
+    directory, or the newest `step_N` of a `checkpoints/` or run directory),
+    or its `ema_params` when `load_ema` and the checkpoint has them: the JAX
+    param tree as nested dicts of numpy arrays (bfloat16 leaves as
+    torch.bfloat16 tensors), as the JAX package's `load_orbax_params`
+    restores it. Only that subtree's arrays are read."""
+    step_dir = orbax.resolve_step_dir(path)
+    key = "params"
+    if load_ema and orbax.leaves(step_dir, "ema_params"):
+        key = "ema_params"
+    return orbax.read_tree(step_dir, key)
+
+
+def _concat(xs):
+    if isinstance(xs[0], dict):
+        if any(set(x) != set(xs[0]) for x in xs):
+            raise ValueError(f"scan stacks of different structures cannot be joined: "
+                             f"{sorted(set().union(*xs) - set(xs[0]))} not in every stack")
+        return {k: _concat([x[k] for x in xs]) for k in xs[0]}
+    if isinstance(xs[0], torch.Tensor):
+        return torch.cat(xs, 0)
+    return np.concatenate(xs, 0)
+
+
+def _slice_tree(tree, sl: slice):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, sl) for k, v in tree.items()}
+    return tree[sl]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def repartition_scan_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """Re-split the `blocks_scan_<g>` stacks of a JAX param tree (or of any
+    tree of the same structure, such as an optimizer moment) to `cfg`'s
+    `block_groups()`, as the JAX package's `repartition_scan_params`: the
+    saved stacks are joined layer-wise and cut at the model's group
+    boundaries (a `cache_span` model splits a group at the span's edges). A
+    tree that already matches, or holds no stacks, is returned as it is."""
+    saved = sorted((k for k in params if k.startswith("blocks_scan_")),
+                   key=lambda k: int(k.rsplit("_", 1)[1]))
+    if not saved:
+        return params
+    target = cfg.block_groups()
+    counts = [_first_leaf(params[k]).shape[0] for k in saved]
+    if counts == [c for _, c in target]:
+        return params
+    if sum(counts) != sum(c for _, c in target):
+        raise ValueError(f"checkpoint has {sum(counts)} stacked blocks but the model wants "
+                         f"{sum(c for _, c in target)} ({target})")
+    full = _concat([params[k] for k in saved])
+    out = {k: v for k, v in params.items() if k not in saved}
+    start = 0
+    for g, (_, count) in enumerate(target):
+        out[f"blocks_scan_{g}"] = _slice_tree(full, slice(start, start + count))
+        start += count
+    return out
+
+
 def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False,
                     null_embedding: Optional[torch.Tensor] = None) -> nn.Module:
     """Load a PixArt checkpoint into a port model, as the JAX package's
-    `load_checkpoint` does: a `.pth`/`.pt` through `load_pth`, anything else
-    as a diffusers transformer (`.safetensors` file or directory). A
-    diffusers file has no `y_embedder.y_embedding` of its own unless it was
-    written from a PixArt `.pth`: then `null_embedding` gives it, and without
-    either it raises, as JAX does. `null_embedding` replaces a `.pth`'s too.
-    Every key of the model must be filled. An orbax directory (a JAX trainer
-    state) raises."""
+    `load_checkpoint` does: a `.pth`/`.pt` through `load_pth`; the JAX
+    trainer's orbax checkpoint (a `step_N`, `checkpoints/` or run directory,
+    `load_orbax_params`) with its scan stacks re-split to the model's
+    groups; anything else as a diffusers transformer (`.safetensors` file or
+    directory). A diffusers file has no `y_embedder.y_embedding` of its own
+    unless it was written from a PixArt `.pth`: then `null_embedding` gives
+    it, and without either it raises, as JAX does. `null_embedding` replaces
+    the others'. Every key of the model must be filled."""
+    if os.path.isdir(path) and orbax.is_orbax_dir(path):
+        params = repartition_scan_params(load_orbax_params(path, load_ema), model.cfg)
+        sd = state_dict_from_jax(params, model.cfg)
+        if null_embedding is not None:
+            sd["y_embedder.y_embedding"] = torch.as_tensor(null_embedding, dtype=torch.float32)
+        model.load_state_dict(sd, strict=True)
+        return model
     if os.path.isdir(path) and not any(f.endswith(".safetensors") for f in os.listdir(path)):
-        raise NotImplementedError(
-            f"{path} is a directory without .safetensors: the port reads no orbax checkpoint "
-            "(ROADMAP.md, Queue 3, 'What the port does not read')")
+        raise FileNotFoundError(
+            f"{path} is neither an orbax checkpoint (no {orbax.COMMIT_MARKER}, and no step_N "
+            "in it or in its checkpoints/) nor a diffusers directory (no .safetensors)")
     if path.endswith((".pth", ".pt")):
         load_pth(model, path, load_ema=load_ema)
         if null_embedding is not None:
@@ -435,8 +511,8 @@ def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False,
     if missing_sr:
         raise NotImplementedError(
             f"{path}: diffusers names carry no KV-compression conv ({missing_sr[0]}), as in the "
-            "JAX package's map; load this model from a .pth (ROADMAP.md, Queue 3, "
-            "'What the port does not read')")
+            "JAX package's map; load this model from a .pth or an orbax checkpoint (ROADMAP.md, "
+            "Queue 3, 'What the port does not read')")
     if "y_embedder.y_embedding" not in sd:
         raise ValueError(f"{path} has no y_embedder.y_embedding (caption_projection."
                          "y_embedding); pass null_embedding=")
@@ -445,18 +521,24 @@ def load_checkpoint(path: str, model: nn.Module, load_ema: bool = False,
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """The checkpoint of the largest step among `epoch_<e>_step_<s>.pth`
-    under `ckpt_dir` (what `Trainer.save` writes), or None."""
+    """The checkpoint of the largest step under `ckpt_dir`, or None: the
+    port's `epoch_<e>_step_<s>.pth` (what `Trainer.save` writes) or the JAX
+    trainer's orbax `step_<s>` directory. At a tie the `.pth` wins: it
+    carries the generator, the resampler's ring and the accumulator, which
+    an orbax checkpoint of the same step does not."""
     if not os.path.isdir(ckpt_dir):
         return None
     found = []
     for name in os.listdir(ckpt_dir):
         m = re.fullmatch(r"epoch_(\d+)_step_(\d+)\.pth", name)
         if m:
-            found.append((int(m.group(2)), int(m.group(1)), name))
+            found.append((int(m.group(2)), 1, int(m.group(1)), name))
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.isdir(os.path.join(ckpt_dir, name)):
+            found.append((int(m.group(1)), 0, 0, name))
     if not found:
         return None
-    return os.path.join(os.path.abspath(ckpt_dir), max(found)[2])
+    return os.path.join(os.path.abspath(ckpt_dir), max(found)[3])
 
 
 def save_pth(path: str, state_dict: Dict[str, torch.Tensor],

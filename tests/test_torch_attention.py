@@ -10,6 +10,7 @@ kernels give sum(V) / pad128(M), which the port matches.
 Tolerances: float32 2e-5, bfloat16 2e-2 (the JAX kernel tests' own).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

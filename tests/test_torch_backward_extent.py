@@ -12,6 +12,7 @@ a row stays as it is: with the mask rounded to the input dtype (as
 `_flash_backward` rounds it), P = 1 in f32 and P = 0 in bf16.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import numpy as np
 import pytest
 import torch

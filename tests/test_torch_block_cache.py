@@ -16,6 +16,7 @@ both packages:
   trajectory bit for bit (the same operations), and the refusals.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import jax
@@ -39,16 +40,6 @@ TOY = dict(input_size=16, depth=4, hidden_size=64, num_heads=2, caption_channels
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 PATH_TOL = dict(atol=1e-3, rtol=1e-3)
 STEPS = 10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Toy sizes gain nothing from torch's intra-op threads, and the test
-    run's parallel workers would oversubscribe the cores with them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_model(jcfg, **kw):

@@ -9,6 +9,7 @@ key has p = exp2(-1e30 - m) = 0 exactly, so skipping those tiles is exact.
 A row with no valid key keeps every key and averages all of V.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@
   `merge` equal to JAX's tool bit for bit.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import argparse
 import dataclasses
 import os
@@ -27,6 +28,8 @@ from safetensors.numpy import save_file as np_save_file
 from pixart_sigma_tpu.models.pixart import PixArt as JaxPixArt
 from pixart_sigma_tpu.models.pixart import PixArtConfig as JaxConfig
 from pixart_sigma_tpu.utils import checkpoint as jckpt
+from pixart_sigma_tpu_torch.config import read_config
+from pixart_sigma_tpu_torch.models.builder import build_model_from_config
 from pixart_sigma_tpu_torch.models.pixart import PixArtConfig, PixArtMS_XL_2
 from pixart_sigma_tpu_torch.tools import convert_checkpoint
 from pixart_sigma_tpu_torch.utils import checkpoint as ckpt
@@ -169,9 +172,18 @@ def test_diffusers_file_of_a_kv_compressed_model_is_refused(tmp_path):
 
 
 def test_an_orbax_directory_is_refused(tmp_path):
+    """An empty `step_10/` is refused by the name of what it lacks; the JAX
+    trainer's real save (the committed fixture) loads."""
     (tmp_path / "step_10").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="_CHECKPOINT_METADATA"):
         ckpt.load_checkpoint(str(tmp_path / "step_10"), _port_model(JaxConfig(**TOY)))
+    fixture = os.path.join(ROOT, "tests", "fixtures", "orbax_small")
+    model = build_model_from_config(read_config(os.path.join(fixture, "config.py")), device="cpu")
+    step = os.path.join(fixture, "checkpoints", "step_2")
+    ckpt.load_checkpoint(step, model)
+    want = ckpt.state_dict_from_jax(ckpt.load_orbax_params(step), model.cfg)
+    for name, tensor in model.state_dict().items():
+        assert torch.equal(tensor, want[name]), name
 
 
 def test_convert_checkpoint_round_trip_and_merge_equal_jax(toy, tmp_path, monkeypatch):

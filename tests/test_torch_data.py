@@ -6,6 +6,7 @@ every resize and crop of the transforms runs), single- and multi-scale;
 the alpha layout (partition/ JSONs, caption_feature_wmask/, the noflip and
 multi-scale VAE directories, the 4.0 ratio cut); and the transforms."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import os
 

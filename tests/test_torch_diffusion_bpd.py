@@ -10,6 +10,7 @@ but the KL loss's decoder NLL at t = 0 under the fixed small variance
 (1e-4: see `test_kl_losses_match_jax`) and a gradient (1e-4).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

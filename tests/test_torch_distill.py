@@ -20,6 +20,7 @@ gradient's size, and the key bias, whose true gradient is zero (softmax is
 shift-invariant), would move by the sign of rounding noise.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import os
 

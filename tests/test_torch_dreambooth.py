@@ -10,6 +10,7 @@
   directory, a random SDXL VAE and `--prompt-embeds`.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import os
 
 import jax

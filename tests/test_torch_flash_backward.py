@@ -18,6 +18,7 @@ the mask in K's dtype, so its P there is 1 in f32 and 0 in bf16, and the
 port's backward does the same.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ sum(V) / M_pad with M_pad the key count padded to the key block; in bf16 0
 when M leaves a padded tail in its last key block, NaN when it fills it.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ A bfloat16 leaf is a torch.bfloat16 tensor in the port (numpy has no
 bfloat16 without ml_dtypes); values are compared exactly through their bits.
 Chunked arrays are exercised with MAX_CHUNK_SIZE lowered on both sides."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ split as `p_sample_loop` splits it). Float32 trajectories agree to rtol and
 atol 1e-4; the variance tables exactly (the same f32 arrays).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 from functools import partial
 
 import jax

@@ -19,6 +19,7 @@ order and natural-log softmax); the pad helper 1e-6 (zero columns add exact
 zeros; only the einsum's order can differ).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

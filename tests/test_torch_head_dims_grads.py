@@ -10,6 +10,7 @@ Tolerances: f32 5e-4, bf16 2e-2 relative to the gradient's largest entry
 (tests/test_torch_flash_backward.py's).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ forward f32 1e-4; the loss 3e-4 relative, gradients 3e-4 relative L2 per
 parameter (both sides multiply in f32 and sum in other orders).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import functools
 

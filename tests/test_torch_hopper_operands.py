@@ -6,6 +6,7 @@ what `_tma_operand` reads in place, what it copies, the key mask the cross
 kernels read, how a launch error is reported, and the check of a library's
 key tiling against the wrapper's. Runs on the CPU."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import types
 
 import numpy as np

@@ -16,6 +16,7 @@ CPU (f32):
   `frechet_distance` against JAX's `tools/compute_fid.py`; the CLI.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import importlib.util
 import os
 
@@ -39,16 +40,6 @@ from pixart_sigma_tpu_torch.models.inception import (
 from pixart_sigma_tpu_torch.tools import compute_fid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The test run's parallel workers would oversubscribe the cores with
-    torch's intra-op threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_compute_fid():

@@ -1,14 +1,16 @@
 """The port stands alone: no file of `pixart_sigma_tpu_torch` nor
-`chip_smoke.py` imports JAX, flax or the JAX package, and the package
-imports with those blocked."""
+`chip_smoke.py` imports JAX, flax, the JAX package, or the orbax,
+tensorstore and zstandard packages its orbax reader replaces (the card has
+none of them), and the package imports with those blocked."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import ast
 import pathlib
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "pixart_sigma_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "pixart_sigma_tpu", "orbax", "tensorstore", "zstandard"}
 PORT_FILES = sorted((ROOT / "pixart_sigma_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

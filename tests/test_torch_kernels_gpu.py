@@ -18,6 +18,7 @@ logit scale of 80^-0.5 reads four times the limits or more (PERF.md). The
 onepass and flash logsumexp agree within 2^-10 log2 units.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ tests/test_aux_layers.py), the profiling hooks on the CPU, and
 `tools.memory_table` (per-rank bytes against JAX's tool and JAX's
 `param_sharding`). f32; the layers within 1e-5 of JAX."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import io
 import json
 import os

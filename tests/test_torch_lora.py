@@ -18,6 +18,7 @@
   reads back as the merged model.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import os
 

@@ -12,6 +12,7 @@ on the CPU (f32):
   holds the step without it.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,16 +41,6 @@ from pixart_sigma_tpu_torch.utils.checkpoint import state_dict_from_jax, vae_sta
 from tests.test_torch_distill import _batch, _port_copy
 from tests.test_torch_lora import _perturb, _rel_l2, _toy
 from tests.test_torch_vae import _random_vae_params
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The test run's parallel workers would oversubscribe the cores with
-    torch's intra-op threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

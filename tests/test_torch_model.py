@@ -12,6 +12,7 @@ summation order); bfloat16 atol 6e-2 on outputs of unit scale (the two
 frameworks round intermediate activations at different places).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ under 0.5 of the replicated total with fsdp = 4 and under 0.6 with fsdp =
 2.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import pytest
 
 from tests.test_torch_parallel_train import VALIDATE, check_against_reference, reference  # noqa: F401

@@ -8,6 +8,7 @@ The multi-rank runs are in tests/test_torch_parallel_{step,train,hsdp,
 resume}.py.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import os
 

@@ -7,6 +7,7 @@ ranks and gives its step 3: loss, parameters and EMA (rtol 2e-5, atol
 position restored. And the training CLI under torchrun.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import os
 
 import pytest

@@ -12,6 +12,7 @@ with the port's own one-rank step at f32 noise (rtol 2e-5, atol 2e-6). The
 same two processes also check `parallel.dist`'s collectives over gloo.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ optimizer state and EMA are under 0.6 of the replicated total
 (tests/test_fsdp.py). HSDP is in tests/test_torch_parallel_hsdp.py.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import os
 

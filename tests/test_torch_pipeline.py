@@ -10,6 +10,7 @@ the same way. The host-side schedule, time grid, prompt and bucket helpers
 (the 2880 grid included) agree exactly.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import jax

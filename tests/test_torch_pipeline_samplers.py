@@ -15,6 +15,7 @@ the start: an SA-Solver and an LCM trajectory agree within 4e-2 relative L2,
 twice the worst reading of the guided samplers (1.8e-2; LCM 4.8e-3).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import jax

@@ -5,6 +5,7 @@ names, long numbers and hashtags, `--ar` flags, shop phrases, dimensions
 and stray punctuation. Both run in this process, so `ftfy` and
 BeautifulSoup are present for both or absent for both."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import pytest
 
 from pixart_sigma_tpu.utils.prompt import clean_caption as jax_clean_caption

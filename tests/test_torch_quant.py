@@ -18,6 +18,7 @@
   and without it, as JAX's hoist.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import functools
 
@@ -40,16 +41,6 @@ TOY = dict(input_size=16, depth=4, hidden_size=64, num_heads=2, caption_channels
            model_max_length=16, kv_compress_sampling="conv", kv_compress_scale=2,
            kv_compress_layers=(2, 3))
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Toy sizes gain nothing from torch's intra-op threads, and the test
-    run's parallel workers would oversubscribe the cores with them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _ties(rng, rows, cols):

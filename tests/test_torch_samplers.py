@@ -11,6 +11,7 @@ to rtol 1e-4 and atol 1e-4 (the JAX side computes sin and the time grids in
 f32 on traced times, the port in f64 on the host; f32 rounding elsewhere).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import math
 
 import jax

@@ -27,6 +27,7 @@ tolerances (tests/test_seq_parallel.py): 2e-5 forward, 2e-4 gradients.
   reduced over the ranks (`mean_abs_ratio` on ranks holding other rows).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import importlib
 import os
 

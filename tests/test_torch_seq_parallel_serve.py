@@ -7,6 +7,7 @@ rank 0's collective fails and both processes end with a non-zero exit,
 within the test's bound (a hung rank would fail it, not wait). The two
 tests share one pair of processes, in this order."""
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import base64
 import io
 import json

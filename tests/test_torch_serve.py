@@ -23,6 +23,7 @@ server in-process on a loopback port, and the batch inference CLI.
   `tests/test_torch_toy_workflow.py`).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import base64
 import io
 import json
@@ -59,16 +60,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURBO = os.path.join(REPO, "configs/pixart_sigma_config/PixArt_sigma_xl2_img1024_serving_turbo.py")
 TOY_BASE = os.path.join(REPO, "configs/toy/pixart_toy_img128.py")
 REL_TOL = 1e-5  # relative L2 of latents against the direct pipeline call (readings ~2e-7)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Toy sizes gain nothing from torch's intra-op threads, and the test
-    run's parallel workers would oversubscribe the cores with them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(got, want):
@@ -412,11 +403,11 @@ def test_entry_points_refuse_what_the_port_does_not_run(toy_files, tmp_path):
             serve.build_pipeline(_serve_args(config, pth, *extra))
         with pytest.raises(RuntimeError, match=match):
             inference.main(cli + extra)
-    orbax = tmp_path / "checkpoints" / "step_10"
+    orbax = tmp_path / "checkpoints" / "step_10"  # an orbax directory without its files
     orbax.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="_CHECKPOINT_METADATA"):
         serve.build_pipeline(_serve_args(config, str(orbax)))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="_CHECKPOINT_METADATA"):
         inference.main([*cli[:0], "--model-path", str(orbax), *cli[2:]])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

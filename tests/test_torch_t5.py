@@ -12,6 +12,7 @@
   and gives HF's hidden states, through `T5Embedder.from_pretrained` too.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 
 import jax

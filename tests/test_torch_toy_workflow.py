@@ -13,6 +13,7 @@ package's where it has them:
   the pipeline called with the VAE `load_flax_vae` reads.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import io
 import os
 import runpy
@@ -43,16 +44,6 @@ from pixart_sigma_tpu_torch.utils.checkpoint import save_pth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = os.path.join(ROOT, "configs/toy/pixart_toy_img128.py")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The test run's parallel workers would oversubscribe the cores with
-    torch's intra-op threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run_jax_script(rel, argv):

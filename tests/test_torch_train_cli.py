@@ -15,6 +15,7 @@ CPU, as JAX's scripts/train.py is driven.
   their defaults, and no shipped config sets one.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import glob
 import json
 import os

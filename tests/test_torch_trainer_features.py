@@ -26,6 +26,7 @@ remat policies exact; validation latents 1e-3
 relative L2 (14 CFG steps of a random model in f32).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import os
 import types

@@ -6,6 +6,7 @@ the JAX package, because these are the slowest trainer tests and a file
 runs on one worker.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import os
 
 import pytest

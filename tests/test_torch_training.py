@@ -17,6 +17,7 @@ activations to bf16 at other places; the worst reads 2.2e-2);
 optimizer states and parameters after 3 steps 1e-5 relative (all f32).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import os
 

@@ -12,6 +12,7 @@ kernels `choose_impl` picks at the full model's 2K shapes, the dispatch the
 card's training step follows.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import os
 
 import numpy as np

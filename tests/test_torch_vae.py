@@ -9,6 +9,7 @@ normal draw passed in; `vae_state_dict_from_jax` is the exact inverse of
 the JAX package's `diffusers_vae_to_flax`.
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

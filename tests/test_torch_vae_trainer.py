@@ -15,6 +15,7 @@
   noise (each within Adam's lr per step).
 """
 
+import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
 import logging
 import os
 import runpy
@@ -44,16 +45,6 @@ from tests.test_torch_lora import _rel_l2
 from tests.test_torch_vae import _random_vae_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The test run's parallel workers would oversubscribe the cores with
-    torch's intra-op threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _leaves(tree):
