@@ -218,7 +218,7 @@ Phases, each printing its own lines:
    (`chip_smoke.py --seq-rank`; gloo's all-gather, reduce-scatter and
    send/recv of CUDA tensors staged through host memory, the compute on the
    card): (a) `scripts.inference --seq-parallel 2` at 1024px, full width
-   and depth, 10-step DPM-Solver++ with CFG, against the one-process CLI
+   and depth, 4-step DPM-Solver++ with CFG, against the one-process CLI
    (fault: rank 1's shard one token row early); (b) seqshard (the flash
    kernel on a 8192-query shard against 16384 keys) and ring attention at
    the 2K shape against plain attention; (c) two Trainer steps over seq 2
@@ -233,7 +233,7 @@ Phases, each printing its own lines:
    faults: a key tile skipped, K's columns [64, 128) dropped (width 128),
    the padded head dim's logit scale (a head dim off a multiple of 8), lse
    + 1 and a query tile skipped (backward); each kernel's time at Dh = 128
-   and 96 beside its plain version, `sdpa` and the bound; (b) the 10-step
+   and 96 beside its plain version, `sdpa` and the bound; (b) the 5-step
    1024px DPM-Solver++ trajectory of XL-2 at full width and depth with 9
    heads (Dh = 128, self-attention on flash) and 12 (Dh = 96) against plain
    attention on the card (fault: K's columns [64, 128) dropped in plain
@@ -259,7 +259,16 @@ Phases, each printing its own lines:
    plain attention, launches against `forward_launches`; (d) a Trainer
    resumed with resume_from="latest" in a work dir holding the fixture's
    checkpoints (step 2), then one step on the kernels: finite loss and
-   gradient norm, launches against `step_launches`.
+   gradient norm, launches against `step_launches`;
+36. the seq axis with tensor parallelism, run after phase 33: four gloo
+   processes sharing the card (`chip_smoke.py --seqtp-rank`) on a mesh of
+   tensor 2 x seq 2 train phase 33c's model (full width, depth 2, layer 1
+   compressed) for 2 steps at B = 2 from 1024px features, against phase
+   33c's one-process run under its limits (faults, each on the
+   tensor-sharded parameters alone: their gradients counted on both seq
+   ranks in the clip's norm; tensor rank 1's fc1 shard read from rank 0's
+   columns); each rank's launches against `step_launches` at its token
+   shard; s/step beside one process's, and the staged transports per step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -325,8 +334,9 @@ SAMPLER_STEPS = {"deis": 20, "sde-dpm-solver": 20, "sa-solver": 25, "iddpm": 100
                  "lcm": 4, "dmd": 1}
 # the traced trajectories (phases 5b, 6 and 20) stop here: the profiler's
 # processing on the host grows with the steps (44 s for iDDPM's 100 and
-# SA-Solver's 25 on the card's host), the per-step shares do not
-TRACED_STEPS = 10
+# SA-Solver's 25 on the card's host), the per-step shares do not; cut from
+# 10 when phase 36 came
+TRACED_STEPS = 5
 SAMPLER_TIMED = 3  # warm calls per sampler whose median is its time
 # T5-XXL in bf16 against its f32 copy on the card, per caption over its
 # valid tokens, relative L2 (sound 1.8e-2; dropping layer 0's position bias
@@ -4502,10 +4512,12 @@ SEQ_TRAIN_TOLS = (1e-3, 1e-2, 1e-2)
 SEQ_FAULT_SCALE = 1.005
 SEQ_TRAIN_MODEL = dict(depth=2, kv_compress_layers=(1,))
 SEQ_FAULT_STEPS = 2
-# phase 33a's trajectories, cut from 20 steps (PR 14): the 2-rank CLI is bound
-# by gloo's host staging, which a slow host stretches
-SEQ_CLI_STEPS = 10
+# phase 33a's trajectories, cut from 20 steps to 10 and then 4 (when phase
+# 36 came): the 2-rank CLI is bound by gloo's host staging, which a slow
+# host stretches; the check is bit for bit at any length
+SEQ_CLI_STEPS = 4
 SEQ_TRAIN_STEPS = 2  # the first at the schedule's LR 0 (JAX's warm-up rule)
+SEQ_MESH = dict(data=1, seq=2)
 SEQ_2K = 16384
 SEQ_PICKS = ((0, slice(0, 512)), (9, slice(4000, 4512)), (15, slice(7680, 8192)))
 
@@ -4535,11 +4547,14 @@ def seq_latents(save: str, steps: int = SEQ_CLI_STEPS):
                      for i in (0, 1)])
 
 
-def seq_train_config(root: str, pth: str, seq: bool):
-    mesh = dict(mesh=dict(data=1, seq=2)) if seq else {}
+def seq_train_config(root: str, pth: str, mesh: dict = None):
+    """Phase 33c's Trainer config (2 rows a batch rank), over `mesh` when
+    given; tensor parallel when its tensor axis is above 1."""
+    keys = {} if mesh is None else dict(mesh=mesh,
+                                        use_tensor_parallel=mesh.get("tensor", 1) > 1)
     return features_config(root, train_batch_size=2, load_from=pth,
                            lr_schedule_args=dict(num_warmup_steps=0),
-                           model_overrides=dict(SEQ_TRAIN_MODEL), **mesh)
+                           model_overrides=dict(SEQ_TRAIN_MODEL), **keys)
 
 
 def _timed(fn, n: int = 3) -> list:
@@ -4631,7 +4646,7 @@ def seq_rank_worker(rank: int, spec_path: str) -> int:
     for fault in (False, True):  # (c)
         if fault:
             train_step.sum_over_seq = scaled_sum
-        tr = Trainer(seq_train_config(root, spec["pth_train"], True),
+        tr = Trainer(seq_train_config(root, spec["pth_train"], SEQ_MESH),
                      os.path.join(root, f"train_{fault}"), device="cuda")
         reset_train_counts(fa)
         tr.train(max_steps=SEQ_TRAIN_STEPS)
@@ -4670,40 +4685,73 @@ def _grads(model) -> dict:
             for n, p in model.named_parameters()}
 
 
-def run_seq_parallel(dev, card, fa) -> dict:
+def seq_train_reference(dev, tmp: str, pth_train: str, init: dict) -> dict:
+    """Phase 33c's one-process run (SEQ_TRAIN_STEPS steps of
+    `seq_train_config` from `pth_train`, whose weights are `init`, on the
+    features under `tmp`), which phase 36 reads too: its history, its last
+    step's clipped gradients and its parameters, whole on the host."""
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    tr = Trainer(seq_train_config(tmp, pth_train), os.path.join(tmp, "train_one"), device=dev)
+    tr.train(max_steps=SEQ_TRAIN_STEPS)
+    named = list(tr.model.named_parameters())
+    out = dict(tmp=tmp, pth_train=pth_train, init=init, hist=list(tr.history),
+               grads=_grads(tr.model), params={n: p.detach().float().cpu() for n, p in named},
+               names=[n for n, _ in named], hidden=tr.model.cfg.hidden_size, mc=tr.model.cfg)
+    del tr
+    sys.modules["torch"].cuda.empty_cache()
+    return out
+
+
+def seq_train_files(dev, tmp: str) -> tuple:
+    """Phase 33c's weights (`SEQ_TRAIN_MODEL`, seed 34, as a `.pth`) and
+    features (4 items at 1024px) under `tmp`: (the .pth, its weights)."""
+    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+
+    pth_train = os.path.join(tmp, "xl2_depth2.pth")
+    cfg_train = write_config(os.path.join(tmp, "depth2.py"), TRAIN_CONFIG,
+                             model_overrides=dict(SEQ_TRAIN_MODEL))
+    init = random_weights(dev, cfg_train, 34, pth=pth_train)
+    write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 4, resolution=1024,
+                          seed=3)
+    return pth_train, init
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_seq_parallel(dev, card, fa) -> tuple:
     """Phase 33: two processes on the one card over gloo (NCCL refuses two
     ranks on one GPU), the compute on the card, gloo's transport of CUDA
     tensors for all-gather, reduce-scatter and send/recv staged through host
-    memory (`parallel.dist`)."""
+    memory (`parallel.dist`). Returns (its launches, 33c's one-process
+    reference, whose `tmp` holds its files for phase 36, which removes
+    it)."""
     import numpy as np
-    import socket
 
     import torch
 
     from pixart_sigma_tpu_torch.config import read_config
-    from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
     from pixart_sigma_tpu_torch.models.builder import build_model_from_config
     from pixart_sigma_tpu_torch.scripts import inference
-    from pixart_sigma_tpu_torch.training.trainer import Trainer
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="pixart_seq_")
+    done = False
     try:
         with open(os.path.join(tmp, "prompts.txt"), "w") as f:
             f.write("a watercolor painting of a lighthouse on a cliff at dusk\n"
                     "a small robot reading a book in a sunlit library full of plants\n")
-        pth, pth_train = os.path.join(tmp, "xl2.pth"), os.path.join(tmp, "xl2_depth2.pth")
+        pth = os.path.join(tmp, "xl2.pth")
         random_weights(dev, TRAIN_CONFIG, 33, pth=pth)
-        cfg_train = write_config(os.path.join(tmp, "depth2.py"), TRAIN_CONFIG,
-                                 model_overrides=dict(SEQ_TRAIN_MODEL))
-        init = random_weights(dev, cfg_train, 34, pth=pth_train)
-        write_feature_dataset(os.path.join(tmp, "data"), [(1024, 1024)] * 4, resolution=1024,
-                              seed=3)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        spec = dict(root=tmp, pth=pth, pth_train=pth_train, port=port, tokens=64 * 64, row=64,
-                    out=os.path.join(tmp, "seq.pt"))
+        pth_train, init = seq_train_files(dev, tmp)
+        spec = dict(root=tmp, pth=pth, pth_train=pth_train, port=free_port(), tokens=64 * 64,
+                    row=64, out=os.path.join(tmp, "seq.pt"))
         spec_path = os.path.join(tmp, "seq.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
@@ -4768,21 +4816,9 @@ def run_seq_parallel(dev, card, fa) -> dict:
             raise SystemExit("seq parallel (b): 2K attention disagrees with its plain version")
 
         # (c) one Trainer step against one process
-        tr = Trainer(seq_train_config(tmp, pth_train, False), os.path.join(tmp, "train_one"),
-                     device=dev)
-        tr.train(max_steps=SEQ_TRAIN_STEPS)
-        named = list(tr.model.named_parameters())
-        grads = _grads(tr.model)
-        params = {n: p.detach().float().cpu() for n, p in named}
-        names, D = [n for n, _ in named], tr.model.cfg.hidden_size
-        reads = {}
-        for fault in (False, True):
-            r = got["train", fault]
-            reads[fault] = (max(abs(a["grad_norm"] / b["grad_norm"] - 1)
-                                for a, b in zip(r["hist"], tr.history)),
-                            _rel(r["grads"], grads, names, D),
-                            _rel(r["params"], params, names, D, init))
-        want_steps = run_launches(tr.model.cfg, [(128, 128)] * SEQ_TRAIN_STEPS)
+        ref = seq_train_reference(dev, tmp, pth_train, init)
+        reads = {fault: seq_train_reading(got["train", fault], ref) for fault in (False, True)}
+        want_steps = run_launches(ref["mc"], [(128, 128)] * SEQ_TRAIN_STEPS)
         sound = got["train", False]
         log(f"[seq] (c) {SEQ_TRAIN_STEPS} Trainer steps over seq 2, 1152 wide, depth 2 (layer 1 "
             f"compressed), B = 2 at 1024px, vs one process: the gradients' norm {reads[False][0]:.3e}, the clipped "
@@ -4790,24 +4826,194 @@ def run_seq_parallel(dev, card, fa) -> dict:
             f"{SEQ_TRAIN_TOLS}); planted fault 'the seq sum scaled by {SEQ_FAULT_SCALE}' "
             f"{', '.join(f'{x:.3e}' for x in reads[True])}; losses "
             f"{[round(h['loss'], 6) for h in sound['hist']]} vs "
-            f"{[round(h['loss'], 6) for h in tr.history]}; grad norms "
+            f"{[round(h['loss'], 6) for h in ref['hist']]}; grad norms "
             f"{[round(h['grad_norm'], 6) for h in sound['hist']]} vs "
-            f"{[round(h['grad_norm'], 6) for h in tr.history]}")
+            f"{[round(h['grad_norm'], 6) for h in ref['hist']]}")
         log(f"[time] {card}: seq (c): the step's seconds over 2 ranks "
             f"{times(h['seconds'] for h in sound['hist'])} s, one process "
-            f"{times(h['seconds'] for h in tr.history)} s")
-        within = lambda r: all(x <= tol for x, tol in zip(r, SEQ_TRAIN_TOLS))
-        if not within(reads[False]) or within(reads[True]):
+            f"{times(h['seconds'] for h in ref['hist'])} s")
+        if not seq_train_within(reads[False]) or seq_train_within(reads[True]):
             raise SystemExit("seq parallel (c): the sharded step differs from one process, or "
                              "the gate misses the planted fault")
         check_launches("seq", sound["launches"], want_steps)
         log(f"[time] {card}: seq: the two processes' wall {wall:.1f} s (start-up, (a) twice, "
             "(b), (c) twice)")
+        done = True
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not done:
+            shutil.rmtree(tmp, ignore_errors=True)
     log(f"[seq] phase 33: {time.perf_counter() - t_phase:.1f} s")
     return dict(serve=dict(serve["launches"]), train=dict(sound["launches"]),
-                attention_2k=dict(att["launches"]))
+                attention_2k=dict(att["launches"])), ref
+
+
+def seq_train_reading(run: dict, ref: dict) -> tuple:
+    """Phase 33c's readings of a sharded run against the one-process
+    reference, the keys' bias left out: (the largest relative difference of
+    the gradients' norm over the steps, the relative L2 of the last step's
+    clipped gradients, that of the parameters' change)."""
+    names, hidden = ref["names"], ref["hidden"]
+    return (max(abs(a["grad_norm"] / b["grad_norm"] - 1) for a, b in zip(run["hist"], ref["hist"])),
+            _rel(run["grads"], ref["grads"], names, hidden),
+            _rel(run["params"], ref["params"], names, hidden, ref["init"]))
+
+
+def seq_train_within(reading: tuple) -> bool:
+    return all(x <= tol for x, tol in zip(reading, SEQ_TRAIN_TOLS))
+
+
+# ---------------------------------------------------------------------------
+# phase 36: the seq axis with tensor parallelism, four gloo ranks sharing the
+# card. SEQ_TRAIN_STEPS Trainer steps over tensor 2 x seq 2 (each rank holds
+# half of every block's projections and half of each image's tokens; the
+# ranks of a tensor group share their token shard and run all heads) at
+# phase 33c's model, weights, config and batch, against 33c's one-process
+# run under 33c's limits (SEQ_TRAIN_TOLS; the keys' bias left out). The
+# tensor layers' all-gathers go through parallel.dist, staged through host
+# memory (DTensor's functional all-gather crashes the process on CUDA
+# tensors over gloo, torch 2.11); DTensor's all-reduces run as they are. Two planted faults, each on
+# the tensor-sharded parameters alone, must fail a limit. Each rank's
+# launches must equal the single-card reckoning at its token shard
+# (`step_launches`).
+SEQ_TENSOR_MESH = dict(data=1, tensor=2, seq=2)
+SEQ_TENSOR_FAULTS = ("the tensor-sharded gradients counted on both seq ranks in the clip's norm",
+                     "tensor rank 1's fc1 shard read from rank 0's columns")
+
+
+def seq_tensor_worker(rank: int, spec_path: str) -> int:
+    """One of phase 36's four ranks (`chip_smoke.py --seqtp-rank R SPEC`):
+    the Trainer over tensor 2 x seq 2, then with each planted fault. Every
+    rank writes its launches, transports and history; rank 0 also the whole
+    clipped gradients and parameters."""
+    import torch
+
+    from pixart_sigma_tpu_torch.ops import flash_attention as fa
+    from pixart_sigma_tpu_torch.parallel import dist as pdist
+    from pixart_sigma_tpu_torch.parallel.sharded import full_state, local, shard_dims, sharded_sum
+    from pixart_sigma_tpu_torch.training import train_step
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # gloo: NCCL refuses two ranks on one card
+    pdist.initialize_distributed(f"tcp://127.0.0.1:{spec['port']}", 4, rank, device="cuda",
+                                 backend="gloo", timeout=600)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain_norm = train_step.global_norm
+
+    def counted_twice(params):  # planted: the sharded part summed over the seq pair too
+        sharded = [(local(p.grad).float().square().sum(), shard_dims(p.grad)) for p in params
+                   if p.grad is not None and shard_dims(p.grad)]
+        return torch.sqrt(plain_norm(params) ** 2 + sharded_sum(sharded))
+
+    def fc1_from_rank0(tr):  # planted: tensor rank 1 holds rank 0's fc1 columns
+        if tr.mesh.get_local_rank("tensor") != 1:
+            return
+        whole = torch.load(spec["pth_train"], map_location="cpu", weights_only=True)["state_dict"]
+        with torch.no_grad():
+            for i, block in enumerate(tr.model.blocks):
+                for kind in ("weight", "bias"):
+                    shard = local(getattr(block.mlp.fc1, kind))
+                    shard.copy_(whole[f"blocks.{i}.mlp.fc1.{kind}"][:shard.shape[0]])
+
+    out = {}
+    for i, fault in enumerate((None,) + SEQ_TENSOR_FAULTS):
+        if fault == SEQ_TENSOR_FAULTS[0]:
+            train_step.global_norm = counted_twice
+        tr = Trainer(seq_train_config(spec["root"], spec["pth_train"], SEQ_TENSOR_MESH),
+                     os.path.join(spec["root"], f"seqtp_{i}"), device="cuda")
+        if fault == SEQ_TENSOR_FAULTS[1]:
+            fc1_from_rank0(tr)
+        reset_train_counts(fa)
+        pdist.TRANSPORTS.clear()
+        tr.train(max_steps=SEQ_TRAIN_STEPS)
+        launches, transports = train_counts(fa), dict(pdist.TRANSPORTS)
+        train_step.global_norm = plain_norm
+        named = dict(tr.model.named_parameters())
+        grads = full_state(((n, local(p.grad if p.grad is not None else torch.zeros_like(p)))
+                            for n, p in named.items()), named)
+        params = full_state(((n, local(p)) for n, p in named.items()), named)
+        out[fault] = dict(launches=launches, transports=transports,
+                          hist=[{k: v for k, v in h.items() if k != "hw"} for h in tr.history])
+        if rank == 0:
+            out[fault].update(grads={n: g.float() for n, g in grads.items()},
+                              params={n: t.float() for n, t in params.items()})
+        del tr, named, grads, params
+        torch.cuda.empty_cache()
+    torch.save(out, spec["out"].format(rank=rank))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_seq_tensor(dev, card, fa, ref: dict = None) -> dict:
+    """Phase 36: four processes on the one card over gloo, mesh tensor 2 x
+    seq 2, against phase 33c's one-process reference `ref` (made here when
+    not given); removes the reference's files."""
+    import torch
+
+    t_phase = time.perf_counter()
+    if ref is None:
+        tmp = tempfile.mkdtemp(prefix="pixart_seqtp_")
+        ref = seq_train_reference(dev, tmp, *seq_train_files(dev, tmp))
+    tmp = ref["tmp"]
+    try:
+        spec = dict(root=tmp, pth_train=ref["pth_train"], port=free_port(),
+                    out=os.path.join(tmp, "seqtp_{rank}.pt"))
+        spec_path = os.path.join(tmp, "seqtp.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seqtp-rank",
+                                   str(r), spec_path], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(4)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                log(text[-6000:])
+                raise SystemExit(f"seq x tensor: rank {r} exited {p.returncode}")
+        got = [torch.load(spec["out"].format(rank=r), weights_only=False) for r in range(4)]
+        reads = {fault: seq_train_reading(got[0][fault], ref)
+                 for fault in (None,) + SEQ_TENSOR_FAULTS}
+        sound = got[0][None]
+        log(f"[seqtp] {SEQ_TRAIN_STEPS} Trainer steps over tensor 2 x seq 2 (4 gloo ranks on the "
+            f"card), 1152 wide, depth 2 (layer 1 compressed), B = 2 at 1024px, vs one process: "
+            f"the gradients' norm {reads[None][0]:.3e}, the clipped gradients "
+            f"{reads[None][1]:.3e}, the parameters' change {reads[None][2]:.3e} (tols "
+            f"{SEQ_TRAIN_TOLS}); losses {[round(h['loss'], 6) for h in sound['hist']]} vs "
+            f"{[round(h['loss'], 6) for h in ref['hist']]}; grad norms "
+            f"{[round(h['grad_norm'], 6) for h in sound['hist']]} vs "
+            f"{[round(h['grad_norm'], 6) for h in ref['hist']]}")
+        for fault in SEQ_TENSOR_FAULTS:
+            log(f"[seqtp] planted fault '{fault}': "
+                f"{', '.join(f'{x:.3e}' for x in reads[fault])}")
+        per_step = {k: v / SEQ_TRAIN_STEPS for k, v in sound["transports"].items()}
+        log(f"[seqtp] rank 0's transports per step {per_step}")
+        log(f"[time] {card}: seqtp: the step's seconds over tensor 2 x seq 2, rank 0 "
+            f"{times(h['seconds'] for h in sound['hist'])} s, one process "
+            f"{times(h['seconds'] for h in ref['hist'])} s; the four processes' wall "
+            f"{wall:.1f} s (start-up, 3 Trainers of {SEQ_TRAIN_STEPS} steps)")
+        if not seq_train_within(reads[None]) or any(seq_train_within(reads[f])
+                                                     for f in SEQ_TENSOR_FAULTS):
+            raise SystemExit("seq x tensor: the sharded step differs from one process, or the "
+                             "gate misses a planted fault")
+        want_steps = run_launches(ref["mc"], [(128, 128)] * SEQ_TRAIN_STEPS)
+        for r in range(4):
+            check_launches(f"seqtp rank {r}", got[r][None]["launches"], want_steps)
+        native = [k for r in got for k in r[None]["transports"] if "staged" not in k]
+        if native or not sound["transports"]:
+            raise SystemExit(f"seq x tensor: parallel.dist's collectives of CUDA tensors over "
+                             f"gloo not staged through host memory: {native}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[seqtp] phase 36: {time.perf_counter() - t_phase:.1f} s")
+    return dict(train=dict(sound["launches"]))
 
 
 # ---------------------------------------------------------------------------
@@ -4819,14 +5025,14 @@ HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128)
 # (b): XL-2 at its published width of 1152 with 9 heads (Dh = 128: its
 # self-attention runs flash, past the onepass gate) and with 12 (Dh = 96)
 HEAD_DIM_MODELS = (9, 12)
-# (b)'s limit, relative L2 of the 20-step 1024px latents through the kernels
+# (b)'s limit, relative L2 of the 1024px latents through the kernels
 # against plain attention on the card; the planted fault, K's columns
 # [64, 128) dropped in every attention call of the plain run, must read
 # above it (readings in PERF.md)
 HEAD_DIM_PATH_TOL = 3e-2
-# phase 34b's trajectories, cut from 20 steps (PR 15) to keep the script well
-# inside its time limit since phase 35 came
-HEAD_DIM_PATH_STEPS = 10
+# phase 34b's trajectories, cut from 20 steps to 10 and then 5 to keep the
+# script well inside its time limit as phases 35 and 36 came
+HEAD_DIM_PATH_STEPS = 5
 
 # phase 35: the committed orbax fixture, and how much the decoder's rate is
 # timed over (MB of output), and the limits of its model's f32 output
@@ -5923,11 +6129,17 @@ def main() -> int:
 
     # ---- 33. sequence parallelism: two gloo ranks sharing the card ----------
     torch.cuda.empty_cache()
-    launches_seq = run_seq_parallel(dev, card, fa)
+    launches_seq, seq_reference = run_seq_parallel(dev, card, fa)
     for entry in entries:
         entry["launches_seq_parallel"] = {run: c[entry["name"]]
                                           for run, c in launches_seq.items()}
         entry["seq_shard_shapes"] = SEQ_SHARD_SHAPES[entry["name"]]
+
+    # ---- 36. the seq axis with tensor parallelism: four gloo ranks on the card ----
+    launches_seqtp = run_seq_tensor(dev, card, fa, seq_reference)
+    for entry in entries:
+        entry["launches_seq_tensor"] = {f"{run}, each of 4 ranks": c[entry["name"]]
+                                        for run, c in launches_seqtp.items()}
     for entry in entries:
         name = entry["name"]
         entry["widths"] = list(fa.WIDTHS)
@@ -5953,4 +6165,6 @@ if __name__ == "__main__":
         sys.exit(gloo_ddp_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--seq-rank"]:  # phase 33's ranks
         sys.exit(seq_rank_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--seqtp-rank"]:  # phase 36's ranks
+        sys.exit(seq_tensor_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -2,8 +2,8 @@
 barrier, object broadcast and gather, and the differentiable collectives of
 sharded training and of sequence parallelism: the all-gather whose backward
 reduce-scatters (`all_gather_tensor`), the all-gather of a replicated
-result whose backward keeps the local slice (`gather_replicated`), and the
-ring shift (`ring_shift`).
+result whose backward keeps the local slice (`gather_replicated`), its
+transpose (`slice_replicated`), and the ring shift (`ring_shift`).
 
 Port of pixart_sigma_tpu/parallel/dist.py. JAX starts from
 JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID; the port
@@ -194,6 +194,29 @@ def gather_replicated(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x
     return _GatherReplicated.apply(x, group, dim)
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+def slice_replicated(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk along `dim` of `x`, a value every rank holds alike
+    (the whole input of a row-parallel layer), the transpose of
+    `gather_replicated`: the gradient of `x` is the ranks' gradients of
+    their chunks gathered, each rank's whole for its own chunk (DTensor's
+    Replicate -> Shard redistribution and its backward)."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return x
+    return _SliceReplicated.apply(x, group, dim)
 
 
 def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:

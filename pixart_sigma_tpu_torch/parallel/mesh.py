@@ -9,9 +9,10 @@ ranks (one card each) where JAX's are over devices:
            too, so the batch is split over (data, fsdp) jointly
   tensor - Megatron tensor parallelism of the blocks' attention and MLP
            projections; the ranks of one tensor group see the same rows
+           (and, with a seq axis, the same token shard)
   seq    - sequence (context) parallelism: the token dim of the model's
            activations split over the ranks of a seq group, which share
-           their batch rows (`SeqContext`)
+           their batch rows and their tensor shards (`SeqContext`)
 
 The rules are pure functions of (parameter name, shape, axis sizes,
 min_size, model config) and give JAX's answers: `param_placement` reads a
@@ -20,7 +21,8 @@ HWIO, a scan group's leaves stacked [count, ...] when `scan_blocks`) and
 maps the axis JAX shards back to the torch tensor. `shard_model` applies
 them: `parallelize_module` for the tensor axis, FSDP2's `fully_shard` per
 block and at the root for the fsdp axis (over a 2-D (data, fsdp) mesh that
-is HSDP), DDP when the batch ranks are the only parallelism.
+is HSDP), DDP when the batch ranks are the only parallelism. Any mix of the
+four axes runs, as JAX's GSPMD step takes any.
 
 JAX carries the seq axis as the ambient mesh that the model's sharding
 constraints read; the port carries it explicitly: `seq_context(mesh)` is
@@ -38,7 +40,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from pixart_sigma_tpu_torch.parallel.dist import all_gather_tensor, gather_replicated
+from pixart_sigma_tpu_torch.parallel.dist import (
+    all_gather_tensor,
+    gather_replicated,
+    slice_replicated,
+)
 from pixart_sigma_tpu_torch.utils.checkpoint import jax_param_path
 
 AXES = ("data", "fsdp", "tensor", "seq")
@@ -151,9 +157,10 @@ def batch_rank(mesh) -> int:
 
 
 def batch_group(mesh):
-    """The process group of the ranks that hold this rank's tensor slice of
-    every batch slice: those with its tensor and seq coordinates. Every
-    rank must call it (it makes one group per tensor coordinate)."""
+    """The process group of the ranks that hold this rank's tensor and token
+    slices of every batch slice: those with its tensor and seq coordinates,
+    over which its gradients are averaged. Every rank must call it (it makes
+    one group per (tensor, seq) coordinate)."""
     if batch_ranks(mesh) == dist.get_world_size():
         return dist.group.WORLD
     ranks = mesh.mesh
@@ -286,14 +293,25 @@ _TP_MODULES = ("attn.qkv", "cross_attn.q_linear", "cross_attn.kv_linear", "mlp.f
                "attn.proj", "cross_attn.proj", "mlp.fc2")
 
 
-def _tensor_plan(block_name: str, block: nn.Module, cfg, tp_size: int) -> dict:
-    """The `parallelize_module` plan of one block. The fused qkv and
-    kv_linear shards do not fall on q/k/v or head boundaries (as in JAX), so
-    the column layers of attention hand back their whole output, and the
-    attention kernels see whole heads as plain tensors; the row `proj`
-    takes its slice of that replicated input. The MLP keeps its hidden
-    features sharded between fc1 and fc2 when both are split."""
-    from torch.distributed.tensor import Replicate, Shard
+def _tensor_plan(block_name: str, block: nn.Module, cfg,
+                 tp_size: int) -> Tuple[dict, List[str], List[str]]:
+    """The `parallelize_module` plan of one block, whose layers hand each
+    other local shards: (the plan, the column layers whose output shard the
+    caller gathers whole, the row layers whose whole input the caller cuts
+    to this rank's slice). The fused qkv and kv_linear shards do not fall on
+    q/k/v or head boundaries (as in JAX), so the column layers of attention
+    hand back their whole output, and the attention kernels see whole heads
+    as plain tensors (under a seq group, of this rank's token shard, which
+    the ranks of its tensor group share); the row `proj` takes its slice of
+    that replicated input. The MLP keeps its hidden features sharded between
+    fc1 and fc2 when both are split.
+
+    The gathers, and the all-gathers in the backward of the slices, go
+    through `parallel.dist` (`gather_replicated`, `slice_replicated`), not
+    through DTensor's redistributions: those use the functional all-gather,
+    which crashes the process on CUDA tensors over gloo (torch 2.11), the
+    backend of ranks that share one card. DTensor's all-reduces, the plan's
+    other collectives, work there."""
     from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
 
     split = {}
@@ -304,17 +322,16 @@ def _tensor_plan(block_name: str, block: nn.Module, cfg, tp_size: int) -> dict:
         if dim is not None:
             split[mod] = dim
     mlp_sharded = "mlp.fc1" in split and "mlp.fc2" in split
-    plan = {}
+    plan, gathered, sliced = {}, [], []
     for mod in split:
-        if mod == "mlp.fc1":
-            plan[mod] = ColwiseParallel(output_layouts=Shard(-1) if mlp_sharded else Replicate())
-        elif mod == "mlp.fc2":
-            plan[mod] = RowwiseParallel(input_layouts=Shard(-1) if mlp_sharded else Replicate())
-        elif mod.endswith("proj"):
-            plan[mod] = RowwiseParallel(input_layouts=Replicate())
+        whole = not (mlp_sharded and mod in ("mlp.fc1", "mlp.fc2"))
+        if mod.endswith(("proj", "fc2")):  # row layers
+            plan[mod] = RowwiseParallel()
+            sliced += [mod] if whole else []
         else:
-            plan[mod] = ColwiseParallel(output_layouts=Replicate())
-    return plan
+            plan[mod] = ColwiseParallel()
+            gathered += [mod] if whole else []
+    return plan, gathered, sliced
 
 
 def shard_model(model: nn.Module, mesh, *, fsdp: bool = False, tensor: bool = False,
@@ -329,16 +346,31 @@ def shard_model(model: nn.Module, mesh, *, fsdp: bool = False, tensor: bool = Fa
     step sums the gradients over the seq group besides; DDP over the batch
     group would run its reductions inside the backward, among the seq
     group's collectives). Otherwise the step calls DDP over `batch_group`,
-    which averages every gradient itself."""
+    which averages every gradient itself.
+
+    With a seq axis the model's seq context is set first
+    (`models.pixart.set_seq_parallel`); the tensor plan swaps the linears'
+    weights, not the modules, so the context stays. A seq group's ranks
+    share their tensor coordinate, so each gradient's seq sum acts on the
+    same local shard on every rank of the group; the clip's norm and CAME's
+    statistics then reduce a sharded entry over its tensor (and fsdp)
+    group only (`parallel.sharded`)."""
     cfg = model.cfg
     if tensor:
         from torch.distributed.tensor.parallel import parallelize_module
 
         tp_mesh = mesh["tensor"]
+        group = tp_mesh.get_group()
+        gather = lambda mod, args, out: gather_replicated(out, group, -1)
+        cut = lambda mod, args: (slice_replicated(args[0], group, -1),) + tuple(args[1:])
         for i, block in enumerate(model.blocks):
-            plan = _tensor_plan(f"blocks.{i}", block, cfg, tp_mesh.size())
+            plan, gathered, sliced = _tensor_plan(f"blocks.{i}", block, cfg, tp_mesh.size())
             if plan:
                 parallelize_module(block, tp_mesh, plan)
+            for mod in gathered:  # after the plan's own output hook
+                block.get_submodule(mod).register_forward_hook(gather)
+            for mod in sliced:  # before the plan's own input hook
+                block.get_submodule(mod).register_forward_pre_hook(cut, prepend=True)
     if fsdp:
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard

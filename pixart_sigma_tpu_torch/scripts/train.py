@@ -67,11 +67,10 @@ def main(argv=None):
     args = parse_args(argv)
     from pixart_sigma_tpu_torch.config import read_config
     from pixart_sigma_tpu_torch.parallel.dist import initialize_distributed
-    from pixart_sigma_tpu_torch.training.trainer import Trainer, refuse_parallelism
+    from pixart_sigma_tpu_torch.training.trainer import Trainer
     from pixart_sigma_tpu_torch.utils.device import resolve_device
 
     config = read_config(args.config)
-    refuse_parallelism(config)
     device = resolve_device(args.device)
     initialize_distributed(device=device)
     if args.work_dir:

@@ -115,7 +115,10 @@ def _draws(state: TrainState, diffusion: GaussianDiffusion, latents: torch.Tenso
 
 def sum_over_seq(state: TrainState) -> None:
     """Sum each parameter's (local) gradient over the seq group, where each
-    rank's is the part of its tokens."""
+    rank's is the part of its tokens. The group's ranks share their tensor
+    and fsdp coordinates, so their local shards of a sharded gradient are
+    the same slice; it runs after the batch ranks' average and before the
+    global norm."""
     average_gradients([p for p in state.model.parameters() if p.requires_grad],
                       state.seq_group, mean=False)
 

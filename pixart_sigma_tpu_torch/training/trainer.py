@@ -22,9 +22,9 @@ global batch, split over the data x fsdp ranks, gives what one rank would
 compute at the global batch. Checkpoints stay the upstream `.pth` with
 whole tensors, written by rank 0, so a run saved on R ranks resumes on
 any number. A `seq` axis splits the tokens of each image over the ranks of
-a seq group (`parallel.mesh.SeqContext`), beside data and fsdp; with
-tensor parallelism it is refused (`refuse_parallelism`). `loader_processes`
-reads with a process pool. The training CLI is
+a seq group (`parallel.mesh.SeqContext`), beside data, fsdp and tensor: the
+ranks of a tensor group share their token shard. `loader_processes` reads
+with a process pool. The training CLI is
 `pixart_sigma_tpu_torch.scripts.train`; `main` here is the same CLI.
 """
 
@@ -99,19 +99,6 @@ _MS_TYPES = ("PixArtMSDataset", "InternalDataMS", "InternalDataMSSigma")
 _FSDP_MIN_SIZE = 2**16  # the JAX trainer's default
 
 
-def refuse_parallelism(config: Config) -> None:
-    """Raise for what of the JAX trainer's parallelism the port does not
-    run: a `seq` mesh axis above 1 together with tensor parallelism. The
-    other keys take effect, and are never ignored silently."""
-    mesh = config.get("mesh") or {}
-    seq = mesh.get("seq") or 1
-    if seq > 1 and (config.get("use_tensor_parallel", False)
-                    or (mesh.get("tensor") or 1) > 1):
-        raise NotImplementedError(
-            f"mesh seq={seq} with tensor parallelism: the port shards the tokens beside the "
-            "data and fsdp axes only (ROADMAP.md, Queue 3)")
-
-
 def _needs_ranks(config: Config) -> Optional[str]:
     """The first parallelism key set away from its default, or None: those
     act on torch.distributed's ranks."""
@@ -168,7 +155,6 @@ class Trainer:
 
     def __init__(self, config: Config, work_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda", vae=None, t5=None):
-        refuse_parallelism(config)
         if not dist.is_initialized() and _needs_ranks(config):
             raise RuntimeError(
                 f"{_needs_ranks(config)} acts on torch.distributed's ranks, and no process "
@@ -227,6 +213,8 @@ class Trainer:
         self.batch_ranks = mesh_lib.batch_ranks(self.mesh)
         self.batch_rank = mesh_lib.batch_rank(self.mesh)
         self.seq = mesh_lib.seq_context(self.mesh)
+        # the attention modules keep their seq context when tensor
+        # parallelism swaps their linears' weights for DTensors
         set_seq_parallel(self.model, self.seq)
         self._forward, self._sync_params = mesh_lib.shard_model(
             self.model, self.mesh, fsdp=fsdp, tensor=tensor,

@@ -31,7 +31,7 @@ from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
 from pixart_sigma_tpu_torch.models.pixart import PixArtConfig, PixArtMS_XL_2
 from pixart_sigma_tpu_torch.parallel import dist as pdist
 from pixart_sigma_tpu_torch.parallel import mesh as tmesh
-from pixart_sigma_tpu_torch.training.trainer import Trainer, refuse_parallelism
+from pixart_sigma_tpu_torch.training.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = os.path.join(ROOT, "configs/toy/pixart_toy_img128.py")
@@ -225,21 +225,17 @@ def test_process_loader_yields_the_thread_batches(tmp_path):
 
 
 def test_what_is_not_ported_still_raises(tmp_path):
-    """A `seq` axis with tensor parallelism names itself; a `seq` axis alone
-    needs ranks, as the other axes do (--seq-parallel in
-    tests/test_torch_serve.py)."""
+    """A `seq` axis needs ranks, alone or with tensor parallelism, as the
+    other axes do (--seq-parallel in tests/test_torch_serve.py): without a
+    process group the Trainer raises and names them."""
     cfg = read_config(TOY)
-    cfg["mesh"] = dict(data=-1, fsdp=1, tensor=2, seq=2)
-    with pytest.raises(NotImplementedError, match="seq=2 with tensor parallelism"):
-        refuse_parallelism(cfg)
-    with pytest.raises(NotImplementedError, match="seq=2 with tensor parallelism"):
-        Trainer(cfg, str(tmp_path), device="cpu")
-    cfg["mesh"] = dict(data=-1, fsdp=1, tensor=1, seq=2)
-    refuse_parallelism(cfg)
-    with pytest.raises(RuntimeError, match="mesh seq=2 acts on torch.distributed's ranks"):
-        Trainer(cfg, str(tmp_path), device="cpu")
+    for mesh in (dict(data=-1, fsdp=1, tensor=2, seq=2), dict(data=-1, fsdp=1, tensor=1, seq=2)):
+        cfg["mesh"] = mesh
+        cfg["use_tensor_parallel"] = mesh["tensor"] > 1
+        with pytest.raises(RuntimeError, match="acts on torch.distributed's ranks"):
+            Trainer(cfg, str(tmp_path), device="cpu")
     with pytest.raises(RuntimeError, match="initialised process group"):
-        tmesh.build_mesh(tmesh.MeshConfig(seq=2), "cpu")
+        tmesh.build_mesh(tmesh.MeshConfig(tensor=2, seq=2), "cpu")
 
 
 def test_one_process_without_environment():

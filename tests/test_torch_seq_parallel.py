@@ -20,7 +20,12 @@ tolerances (tests/test_seq_parallel.py): 2e-5 forward, 2e-4 gradients.
   accumulation), over data 2 x seq 2 and over fsdp 2 x seq 2 (FSDP2's
   reduce-scatters in the backward beside the seq group's) against one
   process at the global batch (tests/test_torch_parallel_train.py's
-  checks).
+  checks). With tensor parallelism: tensor 2 x seq 2, also with token
+  masking and accumulation, and with a KV-compressed layer whose shards'
+  rows do not divide by the ratio (compressed after the gather); tensor 2
+  alone beside it, whose per-rank bytes tensor 2 x seq 2 must equal, and
+  whose tensor layers move their activations through `parallel.dist` (its
+  count of all-gathers).
 - The three traps: the output gather's gradient is each rank's slice, not
   seq-size times it; the parameters' gradients are summed over seq (the
   Trainer's gradient norm equals one process's); the cache drift is
@@ -43,6 +48,10 @@ from pixart_sigma_tpu.parallel.mesh import MeshConfig, build_mesh
 from pixart_sigma_tpu_torch.ops import attention as tattn
 from pixart_sigma_tpu_torch.utils.checkpoint import state_dict_from_jax
 from tests.test_torch_parallel_train import FEATURES, VALIDATE, _reference, check_against_reference
+from pixart_sigma_tpu_torch.data.synthetic import write_feature_dataset
+from pixart_sigma_tpu_torch.models.layers import SelfAttentionKVCompress
+from pixart_sigma_tpu_torch.parallel.mesh import SeqContext
+from tests.torch_parallel_worker import TINY as TINY_TRAIN
 from tests.torch_parallel_worker import spawn, tiny_seq_model, write_data
 
 jattn = importlib.import_module("pixart_sigma_tpu.ops.attention")
@@ -58,13 +67,23 @@ FORWARDS = (
     ("conv_gather_first", dict(CONV, kv_compress_layers=(1,)), (12, 16), (4,)),
     ("padded", dict(CONV, kv_compress_layers=(1,)), (10, 14), (4,)),
 )
+TENSOR2 = dict(mesh=dict(data=1, tensor=2), use_tensor_parallel=True, train_batch_size=4)
+TENSOR2_SEQ2 = dict(TENSOR2, mesh=dict(data=1, tensor=2, seq=2))
+# the 256px bucket 192 x 320: a 12 x 20 token grid, 6 rows a seq rank, which
+# KV compression by 4 does not divide (12 does): compressed after the gather
+WIDE, GATHER_FIRST = (192, 320), dict(model_overrides=dict(kv_compress_scale=4))
 TRAINER_CASES = {
     2: {"seq2": dict(mesh=dict(data=1, seq=2), train_batch_size=4),
-        "seq2_features": dict(mesh=dict(data=1, seq=2), train_batch_size=4, **FEATURES)},
+        "seq2_features": dict(mesh=dict(data=1, seq=2), train_batch_size=4, **FEATURES),
+        "tensor2": TENSOR2},
     4: {"data2_seq2": dict(mesh=dict(data=2, seq=2), train_batch_size=2),
         "fsdp2_seq2": dict(mesh=dict(data=1, fsdp=2, seq=2), use_fsdp=True, fsdp_min_size=4096,
-                           train_batch_size=2)},
+                           train_batch_size=2),
+        "tensor2_seq2": TENSOR2_SEQ2,
+        "tensor2_seq2_features": dict(TENSOR2_SEQ2, **FEATURES),
+        "tensor2_seq2_gather_first": dict(TENSOR2_SEQ2, **GATHER_FIRST)},
 }
+BATCH_RANKS = {"data2_seq2": [0, 0, 1, 1], "fsdp2_seq2": [0, 0, 1, 1]}  # else all 0
 PIPE_CONFIG = dict(TINY, cache_span=(1, 2))
 THRESHOLD, CACHED_STEPS = 3.0, 8  # the tiny model's drift then refreshes 4 of 8 calls
 
@@ -199,7 +218,12 @@ def files(tmp_path_factory):
     return out
 
 
-def _runs(files, world, root):
+def _root(roots, case):
+    """The data root of a Trainer case: the wide bucket's for gather_first."""
+    return roots[1] if case.endswith("gather_first") else roots[0]
+
+
+def _runs(files, world, roots):
     tmp = files["tmp"]
     runs = [dict(kind="seq_traps"), dict(kind="seq_ops", inputs=str(tmp / "ops.npz"))]
     runs += [dict(kind="seq_forward", weights=str(tmp / f"w_{name}.npz"),
@@ -210,8 +234,8 @@ def _runs(files, world, root):
                          inputs=str(tmp / "pipe.npz"), mesh=dict(data=2, seq=2),
                          config=dict(PIPE_CONFIG, multi_scale=False), threshold=THRESHOLD,
                          cached_steps=CACHED_STEPS))
-    runs += [dict(kind="trainer", data_root=root, work_dir=str(tmp / f"train_{case}"), steps=3,
-                  config=dict(cfg, **VALIDATE))
+    runs += [dict(kind="trainer", data_root=_root(roots, case),
+                  work_dir=str(tmp / f"train_{case}"), steps=3, config=dict(cfg, **VALIDATE))
              for case, cfg in sorted(TRAINER_CASES[world].items())]
     return runs
 
@@ -219,11 +243,16 @@ def _runs(files, world, root):
 @pytest.fixture(scope="module")
 def ranks(files, tmp_path_factory):
     """{world: each rank's results} of one spawn per world size, and the
-    data root of the Trainer runs."""
+    data roots of the Trainer runs: the square bucket's, and the wide
+    one's."""
     root = write_data(tmp_path_factory.mktemp("seq_data"))
-    got = {w: spawn(tmp_path_factory.mktemp(f"seq_{w}"), w, _runs(files, w, root))
+    wide = str(tmp_path_factory.mktemp("seq_wide"))
+    write_feature_dataset(os.path.join(wide, "data"), [WIDE] * 12, resolution=256,
+                          caption_channels=TINY_TRAIN["caption_channels"])
+    roots = (root, wide)
+    got = {w: spawn(tmp_path_factory.mktemp(f"seq_{w}"), w, _runs(files, w, roots))
            for w in (2, 4)}
-    return got, root
+    return got, roots
 
 
 def _results(ranks, world, kind, files, name=None):
@@ -277,9 +306,12 @@ def test_pipeline_over_data_and_seq_matches_jax_and_one_process(files, ranks):
 @pytest.fixture(scope="module")
 def references(ranks):
     """One process's Trainer runs at the global batch of 4, without and with
-    the features of the "features" cases."""
-    return {name: _reference(ranks[1], name, **extra)
-            for name, extra in (("one", {}), ("one_features", FEATURES))}
+    the features of the "features" cases, and on the wide bucket with the
+    gather_first cases' compression."""
+    root, wide = ranks[1]
+    return {name: _reference(r, name, **extra)
+            for name, r, extra in (("one", root, {}), ("one_features", root, FEATURES),
+                                   ("one_gather_first", wide, GATHER_FIRST))}
 
 
 @pytest.mark.parametrize("world,case", [(w, c) for w in (2, 4) for c in sorted(TRAINER_CASES[w])])
@@ -287,11 +319,34 @@ def test_trainer_over_seq_matches_one_process(world, case, ranks, files, referen
     """The losses, the gradient norms (a seq sum, not a mean), parameters,
     EMA and validation latents of one process at the global batch of 4."""
     got, run = _results(ranks, world, "trainer", files, case)
-    reference = references["one_features" if case.endswith("features") else "one"]
+    suffix = next((s for s in ("features", "gather_first") if case.endswith(s)), None)
+    reference = references["one" if suffix is None else f"one_{suffix}"]
     check_against_reference(got, reference, run["work_dir"])
-    assert [r["batch_rank"] for r in got] == ([0, 0] if world == 2 else [0, 0, 1, 1])
+    assert [r["batch_rank"] for r in got] == BATCH_RANKS.get(case, [0] * world)
     if "fsdp" in case:  # sharded over fsdp 2 (tests/test_torch_parallel_hsdp.py's bound)
         assert all(r["bytes"] < 0.6 * r["total_bytes"] for r in got)
+    if suffix == "gather_first":  # the wide bucket's 12 x 20 grid, compressed after the gather
+        assert all(h["hw"] == (24, 40) for r in got for h in r["history"])
+        layer = SelfAttentionKVCompress(8, 2, sampling="conv", sr_ratio=4)
+        layer.seq = SeqContext(None, 2, 0)
+        assert not layer._local_rows(12, 20)
+
+
+def test_seq_with_tensor_holds_what_tensor_alone_holds(files, ranks):
+    """tensor 2 x seq 2 keeps on each rank the bytes of parameters,
+    optimizer state and EMA that tensor 2 alone keeps; tensor 2's layers
+    gather their whole outputs (qkv, q_linear, kv_linear) in the forward
+    and in the recompute of each block, and their slices of the row layers'
+    whole inputs (proj twice) in the backward, through `parallel.dist`:
+    3 steps x 2 blocks x (3 + 3 + 2) all-gathers, and no other of its
+    collectives (fc1 and fc2 keep the MLP's hidden features sharded)."""
+    tensor2, _ = _results(ranks, 2, "trainer", files, "tensor2")
+    both, _ = _results(ranks, 4, "trainer", files, "tensor2_seq2")
+    assert {r["bytes"] for r in both} == {r["bytes"] for r in tensor2}
+    assert len({r["bytes"] for r in tensor2}) == 1
+    assert tensor2[0]["bytes"] < 0.8 * tensor2[0]["total_bytes"]
+    for r in tensor2:
+        assert r["transports"] == {"all_gather native": 3 * 2 * (3 + 3 + 2)}
 
 
 @pytest.mark.parametrize("world", (2, 4))

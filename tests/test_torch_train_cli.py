@@ -31,7 +31,7 @@ from pixart_sigma_tpu_torch.models.builder import build_model_from_config
 from pixart_sigma_tpu_torch.models.pixart import init_weights
 from pixart_sigma_tpu_torch.models.vae import VAEConfig, build_vae
 from pixart_sigma_tpu_torch.scripts import train as train_cli
-from pixart_sigma_tpu_torch.training.trainer import Trainer, refuse_parallelism
+from pixart_sigma_tpu_torch.training.trainer import Trainer, _needs_ranks
 from pixart_sigma_tpu_torch.utils.checkpoint import (
     save_pth,
     save_safetensors,
@@ -171,9 +171,7 @@ def test_parallelism_keys_away_from_their_defaults_raise(key, value, tmp_path):
     raise and say how to start one (the multi-rank runs are in
     tests/test_torch_parallel_*.py; `loader_processes` needs no ranks)."""
     cfg = read_config(TOY)
-    refuse_parallelism(cfg)  # the defaults pass
     cfg[key] = value
-    refuse_parallelism(cfg)  # and so do these keys: they are ported
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         Trainer(cfg, str(tmp_path), device="cpu")
 
@@ -182,4 +180,4 @@ def test_no_shipped_config_sets_a_parallelism_key():
     paths = glob.glob(os.path.join(ROOT, "configs", "**", "*.py"), recursive=True)
     assert len(paths) > 10
     for path in paths:
-        refuse_parallelism(read_config(path))
+        assert _needs_ranks(read_config(path)) is None, path

@@ -28,7 +28,9 @@ and "runs", a list of runs done in order in the same process group:
 
 Each run records, gathered whole: the parameters, the EMA and the per-step
 metrics, and this rank's bytes of parameters, optimizer state and EMA
-against their replicated total.
+against their replicated total; a Trainer run also the optimizer state,
+the LR schedule's position (`opt_step`) and the calls of `parallel.dist`'s
+collectives (`TRANSPORTS`).
 """
 
 import contextlib
@@ -86,9 +88,9 @@ def write_data(root, n=12):
     return str(root)
 
 
-def _bytes(state):
+def _bytes(state, full_optimizer):
     """(this rank's bytes of parameters, optimizer state and EMA; their
-    replicated total)."""
+    replicated total, with the optimizer's `full_state_dict`)."""
     from pixart_sigma_tpu_torch.parallel.sharded import local
 
     params = list(state.model.parameters())
@@ -99,10 +101,17 @@ def _bytes(state):
     for st in state.optimizer.state.values():
         mine += sum(v.nelement() * v.element_size() for v in st.values()
                     if torch.is_tensor(v) and v.ndim)
-    for st in state.optimizer.full_state_dict()["state"].values():
+    for st in full_optimizer["state"].values():
         total += sum(v.nelement() * v.element_size() for v in st.values()
                      if torch.is_tensor(v) and v.ndim)
     return mine, total
+
+
+def _param_names(state):
+    """The names of the optimizer's parameters, in the order of its state's
+    keys."""
+    names = {p: n for n, p in state.model.named_parameters()}
+    return [names[p] for g in state.optimizer.param_groups for p in g["params"]]
 
 
 def _whole(state):
@@ -114,19 +123,24 @@ def _whole(state):
 
 
 def run_trainer(run):
+    from pixart_sigma_tpu_torch.parallel.dist import TRANSPORTS
     from pixart_sigma_tpu_torch.training.trainer import Trainer
 
     cfg = tiny_config(run["data_root"], **run.get("config", {}))
+    TRANSPORTS.clear()
     with one_thread():
         trainer = Trainer(cfg, run["work_dir"], device="cpu")
         trainer.train(max_steps=run["steps"])
     params, ema = _whole(trainer.state)
-    mine, total = _bytes(trainer.state)
+    optimizer = trainer.state.optimizer.full_state_dict()
+    mine, total = _bytes(trainer.state, optimizer)
     sampler = trainer.schedule_sampler
     return dict(params=params, ema=ema, history=[
         {k: v for k, v in h.items() if k != "seconds"} for h in trainer.history],
         bytes=mine, total_bytes=total, batch_rank=trainer.batch_rank,
-        sampler=None if sampler is None else sampler.state_dict())
+        sampler=None if sampler is None else sampler.state_dict(),
+        optimizer=optimizer, opt_step=trainer.state.opt_step, transports=dict(TRANSPORTS),
+        optimizer_names=_param_names(trainer.state))
 
 
 def run_step(run):
