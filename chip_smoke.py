@@ -225,22 +225,27 @@ Phases, each printing its own lines:
    at full width, depth 2, against one process (fault: the gradients
    averaged over seq, not summed); (d) each rank's launches against the
    single-card reckoning at its shard;
-34. every head dim up to 128 (run after phase 5b): (a) each of the six
-   kernels at Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120 and 128 with
-   H = 1152 / Dh heads at the 1024px shapes, masked and unmasked, bf16 and
-   f32, held to its plain version on three picked heads under phase 3's
-   limits (the backward pair after the onepass forward), with planted
-   faults: a key tile skipped, K's columns [64, 128) dropped (width 128),
-   the padded head dim's logit scale (a head dim off a multiple of 8), lse
-   + 1 and a query tile skipped (backward); each kernel's time at Dh = 128
-   and 96 beside its plain version, `sdpa` and the bound; (b) the 5-step
-   1024px DPM-Solver++ trajectory of XL-2 at full width and depth with 9
-   heads (Dh = 128, self-attention on flash) and 12 (Dh = 96) against plain
-   attention on the card (fault: K's columns [64, 128) dropped in plain
-   attention), launches against `forward_launches`; (c) one 1024px training
-   step of the 9-head model at depth 4 (B = 2), its gradients per 128-row
-   tile against plain attention (faults: dK's columns [64, 128) zeroed, dQ
-   without its ln 2 factor);
+34. every head dim up to 256 (run after phase 5b): (a) each of the six
+   kernels at Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128 and width
+   256's 136, 144, 192, 200, 250, 256 with H = floor(1152 / Dh) heads at
+   the 1024px shapes, masked and unmasked, bf16 and f32 (flash also at
+   N = M = 16384 at Dh = 192), held to its plain version on three picked
+   heads under phase 3's limits (the backward pair after the onepass
+   forward), with planted faults: a key tile skipped, K's columns [64,
+   128), [128, 192) and [192, 256) dropped (each where Dh reaches it), the
+   padded head dim's logit scale (a head dim off a multiple of 8), lse + 1
+   and a query tile skipped (backward); each kernel's time at Dh = 128, 96,
+   144, 192 and 256 beside its plain version, `sdpa` and the bound; (b) the
+   5-step 1024px DPM-Solver++ trajectory of XL-2 at full width and depth
+   with 9 heads (Dh = 128, self-attention on flash), 12 (Dh = 96), 8 (Dh =
+   144) and 6 (Dh = 192) against plain attention on the card (fault: K's
+   columns [64, 128) dropped in plain attention, [128, 256) at width 256),
+   launches against `forward_launches`, and one 2K model call of the
+   6-head model (flash at width 256 in layers 0-13); (c) one 1024px
+   training step of the 9-head and of the 6-head model at depth 4 (B = 2),
+   its gradients per 128-row tile against plain attention (faults: dK's
+   columns [64, 128) zeroed, [128, 256) at width 256; dQ scaled by
+   1 / ln 2);
 35. the JAX trainer's orbax checkpoints, from the committed fixture
    tests/fixtures/orbax_small (written by the JAX package; its config.py is
    a 3-block, 32-wide model of the 1024px KV-compress config): (a) every
@@ -546,7 +551,7 @@ def extent_short(fa, madd):
     set to -inf, so P = 0 there (a caption with no valid key is left as it
     is)."""
     torch_ = sys.modules["torch"]
-    tile = fa.BWD_KEY_TILE
+    tile = fa.BWD_KEY_TILE[80]
     out = madd.clone()
     for b in range(madd.shape[0]):
         valid = (madd[b] > fa.NEG_INF / 2).nonzero()
@@ -581,7 +586,7 @@ def check_backward(fa, cases, label, B, N, M, lengths, dtype, cross) -> tuple[di
     out_want, lse_want = fa._plain_forward(pq, pk, pv, madd)
     errs = {}
     errs["onepass"], ok = compare(f"{label} onepass output", out, out_want,
-                                  planted_faults(pq, pk, pv, mask, fa.KEY_TILE))
+                                  planted_faults(pq, pk, pv, mask, fa.KEY_TILE[80]))
     ok &= check_lse(label, lse, lse_want)
     del out_want, lse_want
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1142,7 +1147,7 @@ def gradient_check_2k(dev, fa) -> dict:
     flash_dq_fault = lambda edit: output_fault(fa, "flash_bwd_dq", n, edit)
 
     def zero_tail(dq):
-        dq[:, n - n % fa.BWD_KEY_TILE:] = 0
+        dq[:, n - n % fa.BWD_KEY_TILE[80]:] = 0
         return dq
 
     def fails(r) -> bool:
@@ -5017,18 +5022,25 @@ def run_seq_tensor(dev, card, fa, ref: dict = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 34: every head dim up to 128. The kernels run a head dim at the padded
-# width 64, 80 or 128 (csrc/hopper_common.cuh); one off a multiple of 8 is
-# zero-padded by the wrapper, with the true head dim's softmax scale.
+# Phase 34: every head dim up to 256. The kernels run a head dim at the padded
+# width 64, 80, 128 or 256 (csrc/hopper_common.cuh); one off a multiple of 8
+# is zero-padded by the wrapper, with the true head dim's softmax scale.
 
-HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128)
+HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, 136, 144, 192, 200, 250, 256)
 # (b): XL-2 at its published width of 1152 with 9 heads (Dh = 128: its
-# self-attention runs flash, past the onepass gate) and with 12 (Dh = 96)
-HEAD_DIM_MODELS = (9, 12)
-# (b)'s limit, relative L2 of the 1024px latents through the kernels
-# against plain attention on the card; the planted fault, K's columns
-# [64, 128) dropped in every attention call of the plain run, must read
-# above it (readings in PERF.md)
+# self-attention runs flash, past the onepass gate), 12 (Dh = 96), 8 (Dh =
+# 144) and 6 (Dh = 192, width 256)
+HEAD_DIM_MODELS = (9, 12, 8, 6)
+# (b)'s 2K model call and (c)'s training steps: these head counts
+HEAD_DIM_2K_HEADS = 6
+HEAD_DIM_STEP_HEADS = (9, 6)
+# the times of (a) at these head dims
+HEAD_DIM_TIMED = (128, 96, 144, 192, 256)
+# (b)'s limit, relative L2 of the 1024px latents (and of the 2K call's
+# output) through the kernels against plain attention on the card; the
+# planted fault, K's columns [64, 128) (at width 256 [128, 256)) dropped in
+# every attention call of the plain run, must read above it (readings in
+# PERF.md)
 HEAD_DIM_PATH_TOL = 3e-2
 # phase 34b's trajectories, cut from 20 steps to 10 and then 5 to keep the
 # script well inside its time limit as phases 35 and 36 came
@@ -5048,8 +5060,8 @@ HEAD_DIM_CAPTIONS = (300, (256, 300), 77, 3)  # phase 3's caption masks, one not
 
 
 def heads_of(dh: int) -> int:
-    """Heads that keep H * Dh near XL-2's 1152."""
-    return max(1, round(1152 / dh))
+    """Heads that keep H * Dh at most XL-2's 1152."""
+    return max(1, 1152 // dh)
 
 
 def picked_heads(H: int) -> list:
@@ -5057,10 +5069,10 @@ def picked_heads(H: int) -> list:
     return sorted({0, H // 2, H - 1})
 
 
-def drop_columns(x):
-    """x with its head-dim columns [64, 128) set to 0."""
+def drop_columns(x, lo: int = 64, hi: int = 128):
+    """x with its head-dim columns [lo, hi) set to 0."""
     x = x.clone()
-    x[..., 64:] = 0
+    x[..., lo:hi] = 0
     return x
 
 
@@ -5071,15 +5083,23 @@ def self_attention_kernel(keys: int, dh: int) -> str:
     return "flash_forward" if -(-keys // 128) * 128 > 4096 or dh % 128 == 0 else "onepass"
 
 
-COLUMNS_FAULT = "K columns [64, 128) dropped"
+# the column faults: K's (or dK's) columns [lo, hi) dropped, each planted
+# where the head dim reaches past lo: the second atom of widths 128 and 256
+# (past 80), and the third and fourth atoms, which only width 256 has
+COLUMN_SPANS = ((64, 128), (128, 192), (192, 256))
+COLUMNS_FAULT = "K columns [{}, {}) dropped"
 
 
-def head_dim_faults(dh: int) -> list:
-    """The faults planted at head dim dh besides the generic ones: K's
-    columns [64, 128) dropped (width 128), and the logit scale of the padded
-    head dim (a head dim off a multiple of 8)."""
-    return ([COLUMNS_FAULT] if dh > 80 else []) + (
-        [f"logit scale of the padded head dim {dh + (-dh % 8)}"] if dh % 8 else [])
+def head_dim_faults(dh: int) -> dict:
+    """The faults planted at head dim dh besides the generic ones, {name:
+    (lo, hi) of K's columns dropped, or None}: K's columns in each span of
+    COLUMN_SPANS that dh reaches (from width 128 on), and the logit scale of
+    the padded head dim (a head dim off a multiple of 8)."""
+    out = {COLUMNS_FAULT.format(lo, hi): (lo, hi) for lo, hi in COLUMN_SPANS
+           if dh > max(lo, 80)}
+    if dh % 8:
+        out[f"logit scale of the padded head dim {dh + (-dh % 8)}"] = None
+    return out
 
 
 def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tuple[float, bool]:
@@ -5129,9 +5149,8 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
         keep[:, 128:256] = False
         faults["key tile [128, 256) skipped"] = plain(pq, pk, keep)[0]
     padded_scale = ((pq.float() * (dh / (dh + (-dh % 8))) ** 0.5).to(dtype), pk)
-    for fault in head_dim_faults(dh):
-        faults[fault] = plain(*((pq, drop_columns(pk)) if fault == COLUMNS_FAULT
-                                else padded_scale))[0]
+    for fault, span in head_dim_faults(dh).items():
+        faults[fault] = plain(*((pq, drop_columns(pk, *span)) if span else padded_scale))[0]
     label = (f"Dh={dh} {name} B={B} H={H} N={N} M={M}"
              f"{'' if lengths is None else f' valid={lengths}'}"
              f"{' f32' if dtype == torch_.float32 else ''}, heads {heads}")
@@ -5177,8 +5196,8 @@ def check_head_dim_backward(fa, cases, dh, B, N, M, lengths, dtype) -> tuple[dic
     skipped[:, :, 64:128] = float("inf")
     faults = {"query tile [64, 128) skipped": ref(l=skipped), "lse + 1": ref(l=lse_p + 1)}
     dp = dh + (-dh % 8)
-    for fault in head_dim_faults(dh):
-        faults[fault] = (ref(k_=drop_columns(pk)) if fault == COLUMNS_FAULT else
+    for fault, span in head_dim_faults(dh).items():
+        faults[fault] = (ref(k_=drop_columns(pk, *span)) if span else
                          ref(scales=(dp**-0.5 * fa.LOG2E, dp**-0.5)))
     label = (f"Dh={dh} backward B={B} H={H} N={N} M={M}"
              f"{'' if lengths is None else f' valid={lengths}'}"
@@ -5266,44 +5285,66 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
     return rows
 
 
-def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
-    """(b): the 1024px DPM-Solver++ trajectory (HEAD_DIM_PATH_STEPS) with CFG 4.5 of XL-2 at
-    full width and depth (28 blocks of 1152, KV compression conv x2 on layers
-    14-27, 300-token captions) with 9 and with 12 heads, seeded random
-    weights (zero-initialised leaves perturbed), through the kernels against
-    plain attention on the card; the launches against `forward_launches`,
-    and the planted fault. Returns {heads: launches}."""
-    import numpy as np
+def path_fault_span(dh: int) -> tuple:
+    """The K columns (b) drops in plain attention: the second 64-column atom,
+    or at width 256 the two atoms only it has."""
+    return (128, 256) if dh > 128 else (64, 128)
+
+
+@contextlib.contextmanager
+def k_columns_dropped(lo: int, hi: int):
+    """Plain attention (the model's attn_impl "reference") with K's columns
+    [lo, hi) dropped in every call: (b)'s planted fault."""
+    from pixart_sigma_tpu_torch.ops import attention as attention_module
+
+    orig = attention_module.attention_reference
+    attention_module.attention_reference = (
+        lambda q, k, v, key_mask=None: orig(q, drop_columns(k, lo, hi), v, key_mask))
+    try:
+        yield
+    finally:
+        attention_module.attention_reference = orig
+
+
+def xl2_heads(dev, heads: int, input_size: int = 128, pe_interpolation: float = 2.0):
+    """XL-2 at full width and depth (28 blocks of 1152, KV compression conv x2
+    on layers 14-27, 300-token captions) with `heads` heads, seeded random
+    weights (zero-initialised leaves perturbed); 1024px, or 2K at input 256
+    and pe interpolation 4."""
     import torch
 
     from pixart_sigma_tpu_torch.models.pixart import PixArtMS_XL_2, init_weights
-    from pixart_sigma_tpu_torch.ops import attention as attention_module
-    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
 
-    @contextlib.contextmanager
-    def k_columns_dropped():
-        orig = attention_module.attention_reference
-        attention_module.attention_reference = (
-            lambda q, k, v, key_mask=None: orig(q, drop_columns(k), v, key_mask))
-        try:
-            yield
-        finally:
-            attention_module.attention_reference = orig
+    model = PixArtMS_XL_2(
+        input_size=input_size, pe_interpolation=pe_interpolation, model_max_length=300,
+        kv_compress_sampling="conv", kv_compress_scale=2,
+        kv_compress_layers=tuple(range(14, 28)), num_heads=heads, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_weights(model, gen)
+    perturb_zero_leaves(model, gen)
+    return model
+
+
+def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
+    """(b): the 1024px DPM-Solver++ trajectory (HEAD_DIM_PATH_STEPS) with CFG
+    4.5 of XL-2 at full width and depth with each head count of
+    HEAD_DIM_MODELS (`xl2_heads`), through the kernels against plain
+    attention on the card; the launches against `forward_launches`, and the
+    planted fault (`path_fault_span`). Returns {heads: launches}."""
+    import numpy as np
+    import torch
+
+    from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
 
     call = dict(num_inference_steps=HEAD_DIM_PATH_STEPS, guidance_scale=4.5,
                 negative_prompt=negative, seed=0,
                 return_latents=True)
     out = {}
     for heads in HEAD_DIM_MODELS:
-        model = PixArtMS_XL_2(
-            input_size=128, pe_interpolation=2.0, model_max_length=300,
-            kv_compress_sampling="conv", kv_compress_scale=2,
-            kv_compress_layers=tuple(range(14, 28)), num_heads=heads, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        init_weights(model, gen)
-        perturb_zero_leaves(model, gen)
+        model = xl2_heads(dev, heads)
         pipe = PixArtPipeline(model, t5=t5, vae=vae, device=dev)
         dh = model.cfg.hidden_size // heads
+        span = path_fault_span(dh)
         t0 = time.perf_counter()
         reset_train_counts(fa)
         lat_k = pipe(prompts, **call)
@@ -5312,17 +5353,17 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         set_attn_impl(model, "reference")
         lat_r = pipe(prompts, **call)
         t2 = time.perf_counter()
-        with k_columns_dropped():
+        with k_columns_dropped(*span):
             lat_f = pipe(prompts, **call)
         set_attn_impl(model, "auto")
         rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
         rel_f = float(np.linalg.norm(lat_f - lat_r) / np.linalg.norm(lat_r))
         want = forward_launches(model.cfg, (128, 128), HEAD_DIM_PATH_STEPS)
-        log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}), "
-            f"{HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
+        log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}, width "
+            f"{fa.head_dim_width(dh)}), {HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
             f"latents {tuple(lat_k.shape)}, kernels vs plain attention on the card: relative L2 "
-            f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [64, 128) dropped "
-            f"in plain attention: {rel_f:.3e} "
+            f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [{span[0]}, {span[1]}) "
+            f"dropped in plain attention: {rel_f:.3e} "
             f"{'rejected' if rel_f > HEAD_DIM_PATH_TOL else 'NOT REJECTED'}; trajectory through "
             f"the kernels {t1 - t0:.2f} s, through plain attention {t2 - t1:.2f} s")
         check_launches("heads", counts, want)
@@ -5337,70 +5378,121 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
     return out
 
 
-def head_dim_gradients(dev, fa) -> dict:
-    """(c): one 1024px training step of the 9-head (Dh = 128) model cut to
-    depth 4 (KV compression on layers 2-3, B = 2, 4096 tokens, so layers 0-1
-    run flash at width 128 and its backward), through the kernels against
-    plain attention: the parameters' gradients (GRAD_REL_TOL over all and
-    for the worst) and the gradient of q, k and v of layers 0-1 per image and
-    128-row tile (GRAD_TILE_TOL). Planted faults in the flash backward:
-    dK's columns [64, 128) zeroed, and dQ without its ln 2 chain factor.
-    Returns the launches."""
+def head_dim_call_2k(dev, fa, heads: int = HEAD_DIM_2K_HEADS) -> dict:
+    """(b) at 2K: one model call of XL-2 with `heads` heads at 2048px (a
+    256 x 256 latent, 16384 tokens; flash in layers 0-13, onepass over the
+    4096 compressed keys of 14-27), one image with a 120-token caption,
+    through the kernels against plain attention on the card (relative L2
+    of the output, HEAD_DIM_PATH_TOL), with (b)'s planted fault; the
+    launches against `forward_launches`. Returns the launches."""
+    import torch
+
+    model = xl2_heads(dev, heads, input_size=256, pe_interpolation=4.0)
+    mc = model.cfg
+    dh = mc.hidden_size // heads
+    span = path_fault_span(dh)
+    x, t, y, mask = model_inputs(dev, mc, 1, (256, 256), 41, [120])
+    rel = lambda got, want: float((got.float() - want.float()).norm() / want.float().norm())
+    with torch.no_grad():
+        reset_train_counts(fa)
+        got = model(x, t, y, mask)
+        torch.cuda.synchronize()
+        counts = train_counts(fa)
+        set_attn_impl(model, "reference")
+        want = model(x, t, y, mask)
+        with k_columns_dropped(*span):
+            faulty = model(x, t, y, mask)
+        set_attn_impl(model, "auto")
+    err, err_f = rel(got, want), rel(faulty, want)
+    expect = forward_launches(mc, (256, 256), 1)
+    log(f"[heads] XL-2 2K model call, 28 blocks x 1152, {heads} heads (Dh = {dh}), 16384 "
+        f"tokens: output {tuple(got.shape)}, kernels vs plain attention on the card: relative "
+        f"L2 {err:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [{span[0]}, {span[1]}) "
+        f"dropped in plain attention: {err_f:.3e} "
+        f"{'rejected' if err_f > HEAD_DIM_PATH_TOL else 'NOT REJECTED'}; launches {counts}")
+    check_launches("heads", counts, expect)
+    if counts["flash_forward"] == 0 or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"{heads}-head 2K call: no flash launch, or an output not finite")
+    if not err <= HEAD_DIM_PATH_TOL < err_f:
+        raise SystemExit(f"{heads}-head 2K call: the kernels disagree with plain attention, or "
+                         "the gate misses the planted fault")
+    del model, got, want, faulty
+    torch.cuda.empty_cache()
+    return counts
+
+
+def head_dim_gradients(dev, fa, heads: int) -> dict:
+    """(c): one 1024px training step of the `heads`-head model (9: Dh = 128,
+    self-attention on flash at width 128; 6: Dh = 192, onepass at width 256)
+    cut to depth 4 (KV compression on layers 2-3, B = 2, 4096 tokens),
+    through the kernels against plain attention: the parameters' gradients
+    (GRAD_REL_TOL over all and for the worst) and the gradient of q, k and v
+    of layers 0-1 per image and 128-row tile (GRAD_TILE_TOL). Planted faults
+    in the self-attention's backward: dK's columns [64, 128) zeroed ([128,
+    256) at width 256), and dQ scaled by 1 / ln 2 (flash's dQ without its
+    ln 2 chain factor). Returns the launches."""
     n = 64 * 64
 
     def fails(r) -> bool:
         rel, worst, tile = r
         return not (rel <= GRAD_REL_TOL and worst[0] <= GRAD_REL_TOL and tile[0] <= GRAD_TILE_TOL)
 
+    dh = 1152 // heads
+    span = path_fault_span(dh)
+
     def dk_columns(dkdv):
         dk, dv = dkdv
-        return drop_columns(dk), dv
+        return drop_columns(dk, *span), dv
 
     hw = (128, 128)
     sound, launches, mc, faulty = step_gradients(
-        dev, fa, dict(input_size=128, pe_interpolation=2.0, depth=4, num_heads=9,
+        dev, fa, dict(input_size=128, pe_interpolation=2.0, depth=4, num_heads=heads,
                       model_max_length=300, kv_compress_sampling="conv", kv_compress_scale=2,
                       kv_compress_layers=(2, 3)),
         hw, (19, 3), (120, 731), (0, 1),
-        {"dK columns [64, 128) zeroed": output_fault(fa, "flash_bwd_dkv", n, dk_columns),
+        {f"dK columns [{span[0]}, {span[1]}) zeroed": output_fault(fa, "flash_bwd_dkv", n, dk_columns),
          "dQ without the ln 2 chain factor": output_fault(fa, "flash_bwd_dq", n,
                                                           lambda dq: dq / fa.LN2)},
         watch=(0, 1))
     expect = step_launches(mc, hw)
-    log(f"[heads] (c) 9-head model (Dh = 128), depth 4, B = 2, latents {hw} ({n} tokens, 1024 "
-        f"compressed): launches {launches}, reckoned {expect}")
+    log(f"[heads] (c) {heads}-head model (Dh = {dh}), depth 4, B = 2, latents {hw} ({n} tokens, "
+        f"1024 compressed): launches {launches}, reckoned {expect}")
     for name, r in [("none (sound)", sound)] + list(faulty.items()):
         rel, worst, tile = r
-        log(f"[heads] (c) planted fault {name}: parameters relative L2 {rel:.3e} over all, "
-            f"worst {worst[1]} {worst[0]:.3e} (tol {GRAD_REL_TOL}); q/k/v gradient of layers "
-            f"0-1, worst tile {tile[1]} {tile[0]:.3e} (tol {GRAD_TILE_TOL}): "
-            f"{'rejected' if fails(r) else 'passes'}")
-    if launches != expect or launches["flash_forward"] == 0:
+        log(f"[heads] (c) {heads} heads, planted fault {name}: parameters relative L2 "
+            f"{rel:.3e} over all, worst {worst[1]} {worst[0]:.3e} (tol {GRAD_REL_TOL}); q/k/v "
+            f"gradient of layers 0-1, worst tile {tile[1]} {tile[0]:.3e} (tol "
+            f"{GRAD_TILE_TOL}): {'rejected' if fails(r) else 'passes'}")
+    self_kernel = self_attention_kernel(n, dh)
+    if launches != expect or launches[self_kernel] == 0:
         raise SystemExit(f"head-dim gradient gate launches {launches}, reckoned {expect}")
     if fails(sound):
-        raise SystemExit("Dh = 128 training gradients disagree with plain attention")
+        raise SystemExit(f"Dh = {dh} training gradients disagree with plain attention")
     if not all(fails(r) for r in faulty.values()):
-        raise SystemExit("the Dh = 128 gradient gate missed a planted fault")
+        raise SystemExit(f"the Dh = {dh} gradient gate missed a planted fault")
     return launches
 
 
 def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -> dict:
     """Phase 34: (a) each kernel at every head dim of HEAD_DIMS against its
-    plain version, with the planted faults; (b) the 9- and 12-head 1024px
-    trajectories; (c) the 9-head training step's gradients; and the times
-    at Dh = 128 and 96. Returns {"errs": {kernel: {dh: max |err|}},
-    "launches": {heads: ...}, "train": launches, "times": {kernel: rows}}."""
+    plain version, with the planted faults; (b) the 1024px trajectories of
+    HEAD_DIM_MODELS and the 6-head 2K model call; (c) the 9- and 6-head
+    training steps' gradients; and the times at HEAD_DIM_TIMED. Returns
+    {"errs": {kernel: {dh: max |err|}}, "launches": {run: ...}, "train":
+    {heads: launches}, "times": {kernel: rows}}."""
     import torch
 
     t_phase = time.perf_counter()
-    log(f"[heads] (a) every kernel at head dims {HEAD_DIMS}, H = 1152 / Dh heads, the 1024px "
-        "shapes, bf16 and f32; the widths the kernels run them at: "
+    log(f"[heads] (a) every kernel at head dims {HEAD_DIMS}, H = floor(1152 / Dh) heads, the "
+        "1024px shapes, bf16 and f32; the widths the kernels run them at: "
         f"{ {dh: fa.head_dim_width(dh + (-dh % 8)) for dh in HEAD_DIMS} }")
     errs = {name: {} for name in ("onepass", "flash_forward", "allheads", "headsmajor",
                                   "flash_bwd_dkv", "flash_bwd_dq")}
     ok = True
     bf16, f32 = torch.bfloat16, torch.float32
     for dh in HEAD_DIMS:
+        # flash at the 2K shape where width 256's 2K path runs it (Dh = 192)
+        long = (("flash", 1, 16384, 16384, None, bf16),) if dh == 192 else ()
         for name, B, N, M, lengths, dtype in (
                 ("onepass", 4, 4096, 4096, None, bf16),
                 ("onepass", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
@@ -5411,7 +5503,7 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
                 ("allheads", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
                 ("allheads", 4, 1000, 77, (77, 40, 5, 1), f32),
                 ("headsmajor", 4, 4096, 300, HEAD_DIM_CAPTIONS, bf16),
-                ("headsmajor", 4, 1000, 77, (77, 40, 5, 1), f32)):
+                ("headsmajor", 4, 1000, 77, (77, 40, 5, 1), f32)) + long:
             err, good = check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype)
             key = "flash_forward" if name == "flash" else name
             errs[key][dh] = max(errs[key].get(dh, 0.0), err)
@@ -5430,13 +5522,15 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
         raise SystemExit("a kernel disagrees with its plain version at some head dim, or the "
                          "check missed a planted fault")
     times_ = {}
-    for dh in (128, 96):
+    for dh in HEAD_DIM_TIMED:
         for name, rows in head_dim_times(fa, cases, card, dh, mask_path).items():
             times_.setdefault(name, []).extend(rows)
     t_b = time.perf_counter()
-    launches = head_dim_paths(dev, card, fa, t5, vae, prompts, negative)
+    launches = {f"{h} heads": c
+                for h, c in head_dim_paths(dev, card, fa, t5, vae, prompts, negative).items()}
+    launches[f"{HEAD_DIM_2K_HEADS}-head 2K model call"] = head_dim_call_2k(dev, fa)
     log(f"[heads] (b): {time.perf_counter() - t_b:.1f} s")
-    train = head_dim_gradients(dev, fa)
+    train = {h: head_dim_gradients(dev, fa, h) for h in HEAD_DIM_STEP_HEADS}
     torch.cuda.empty_cache()
     log(f"[heads] phase 34: {time.perf_counter() - t_phase:.1f} s")
     return dict(errs=errs, launches=launches, train=train, times=times_)
@@ -5711,7 +5805,7 @@ def main() -> int:
         err, ok = compare(
             f"onepass B*H=64 N={N} M={M} Dh=72{' f32' if dtype == torch.float32 else ''}"
             f"{' (a seq shard)' if N == 2048 else ''}",
-            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, fa.KEY_TILE))
+            got, fa.attention_reference(q, k, v), planted_faults(q, k, v, None, fa.KEY_TILE[80]))
         errs["onepass"].append(err)
         all_ok &= ok
     # the 512px training shapes: B = 32, 32 x 32 = 1024 or 28 x 36 = 1008 tokens
@@ -5720,7 +5814,7 @@ def main() -> int:
     torch.cuda.synchronize()
     err, ok = compare("onepass B*H=512 N=M=1008 Dh=72 (512px training)", got,
                       fa.attention_reference(q, k, v),
-                      planted_faults(q, k, v, None, fa.KEY_TILE))
+                      planted_faults(q, k, v, None, fa.KEY_TILE[80]))
     errs["onepass"].append(err)
     all_ok &= ok
     del q, k, v, got
@@ -5742,7 +5836,7 @@ def main() -> int:
         err, ok = compare(
             f"allheads B={len(lengths)} N={N} M={M} C=1152 valid={lengths}"
             f"{' f32' if dtype == torch.float32 else ''}",
-            got, want, planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE, H, extent=True))
+            got, want, planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE[80], H, extent=True))
         errs["allheads"].append(err)
         all_ok &= ok
     del q, k, v, got, want
@@ -5767,7 +5861,7 @@ def main() -> int:
          [(b, h, slice(None)) for b in range(3) for h in (0, 5, 15)], 640),
     ):
         err, ok = check_flash(fa, cases, label, B, N, M, lengths, dtype, picks,
-                              spike // fa.KEY_TILE, fa.KEY_TILE)
+                              spike // fa.KEY_TILE[80], fa.KEY_TILE[80])
         errs["flash_forward"].append(err)
         all_ok &= ok
         torch.cuda.empty_cache()
@@ -5784,7 +5878,7 @@ def main() -> int:
             f"headsmajor B=4 N={N} M={M} H=16 valid={lengths}"
             f"{' f32' if dtype == torch.float32 else ''}",
             got, fa.headsmajor_reference(q, k, v, mask),
-            planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE, extent=True))
+            planted_faults(q, k, v, mask, fa.CROSS_KEY_TILE[80], extent=True))
         errs["headsmajor"].append(err)
         all_ok &= ok
     del q, k, v, got
@@ -6144,9 +6238,9 @@ def main() -> int:
         name = entry["name"]
         entry["widths"] = list(fa.WIDTHS)
         entry["head_dims_max_abs_err"] = head_dims["errs"][name]
-        entry["launches_head_dims"] = {f"{h} heads": c[name]
-                                       for h, c in head_dims["launches"].items()}
-        entry["launches_head_dims"]["9-head training step"] = head_dims["train"][name]
+        entry["launches_head_dims"] = {run: c[name] for run, c in head_dims["launches"].items()}
+        for h, c in head_dims["train"].items():
+            entry["launches_head_dims"][f"{h}-head training step"] = c[name]
         entry["head_dim_shapes"] = head_dims["times"].get(name, [])
 
     # ---- 35. the JAX trainer's orbax checkpoints: decode, load, sample, resume ----

@@ -57,27 +57,64 @@
 //   running max into the exponent; the two consumer warpgroups run
 //   independently, so one's softmax overlaps the other's products.
 //
-// Head dims up to 128, at the padded width 64, 80 or 128 as in
+// Head dims up to 256, at the padded width 64, 80, 128 or 256 as in
 // onepass_attention.cu; at width 128 the two resident K/V stages sit beside
-// three Q buffers (five at widths 64 and 80). f32 inputs are rounded to
+// three Q buffers (five at widths 64 and 80); at width 256 two 64-key
+// stages (128 keys resident, longer extents streamed in 64-key tiles) sit
+// beside one Q buffer, and a bf16 output is stored directly instead of by
+// TMA from that buffer, so the next item's Q does not wait on the store.
+// The flat layout's heads at H * dh = 1152 (dh 144, 192) start 288 and
+// 384 bytes apart, multiples of the 16 bytes TMA needs. f32 inputs are rounded to
 // bf16 by the Python wrapper (the tensor cores multiply in bf16 anyway),
 // which also pads a head dim that is not a multiple of 8 with zero columns
 // (a heads-major copy: a head of the flat layout is then not 16-byte
-// aligned). Needs dh % 8 == 0, dh <= 128, 16-byte aligned strides and
+// aligned). Needs dh % 8 == 0, dh <= 256, 16-byte aligned strides and
 // 1 <= M <= 512, which the wrapper checks.
 
 #include "hopper_attention.cuh"
 
-template <typename TOut, bool kWide>
+template <typename TOut, int kRing>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     allheads_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, true, true, kWide>(maps, a);
+  hopper::attention_body<TOut, true, true, kRing>(maps, a);
 }
 
-template <typename TOut, bool kWide>
+template <typename TOut, int kRing>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     headsmajor_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, true, true, kWide>(maps, a);
+  hopper::attention_body<TOut, true, true, kRing>(maps, a);
+}
+
+template <int kRing>
+int cross_run(bool headsmajor, const hopper::Launch& l, int f32, cudaStream_t s) {
+  using hopper::run;
+  if (headsmajor) {
+    return f32 ? run<true, kRing>(headsmajor_kernel<float, kRing>, l, s)
+               : run<true, kRing>(headsmajor_kernel<attn::bf16, kRing>, l, s);
+  }
+  return f32 ? run<true, kRing>(allheads_kernel<float, kRing>, l, s)
+             : run<true, kRing>(allheads_kernel<attn::bf16, kRing>, l, s);
+}
+
+// One launch of allheads (or headsmajor) at the width dh runs at.
+static int cross_launch(bool headsmajor, const void* q, const void* k, const void* v,
+                        const unsigned char* mask, long long mask_sb, void* o, int f32, int B,
+                        int H, int N, int M, int dh, const attn::Strides& qs,
+                        const attn::Strides& ks, const attn::Strides& vs,
+                        const attn::Strides& os, float scale, void* stream) {
+  hopper::Launch l;
+  const int err = hopper::prepare_cross(l, q, k, v, mask, mask_sb, o, f32, B, H, N, M, dh, qs,
+                                        ks, vs, os, scale);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hopper::width_of(dh)) {
+    case 256:
+      return cross_run<256>(headsmajor, l, f32, s);
+    case 128:
+      return cross_run<128>(headsmajor, l, f32, s);
+    default:
+      return cross_run<80>(headsmajor, l, f32, s);
+  }
 }
 
 // q/k/v are bf16 [B, rows, H, dh] views given by their element strides
@@ -93,11 +130,8 @@ extern "C" int allheads_attention(const void* q, const void* k, const void* v,
                                   long long k_sh, long long v_sb, long long v_sn, long long v_sh,
                                   long long o_sb, long long o_sn, long long o_sh, float scale,
                                   void* stream) {
-  return hopper::launch_cross(allheads_kernel<attn::bf16, false>, allheads_kernel<float, false>,
-                              allheads_kernel<attn::bf16, true>, allheads_kernel<float, true>,
-                              q, k, v, mask, mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
-                              {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale,
-                              static_cast<cudaStream_t>(stream));
+  return cross_launch(false, q, k, v, mask, mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+                      {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale, stream);
 }
 
 extern "C" int headsmajor_attention(const void* q, const void* k, const void* v,
@@ -107,22 +141,20 @@ extern "C" int headsmajor_attention(const void* q, const void* k, const void* v,
                                     long long k_sn, long long k_sh, long long v_sb,
                                     long long v_sn, long long v_sh, long long o_sb,
                                     long long o_sn, long long o_sh, float scale, void* stream) {
-  return hopper::launch_cross(headsmajor_kernel<attn::bf16, false>,
-                              headsmajor_kernel<float, false>, headsmajor_kernel<attn::bf16, true>,
-                              headsmajor_kernel<float, true>, q, k, v, mask, mask_sb, o, f32, B,
-                              H, N, M, dh, {q_sb, q_sn, q_sh},
-                              {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale,
-                              static_cast<cudaStream_t>(stream));
+  return cross_launch(true, q, k, v, mask, mask_sb, o, f32, B, H, N, M, dh, {q_sb, q_sn, q_sh},
+                      {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh}, scale, stream);
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile (the unit of the
 // extent) and the K/V stages that hold a resident extent at the padded width
-// `width` (64, 80 or 128); the wrapper checks the last two against its own.
+// `width` (64, 80, 128 or 256); the wrapper checks the last two against its
+// own.
 extern "C" int cross_attention_smem_bytes(int width) {
-  return width == 128 ? hopper::Ring<true, true>::smem_bytes
-                      : hopper::Ring<true, false>::smem_bytes;
+  return hopper::with_ring<true>(width, [](auto r) { return decltype(r)::smem_bytes; });
 }
-extern "C" int cross_attention_key_tile() { return hopper::kKeys; }
+extern "C" int cross_attention_key_tile(int width) {
+  return hopper::with_ring<true>(width, [](auto r) { return decltype(r)::keys; });
+}
 extern "C" int cross_attention_key_stages(int width) {
-  return width == 128 ? hopper::Ring<true, true>::stages : hopper::Ring<true, false>::stages;
+  return hopper::with_ring<true>(width, [](auto r) { return decltype(r)::stages; });
 }

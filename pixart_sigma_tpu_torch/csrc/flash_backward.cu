@@ -73,11 +73,11 @@
 // extent is one key tile per caption and the bytes of q, dO, lse, delta and
 // dQ bound.
 //
-// Head dims up to 128, at the padded width 64, 80 or 128 (hopper_common.cuh;
-// the Python wrapper pads a head dim that is not a multiple of 8 with zero
-// columns). Width 128 (80 < dh <= 128) changes three things, as its
-// accumulators no longer fit beside the overlap of the narrower widths in
-// the 240 registers a consumer thread gets:
+// Head dims up to 256, at the padded width 64, 80, 128 or 256
+// (hopper_common.cuh; the Python wrapper pads a head dim that is not a
+// multiple of 8 with zero columns). Width 128 (80 < dh <= 128) changes
+// three things, as its accumulators no longer fit beside the overlap of the
+// narrower widths in the 240 registers a consumer thread gets:
 // - every K-major operand past column 64 is a second 128B atom (Q, dO, K,
 //   V), so the products run 4 + 4 k-steps and dQ, dK, dV are N = 128;
 // - the sweeps do not overlap tile j's S and dP with tile j - 1's gradient
@@ -86,6 +86,21 @@
 //   as shared-memory A operands instead of register fragments;
 // - the rings shrink to fit 227 KB: dq one Q buffer and two K/V stages for
 //   every key count, dkv one K/V buffer and four q/dO stages.
+// Width 256 (128 < dh <= 256) keeps width 128's products in turn, with four
+// 128B atoms per operand (4 x 4 k-steps, N = 256 gradient products) and
+// 64-key tiles (keys_of), since a 128-row tile is 64 KB and an m64n256
+// accumulator 128 registers:
+// - dq: the item's Q and dO (128 rows, 128 KB) and one 64-key K/V stage
+//   (64 KB); S and dP are m64n64 (dQ 128 + S 32 + dP 32 registers), and
+//   no copy overlaps the products (two stages would need 256 KB);
+// - dkv: items of 64 keys, whole on each consumer warpgroup, one gradient
+//   each (dK + dV would be 256 registers): warpgroup 0 dV += P^T.dO,
+//   warpgroup 1 dK += dS^T.Q. Both compute S^T (P^T is needed by both, and
+//   the second product costs warpgroup 1 a third more tensor work but no
+//   exchange through shared memory and no barrier between them), warpgroup 1
+//   also dP^T; K/V (64 KB) and two 64-row q/dO stages (2 x 64 KB).
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 
@@ -98,35 +113,44 @@ using hopper::kSwizzle32;
 using hopper::kTailCols;
 
 constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int kKeys = 128;     // keys per dq K/V tile and per dkv item
+// keys per dq K/V tile and per dkv item: hopper::keys_of(width), 128 or 64
 constexpr int kRows = 128;     // query rows per dq item
 constexpr int kQTile = 64;     // query rows per streamed dkv tile
 constexpr int kMainBytes = 128 * 128;  // a 128-row, 64-column 128B-swizzled chunk (16 KB)
 constexpr int kTailBytes = 128 * 32;   // a 128-row, 16-column 32B-swizzled chunk (4 KB)
 constexpr int kQAtom = kQTile * 128;   // a 64-row 128B atom (8 KB)
 
-// dq_kernel's shared memory: `qbufs` Q buffers (Q main, Q tail, dO main, dO
-// tail), the K/V stages (K columns [0, 64) and [64, 128) as two 128B atoms,
-// V main, V tail, the tile's 128 biases), then the barriers full[stages],
-// empty[stages], qfull[qbufs], qempty[qbufs]; 1024 bytes of slack to align
-// the base. Long key sweeps take one Q buffer and three K/V stages; sweeps
-// of at most kShortKeys keys (captions), whose items are one to four tiles
-// long, take two Q buffers and two stages, so the next item's Q and dO
-// arrive while this one's few tiles run.
-// Width 128 (kWide) holds columns [64, 128) of Q, dO and V as a second
-// 128B atom each, one Q buffer and two stages for every key count.
+// dq_kernel's shared memory at ring width kRing (hopper::ring_of): `qbufs`
+// Q buffers (Q atom a at a * kMainBytes, width 80's tail at kMainBytes, dO
+// the same from do_main), the K/V stages (K atom a at a * kv_atom, so at
+// width 80 columns [64, 128) are a second 128B atom; V atom a at v_main +
+// a * kv_atom, width 80's V tail at v_tail; the tile's biases), then the
+// barriers full[stages], empty[stages], qfull[qbufs], qempty[qbufs]; 1024
+// bytes of slack to align the base. Long key sweeps take one Q buffer and
+// three K/V stages; sweeps of at most kShortKeys keys (captions), whose
+// items are one to four tiles long, take two Q buffers and two stages, so
+// the next item's Q and dO arrive while this one's few tiles run.
+// Width 128 holds columns [64, 128) of Q, dO and V as a second 128B atom
+// each, one Q buffer and two stages for every key count; width 256 four
+// atoms each, one Q buffer and one stage of 64 keys.
 constexpr int kShortKeys = 512;
 
-template <int kQBufs, bool kWide>
+template <int kQBufs, int kRing>
 struct DqRing {
-  static constexpr int hi = kWide ? kMainBytes : kTailBytes;  // columns past 64 (K-major)
-  static constexpr int qbufs = kWide ? 1 : kQBufs;
-  static constexpr int stages = kWide || kQBufs == 2 ? 2 : 3;
-  static constexpr int q_tail = kMainBytes, do_main = kMainBytes + hi,
-                       do_tail = 2 * kMainBytes + hi;
-  static constexpr int q_bytes = 2 * (kMainBytes + hi);
-  static constexpr int k_hi = kMainBytes, v_main = 2 * kMainBytes, v_tail = 3 * kMainBytes,
-                       bias = 3 * kMainBytes + hi;
+  static_assert(kRing == 80 || kRing == 128 || kRing == 256, "a ring width");
+  static constexpr int keys = hopper::keys_of(kRing);
+  static constexpr int kv_atom = keys * 128;  // a 64-column 128B atom of a K or V tile
+  static constexpr int hi = kRing == 80 ? kTailBytes : kMainBytes;  // Q or dO columns past 64
+  static constexpr int qbufs = kRing == 80 ? kQBufs : 1;
+  static constexpr int stages = kRing == 256 ? 1 : kRing == 128 || kQBufs == 2 ? 2 : 3;
+  static constexpr int q_tail = kMainBytes;
+  static constexpr int do_main = kRing == 256 ? 4 * kMainBytes : kMainBytes + hi;
+  static constexpr int do_tail = do_main + kMainBytes;
+  static constexpr int q_bytes = 2 * do_main;
+  static constexpr int k_hi = kv_atom;
+  static constexpr int v_main = kRing == 256 ? 4 * kv_atom : 2 * kv_atom;
+  static constexpr int v_tail = v_main + kv_atom;
+  static constexpr int bias = kRing == 256 ? 8 * kv_atom : 3 * kv_atom + hi;
   static constexpr int stage_bytes = bias + 1024;
   static constexpr int stages_offset = qbufs * q_bytes;
   static constexpr int bar_offset = stages_offset + stages * stage_bytes;
@@ -145,21 +169,29 @@ struct DqRing {
   }
 };
 
-// dkv_kernel's shared memory: the K/V buffers (K main, K past 64, V main,
-// V past 64; two buffers, or one at width 128, whose parts past 64 are 128B
-// atoms), the q/dO stages (q columns [0, 64) and [64, 128), dO the same, the
+// dkv_kernel's shared memory at ring width kRing: the K/V buffers (K atom a
+// at a * kv_atom, width 80's K tail at k_tail, V the same from v_main; two
+// buffers at widths 64 and 80, else one), the q/dO stages (q atom a of
+// columns [64 a, 64 a + 64) at a * kQAtom, dO the same from do_lo, the
 // tile's 64 lse and 64 delta), then the barriers full[stages],
-// empty[stages], kvfull[kvbufs], kvempty[kvbufs].
-template <bool kWide>
+// empty[stages], kvfull[kvbufs], kvempty[kvbufs]. Width 256: 64-key items,
+// four atoms each, two stages.
+template <int kRing>
 struct DkvRing {
-  static constexpr int hi = kWide ? kMainBytes : kTailBytes;
-  static constexpr int stages = 4;
-  static constexpr int kvbufs = kWide ? 1 : 2;
-  static constexpr int k_tail = kMainBytes, v_main = kMainBytes + hi, v_tail = 2 * kMainBytes + hi;
-  static constexpr int kv_bytes = 2 * (kMainBytes + hi);
-  static constexpr int q_hi = kQAtom, do_lo = 2 * kQAtom, do_hi = 3 * kQAtom,
-                       lse = 4 * kQAtom, delta = 4 * kQAtom + 4 * kQTile;
-  static constexpr int stage_bytes = 4 * kQAtom + 1024;
+  static_assert(kRing == 80 || kRing == 128 || kRing == 256, "a ring width");
+  static constexpr int keys = hopper::keys_of(kRing);  // keys per item
+  static constexpr int kv_atom = keys * 128;
+  static constexpr int hi = kRing == 80 ? kTailBytes : kMainBytes;
+  static constexpr int atoms = kRing == 256 ? 4 : 2;  // 64-column atoms of a q or dO tile
+  static constexpr int stages = kRing == 256 ? 2 : 4;
+  static constexpr int kvbufs = kRing == 80 ? 2 : 1;
+  static constexpr int k_tail = kv_atom;
+  static constexpr int v_main = kRing == 256 ? 4 * kv_atom : kv_atom + hi;
+  static constexpr int v_tail = v_main + kv_atom;
+  static constexpr int kv_bytes = 2 * v_main;
+  static constexpr int q_hi = kQAtom, do_lo = atoms * kQAtom, do_hi = do_lo + kQAtom,
+                       lse = 2 * atoms * kQAtom, delta = lse + 4 * kQTile;
+  static constexpr int stage_bytes = 2 * atoms * kQAtom + 1024;
   static constexpr int stages_offset = kvbufs * kv_bytes;
   static constexpr int bar_offset = stages_offset + stages * stage_bytes;
   static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * kvbufs) * 8 + 1024;
@@ -202,10 +234,11 @@ struct Args {
 
 // ---------------------------------------------------------------- device
 
-// Key tiles that batch element b's rows need, found by the calling warp (all
-// 32 lanes) from its bias row: the last valid key (bias above -1e29), plus
-// one, in whole tiles. Past it every row with a valid key has P = 0
-// exactly. With no mask or no valid key, all tiles.
+// Key tiles of kKeys keys that batch element b's rows need, found by the
+// calling warp (all 32 lanes) from its bias row: the last valid key (bias
+// above -1e29), plus one, in whole tiles. Past it every row with a valid
+// key has P = 0 exactly. With no mask or no valid key, all tiles.
+template <int kKeys>
 __device__ __forceinline__ int key_tiles(const Args& a, int b) {
   const int ntiles = (a.M + kKeys - 1) / kKeys;
   if (a.madd == nullptr) return ntiles;
@@ -301,7 +334,8 @@ template <typename TOut, int W, int kQBufs>
 __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg) {
   constexpr bool kTail = W == 80, kWide = W == 128;
   constexpr int kAcc = hopper::acc_regs(W);
-  using R = DqRing<kQBufs, kWide>;
+  using R = DqRing<kQBufs, hopper::ring_of(W)>;
+  constexpr int kKeys = R::keys, kS = kKeys / 2, kSteps = kKeys / 16;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -310,12 +344,12 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
   auto slot = [&](int j) { return (it + j) % R::stages; };
   auto stage = [&](int j) { return base + R::stages_offset + slot(j) * R::stage_bytes; };
 
-  float s[64], dp[64], dq[kAcc];
-  uint32_t ds[8][4];
+  float s[kS], dp[kS], dq[kAcc];
+  uint32_t ds[kSteps][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < kS; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0u;
+  for (int i = 0; i < kSteps; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0u;
   uint64_t dq_main, dq_tail, do_main, do_tail;  // this warpgroup's rows of the Q buffer
   float lse0, lse1, dl0, dl1;
 
@@ -331,23 +365,38 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     const uint32_t st = stage(j);
     const uint64_t dk = hopper::smem_desc(st, 1024, kSwizzle128);
     const uint64_t dv = hopper::smem_desc(st + R::v_main, 1024, kSwizzle128);
+    if constexpr (W == 256) {  // atom a of Q and dO 16 KB apart, of K and V 8 KB
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_main + 2 * kk, dk + 2 * kk, kk > 0);
-    const uint64_t dk_hi = hopper::smem_desc(st + R::k_hi, 1024, kSwizzle128);
-    if (kTail) hopper::wgmma_ss_n128(s, dq_tail, dk_hi, 1);
-    if (kWide) {
+      for (int at = 0; at < 4; ++at)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
-    }
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_n64(s, dq_main + at * (kMainBytes >> 4) + 2 * kk,
+                               dk + at * (R::kv_atom >> 4) + 2 * kk, at + kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_main + 2 * kk, dv + 2 * kk, kk > 0);
-    if (kTail) {
-      hopper::wgmma_ss_n128(dp, do_tail, hopper::smem_desc(st + R::v_tail, 256, kSwizzle32), 1);
-    }
-    if (kWide) {
-      const uint64_t dv_hi = hopper::smem_desc(st + R::v_tail, 1024, kSwizzle128);
+      for (int at = 0; at < 4; ++at)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_tail + 2 * kk, dv_hi + 2 * kk, 1);
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_n64(dp, do_main + at * (kMainBytes >> 4) + 2 * kk,
+                               dv + at * (R::kv_atom >> 4) + 2 * kk, at + kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_main + 2 * kk, dk + 2 * kk, kk > 0);
+      const uint64_t dk_hi = hopper::smem_desc(st + R::k_hi, 1024, kSwizzle128);
+      if (kTail) hopper::wgmma_ss_n128(s, dq_tail, dk_hi, 1);
+      if (kWide) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_main + 2 * kk, dv + 2 * kk, kk > 0);
+      if (kTail) {
+        hopper::wgmma_ss_n128(dp, do_tail, hopper::smem_desc(st + R::v_tail, 256, kSwizzle32), 1);
+      }
+      if (kWide) {
+        const uint64_t dv_hi = hopper::smem_desc(st + R::v_tail, 1024, kSwizzle128);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::wgmma_ss_n128(dp, do_tail + 2 * kk, dv_hi + 2 * kk, 1);
+      }
     }
     hopper::wgmma_commit();
   };
@@ -356,14 +405,15 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
   auto issue_dq = [&](int j) {
     const uint64_t dk = hopper::smem_desc(stage(j), 1024, kSwizzle128, R::k_hi);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) hopper::wgmma_rs_mn<W>(dq, ds[kk], dk + kk * (16 * 128 / 16));
+    for (int kk = 0; kk < kSteps; ++kk)
+      hopper::wgmma_rs_mn<W>(dq, ds[kk], dk + kk * (16 * 128 / 16));
     hopper::wgmma_commit();
   };
   // P = exp2(s * scale + bias - lse) and, in dp, dS = P (dP - delta) ds_scale
   auto grads = [&](int j) {
     const uint32_t bias = stage(j) + R::bias + 8 * t;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < kS / 4; ++c) {
       float b0, b1;
       ld_shared_v2(bias + 32 * c, b0, b1);
 #pragma unroll
@@ -381,7 +431,7 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     const int bh = r / ntq, tq = r - bh * ntq;
     const int b = bh / a.H, h = bh - b * a.H;
     if (b != ext_b) {
-      ntiles = key_tiles(a, b);
+      ntiles = key_tiles<kKeys>(a, b);
       ext_b = b;
     }
     const int r0 = tq * kRows + 64 * wg + 16 * warp + g;
@@ -397,7 +447,7 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     const uint32_t qbuf = base + qi * R::q_bytes;
     dq_main = hopper::smem_desc(qbuf + wg * (kMainBytes / 2), 1024, kSwizzle128);
     do_main = hopper::smem_desc(qbuf + R::do_main + wg * (kMainBytes / 2), 1024, kSwizzle128);
-    if (kWide) {
+    if (W >= 128) {
       dq_tail = hopper::smem_desc(qbuf + R::q_tail + wg * (kMainBytes / 2), 1024, kSwizzle128);
       do_tail = hopper::smem_desc(qbuf + R::do_tail + wg * (kMainBytes / 2), 1024, kSwizzle128);
     } else {
@@ -406,7 +456,7 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
     }
     hopper::mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q and dO
 
-    if constexpr (kWide) {
+    if constexpr (W >= 128) {
       // each tile's products in turn: S and dP, their gradients, then dQ
       for (int j = 0; j < ntiles; ++j) {
         acquire(j);
@@ -465,12 +515,15 @@ __device__ __forceinline__ void dq_consume(const Args& a, uint32_t base, int wg)
 template <int W, int kQBufs>
 __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint32_t base) {
   constexpr bool kHi = W > 64, kWide = W == 128;  // columns past 64; as a second 128B atom
-  using R = DqRing<kQBufs, kWide>;
+  using R = DqRing<kQBufs, hopper::ring_of(W)>;
+  constexpr int kKeys = R::keys;
   const int lane = threadIdx.x & 31;
   const bool issue = lane == 0;
   const int ntq = (a.N + kRows - 1) / kRows, runs = ntq * a.B * a.H;
   const uint32_t q_bytes = kHi ? R::q_bytes : 2 * kMainBytes;
-  const uint32_t tile_bytes = kHi ? 3 * kMainBytes + R::hi : 2 * kMainBytes;
+  const uint32_t tile_bytes = W == 256 ? 8 * R::kv_atom
+                              : kHi    ? 3 * kMainBytes + R::hi
+                                       : 2 * kMainBytes;
   int it = 0, n = 0, ext_b = -1, ntiles = 0;
   for (int r = blockIdx.x; r < runs; r += gridDim.x, ++n) {
     const int bh = r / ntq, tq = r - bh * ntq;
@@ -483,7 +536,13 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
       hopper::mbar_expect_tx(qfull, q_bytes);
       hopper::tma_load(qbuf, &maps.q, qfull, 0, h, q0, b);
       hopper::tma_load(qbuf + R::do_main, &maps.dout, qfull, 0, h, q0, b);
-      if (kHi) {
+      if (W == 256) {
+        for (int at = 1; at < 4; ++at) {
+          hopper::tma_load(qbuf + at * kMainBytes, &maps.q, qfull, at * kMainCols, h, q0, b);
+          hopper::tma_load(qbuf + R::do_main + at * kMainBytes, &maps.dout, qfull,
+                           at * kMainCols, h, q0, b);
+        }
+      } else if (kHi) {
         hopper::tma_load(qbuf + R::q_tail, kWide ? &maps.q : &maps.q_tail, qfull, kMainCols, h,
                          q0, b);
         hopper::tma_load(qbuf + R::do_tail, kWide ? &maps.dout : &maps.dout_tail, qfull,
@@ -491,7 +550,7 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
       }
     }
     if (b != ext_b) {  // while the first Q copies are in flight
-      ntiles = key_tiles(a, b);
+      ntiles = key_tiles<kKeys>(a, b);
       ext_b = b;
     }
     for (int j = 0; j < ntiles; ++j) {
@@ -499,15 +558,21 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
       const uint32_t st = base + R::stages_offset + s * R::stage_bytes;
       const uint32_t full = R::full(base, s);
       const int key0 = j * kKeys;
-      float bias[4];  // loaded before the wait, so their latency hides behind it
+      float bias[kKeys / 32];  // loaded before the wait, so their latency hides behind it
 #pragma unroll
-      for (int e = 0; e < 4; ++e) bias[e] = key_bias(a, b, key0 + 32 * e + lane);
+      for (int e = 0; e < kKeys / 32; ++e) bias[e] = key_bias(a, b, key0 + 32 * e + lane);
       if (issue) {
         if (pos >= R::stages) hopper::mbar_wait(R::empty(base, s), ((pos / R::stages) - 1) & 1);
         hopper::mbar_tx(full, tile_bytes);
         hopper::tma_load(st, &maps.k, full, 0, h, key0, b);
         hopper::tma_load(st + R::v_main, &maps.v, full, 0, h, key0, b);
-        if (kHi) {
+        if (W == 256) {
+          for (int at = 1; at < 4; ++at) {
+            hopper::tma_load(st + at * R::kv_atom, &maps.k, full, at * kMainCols, h, key0, b);
+            hopper::tma_load(st + R::v_main + at * R::kv_atom, &maps.v, full, at * kMainCols, h,
+                             key0, b);
+          }
+        } else if (kHi) {
           hopper::tma_load(st + R::k_hi, &maps.k, full, kMainCols, h, key0, b);
           hopper::tma_load(st + R::v_tail, kWide ? &maps.v : &maps.v_tail, full, kMainCols, h,
                            key0, b);
@@ -515,7 +580,7 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const Args& a, uint
       }
       __syncwarp();  // lane 0 has seen the stage free
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < kKeys / 32; ++e) {
         hopper::st_shared(st + R::bias + 4 * (32 * e + lane), __float_as_uint(bias[e]));
       }
       __syncwarp();
@@ -547,7 +612,8 @@ template <typename TOut, int W>
 __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg) {
   constexpr bool kTail = W == 80, kWide = W == 128;
   constexpr int kAcc = hopper::acc_regs(W);
-  using R = DkvRing<kWide>;
+  using R = DkvRing<hopper::ring_of(W)>;
+  constexpr int kKeys = R::keys;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -648,7 +714,7 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
     dkv_item(a, r, nkt, bh, kt);
     const int b = bh / a.H, h = bh - b * a.H;
     if (b != ext_b) {
-      ntiles = key_tiles(a, b);
+      ntiles = key_tiles<kKeys>(a, b);
       ext_b = b;
     }
     const int r0 = kt * kKeys + 64 * wg + 16 * warp + g;  // this thread's keys r0, r0 + 8
@@ -734,23 +800,140 @@ __device__ __forceinline__ void dkv_consume(const Args& a, uint32_t base, int wg
   }
 }
 
+// Width 256: one consumer warpgroup's gradient, dV (kDk false, warpgroup 0)
+// or dK (warpgroup 1), of the item's 64 keys, rows 16 w + g and + 8 of
+// warp w. Per q tile, products in turn: S^T = K.Q^T (and, for dK,
+// dP^T = V.dO^T), K, V, q and dO all read from shared memory as four
+// K-major atoms; P^T (dS^T for dK) into A fragments; then dV += P^T.dO (dK
+// += dS^T.Q), the tile read MN-major, N = 256.
+template <typename TOut, bool kDk>
+__device__ __forceinline__ void dkv_consume_split(const Args& a, uint32_t base) {
+  using R = DkvRing<256>;
+  constexpr int kKeys = R::keys;
+  static_assert(R::kvbufs == 1, "one K/V buffer");
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nkt = (a.M + kKeys - 1) / kKeys, nqt = (a.N + kQTile - 1) / kQTile;
+  const int runs = nkt * a.B * a.H;
+  int it = 0;  // ring position of the current item's first q tile
+  auto slot = [&](int i) { return (it + i) % R::stages; };
+  auto stage = [&](int i) { return base + R::stages_offset + slot(i) * R::stage_bytes; };
+
+  float s[32], dp[32], acc[128];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[i][e] = 0u;
+  const uint64_t kd = hopper::smem_desc(base, 1024, kSwizzle128);
+  const uint64_t vd = hopper::smem_desc(base + R::v_main, 1024, kSwizzle128);
+
+  int n = 0;  // items this block has swept
+  int ext_b = -1, ntiles = 0;
+  for (int r = blockIdx.x; r < runs; r += gridDim.x) {
+    int bh, kt;
+    dkv_item(a, r, nkt, bh, kt);
+    const int b = bh / a.H, h = bh - b * a.H;
+    if (b != ext_b) {
+      ntiles = key_tiles<kKeys>(a, b);
+      ext_b = b;
+    }
+    const int r0 = kt * kKeys + 16 * warp + g;  // this thread's keys r0, r0 + 8
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    if (kt < ntiles) {  // else every key lies past the extent: dK = dV = 0
+      const float bias0 = key_bias(a, b, r0), bias1 = key_bias(a, b, r0 + 8);
+      hopper::mbar_wait(R::kvfull(base, 0), n & 1);
+      for (int i = 0; i < nqt; ++i) {
+        hopper::mbar_wait(R::full(base, slot(i)), ((it + i) / R::stages) & 1);
+        hopper::wgmma_fence();
+        const uint32_t st = stage(i);
+        const uint64_t bq = hopper::smem_desc(st, 1024, kSwizzle128);
+        const uint64_t bo = hopper::smem_desc(st + R::do_lo, 1024, kSwizzle128);
+#pragma unroll
+        for (int at = 0; at < 4; ++at)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_ss_n64(s, kd + at * (R::kv_atom >> 4) + 2 * kk,
+                                 bq + at * (kQAtom >> 4) + 2 * kk, at + kk > 0);
+        if (kDk) {
+#pragma unroll
+          for (int at = 0; at < 4; ++at)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              hopper::wgmma_ss_n64(dp, vd + at * (R::kv_atom >> 4) + 2 * kk,
+                                   bo + at * (kQAtom >> 4) + 2 * kk, at + kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::hold(s);
+        hopper::hold(dp);
+        // the K/V buffer is free once the item's last S^T and dP^T are done
+        if (i + 1 == nqt && lane == 0) hopper::mbar_arrive(R::kvempty(base, 0));
+        // P^T = exp2(s * scale + bias - lse); for dK, dS^T = P^T (dP^T - delta) ds_scale
+        const uint32_t side = st + 8 * t;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float l0, l1, d0, d1;
+          ld_shared_v2(side + R::lse + 32 * c, l0, l1);
+          ld_shared_v2(side + R::delta + 32 * c, d0, d1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = attn::fast_exp2(fmaf(s[4 * c + e], a.scale, e < 2 ? bias0 : bias1) -
+                                            ((e & 1) ? l1 : l0));
+            if (kDk) {
+              dp[4 * c + e] = p * (dp[4 * c + e] - ((e & 1) ? d1 : d0)) * a.ds_scale;
+            } else {
+              s[4 * c + e] = p;
+            }
+          }
+        }
+        if constexpr (kDk) {
+          pack_a(pa, dp);
+        } else {
+          pack_a(pa, s);
+        }
+        hopper::wgmma_fence();
+        // dK += dS^T.Q or dV += P^T.dO: a k-step is 16 query rows of 128
+        // bytes in each of the tile's four atoms
+        const uint64_t bmn =
+            hopper::smem_desc(st + (kDk ? 0 : R::do_lo), 1024, kSwizzle128, kQAtom);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_n256(acc, pa[kk], bmn + kk * (16 * 128 / 16));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::hold(acc);
+        hopper::hold(pa);
+        if (lane == 0) hopper::mbar_arrive(R::empty(base, slot(i)));
+      }
+      it += nqt;
+      ++n;
+    }
+    store_rows<TOut>(acc, kDk ? a.dk : a.dv, kDk ? a.dks : a.dvs, b, h, r0, a.M, a.dh);
+  }
+}
+
 template <int W>
 __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uint32_t base) {
   constexpr bool kHi = W > 64, kWide = W == 128;  // columns past 64; as a second 128B atom
-  using R = DkvRing<kWide>;
+  using R = DkvRing<hopper::ring_of(W)>;
+  constexpr int kKeys = R::keys;
   const int lane = threadIdx.x & 31;
   const bool issue = lane == 0;
   const int nkt = (a.M + kKeys - 1) / kKeys, nqt = (a.N + kQTile - 1) / kQTile;
   const int runs = nkt * a.B * a.H;
   const uint32_t kv_bytes = kHi ? R::kv_bytes : 2 * kMainBytes;
-  const uint32_t tile_bytes = kHi ? 4 * kQAtom : 2 * kQAtom;
+  const uint32_t tile_bytes = kHi ? 2 * R::atoms * kQAtom : 2 * kQAtom;
   int it = 0, n = 0, ext_b = -1, ntiles = 0;
   for (int r = blockIdx.x; r < runs; r += gridDim.x) {
     int bh, kt;
     dkv_item(a, r, nkt, bh, kt);
     const int b = bh / a.H, h = bh - b * a.H;
     if (b != ext_b) {
-      ntiles = key_tiles(a, b);
+      ntiles = key_tiles<kKeys>(a, b);
       ext_b = b;
     }
     if (kt >= ntiles) continue;  // the consumers write zeros
@@ -765,7 +948,13 @@ __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uin
       hopper::mbar_expect_tx(kvfull, kv_bytes);
       hopper::tma_load(kv, &maps.k, kvfull, 0, h, key0, b);
       hopper::tma_load(kv + R::v_main, &maps.v, kvfull, 0, h, key0, b);
-      if (kHi) {
+      if (W == 256) {
+        for (int at = 1; at < 4; ++at) {
+          hopper::tma_load(kv + at * R::kv_atom, &maps.k, kvfull, at * kMainCols, h, key0, b);
+          hopper::tma_load(kv + R::v_main + at * R::kv_atom, &maps.v, kvfull, at * kMainCols, h,
+                           key0, b);
+        }
+      } else if (kHi) {
         hopper::tma_load(kv + R::k_tail, kWide ? &maps.k : &maps.k_tail, kvfull, kMainCols, h,
                          key0, b);
         hopper::tma_load(kv + R::v_tail, kWide ? &maps.v : &maps.v_tail, kvfull, kMainCols, h,
@@ -791,7 +980,13 @@ __device__ __forceinline__ void dkv_produce(const Maps& maps, const Args& a, uin
         hopper::mbar_tx(full, tile_bytes);
         hopper::tma_load(st, &maps.q, full, 0, h, q0, b);
         hopper::tma_load(st + R::do_lo, &maps.dout, full, 0, h, q0, b);
-        if (kHi) {
+        if (W == 256) {
+          for (int at = 1; at < 4; ++at) {
+            hopper::tma_load(st + at * kQAtom, &maps.q, full, at * kMainCols, h, q0, b);
+            hopper::tma_load(st + R::do_lo + at * kQAtom, &maps.dout, full, at * kMainCols, h,
+                             q0, b);
+          }
+        } else if (kHi) {
           hopper::tma_load(st + R::q_hi, &maps.q, full, kMainCols, h, q0, b);
           hopper::tma_load(st + R::do_hi, &maps.dout, full, kMainCols, h, q0, b);
         }
@@ -820,7 +1015,7 @@ __device__ __forceinline__ uint32_t smem_base() {
 template <typename TOut, int W, int kQBufs>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ Maps maps, const Args a) {
-  using R = DqRing<kQBufs, W == 128>;
+  using R = DqRing<kQBufs, hopper::ring_of(W)>;
   const uint32_t base = smem_base();
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
@@ -847,7 +1042,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename TOut, int W>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ Maps maps, const Args a) {
-  using R = DkvRing<W == 128>;
+  using R = DkvRing<hopper::ring_of(W)>;
   const uint32_t base = smem_base();
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
@@ -867,7 +1062,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x < 2 * 128 + 32) dkv_produce<W>(maps, a, base);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    dkv_consume<TOut, W>(a, base, wg);
+    if constexpr (W == 256) {
+      if (wg == 0) {
+        dkv_consume_split<TOut, false>(a, base);
+      } else {
+        dkv_consume_split<TOut, true>(a, base);
+      }
+    } else {
+      dkv_consume<TOut, W>(a, base, wg);
+    }
   }
 }
 
@@ -918,19 +1121,35 @@ inline bool valid_shape(int N, int M, int dh) {
 
 template <typename TOut, int W>
 int run_dkv(long long items, const Maps& maps, const Args& a, cudaStream_t st) {
-  return run(dkv_kernel<TOut, W>, DkvRing<W == 128>::smem_bytes, items, maps, a, st);
+  return run(dkv_kernel<TOut, W>, DkvRing<hopper::ring_of(W)>::smem_bytes, items, maps, a, st);
 }
 
 // dq at width W: two Q buffers for short key sweeps (captions) at widths 64
 // and 80, else one
 template <typename TOut, int W>
 int run_dq(long long items, int M, const Maps& maps, const Args& a, cudaStream_t st) {
-  if constexpr (W != 128) {
+  if constexpr (W < 128) {
     if (M <= kShortKeys) {
-      return run(dq_kernel<TOut, W, 2>, DqRing<2, false>::smem_bytes, items, maps, a, st);
+      return run(dq_kernel<TOut, W, 2>, DqRing<2, 80>::smem_bytes, items, maps, a, st);
     }
   }
-  return run(dq_kernel<TOut, W, 1>, DqRing<1, W == 128>::smem_bytes, items, maps, a, st);
+  return run(dq_kernel<TOut, W, 1>, DqRing<1, hopper::ring_of(W)>::smem_bytes, items, maps, a,
+             st);
+}
+
+// f(W) at the padded width W of dh: 64, 80, 128 or 256
+template <typename F>
+int at_width(int dh, F f) {
+  switch (hopper::width_of(dh)) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 80:
+      return f(std::integral_constant<int, 80>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return f(std::integral_constant<int, 256>{});
+  }
 }
 
 }  // namespace bwd
@@ -952,24 +1171,20 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   if (!valid_shape(N, M, dh)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s3 = [&](int i) { return strided(strides, i); };
   Maps maps{};
+  const int keys = hopper::keys_of(hopper::width_of(dh));
   int err = encode_view(&maps.q, nullptr, q, B, N, H, dh, s3(0), kQTile);
   if (!err) err = encode_view(&maps.dout, nullptr, dout, B, N, H, dh, s3(3), kQTile);
-  if (!err) err = encode_view(&maps.k, &maps.k_tail, k, B, M, H, dh, s3(1), kKeys);
-  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), kKeys);
+  if (!err) err = encode_view(&maps.k, &maps.k_tail, k, B, M, H, dh, s3(1), keys);
+  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), keys);
   if (err) return err;
   const Args a{madd, lse, delta, nullptr, dk, dv, {}, s3(5), s3(6), B, H, N, M, dh,
                scale, ds_scale};
-  const long long items = static_cast<long long>((M + kKeys - 1) / kKeys) * B * H;
+  const long long items = static_cast<long long>((M + keys - 1) / keys) * B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hopper::width_of(dh)) {
-    case 64:
-      return f32 ? run_dkv<float, 64>(items, maps, a, st) : run_dkv<bf16, 64>(items, maps, a, st);
-    case 80:
-      return f32 ? run_dkv<float, 80>(items, maps, a, st) : run_dkv<bf16, 80>(items, maps, a, st);
-    default:
-      return f32 ? run_dkv<float, 128>(items, maps, a, st)
-                 : run_dkv<bf16, 128>(items, maps, a, st);
-  }
+  return at_width(dh, [&](auto w) {
+    return f32 ? run_dkv<float, decltype(w)::value>(items, maps, a, st)
+               : run_dkv<bf16, decltype(w)::value>(items, maps, a, st);
+  });
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -981,39 +1196,43 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   if (!valid_shape(N, M, dh)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s3 = [&](int i) { return strided(strides, i); };
   Maps maps{};
+  const int keys = hopper::keys_of(hopper::width_of(dh));
   int err = encode_view(&maps.q, &maps.q_tail, q, B, N, H, dh, s3(0), kRows);
   if (!err) err = encode_view(&maps.dout, &maps.dout_tail, dout, B, N, H, dh, s3(3), kRows);
-  if (!err) err = encode_view(&maps.k, nullptr, k, B, M, H, dh, s3(1), kKeys);
-  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), kKeys);
+  if (!err) err = encode_view(&maps.k, nullptr, k, B, M, H, dh, s3(1), keys);
+  if (!err) err = encode_view(&maps.v, &maps.v_tail, v, B, M, H, dh, s3(2), keys);
   if (err) return err;
   const Args a{madd, lse, delta, dq, nullptr, nullptr, s3(4), {}, {}, B, H, N, M, dh,
                scale, ds_scale};
   const long long items = static_cast<long long>((N + kRows - 1) / kRows) * B * H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hopper::width_of(dh)) {
-    case 64:
-      return f32 ? run_dq<float, 64>(items, M, maps, a, st)
-                 : run_dq<bf16, 64>(items, M, maps, a, st);
-    case 80:
-      return f32 ? run_dq<float, 80>(items, M, maps, a, st)
-                 : run_dq<bf16, 80>(items, M, maps, a, st);
-    default:
-      return f32 ? run_dq<float, 128>(items, M, maps, a, st)
-                 : run_dq<bf16, 128>(items, M, maps, a, st);
-  }
+  return at_width(dh, [&](auto w) {
+    return f32 ? run_dq<float, decltype(w)::value>(items, M, maps, a, st)
+               : run_dq<bf16, decltype(w)::value>(items, M, maps, a, st);
+  });
 }
 
 // Dynamic shared memory of one block (bytes) at the padded width `width`
-// (64, 80 or 128); keys per K/V tile (the unit of the key extent, and the
-// keys of one dkv item) and the depth of dq's K/V ring over long key sweeps
-// at that width, which the wrapper checks against its own.
+// (64, 80, 128 or 256); keys per K/V tile (the unit of the key extent, and
+// the keys of one dkv item) and the depth of dq's K/V ring over long key
+// sweeps at that width, which the wrapper checks against its own.
 extern "C" int flash_bwd_dkv_smem_bytes(int width) {
-  return width == 128 ? bwd::DkvRing<true>::smem_bytes : bwd::DkvRing<false>::smem_bytes;
+  return bwd::at_width(width, [](auto w) {
+    return bwd::DkvRing<hopper::ring_of(decltype(w)::value)>::smem_bytes;
+  });
 }
 extern "C" int flash_bwd_dq_smem_bytes(int width) {
-  return width == 128 ? bwd::DqRing<1, true>::smem_bytes : bwd::DqRing<1, false>::smem_bytes;
+  return bwd::at_width(width, [](auto w) {
+    return bwd::DqRing<1, hopper::ring_of(decltype(w)::value)>::smem_bytes;
+  });
 }
-extern "C" int flash_backward_key_tile() { return bwd::kKeys; }
+extern "C" int flash_backward_key_tile(int width) {
+  return bwd::at_width(width, [](auto w) {
+    return bwd::DqRing<1, hopper::ring_of(decltype(w)::value)>::keys;
+  });
+}
 extern "C" int flash_backward_key_stages(int width) {
-  return width == 128 ? bwd::DqRing<1, true>::stages : bwd::DqRing<1, false>::stages;
+  return bwd::at_width(width, [](auto w) {
+    return bwd::DqRing<1, hopper::ring_of(decltype(w)::value)>::stages;
+  });
 }

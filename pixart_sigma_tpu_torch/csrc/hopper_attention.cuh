@@ -19,7 +19,8 @@
 //   the probabilities, rounded to bf16, stay in registers as the A operand
 //   of O += P.V (wgmma m64n80k16, V read MN-major through the transpose
 //   bit). Iteration j issues S of tile j and P.V of tile j - 1
-//   together, then runs tile j's softmax while that P.V is still in flight.
+//   together, then runs tile j's softmax while that P.V is still in flight
+//   (at width 256 each in a turn of its own: see below).
 //   Two named barriers make the consumers take turns to issue their wgmma
 //   (ping-pong), so one warpgroup's exponentials overlap the other's
 //   products. The key loop has no __syncthreads.
@@ -50,28 +51,38 @@
 // device memory. On these one-tile key loops the consumers do not take
 // turns (kPingPong).
 //
-// The head dim (a multiple of 8 up to 128) is split in two column chunks,
-// as a 128-byte TMA swizzle row holds 64 bf16, and runs at one of three
-// padded widths (hopper_common.cuh): columns [0, 64) in 128-byte rows with
-// the 128B swizzle; for V (MN-major, whose swizzle atom is 64 columns wide)
-// columns [64, 128) as a second 128B atom, so P.V is one N = 80 (or 128)
-// product per 16 keys. For Q and K (K-major), at width 80 columns [64, 80)
-// in 32-byte rows with the 32B swizzle, so Q.K^T runs 4 + 1 k-steps of 16;
-// at width 128 columns [64, 128) as a second 128B atom, 4 + 4 k-steps. At
-// width 64 the second chunks are skipped. TMA zero-fills the columns past
-// dh and the rows past N or M, so the padding never reaches device memory,
-// and clips a stored box to the same bounds. Widths 64 and 80 share one
-// shared-memory layout (Ring<kCross, false>); width 128's K/V stage is
-// 64 KB, so its self-attention ring holds three stages beside one Q buffer
-// and its cross mode's two stages beside three Q buffers (Ring<kCross,
-// true>).
+// The head dim (a multiple of 8 up to 256) is split in column chunks, as
+// a 128-byte TMA swizzle row holds 64 bf16, and runs at one of four padded
+// widths (hopper_common.cuh): columns [0, 64) in 128-byte rows with the
+// 128B swizzle; for V (MN-major, whose swizzle atom is 64 columns wide)
+// every further 64 columns as one more 128B atom, so P.V is one N = 80,
+// 128 or 256 product per 16 keys. For Q and K (K-major), at width 80
+// columns [64, 80) in 32-byte rows with the 32B swizzle, so Q.K^T runs
+// 4 + 1 k-steps of 16; at width 128 columns [64, 128) as a second 128B
+// atom, 4 + 4 k-steps; at width 256 four atoms, 4 x 4 k-steps. At width 64
+// the second chunks are skipped. TMA zero-fills the columns past dh and
+// the rows past N or M, so the padding never reaches device memory, and
+// clips a stored box to the same bounds. The shared-memory layout is
+// Ring<kCross, kRing>: widths 64 and 80 share one (kRing 80); width 128's
+// K/V stage is 64 KB, so its self-attention ring holds three stages beside
+// one Q buffer and its cross mode's two stages beside three Q buffers.
+// Width 256 streams 64-key tiles (keys_of): a stage is K and V as four
+// 8 KB atoms each, 64 KB, and the Q buffer 64 KB, so both modes hold two
+// stages beside one Q buffer (192 KB; three stages would not fit), S is a
+// m64n64 product (32 registers beside O's 128), and the cross mode stores
+// a bf16 output directly, as an f32 one, since its one Q buffer cannot wait
+// for a TMA store before the next item's Q. There P.V of tile j - 1 and S
+// of tile j go out in two turns of their own rather than together: with
+// O, S and P in flight at once ptxas spilled 904 bytes and the kernel took
+// 1.6 times as long on the card (PERF.md).
 //
 // The softmax runs in f32 in log2 units: one FFMA folds the logit scale and
 // the running max into each exponent (exp2(s * scale - m)). With a key mask
 // the bias is added first (s * scale + bias): the wrapper pads the bias rows
-// to whole tiles with -inf, and the producer copies each tile's 128 biases
-// into shared memory beside its K/V (the cross mode writes them there from
-// the byte mask), so the consumers test no bounds.
+// with -inf to a multiple of 128 keys (kPadKeys, whole tiles at every
+// width), and the producer copies each tile's biases into shared memory
+// beside its K/V (the cross mode writes them there from the byte mask), so
+// the consumers test no bounds.
 // Without one, keys past M get the logit -inf in the last tile. `tail`
 // padded keys at logit -1e30 join each row's denominator at the end, as the
 // TPU kernels pad K/V.
@@ -87,38 +98,52 @@
 namespace hopper {
 
 constexpr int kRows = 128;     // query rows per item: two consumer warpgroups x 64
-constexpr int kKeys = 128;     // keys per tile, the wgmma N of S = Q.K^T
 constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int kMainTile = kKeys * kMainCols * 2;  // 16384 B
-constexpr int kTailTile = kKeys * kTailCols * 2;  // 4096 B
-static_assert(kRows == kKeys, "Q and K/V chunks share one TMA box");
-// One stage (each part 1024-byte aligned): K main, V main, V columns
-// [64, 128) as a second 128B-swizzled atom right after V main (TMA
-// zero-fills the columns past dh), so that one wgmma of N = 80 or 128
-// reads both, and K's columns past 64 (a 32B-swizzled tail at width 80, a
-// second 128B atom at width 128).
-constexpr int kVOff = kMainTile, kVTailOff = 2 * kMainTile, kKTailOff = 3 * kMainTile;
-constexpr int kBiasBytes = kKeys * 4;
+constexpr int kMainTile = kRows * kMainCols * 2;  // a 128-row 128B atom of Q, 16384 B
+constexpr int kTailTile = kRows * kTailCols * 2;  // 4096 B
 constexpr int kCrossMaxKeys = 512;   // caption keys the cross mode takes
 
-// The block's shared memory: the Q buffers (main, then the columns past
-// 64), the K/V stages, each stage's 128 mask biases, then the barriers
-// full[stages], empty[stages], qfull[qbufs] and qempty[qbufs]; 1024 bytes
-// of slack to align the base. kWide: width 128, else widths 64 and 80.
-template <bool kCross, bool kWide>
+// The block's shared memory at ring width kRing (80: widths 64 and 80; 128;
+// 256): the Q buffers (atom a of columns [64 a, 64 a + 64) at a * kMainTile;
+// width 80's columns [64, 80) as a 32B-swizzled tail there instead), the
+// K/V stages, each stage's mask biases, then the barriers full[stages],
+// empty[stages], qfull[qbufs] and qempty[qbufs]; 1024 bytes of slack to
+// align the base. A stage (each part 1024-byte aligned) at widths 80 and
+// 128: K main, V main, V columns [64, 128) as a second 128B atom right
+// after V main (TMA zero-fills the columns past dh), so that one wgmma of
+// N = 80 or 128 reads both, and K's columns past 64 (a 32B-swizzled tail at
+// width 80, a second 128B atom at width 128). At width 256: K's four atoms,
+// then V's four.
+template <bool kCross, int kRing>
 struct Ring {
-  static constexpr int hi_bytes = kWide ? kMainTile : kTailTile;  // Q or K columns past 64
-  static constexpr int stage_bytes = 3 * kMainTile + hi_bytes;
-  static constexpr int q_bytes = kMainTile + hi_bytes;
+  static_assert(kRing == 80 || kRing == 128 || kRing == 256, "a ring width");
+  static constexpr int keys = keys_of(kRing);  // keys per K/V tile, the wgmma N of S = Q.K^T
+  static constexpr int kv_atom = keys * 128;   // one 64-column 128B atom of a K or V tile
+  static constexpr int v_off = kRing == 256 ? 4 * kv_atom : kv_atom;  // V's first atom
+  static constexpr int k_hi = kRing == 256 ? kv_atom : 3 * kv_atom;   // K past column 64
+  static constexpr int stage_bytes = kRing == 256   ? 8 * kv_atom
+                                     : kRing == 128 ? 4 * kv_atom
+                                                    : 3 * kv_atom + kTailTile;
+  static constexpr int q_bytes = kRing == 256   ? 4 * kMainTile
+                                 : kRing == 128 ? 2 * kMainTile
+                                                : kMainTile + kTailTile;
   // K/V tiles in flight (cross: resident)
-  static constexpr int stages = kCross ? 2 : 3;
-  static constexpr int qbufs = kCross ? (kWide ? 3 : 5) : (kWide ? 1 : 2);
+  static constexpr int stages = kCross || kRing == 256 ? 2 : 3;
+  static constexpr int qbufs = kRing == 256 ? 1
+                               : kCross     ? (kRing == 128 ? 3 : 5)
+                                            : (kRing == 128 ? 1 : 2);
+  static constexpr int bias_bytes = keys * 4;
   static constexpr int stages_offset = qbufs * q_bytes;
   static constexpr int bias_offset = stages_offset + stages * stage_bytes;
-  static constexpr int bar_offset = bias_offset + stages * kBiasBytes;
+  static constexpr int bar_offset = bias_offset + stages * bias_bytes;
   static constexpr int smem_bytes = bar_offset + (2 * stages + 2 * qbufs) * 8 + 1024;
   static_assert(smem_bytes <= 232448, "more shared memory than a block may use");
+  static_assert(kPadKeys % keys == 0, "the padded mask rows hold whole tiles");
 
+  // K's atom a (columns [64 a, 64 a + 64)) in a stage
+  __host__ __device__ static constexpr int k_atom(int a) {
+    return a == 0 ? 0 : k_hi + (a - 1) * kv_atom;
+  }
   __device__ static uint32_t full(uint32_t base, int s) { return base + bar_offset + 8 * s; }
   __device__ static uint32_t empty(uint32_t base, int s) {
     return base + bar_offset + 8 * (stages + s);
@@ -132,10 +157,11 @@ struct Ring {
 };
 
 // TMA descriptors of the bf16 [B, rows, H, dh] views: 64-column boxes with
-// the 128B swizzle (the second chunk of V, and of every operand at width
-// 128, is the same box at column 64), and 16-column boxes with the 32B
-// swizzle for the tails of Q and K at width 80; for the output of the
-// cross mode, the same boxes of 64 rows (one consumer's).
+// the 128B swizzle (the further chunks of V, and of every operand at widths
+// 128 and 256, are the same box at columns 64, 128, 192), 128 rows for Q and
+// a tile's keys for K and V, and 16-column boxes with the 32B swizzle for
+// the tails of Q and K at width 80; for the bf16 output of the cross mode
+// below width 256, the same boxes of 64 rows (one consumer's).
 struct Maps {
   CUtensorMap q, q_tail, k, k_tail, v, o, o_tail;
 };
@@ -163,7 +189,7 @@ struct Args {
 // of the row's 2304 bytes at the path's width) and each keeps its head's
 // K/V extent for all its tiles.
 struct Work {
-  int ntq, ntiles, runs, shares, BH;
+  int ntq, ntiles, runs, shares, BH;  // ntiles: K/V tiles of M keys
 
   __device__ void run(int r, int& bh, int& t0, int& t1) const {
     if (shares == 0) {
@@ -179,16 +205,19 @@ struct Work {
   }
 };
 
+template <int kKeys>
 __device__ __forceinline__ Work block_work(const Args& a) {
   const int ntq = (a.N + kRows - 1) / kRows;
   const int BH = a.B * a.H;
   return Work{ntq, (a.M + kKeys - 1) / kKeys, a.shares ? a.shares * BH : ntq * BH, a.shares, BH};
 }
 
-// K/V tiles that batch element b's rows need, found by the calling warp
-// (all 32 lanes) from its key mask row (at most 512 bytes): the last valid
-// key, plus one, in whole tiles. Past it every row with a valid key has
-// p = exp2(-1e30 - m) = 0 exactly. With no valid key, all `ntiles`.
+// K/V tiles of kKeys keys that batch element b's rows need, found by the
+// calling warp (all 32 lanes) from its key mask row (at most 512 bytes):
+// the last valid key, plus one, in whole tiles. Past it every row with a
+// valid key has p = exp2(-1e30 - m) = 0 exactly. With no valid key, all
+// `ntiles`.
+template <int kKeys>
 __device__ __forceinline__ int key_tiles(const Args& a, const Work& wk, int b) {
   // the row in 4-byte words from the aligned word that holds its first
   // byte, at most 129 words, up to five loads a lane issued together; the
@@ -214,14 +243,15 @@ __device__ __forceinline__ int key_tiles(const Args& a, const Work& wk, int b) {
   return last < 0 ? wk.ntiles : last / kKeys + 1;
 }
 
-// Cross mode: the 128 biases of batch element b's key tile j, written into
-// shared memory at `dst` by the calling warp, four keys a lane (coalesced):
-// 0 for a valid key, -1e30 for a masked one, -inf past M.
+// Cross mode: the kKeys biases of batch element b's key tile j, written
+// into shared memory at `dst` by the calling warp, kKeys / 32 keys a lane
+// (coalesced): 0 for a valid key, -1e30 for a masked one, -inf past M.
+template <int kKeys>
 __device__ __forceinline__ void write_tile_bias(uint32_t dst, const Args& a, int b, int j) {
   const int lane = threadIdx.x & 31;
   const unsigned char* row = a.kmask + b * a.kmask_sb;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < kKeys / 32; ++e) {
     const int key = j * kKeys + 32 * e + lane;
     const float x = key >= a.M ? -CUDART_INF_F : (__ldg(row + key) ? 0.f : attn::kMaskedLogit);
     asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst + 4 * (32 * e + lane)), "f"(x) : "memory");
@@ -233,17 +263,25 @@ __device__ __forceinline__ void write_tile_bias(uint32_t dst, const Args& a, int
 // column 8 c + 2 t + (e & 1). Two 8-column chunks of S are one 16-key A
 // fragment of P, so P never leaves registers.
 
+// Whether a bf16 output of the cross mode leaves by TMA store from the Q
+// buffer (not at width 256, whose one Q buffer the next item's Q would wait
+// on).
+template <typename TOut, bool kCross, int kRing>
+constexpr bool kTmaStoreOf = kCross && kRing != 256 && std::is_same<TOut, attn::bf16>::value;
+
 // The consumer warpgroup `wg` (0 or 1): its 64 query rows of each item
 // against the item's keys, at width W: 64 (columns [0, 64)), 80 (also the
-// 32B-swizzled columns [64, 80)) or 128 (also the atom of columns [64, 128)).
+// 32B-swizzled columns [64, 80)), 128 (also the atom of columns [64, 128))
+// or 256 (four atoms, 64-key tiles).
 template <typename TOut, bool kMask, int W, bool kCross>
 __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_t base, int wg,
                                         const Work& wk) {
   constexpr bool kTail = W == 80, kWide = W == 128;
   constexpr int kAcc = acc_regs(W), kChunks = kAcc / 4;  // 8-column chunks of O
-  using R = Ring<kCross, kWide>;
-  // a bf16 output of the cross mode leaves by TMA store from the Q buffer
-  constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
+  using R = Ring<kCross, ring_of(W)>;
+  constexpr int kKeys = R::keys;
+  constexpr int kS = kKeys / 2, kSteps = kKeys / 16;  // S registers; 16-key k-steps of P.V
+  constexpr bool kTmaStore = kTmaStoreOf<TOut, kCross, ring_of(W)>;
   // the consumers take turns on the tensor cores along long key loops; on
   // the cross mode's short ones the turns would chain each warpgroup's
   // epilogue to the other's next products
@@ -256,14 +294,14 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   auto slot = [&](int j) { return (it + j) % R::stages; };
   auto stage = [&](int j) { return base + R::stages_offset + slot(j) * R::stage_bytes; };
 
-  float s[64], o[kAcc];
-  uint32_t p[8][4];
+  float s[kS], o[kAcc];
+  uint32_t p[kSteps][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int i = 0; i < kS; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
+  for (int i = 0; i < kSteps; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
   float m_0, m_1, l_0, l_1;
-  uint64_t dq, dq_tail;  // Q columns [0, 64) and past 64
+  uint64_t dq, dq_tail;  // Q columns [0, 64) and past 64 (width 256: atom a at dq + a * 1024)
   const float sc = kMask ? 1.f : a.scale;  // the scale left after the mask step
 
   // Tile j has arrived and it is this warpgroup's turn on the tensor cores.
@@ -283,22 +321,31 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   auto issue_s = [&](int j) {
     const uint32_t st = stage(j);
     const uint64_t dk = smem_desc(st, 1024, kSwizzle128);
+    if constexpr (W == 256) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
-    if (kTail) wgmma_ss_n128(s, dq_tail, smem_desc(st + kKTailOff, 256, kSwizzle32), 1);
-    if (kWide) {
-      const uint64_t dk_hi = smem_desc(st + kKTailOff, 1024, kSwizzle128);
+      for (int at = 0; at < 4; ++at) {
+        const uint64_t da = dq + at * (kMainTile >> 4), db = dk + (R::k_atom(at) >> 4);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, da + 2 * kk, db + 2 * kk, at + kk > 0);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      if (kTail) wgmma_ss_n128(s, dq_tail, smem_desc(st + R::k_hi, 256, kSwizzle32), 1);
+      if (kWide) {
+        const uint64_t dk_hi = smem_desc(st + R::k_hi, 1024, kSwizzle128);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(s, dq_tail + 2 * kk, dk_hi + 2 * kk, 1);
+      }
     }
     wgmma_commit();
   };
   // O += P.V of tile j (P of that tile in p), one commit group: a k-step
-  // is 16 key rows of 128 bytes in each of V's two atoms.
+  // is 16 key rows of 128 bytes in each of V's atoms.
   auto issue_pv = [&](int j) {
-    const uint64_t dv = smem_desc(stage(j) + kVOff, 1024, kSwizzle128, kVTailOff - kVOff);
+    const uint64_t dv = smem_desc(stage(j) + R::v_off, 1024, kSwizzle128, R::kv_atom);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs_mn<W>(o, p[kk], dv + kk * (16 * 128 / 16));
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs_mn<W>(o, p[kk], dv + kk * (16 * 128 / 16));
     wgmma_commit();
   };
   // Tile j's softmax on its logits in s: the new row max mn and, in s,
@@ -306,9 +353,9 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   auto softmax = [&](int j, float& mn0, float& mn1, float& ls0, float& ls1) {
     const int key0 = j * kKeys;
     if (kMask) {  // the tile's biases, -inf past M, arrived with its K/V
-      const uint32_t bias = base + R::bias_offset + slot(j) * kBiasBytes + 8 * t;
+      const uint32_t bias = base + R::bias_offset + slot(j) * R::bias_bytes + 8 * t;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
+      for (int c = 0; c < kS / 4; ++c) {
         float b0, b1;
         asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
                      : "=f"(b0), "=f"(b1)
@@ -320,7 +367,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       }
     } else if (key0 + kKeys > a.M) {  // the last tile: keys past M
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
+      for (int c = 0; c < kS / 4; ++c) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (key0 + 8 * c + 2 * t + e >= a.M) {
@@ -332,7 +379,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < kS / 4; ++c) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * c], s[4 * c + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * c + 2], s[4 * c + 3]));
     }
@@ -346,7 +393,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
     const float nb0 = -mn0, nb1 = -mn1;
     ls0 = ls1 = 0.f;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < kS / 4; ++c) {
       s[4 * c] = attn::fast_exp2(fmaf(s[4 * c], sc, nb0));
       s[4 * c + 1] = attn::fast_exp2(fmaf(s[4 * c + 1], sc, nb0));
       s[4 * c + 2] = attn::fast_exp2(fmaf(s[4 * c + 2], sc, nb1));
@@ -371,7 +418,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       o[4 * c + 3] *= a1;
     }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       p[kk][0] = attn::pack_bf16(s[8 * kk], s[8 * kk + 1]);
       p[kk][1] = attn::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
       p[kk][2] = attn::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -388,7 +435,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
     wk.run(r, bh, t0, t1);
     const int b = bh / a.H, h = bh - b * a.H;
     if (kCross) {
-      ntiles = key_tiles(a, wk, b);
+      ntiles = key_tiles<kKeys>(a, wk, b);
       resident = ntiles <= R::stages;
     }
     for (int tq = t0; tq < t1; ++tq, ++n) {
@@ -399,8 +446,8 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       const int qi = n % R::qbufs;
       const uint32_t qbuf = base + qi * R::q_bytes;
       dq = smem_desc(qbuf + wg * (kMainTile / 2), 1024, kSwizzle128);
-      dq_tail = kWide ? smem_desc(qbuf + kMainTile + wg * (kMainTile / 2), 1024, kSwizzle128)
-                      : smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
+      dq_tail = W >= 128 ? smem_desc(qbuf + kMainTile + wg * (kMainTile / 2), 1024, kSwizzle128)
+                         : smem_desc(qbuf + kMainTile + wg * (kTailTile / 2), 256, kSwizzle32);
       m_0 = m_1 = a.m0;
       l_0 = l_1 = 0.f;
 #pragma unroll
@@ -416,20 +463,40 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       softmax(0, mn0, mn1, ls0, ls1);
       rescale_pack(mn0, mn1, ls0, ls1);
       for (int j = 1; j < ntiles; ++j) {
-        // S of tile j and P.V of tile j - 1 go out together; tile j's
-        // softmax runs while that P.V (and the other warpgroup's products)
-        // are in flight
-        acquire(j);
-        issue_s(j);
-        issue_pv(j - 1);
-        pass_turn();
-        wgmma_wait<1>();
-        hold(s);
-        softmax(j, mn0, mn1, ls0, ls1);
-        wgmma_wait<0>();
-        hold(o);
-        hold(p);
-        if (!resident) release(j - 1);
+        if constexpr (W == 256) {
+          // P.V of tile j - 1, then S of tile j, each in a turn of its own,
+          // so that O's 128 registers are not in flight beside S's; tile
+          // j's softmax runs while the other warpgroup's products are
+          if (kPingPong) bar_sync(1 + wg);
+          wgmma_fence();
+          issue_pv(j - 1);
+          pass_turn();
+          wgmma_wait<0>();
+          hold(o);
+          hold(p);
+          if (!resident) release(j - 1);
+          acquire(j);
+          issue_s(j);
+          pass_turn();
+          wgmma_wait<0>();
+          hold(s);
+          softmax(j, mn0, mn1, ls0, ls1);
+        } else {
+          // S of tile j and P.V of tile j - 1 go out together; tile j's
+          // softmax runs while that P.V (and the other warpgroup's
+          // products) are in flight
+          acquire(j);
+          issue_s(j);
+          issue_pv(j - 1);
+          pass_turn();
+          wgmma_wait<1>();
+          hold(s);
+          softmax(j, mn0, mn1, ls0, ls1);
+          wgmma_wait<0>();
+          hold(o);
+          hold(p);
+          if (!resident) release(j - 1);
+        }
         rescale_pack(mn0, mn1, ls0, ls1);
       }
       if (kPingPong) bar_sync(1 + wg);
@@ -520,15 +587,17 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
 
 // The kernel's body: the producer's loads, or a consumer's rows. The grid
 // is persistent (block_work), and the producer loads the next items' Q and
-// K/V tiles while the consumers finish the current one. kWide: width 128
-// (80 < dh <= 128), else widths 64 and 80, told apart at run time.
-template <typename TOut, bool kMask, bool kCross, bool kWide>
+// K/V tiles while the consumers finish the current one. kRing: 256
+// (128 < dh <= 256), 128 (80 < dh <= 128), or 80: widths 64 and 80, told
+// apart at run time.
+template <typename TOut, bool kMask, bool kCross, int kRing>
 __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) {
-  using R = Ring<kCross, kWide>;
-  constexpr bool kTmaStore = kCross && std::is_same<TOut, attn::bf16>::value;
+  using R = Ring<kCross, kRing>;
+  constexpr int kKeys = R::keys;
+  constexpr bool kTmaStore = kTmaStoreOf<TOut, kCross, kRing>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (attn::smem_addr(smem_raw) + 1023) & ~1023u;
-  const Work wk = block_work(a);
+  const Work wk = block_work<kKeys>(a);
   const bool has_tail = a.dh > kMainCols;
   const int wg = threadIdx.x >> 7;
 
@@ -554,7 +623,9 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
       const bool issue = !kCross || threadIdx.x == 2 * 128;
       const uint32_t chunk = has_tail ? R::q_bytes : kMainTile;
       const uint32_t tile_bytes =
-          (has_tail ? R::stage_bytes : 2 * kMainTile) + (a.madd ? kBiasBytes : 0);
+          (has_tail ? R::stage_bytes : 2 * R::kv_atom) + (a.madd ? R::bias_bytes : 0);
+      // the padded mask bias row of one batch element (kPadKeys)
+      const long long madd_row = (a.M + kPadKeys - 1) / kPadKeys * kPadKeys;
       int it = 0;  // ring position of the next K/V tile to load
       int n = 0;
       int ntiles = wk.ntiles;
@@ -571,13 +642,17 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
             const uint32_t qbuf = base + qi * R::q_bytes;
             mbar_expect_tx(R::qfull(base, qi), chunk);
             tma_load(qbuf, &maps.q, R::qfull(base, qi), 0, h, q0, b);
-            if (has_tail) {
-              tma_load(qbuf + kMainTile, kWide ? &maps.q : &maps.q_tail, R::qfull(base, qi),
-                       kMainCols, h, q0, b);
+            if (kRing == 256) {
+              for (int at = 1; at < 4; ++at)
+                tma_load(qbuf + at * kMainTile, &maps.q, R::qfull(base, qi), at * kMainCols, h,
+                         q0, b);
+            } else if (has_tail) {
+              tma_load(qbuf + kMainTile, kRing == 128 ? &maps.q : &maps.q_tail,
+                       R::qfull(base, qi), kMainCols, h, q0, b);
             }
           }
           if (kCross && tq == t0) {  // the run's extent, while its first Q tile is in flight
-            ntiles = key_tiles(a, wk, b);
+            ntiles = key_tiles<kKeys>(a, wk, b);
             resident = ntiles <= R::stages;
           }
           // resident tiles are loaded for a run's first item only
@@ -600,21 +675,27 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
                 mbar_expect_tx(full, tile_bytes);
               }
               tma_load(st, &maps.k, full, 0, h, key0, b);
-              tma_load(st + kVOff, &maps.v, full, 0, h, key0, b);
-              if (has_tail) {
-                tma_load(st + kVTailOff, &maps.v, full, kMainCols, h, key0, b);
-                tma_load(st + kKTailOff, kWide ? &maps.k : &maps.k_tail, full, kMainCols, h,
+              tma_load(st + R::v_off, &maps.v, full, 0, h, key0, b);
+              if (kRing == 256) {
+                for (int at = 1; at < 4; ++at) {
+                  tma_load(st + R::k_atom(at), &maps.k, full, at * kMainCols, h, key0, b);
+                  tma_load(st + R::v_off + at * R::kv_atom, &maps.v, full, at * kMainCols, h,
+                           key0, b);
+                }
+              } else if (has_tail) {
+                tma_load(st + R::v_off + R::kv_atom, &maps.v, full, kMainCols, h, key0, b);
+                tma_load(st + R::k_hi, kRing == 128 ? &maps.k : &maps.k_tail, full, kMainCols, h,
                          key0, b);
               }
               if (a.madd) {
-                bulk_load(base + R::bias_offset + s * kBiasBytes,
-                          a.madd + static_cast<long long>(b) * wk.ntiles * kKeys + key0,
-                          kBiasBytes, full);
+                bulk_load(base + R::bias_offset + s * R::bias_bytes,
+                          a.madd + static_cast<long long>(b) * madd_row + key0, R::bias_bytes,
+                          full);
               }
             }
             if (kCross) {
               __syncwarp();
-              write_tile_bias(base + R::bias_offset + s * kBiasBytes, a, b, j);
+              write_tile_bias<kKeys>(base + R::bias_offset + s * R::bias_bytes, a, b, j);
               __syncwarp();
               if (issue) mbar_arrive(full);
             }
@@ -626,7 +707,9 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    if constexpr (kWide) {
+    if constexpr (kRing == 256) {
+      consume<TOut, kMask, 256, kCross>(maps, a, base, wg, wk);
+    } else if constexpr (kRing == 128) {
       consume<TOut, kMask, 128, kCross>(maps, a, base, wg, wk);
     } else if (has_tail) {
       consume<TOut, kMask, 80, kCross>(maps, a, base, wg, wk);
@@ -654,6 +737,7 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
   if (N < 1 || M < 1 || tail < 0 || dh < 1 || dh % 8 || dh > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   l = Launch{};
+  const int keys = keys_of(width_of(dh));
   struct View {
     CUtensorMap *main, *rest;
     const void* ptr;
@@ -662,8 +746,8 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
     int box_rows;
   };
   const View views[4] = {{&l.maps.q, &l.maps.q_tail, q, N, &qs, kRows},
-                         {&l.maps.k, &l.maps.k_tail, k, M, &ks, kKeys},
-                         {&l.maps.v, nullptr, v, M, &vs, kKeys},
+                         {&l.maps.k, &l.maps.k_tail, k, M, &ks, keys},
+                         {&l.maps.v, nullptr, v, M, &vs, keys},
                          {&l.maps.o, &l.maps.o_tail, o, N, &os, kRows / 2}};
   for (const View& x : views) {
     if (x.main == &l.maps.o && !o_maps) break;
@@ -690,9 +774,9 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
   return 0;
 }
 
-template <bool kCross, bool kWide, typename Kernel>
+template <bool kCross, int kRing, typename Kernel>
 int run(Kernel* kernel, const Launch& l, cudaStream_t stream) {
-  constexpr int bytes = Ring<kCross, kWide>::smem_bytes;
+  constexpr int bytes = Ring<kCross, kRing>::smem_bytes;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -700,33 +784,34 @@ int run(Kernel* kernel, const Launch& l, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the cross mode over bf16 q/k/v: the key mask `kmask` is
+// The launch of the cross mode over bf16 q/k/v: the key mask `kmask` is
 // required ([B, M] bytes, nonzero = valid, batch stride kmask_sb, keys
 // contiguous), the running max starts from -inf and the TPU's padding of
 // K/V to pad128(M) keys joins the denominator; a bf16 output is stored
-// through TMA, an f32 one directly. `kernels` are the instantiations
-// <bf16, narrow>, <f32, narrow>, <bf16, wide>, <f32, wide>: widths 64 and 80,
-// and width 128.
-template <typename K0, typename K1, typename K2, typename K3>
-int launch_cross(K0* bf16_kernel, K1* f32_kernel, K2* bf16_wide_kernel, K3* f32_wide_kernel,
-                 const void* q, const void* k, const void* v, const unsigned char* kmask,
-                 long long kmask_sb, void* o, int f32, int B, int H, int N, int M, int dh,
-                 const attn::Strides& qs, const attn::Strides& ks, const attn::Strides& vs,
-                 const attn::Strides& os, float scale, cudaStream_t stream) {
+// through TMA below width 256, an f32 one (and any at width 256) directly.
+inline int prepare_cross(Launch& l, const void* q, const void* k, const void* v,
+                         const unsigned char* kmask, long long kmask_sb, void* o, int f32, int B,
+                         int H, int N, int M, int dh, const attn::Strides& qs,
+                         const attn::Strides& ks, const attn::Strides& vs,
+                         const attn::Strides& os, float scale) {
   if (M > kCrossMaxKeys || kmask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  Launch l;
-  const int tail = (M + kKeys - 1) / kKeys * kKeys - M;
+  const int tail = (M + kPadKeys - 1) / kPadKeys * kPadKeys - M;
   const int err = prepare(l, q, k, v, nullptr, o, nullptr, B, H, N, M, dh, qs, ks, vs, os, scale,
                           -std::numeric_limits<float>::infinity(), tail, /*cross=*/true,
-                          /*o_maps=*/!f32);
+                          /*o_maps=*/!f32 && width_of(dh) != 256);
   if (err) return err;
   l.args.kmask = kmask;
   l.args.kmask_sb = kmask_sb;
-  if (width_of(dh) == 128) {
-    return f32 ? run<true, true>(f32_wide_kernel, l, stream)
-               : run<true, true>(bf16_wide_kernel, l, stream);
-  }
-  return f32 ? run<true, false>(f32_kernel, l, stream) : run<true, false>(bf16_kernel, l, stream);
+  return 0;
+}
+
+// The ring Ring<kCross, ring_of(width)> of padded width `width` (64, 80,
+// 128 or 256) given to `f`, for the libraries' geometry queries.
+template <bool kCross, typename F>
+int with_ring(int width, F f) {
+  if (width == 256) return f(Ring<kCross, 256>{});
+  if (width == 128) return f(Ring<kCross, 128>{});
+  return f(Ring<kCross, 80>{});
 }
 
 }  // namespace hopper

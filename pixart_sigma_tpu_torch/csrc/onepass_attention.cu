@@ -24,35 +24,36 @@
 // (one FFMA and one ex2 per logit, the scale and max folded together) runs
 // while the other warpgroup's products, and its own P.V, are in flight.
 //
-// Head dims up to 128: dh runs at the padded width 64, 80 or 128
+// Head dims up to 256: dh runs at the padded width 64, 80, 128 or 256
 // (hopper_common.cuh), each its own instantiation; at width 128 a K/V stage
-// is 64 KB, so the ring holds three stages beside one Q buffer.
+// is 64 KB, so the ring holds three stages beside one Q buffer; at width
+// 256 the tiles are 64 keys (a 64 KB stage) and the ring holds two.
 //
 // Reads bf16 q/k/v in place through their strides (the qkv projection's
 // output, with no transpose or copy); the Python wrapper rounds f32 inputs
 // to bf16 first, as the tensor cores multiply in bf16 anyway, and pads a
 // head dim that is not a multiple of 8 with zero columns. Needs
-// dh % 8 == 0, dh <= 128 and 16-byte aligned strides, which TMA requires
+// dh % 8 == 0, dh <= 256 and 16-byte aligned strides, which TMA requires
 // and the wrapper checks.
 
 #include <limits>
 
 #include "hopper_attention.cuh"
 
-template <typename TOut, bool kMask, bool kWide>
+template <typename TOut, bool kMask, int kRing>
 __global__ void __launch_bounds__(hopper::kThreads, 1)
     onepass_kernel(const __grid_constant__ hopper::Maps maps, const hopper::Args a) {
-  hopper::attention_body<TOut, kMask, false, kWide>(maps, a);
+  hopper::attention_body<TOut, kMask, false, kRing>(maps, a);
 }
 
-template <bool kWide>
+template <int kRing>
 int onepass_run(const hopper::Launch& l, bool f32, bool mask, cudaStream_t s) {
   if (f32) {
-    return mask ? hopper::run<false, kWide>(onepass_kernel<float, true, kWide>, l, s)
-                : hopper::run<false, kWide>(onepass_kernel<float, false, kWide>, l, s);
+    return mask ? hopper::run<false, kRing>(onepass_kernel<float, true, kRing>, l, s)
+                : hopper::run<false, kRing>(onepass_kernel<float, false, kRing>, l, s);
   }
-  return mask ? hopper::run<false, kWide>(onepass_kernel<attn::bf16, true, kWide>, l, s)
-              : hopper::run<false, kWide>(onepass_kernel<attn::bf16, false, kWide>, l, s);
+  return mask ? hopper::run<false, kRing>(onepass_kernel<attn::bf16, true, kRing>, l, s)
+              : hopper::run<false, kRing>(onepass_kernel<attn::bf16, false, kRing>, l, s);
 }
 
 // q/k/v are bf16; o is bf16, or f32 when `f32` is non-zero. `madd` is null
@@ -67,24 +68,31 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
                                  long long v_sh, long long o_sb, long long o_sn, long long o_sh,
                                  float scale, void* stream) {
   hopper::Launch l;
-  const int tail = (M + hopper::kKeys - 1) / hopper::kKeys * hopper::kKeys - M;
+  const int tail = (M + hopper::kPadKeys - 1) / hopper::kPadKeys * hopper::kPadKeys - M;
   const int err = hopper::prepare(l, q, k, v, madd, o, lse, B, H, N, M, dh, {q_sb, q_sn, q_sh},
                                   {k_sb, k_sn, k_sh}, {v_sb, v_sn, v_sh}, {o_sb, o_sn, o_sh},
                                   scale, -std::numeric_limits<float>::infinity(), tail);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hopper::width_of(dh) == 128 ? onepass_run<true>(l, f32, madd, s)
-                                     : onepass_run<false>(l, f32, madd, s);
+  switch (hopper::width_of(dh)) {
+    case 256:
+      return onepass_run<256>(l, f32, madd, s);
+    case 128:
+      return onepass_run<128>(l, f32, madd, s);
+    default:
+      return onepass_run<80>(l, f32, madd, s);
+  }
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
-// ring's depth at the padded width `width` (64, 80 or 128; the wrapper
+// ring's depth at the padded width `width` (64, 80, 128 or 256; the wrapper
 // checks the last two against its own).
 extern "C" int onepass_attention_smem_bytes(int width) {
-  return width == 128 ? hopper::Ring<false, true>::smem_bytes
-                      : hopper::Ring<false, false>::smem_bytes;
+  return hopper::with_ring<false>(width, [](auto r) { return decltype(r)::smem_bytes; });
 }
-extern "C" int onepass_attention_key_tile() { return hopper::kKeys; }
+extern "C" int onepass_attention_key_tile(int width) {
+  return hopper::with_ring<false>(width, [](auto r) { return decltype(r)::keys; });
+}
 extern "C" int onepass_attention_key_stages(int width) {
-  return width == 128 ? hopper::Ring<false, true>::stages : hopper::Ring<false, false>::stages;
+  return hopper::with_ring<false>(width, [](auto r) { return decltype(r)::stages; });
 }

@@ -40,11 +40,12 @@ PyTorch version (`onepass_reference_with_lse`, `flash_reference_with_lse`,
 launches its kernel or raises. Each wrapper counts its launches in
 `<wrapper>.launches`.
 
-The kernels take every head dim up to 128 (MAX_HEAD_DIM), each run at the
-padded width 64, 80 or 128 (`head_dim_width`); a head dim that is not a
+The kernels take every head dim up to 256 (MAX_HEAD_DIM), each run at the
+padded width 64, 80, 128 or 256 (`head_dim_width`); a head dim that is not a
 multiple of 8 is zero-padded to one by the wrapper (`pad_head_dim`), with the
 softmax scale kept the true head dim's, and the outputs and gradients are
-sliced back. A wider head dim raises a ValueError.
+sliced back. Width 256 streams 64-key tiles (and the backward 64-key dK/dV
+items), 128 keys the narrower widths. A wider head dim raises a ValueError.
 """
 
 from __future__ import annotations
@@ -64,23 +65,28 @@ ONEPASS_MAX_KV = 4096  # padded keys, as the TPU gate (onepass_supported)
 ALLHEADS_MAX_KV = 512  # caption keys the allheads kernel takes
 HEADSMAJOR_MAX_KV = 512  # caption keys the headsmajor kernel takes
 HEADSMAJOR_ROWS = 128  # unit of headsmajor's block_q (the kernel's query tile)
-MAX_HEAD_DIM = 128  # the widest head dim the kernels take
+MAX_HEAD_DIM = 256  # the widest head dim the kernels take
 # The padded head dims the kernels are built for (csrc/hopper_common.cuh):
 # a head dim runs at the first that holds it
-WIDTHS = (64, 80, 128)
-KEY_TILE = 128  # keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
-# depth of their K/V ring at each width; both are checked against the library at load
-KEY_STAGES = {64: 3, 80: 3, 128: 3}
+WIDTHS = (64, 80, 128, 256)
+# Keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
+# and the depth of their K/V ring, at each width; both are checked against
+# the library at load
+KEY_TILE = {64: 128, 80: 128, 128: 128, 256: 64}
+KEY_STAGES = {64: 3, 80: 3, 128: 3, 256: 2}
+# The onepass and flash mask bias rows are padded to a multiple of this many
+# keys: whole tiles at every width
+MASK_PAD = 128
 # The allheads and headsmajor kernels: keys per tile, the unit of the key
 # extent they visit, and the K/V stages that hold an extent resident (longer
 # ones stream) at each width; checked against the library at load
-CROSS_KEY_TILE = 128
-CROSS_KEY_STAGES = {64: 2, 80: 2, 128: 2}
+CROSS_KEY_TILE = {64: 128, 80: 128, 128: 128, 256: 64}
+CROSS_KEY_STAGES = {64: 2, 80: 2, 128: 2, 256: 2}
 # The backward pair: keys per K/V tile (the unit of its key extent, and the
 # keys of one dK/dV item) and the depth of dq's K/V ring over long key sweeps
 # at each width; checked at load
-BWD_KEY_TILE = 128
-BWD_KEY_STAGES = {64: 3, 80: 3, 128: 2}
+BWD_KEY_TILE = {64: 128, 80: 128, 128: 128, 256: 64}
+BWD_KEY_STAGES = {64: 3, 80: 3, 128: 2, 256: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -110,15 +116,16 @@ def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     return bias.masked_fill_(~key_mask.bool(), NEG_INF)
 
 
-def caption_key_extent(key_mask: torch.Tensor, tile: int = CROSS_KEY_TILE) -> torch.Tensor:
+def caption_key_extent(key_mask: torch.Tensor, tile: int = CROSS_KEY_TILE[128]) -> torch.Tensor:
     """Plain version of the allheads/headsmajor kernels' key extent: for each
     row of the [B, M] key mask (True or nonzero = valid), the keys a row with
     a valid key can weigh, the last valid key, plus one, rounded up to `tile`
-    ([B] int64). Past it every such row has p = exp2(-1e30 - m) = 0 exactly.
-    A row with no valid key keeps every key, M rounded up to `tile`: it
-    averages all of V (sum(V) / pad128(M)). The last index, not the count,
-    as masks need not be prefixes. The backward kernels (dkv, dq) apply the
-    same rule to the mask bias row in tiles of BWD_KEY_TILE."""
+    ([B] int64; the kernels' tile is CROSS_KEY_TILE at the head dim's width).
+    Past it every such row has p = exp2(-1e30 - m) = 0 exactly. A row with
+    no valid key keeps every key, M rounded up to `tile`: it averages all of
+    V (sum(V) / pad128(M)). The last index, not the count, as masks need not
+    be prefixes. The backward kernels (dkv, dq) apply the same rule to the
+    mask bias row in tiles of BWD_KEY_TILE."""
     M = key_mask.shape[-1]
     keys = torch.arange(1, M + 1, device=key_mask.device)
     last = torch.where(key_mask.bool(), keys, 0).amax(-1)
@@ -148,12 +155,14 @@ def _softmax_pv(s, v, tail: int, dtype):
     return out, (m + torch.log2(l)).squeeze(-1)
 
 
-def _plain_forward(q, k, v, madd) -> Tuple[torch.Tensor, torch.Tensor]:
+def _plain_forward(q, k, v, madd, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The arithmetic of both forward kernels: (out [B, N, H, Dh] in q's dtype,
     lse [B, H, N] f32 in log2 units). The probabilities are rounded to the
-    input dtype before the P.V product, as the JAX einsum path does."""
+    input dtype before the P.V product, as the JAX einsum path does. The
+    logit scale defaults to Dh^-0.5 * log2(e) (`_logits`)."""
     M = k.shape[1]
-    s = _logits(q, k, madd)
+    s = _logits(q, k, madd, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp2(s - m)
     # the TPU kernels' padded keys: logit -1e30, zero values
@@ -252,8 +261,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def _check_head_dim(name: str, dh: int) -> None:
     if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take 1 to {MAX_HEAD_DIM} "
-                         "(ROADMAP Queue 3)")
+        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take 1 to {MAX_HEAD_DIM}")
 
 
 def head_dim_width(dh: int) -> int:
@@ -311,12 +319,13 @@ def _hopper_error(err: int) -> str:
 
 def _tile_bias(madd: Optional[torch.Tensor], B: int, M: int, name: str):
     """The [B, M] mask bias as the onepass and flash kernels stream it: f32
-    rows padded with -inf to a whole number of KEY_TILE keys, so each tile's
-    biases are one aligned copy and keys past M need no test."""
+    rows padded with -inf to a multiple of MASK_PAD keys (whole tiles at
+    every width), so each tile's biases are one aligned copy and keys past M
+    need no test."""
     madd = _f32_rows(madd, (B, M), name)
     if madd is None:
         return None
-    return torch.nn.functional.pad(madd, (0, -(-M // KEY_TILE) * KEY_TILE - M),
+    return torch.nn.functional.pad(madd, (0, -(-M // MASK_PAD) * MASK_PAD - M),
                                    value=float("-inf"))
 
 
@@ -329,16 +338,17 @@ def _f32_rows(x: Optional[torch.Tensor], shape, name: str) -> Optional[torch.Ten
     return x.float().contiguous()
 
 
-def _check_key_geometry(lib, name: str, tile: int = KEY_TILE, stages=KEY_STAGES):
+def _check_key_geometry(lib, name: str, tile=KEY_TILE, stages=KEY_STAGES):
     """`lib` (onepass_attention or flash_forward with KEY_TILE and KEY_STAGES;
     cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES; flash_backward
     with BWD_KEY_TILE and BWD_KEY_STAGES), once its keys per tile and its K/V
-    stages at each width of WIDTHS are found to be `tile` and `stages`
-    ({width: stages}), by which `_tile_bias` pads the mask of onepass and
-    flash, and the tests and the planted faults pick their key counts."""
-    got = (getattr(lib, f"{name}_key_tile")(),
+    stages at each width of WIDTHS are found to be `tile` and `stages` (each
+    {width: count}), by which `_tile_bias` pads the mask of onepass and
+    flash (MASK_PAD, a multiple of every tile), and the tests and the
+    planted faults pick their key counts."""
+    got = ({w: getattr(lib, f"{name}_key_tile")(w) for w in WIDTHS},
            {w: getattr(lib, f"{name}_key_stages")(w) for w in WIDTHS})
-    if got != (tile, stages):
+    if got != (tile, stages) or any(MASK_PAD % t for t in got[0].values()):
         raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through "
                            f"{got[1]} stages by width, the wrapper expects {tile} and {stages}")
     return lib

@@ -2,7 +2,7 @@
 
 With a key mask, `flash_bwd_dq` multiplies only the key tiles up to each
 batch element's last valid key (`caption_key_extent` in tiles of
-BWD_KEY_TILE), and a `flash_bwd_dkv` item whose keys all lie past it writes
+BWD_KEY_TILE at the head dim's width), and a `flash_bwd_dkv` item whose keys all lie past it writes
 zeros for dK and dV. These tests show, with the plain version of both
 kernels (`flash_backward_reference`), that this is exact: the backward over
 the extent equals the backward over all keys bit for bit, and dK and dV are
@@ -61,12 +61,14 @@ def _case(kind, M, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix", "non-prefix", "zero-valid"])
 @pytest.mark.parametrize("M", [77, 300, 512])
-def test_backward_over_the_extent_is_the_backward_over_all_keys(dtype, kind, M):
-    """Each batch element's (dq, dk, dv) over the keys of its extent, against
-    the same element over all M keys: equal bit for bit, and dK, dV exactly
-    0 past the extent for a caption with a valid key."""
+def test_backward_over_the_extent_is_the_backward_over_all_keys(dtype, kind, M,
+                                                                 tile=BWD_KEY_TILE[128]):
+    """Each batch element's (dq, dk, dv) over the keys of its extent (in
+    tiles of `tile` keys), against the same element over all M keys: equal
+    bit for bit, and dK, dV exactly 0 past the extent for a caption with a
+    valid key."""
     q, k, v, do, mask, madd, lse, delta = _case(kind, M, dtype, seed=M)
-    extent = caption_key_extent(mask, BWD_KEY_TILE)
+    extent = caption_key_extent(mask, tile)
     skipped = 0
     for b in range(q.shape[0]):
         e = min(int(extent[b]), M)
@@ -82,7 +84,16 @@ def test_backward_over_the_extent_is_the_backward_over_all_keys(dtype, kind, M):
         else:
             assert e == M  # no valid key: every tile is kept
         skipped += M - e
-    assert skipped > 0 or M <= BWD_KEY_TILE  # one tile holds every key
+    assert skipped > 0 or M <= tile  # one tile holds every key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefix", "non-prefix", "zero-valid"])
+@pytest.mark.parametrize("M", [77, 300])
+def test_backward_over_the_extent_at_width_256(dtype, kind, M):
+    """The same in width 256's 64-key tiles and dK/dV items."""
+    test_backward_over_the_extent_is_the_backward_over_all_keys(dtype, kind, M,
+                                                                 BWD_KEY_TILE[256])
 
 
 @pytest.mark.parametrize("dtype,p_masked", [(torch.float32, 1.0), (torch.bfloat16, 0.0)])

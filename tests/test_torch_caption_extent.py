@@ -49,7 +49,7 @@ def _extent_by_loop(mask: np.ndarray, tile: int) -> list:
 
 @pytest.mark.parametrize("kind", ["prefix", "non-prefix", "zero-valid"])
 @pytest.mark.parametrize("M", [1, 77, 300, 512])
-@pytest.mark.parametrize("tile", [CROSS_KEY_TILE, 64])
+@pytest.mark.parametrize("tile", [CROSS_KEY_TILE[128], CROSS_KEY_TILE[256]])
 def test_caption_key_extent_is_the_last_valid_key_in_whole_tiles(kind, M, tile):
     mask = _mask(kind, M)
     got = caption_key_extent(torch.from_numpy(mask), tile)
@@ -63,7 +63,7 @@ def test_caption_key_extent_is_the_last_valid_key_in_whole_tiles(kind, M, tile):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix", "non-prefix", "zero-valid"])
-@pytest.mark.parametrize("M,tile", [(77, 64), (300, CROSS_KEY_TILE), (512, CROSS_KEY_TILE)])
+@pytest.mark.parametrize("M,tile", [(77, 64), (300, CROSS_KEY_TILE[128]), (512, CROSS_KEY_TILE[128])])
 def test_attention_over_the_extent_is_attention_over_all_keys(dtype, kind, M, tile):
     """Each batch element through the plain kernel arithmetic over its own
     extent (in tiles of `tile` keys), against the same element over all M

@@ -1,17 +1,19 @@
 """The port's attention at head dims other than PixArt's 72, against the JAX
 package, on the CPU: Dh = 18 and 36 (not multiples of 8; 32 heads at XL-2's
-width of 1152 give 36), 96 and 120 (width 128 of the CUDA kernels) and 128
-(9 heads at 1152).
+width of 1152 give 36), 96 and 120 (width 128 of the CUDA kernels), 128 (9
+heads at 1152), and width 256's 136, 144 (8 heads at 1152), 192 (6 heads),
+250 (off a multiple of 8) and 256.
 
 On CPU tensors the kernel wrappers run their plain versions. They are held
 against the JAX Pallas kernels in interpret mode wherever the JAX kernel
 takes the head dim, and against the JAX package's XLA route where it does
-not: onepass, allheads and headsmajor need Dh < 128 there (a spare lane of
-the 128-lane padding), and flash takes Dh = 128 only without a key mask.
-Then the wrapper's pad-to-8 helper, which the CUDA path runs for a head dim
-off a multiple of 8, against the unpadded plain version. The gradients are
-in tests/test_torch_head_dims_grads.py and a small PixArt at Dh = 128 and 36
-in tests/test_torch_head_dims_model.py.
+not: onepass, allheads and headsmajor need a head dim below its padded
+width there (a spare lane of the padding to a multiple of 128 lanes: Dh <
+128, or 129-255 padded to 256), and flash takes Dh = 128 and 256 only
+without a key mask. Then the wrapper's pad-to-8 helper, which the CUDA path
+runs for a head dim off a multiple of 8, against the unpadded plain
+version. The gradients are in tests/test_torch_head_dims_grads.py and a
+small PixArt at Dh = 128, 36 and 192 in tests/test_torch_head_dims_model.py.
 
 Tolerances are those of the 72-wide tests: f32 2e-5, bf16 2e-2 (the JAX
 kernel tests' own); against the XLA route f32 1e-4 (another summation
@@ -33,6 +35,7 @@ from pixart_sigma_tpu_torch.ops import flash_attention as tfa
 F32, BF16, XLA = dict(atol=2e-5, rtol=2e-5), dict(atol=2e-2, rtol=2e-2), dict(atol=1e-4,
                                                                                rtol=1e-4)
 HEAD_DIMS = (18, 36, 96, 120, 128)
+WIDE_HEAD_DIMS = (136, 144, 192, 250, 256)  # width 256 of the CUDA kernels
 
 
 def _arrays(B, N, M, H, Dh, seed):
@@ -155,10 +158,49 @@ def test_flash_plain_matches_jax_kernel(Dh, lengths, bf16):
         _close(got, _xla(q, k, v, mask), XLA)
 
 
+# ---------------------------------------------------------------- width 256
+# Each forward at each of WIDE_HEAD_DIMS in one mask and dtype case, and in
+# its other cases at two of them (the narrower widths run them all): a case
+# of the JAX kernels in interpret mode costs ~1.5 s, and the suite has a
+# time limit.
+
+
+@pytest.mark.parametrize("Dh,lengths,bf16", [
+    *((dh, (300, 17), False) for dh in WIDE_HEAD_DIMS), (192, (300, 40), True),
+    (256, (300, 40), True),
+])
+def test_onepass_plain_matches_jax_at_width_256(Dh, lengths, bf16):
+    test_onepass_plain_matches_jax(Dh, lengths, bf16)
+
+
+@pytest.mark.parametrize("Dh,lengths,bf16", [
+    *((dh, (300, 40), True) for dh in WIDE_HEAD_DIMS), (144, (120, 7), False),
+])
+def test_allheads_plain_matches_jax_at_width_256(Dh, lengths, bf16):
+    test_allheads_plain_matches_jax(Dh, lengths, bf16)
+
+
+@pytest.mark.parametrize("Dh,lengths,bf16", [
+    *((dh, (300, 17), False) for dh in WIDE_HEAD_DIMS), (192, (300, 40), True),
+])
+def test_headsmajor_plain_matches_jax_at_width_256(Dh, lengths, bf16):
+    test_headsmajor_plain_matches_jax(Dh, lengths, bf16)
+
+
+@pytest.mark.parametrize("Dh,lengths,bf16", [
+    *((dh, None, True) for dh in WIDE_HEAD_DIMS), (192, (300, 17), False),
+    (256, (300, 17), False),
+])
+def test_flash_plain_matches_jax_kernel_at_width_256(Dh, lengths, bf16):
+    """Unmasked, the JAX flash kernel takes every Dh up to 256; masked, Dh =
+    256 goes to the XLA route."""
+    test_flash_plain_matches_jax_kernel(Dh, lengths, bf16)
+
+
 # ---------------------------------------------------------------- the pad-to-8 helper
 
 
-@pytest.mark.parametrize("Dh", [1, 18, 36, 99, 127])
+@pytest.mark.parametrize("Dh", [1, 18, 36, 99, 127, 129, 250])
 def test_pad_head_dim_keeps_the_forward_and_gradients(Dh):
     """The CUDA path's padding: q, k, v and dO zero-padded to a multiple of
     8 with the true head dim's scale give the unpadded plain version's
@@ -170,8 +212,8 @@ def test_pad_head_dim_keeps_the_forward_and_gradients(Dh):
     assert pq.shape[-1] == Dh + (-Dh % 8) and pq.shape[-1] % 8 == 0
     assert torch.equal(pq[..., :Dh], q) and not pq[..., Dh:].any()
     scale = Dh**-0.5 * tfa.LOG2E
-    # the padded q scaled so that the padded head dim's scale is the true one's
-    out_p, lse_p = tfa._plain_forward(pq * (pq.shape[-1] / Dh) ** 0.5, pk, pv, madd)
+    # the padded operands at the true head dim's scale, as the wrappers pass it
+    out_p, lse_p = tfa._plain_forward(pq, pk, pv, madd, scale)
     out, lse = tfa._plain_forward(q, k, v, madd)
     torch.testing.assert_close(out_p[..., :Dh], out, atol=1e-6, rtol=1e-6)
     assert not out_p[..., Dh:].any()
@@ -187,13 +229,17 @@ def test_pad_head_dim_keeps_the_forward_and_gradients(Dh):
 
 
 @pytest.mark.parametrize("Dh,width", [(1, 64), (36, 64), (64, 64), (72, 80), (80, 80),
-                                      (88, 128), (128, 128)])
+                                      (88, 128), (128, 128), (129, 256), (144, 256),
+                                      (192, 256), (250, 256), (256, 256)])
 def test_head_dims_run_at_their_width(Dh, width):
     assert tfa.head_dim_width(Dh + (-Dh % 8)) == width
 
 
 def test_head_dims_past_128_are_refused():
-    with pytest.raises(ValueError, match="128"):
-        tfa._check_head_dim("onepass_attention", 129)
-    for dh in (1, 36, 128):
+    """Since width 256, the kernels take every head dim up to 256: the
+    refusal starts at 257 and names the limit."""
+    for dh in (257, 384, 0):
+        with pytest.raises(ValueError, match="256"):
+            tfa._check_head_dim("onepass_attention", dh)
+    for dh in (1, 36, 128, 129, 200, 256):
         tfa._check_head_dim("onepass_attention", dh)

@@ -1,10 +1,10 @@
 """Gradients of the port's attention at head dims other than 72 (Dh = 18,
-36, 96, 120 and 128), against the JAX package on the CPU: the plain versions
-of the backward kernels (dkv, dq), through the flash and onepass autograd
-Functions, against `jax.vjp` of the JAX `flash_attention` and
-`onepass_attention` (their Pallas backward kernels in interpret mode), or of
-the XLA route where the JAX kernel does not take the head dim with a key
-mask (Dh = 128).
+36, 96, 120, 128 and width 256's 192), against the JAX package on the CPU:
+the plain versions of the backward kernels (dkv, dq), through the flash and
+onepass autograd Functions, against `jax.vjp` of the JAX `flash_attention`
+and `onepass_attention` (their Pallas backward kernels in interpret mode),
+or of the XLA route where the JAX kernel does not take the head dim with a
+key mask (Dh = 128).
 
 Tolerances: f32 5e-4, bf16 2e-2 relative to the gradient's largest entry
 (tests/test_torch_flash_backward.py's).
@@ -40,9 +40,9 @@ def _grads_close(got, want, bf16):
 
 
 @pytest.mark.parametrize("Dh,lengths,bf16", [
-    *((dh, (300, 17), False) for dh in HEAD_DIMS),
+    *((dh, (300, 17), False) for dh in HEAD_DIMS + (192,)),
     (18, None, False), (128, None, False),
-    (36, None, True), (128, None, True),
+    (36, None, True), (128, None, True), (192, None, True),
 ])
 def test_flash_grads_match_jax_vjp(Dh, lengths, bf16):
     """The port's flash backward (the plain version of dkv and dq) against
@@ -70,7 +70,7 @@ def test_flash_grads_match_jax_vjp(Dh, lengths, bf16):
     _grads_close([a.grad for a in args], want, bf16)
 
 
-@pytest.mark.parametrize("Dh", HEAD_DIMS)
+@pytest.mark.parametrize("Dh", HEAD_DIMS + (192,))
 def test_onepass_grads_match_jax_vjp(Dh):
     """The onepass Function's backward (the plain dkv and dq) against
     `jax.vjp` of the JAX onepass kernel, or of the XLA route at Dh = 128."""

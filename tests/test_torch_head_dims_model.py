@@ -1,6 +1,7 @@
 """A small PixArt at head dims other than 72 against the JAX model, on the
-CPU: width 256 with 2 heads (Dh = 128, as XL-2's 1152 with 9 heads) and
-width 144 with 4 heads (Dh = 36, as 1152 with 32), 2 blocks, KV compression
+CPU: width 256 with 2 heads (Dh = 128, as XL-2's 1152 with 9 heads), width
+144 with 4 heads (Dh = 36, as 1152 with 32) and width 384 with 2 heads (Dh =
+192, as 1152 with 6), 2 blocks, KV compression
 on block 1, from the same perturbed params: the forward, and one training
 step's loss and every parameter's gradient (the iDDPM losses with the
 learned-range term).
@@ -32,9 +33,10 @@ from pixart_sigma_tpu_torch.utils.checkpoint import state_dict_from_jax
 # ---------------------------------------------------------------- a small PixArt
 
 
-SMALL = {  # hidden, heads: Dh = 128 (XL-2's 1152 with 9 heads) and 36 (32 heads)
+SMALL = {  # hidden, heads: Dh = 128 (XL-2's 1152 with 9 heads), 36 (32 heads), 192 (6)
     128: dict(hidden_size=256, num_heads=2),
     36: dict(hidden_size=144, num_heads=4),
+    192: dict(hidden_size=384, num_heads=2),
 }
 
 

@@ -20,6 +20,7 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     CROSS_KEY_TILE,
     KEY_STAGES,
     KEY_TILE,
+    MASK_PAD,
     TMA_ENCODE_ERROR,
     WIDTHS,
     _backward_operands,
@@ -42,9 +43,15 @@ def _shift(stages: dict, d: int, widths=WIDTHS) -> dict:
     return {w: s + d if w in widths else s for w, s in stages.items()}
 
 
-def _geometry_lib(name: str, tile: int, stages: dict):
-    """A stand-in library reporting `tile` and, per width, `stages`."""
-    return types.SimpleNamespace(**{f"{name}_key_tile": lambda: tile,
+def _tiles(tile) -> dict:
+    """Per-width keys per tile: a dict as it is; an int n as the kernels
+    scale it, n below width 256 and n / 2 at 256."""
+    return tile if isinstance(tile, dict) else {w: tile // 2 if w == 256 else tile for w in WIDTHS}
+
+
+def _geometry_lib(name: str, tile, stages: dict):
+    """A stand-in library reporting, per width, `_tiles(tile)` and `stages`."""
+    return types.SimpleNamespace(**{f"{name}_key_tile": lambda width: _tiles(tile)[width],
                                     f"{name}_key_stages": lambda width: stages[width]})
 
 
@@ -53,7 +60,8 @@ def _tma_readable(x: torch.Tensor) -> bool:
             and all(0 < s * 2 < 2**40 and s * 2 % 16 == 0 for s in x.stride()[:-1]))
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128),
+                                      (8, 144), (6, 192), (5, 200), (4, 256)])
 def test_qkv_column_slices_are_read_in_place(heads, dh):
     """q, k and v sliced from one qkv projection output are no copies: their
     row stride is 3 H dh and head stride dh elements, multiples of 16 bytes."""
@@ -90,12 +98,15 @@ def test_unreadable_views_are_copied(make):
 
 @pytest.mark.parametrize("M", [1, 127, 128, 129, 300, 1020])
 def test_mask_bias_is_padded_to_whole_key_tiles(M):
-    """Each tile's biases are one 512-byte copy; keys past M read -inf, which
-    drops them from every row as the kernels' bounds test did."""
+    """Rows padded to MASK_PAD keys, whole tiles at every width, so each
+    tile's biases are one copy of 512 (width 256: 256) bytes; keys past M
+    read -inf, which drops them from every row as the kernels' bounds test
+    did."""
+    assert all(MASK_PAD % tile == 0 for tile in KEY_TILE.values())
     lengths = torch.tensor([M, M // 2, 0])
     madd = mask_bias(torch.arange(M)[None] < lengths[:, None])
     got = _tile_bias(madd, 3, M, "test")
-    pad = -(-M // KEY_TILE) * KEY_TILE
+    pad = -(-M // MASK_PAD) * MASK_PAD
     assert got.shape == (3, pad) and got.dtype == torch.float32 and got.is_contiguous()
     assert torch.equal(got[:, :M], madd)
     assert bool((got[:, M:] == float("-inf")).all())
@@ -113,10 +124,13 @@ def test_launch_errors_name_their_cause():
 
 @pytest.mark.parametrize("name", ["onepass_attention", "flash_forward"])
 @pytest.mark.parametrize("tile,stages,ok", [
-    (KEY_TILE, KEY_STAGES, True),
-    (KEY_TILE // 2, KEY_STAGES, False),  # the mask bias would be padded to the wrong tile
-    (KEY_TILE, _shift(KEY_STAGES, 1), False),
-    (KEY_TILE, _shift(KEY_STAGES, -1, (128,)), False),  # one width's ring of another depth
+    (KEY_TILE[128], KEY_STAGES, True),
+    (KEY_TILE[128] // 2, KEY_STAGES, False),  # the planted faults would use the wrong tile
+    (KEY_TILE[128], _shift(KEY_STAGES, 1), False),
+    (KEY_TILE[128], _shift(KEY_STAGES, -1, (128,)), False),  # one width's ring of another depth
+    ({**KEY_TILE, 256: 128}, KEY_STAGES, False),  # width 256 at the narrow widths' tile
+    (KEY_TILE[128], _shift(KEY_STAGES, 1, (256,)), False),  # three 64 KB stages do not fit
+    ({**KEY_TILE, 256: 256}, KEY_STAGES, False),  # a tile MASK_PAD is no multiple of
 ])
 def test_library_key_geometry_is_checked(name, tile, stages, ok):
     lib = _geometry_lib(name, tile, stages)
@@ -127,7 +141,8 @@ def test_library_key_geometry_is_checked(name, tile, stages, ok):
             _check_key_geometry(lib, name)
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128),
+                                      (8, 144), (6, 192), (5, 200), (4, 256)])
 def test_cross_operands_read_flat_q_and_hoisted_kv_in_place(heads, dh):
     """The allheads kernel's operands: the flat [B, N, C] q and the column
     slices of the hoisted [B, M, 2C] caption K/V (rows 4 C bytes apart) are
@@ -141,7 +156,7 @@ def test_cross_operands_read_flat_q_and_hoisted_kv_in_place(heads, dh):
         assert got.shape == view.shape and _tma_readable(got)
 
 
-@pytest.mark.parametrize("heads,dh", [(32, 36), (4, 18), (3, 1)])
+@pytest.mark.parametrize("heads,dh", [(32, 36), (4, 18), (3, 1), (4, 250), (2, 129)])
 def test_cross_operands_pad_a_head_dim_off_8(heads, dh):
     """A head dim that is not a multiple of 8: every operand, the flat q and
     the caption K/V column slices too, becomes a heads-major copy zero-padded
@@ -169,13 +184,16 @@ def test_cross_operands_of_headsmajor_views():
 
 
 @pytest.mark.parametrize("tile,stages,ok", [
-    (CROSS_KEY_TILE, CROSS_KEY_STAGES, True),
+    (CROSS_KEY_TILE[128], CROSS_KEY_STAGES, True),
     (64, CROSS_KEY_STAGES, False),  # the extent and the planted faults would use the wrong tile
-    (2 * CROSS_KEY_TILE, CROSS_KEY_STAGES, False),
-    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, 1), False),  # a resident extent of another length
-    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, -1), False),
+    (2 * CROSS_KEY_TILE[128], CROSS_KEY_STAGES, False),
+    # a resident extent of another length
+    (CROSS_KEY_TILE[128], _shift(CROSS_KEY_STAGES, 1), False),
+    (CROSS_KEY_TILE[128], _shift(CROSS_KEY_STAGES, -1), False),
     (64, {w: 2 * s for w, s in CROSS_KEY_STAGES.items()}, False),  # the same keys, other tiles
-    (CROSS_KEY_TILE, _shift(CROSS_KEY_STAGES, -1, (128,)), False),  # width 128's alone
+    (CROSS_KEY_TILE[128], _shift(CROSS_KEY_STAGES, -1, (128,)), False),  # width 128's alone
+    ({**CROSS_KEY_TILE, 256: 128}, CROSS_KEY_STAGES, False),  # width 256's tile alone
+    (CROSS_KEY_TILE[128], _shift(CROSS_KEY_STAGES, -1, (256,)), False),  # its extent alone
 ])
 def test_cross_library_key_geometry_is_checked(tile, stages, ok):
     name = "cross_attention"  # the library of allheads_attention and headsmajor_attention
@@ -208,7 +226,8 @@ def test_cross_key_mask_is_read_as_bytes(M):
         _key_bytes(mask, torch.device("meta"), "test")
 
 
-@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (12, 96), (9, 128)])
+@pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (12, 96), (9, 128),
+                                      (8, 144), (6, 192), (4, 256)])
 def test_backward_operands_read_qkv_slices_in_place(heads, dh):
     """The backward pair reads q, k and v sliced from one qkv projection
     output, and dO, in place (bf16, TMA-readable strides); the mask bias,
@@ -250,11 +269,13 @@ def test_backward_operands_round_f32_and_copy_unreadable_views():
 
 
 @pytest.mark.parametrize("tile,stages,ok", [
-    (BWD_KEY_TILE, BWD_KEY_STAGES, True),
+    (BWD_KEY_TILE[128], BWD_KEY_STAGES, True),
     (64, BWD_KEY_STAGES, False),  # the extent and its planted fault would use the wrong tile
-    (2 * BWD_KEY_TILE, BWD_KEY_STAGES, False),
-    (BWD_KEY_TILE, _shift(BWD_KEY_STAGES, -1), False),
-    (BWD_KEY_TILE, _shift(BWD_KEY_STAGES, 1, (128,)), False),  # width 128 as the narrower ones
+    (2 * BWD_KEY_TILE[128], BWD_KEY_STAGES, False),
+    (BWD_KEY_TILE[128], _shift(BWD_KEY_STAGES, -1), False),
+    (BWD_KEY_TILE[128], _shift(BWD_KEY_STAGES, 1, (128,)), False),  # width 128 as the narrower ones
+    ({**BWD_KEY_TILE, 256: 128}, BWD_KEY_STAGES, False),  # 128-key dK/dV items at width 256
+    (BWD_KEY_TILE[128], _shift(BWD_KEY_STAGES, 1, (256,)), False),  # two 64 KB stages
 ])
 def test_backward_library_key_geometry_is_checked(tile, stages, ok):
     name = "flash_backward"  # the library of flash_bwd_dkv and flash_bwd_dq

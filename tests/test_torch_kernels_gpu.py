@@ -18,7 +18,9 @@ logit scale of 80^-0.5 reads four times the limits or more (PERF.md). The
 onepass and flash logsumexp agree within 2^-10 log2 units.
 """
 
-import tests.torch_threads  # noqa: F401  (xdist workers share the cores)
+# No `import tests.torch_threads` here, unlike the CPU test files: every test
+# of this file needs the card, and on the card's machine a `tests` package
+# in site-packages shadows this directory, so that import fails collection.
 import numpy as np
 import pytest
 import torch
@@ -120,22 +122,23 @@ def _check_forward(kernel, q, k, v, mask=None):
 
 
 # The onepass and flash kernels (csrc/hopper_attention.cuh) stream keys in
-# tiles of KEY_TILE through a ring of KEY_STAGES[width] stages, and split the
-# head dim into columns [0, 64) and [64, 80) (width 80) or [64, 128) (width
-# 128); a head dim off a multiple of 8 is padded by the wrapper: the cases
-# below sit on either side of each.
+# tiles of KEY_TILE[width] through a ring of KEY_STAGES[width] stages, and
+# split the head dim into columns [0, 64) and [64, 80) (width 80), [64, 128)
+# (width 128) or three more 64-column atoms (width 256); a head dim off a
+# multiple of 8 is padded by the wrapper: the cases below sit on either side
+# of each.
 HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 200, 1, 2, 72, None),                       # one key
-    (2, 200, KEY_TILE - 1, 2, 72, None),
-    (2, 200, KEY_TILE + 1, 2, 72, None),
-    (2, 200, KEY_TILE * KEY_STAGES[80] - 1, 2, 72, None),   # the ring's wrap
-    (2, 200, KEY_TILE * KEY_STAGES[80], 2, 72, None),
-    (2, 200, KEY_TILE * KEY_STAGES[80] + 1, 2, 72, None),
+    (2, 200, KEY_TILE[80] - 1, 2, 72, None),
+    (2, 200, KEY_TILE[80] + 1, 2, 72, None),
+    (2, 200, KEY_TILE[80] * KEY_STAGES[80] - 1, 2, 72, None),   # the ring's wrap
+    (2, 200, KEY_TILE[80] * KEY_STAGES[80], 2, 72, None),
+    (2, 200, KEY_TILE[80] * KEY_STAGES[80] + 1, 2, 72, None),
     (2, 4080, 1020, 16, 72, None),                  # the 1088x960 training bucket
     (2, 333, 500, 3, 80, (500, 77)),                # the widest head dim of width 80, masked
     (2, 333, 500, 3, 64, (500, 77)),                # the first column chunk alone
-    (2, 200, KEY_TILE * KEY_STAGES[128] - 1, 2, 128, None),  # width 128's ring wrap
-    (2, 200, KEY_TILE * KEY_STAGES[128] + 1, 2, 128, None),
+    (2, 200, KEY_TILE[128] * KEY_STAGES[128] - 1, 2, 128, None),  # width 128's ring wrap
+    (2, 200, KEY_TILE[128] * KEY_STAGES[128] + 1, 2, 128, None),
     (2, 4096, 1024, 9, 128, None),                  # XL-2 with 9 heads, KV-compressed
     (2, 333, 500, 3, 128, (500, 77)),               # the widest head dim, masked
     (2, 333, 500, 3, 96, (500, 77)),                # 12 heads at XL-2's width
@@ -143,6 +146,14 @@ HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 333, 500, 3, 36, (500, 77)),                # 32 heads at XL-2's width: padded to 40
     (2, 200, 300, 2, 18, None),                     # padded to 24
     (1, 130, 77, 3, 1, None),                       # the narrowest: padded to 8
+    (2, 200, KEY_TILE[256] - 1, 2, 256, None),      # width 256: 64-key tiles
+    (2, 200, KEY_TILE[256] * KEY_STAGES[256] - 1, 2, 256, None),  # its ring's wrap
+    (2, 200, KEY_TILE[256] * KEY_STAGES[256] + 1, 2, 256, None),
+    (2, 4096, 1024, 8, 144, None),                  # XL-2 with 8 heads, KV-compressed
+    (2, 333, 500, 3, 192, (500, 77)),               # 6 heads at XL-2's width, masked
+    (2, 333, 500, 2, 256, (500, 77)),               # the widest head dim, masked
+    (2, 333, 500, 3, 250, (500, 77)),               # padded to 256
+    (2, 200, 300, 2, 136, None),                    # the narrowest of width 256
 ]
 
 
@@ -174,16 +185,17 @@ def test_onepass_kernel_reads_strided_qkv(cuda, B, N, H):
     q, k, v = (t.unflatten(-1, (H, Dh)) for t in qkv.chunk(3, dim=-1))
     rows = torch.arange(N, device=cuda)
     if N > 1024:
-        rows = torch.cat([rows[:KEY_TILE], rows[N // 2 : N // 2 + 300]])
+        rows = torch.cat([rows[:KEY_TILE[80]], rows[N // 2 : N // 2 + 300]])
     _assert_close(onepass_attention(q, k, v)[:, rows], attention_reference(q[:, rows], k, v))
 
 
 # The allheads and headsmajor kernels visit each batch element's key tiles
-# (CROSS_KEY_TILE keys) up to its last valid key; an extent of up to
-# CROSS_KEY_STAGES tiles stays resident, a longer one streams. The cases
-# cover both, captions with no valid key (every tile), masks that are not
-# prefixes, and query tiles cut by N.
-CROSS_RESIDENT = CROSS_KEY_TILE * CROSS_KEY_STAGES[80]
+# (CROSS_KEY_TILE[width] keys) up to its last valid key; an extent of up to
+# CROSS_KEY_STAGES[width] tiles stays resident, a longer one streams. The
+# cases cover both, captions with no valid key (every tile), masks that are
+# not prefixes, and query tiles cut by N.
+CROSS_RESIDENT = CROSS_KEY_TILE[80] * CROSS_KEY_STAGES[80]
+CROSS_RESIDENT_256 = CROSS_KEY_TILE[256] * CROSS_KEY_STAGES[256]
 CROSS_CASES = [  # B, N, M, H, lengths
     (4, 4096, 300, 16, (300, 40, 5, 0)),               # the path width, a caption with no key
     (4, 4096, 300, 16, (19, (256, 300), 77, 3)),       # one caption valid only on [256, 300)
@@ -206,6 +218,12 @@ CROSS_CASES = [  # B, N, M, H, lengths
     (4, 1000, 300, 32, (300, 120, 77, 1), 36),  # 32 heads: padded heads-major copies
     (2, 130, 77, 3, (40, 0), 18),
     (2, 200, 77, 5, (77, 9), 1),
+    (4, 4096, 300, 8, (300, 40, 5, 0), 144),  # XL-2 with 8 heads: heads 288 bytes apart
+    (4, 1000, 300, 6, (19, (256, 300), 77, 3), 192),  # 6 heads
+    (2, 200, CROSS_RESIDENT_256 + 1, 2,
+     ((CROSS_RESIDENT_256, CROSS_RESIDENT_256 + 1), 0), 256),  # streamed at width 256
+    (3, 130, 512, 2, (512, (CROSS_RESIDENT_256 - 1, CROSS_RESIDENT_256), 0), 256),
+    (4, 1000, 300, 4, (300, 120, 77, 1), 250),  # padded heads-major copies
 ])
 def test_allheads_kernel_matches_plain(cuda, B, N, M, H, lengths, Dh):
     rng = np.random.RandomState(2)
@@ -256,8 +274,9 @@ def test_kernels_refuse_other_dtypes(cuda):
 
 
 def test_kernels_refuse_head_dims_past_128(cuda):
-    """Every kernel takes head dims 1 to 128 and names the limit past it."""
-    q = torch.zeros((1, 16, 2, 136), device=cuda, dtype=torch.bfloat16)
+    """Every kernel takes head dims 1 to 256 (since width 256) and names the
+    limit past it."""
+    q = torch.zeros((1, 16, 2, 264), device=cuda, dtype=torch.bfloat16)
     mask = torch.ones((1, 16), device=cuda, dtype=torch.bool)
     lse = torch.zeros((1, 2, 16), device=cuda)
     for call in (lambda: onepass_attention(q, q, q), lambda: flash_attention(q, q, q),
@@ -265,7 +284,7 @@ def test_kernels_refuse_head_dims_past_128(cuda):
                  lambda: crossattn_headsmajor(q, q, q, mask, 128),
                  lambda: flash_bwd_dkv(q, q, q, q, None, lse, lse),
                  lambda: flash_bwd_dq(q, q, q, q, None, lse, lse)):
-        with pytest.raises(ValueError, match="128"):
+        with pytest.raises(ValueError, match="256"):
             call()
 
 
@@ -293,6 +312,11 @@ def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
     (2, 1000, 1008, 3, 96, None, torch.bfloat16),
     (2, 333, 300, 2, 36, (300, 17), torch.bfloat16),  # padded to 40
     (2, 300, 300, 2, 18, None, torch.float32),
+    (2, 1000, 1008, 3, 144, None, torch.bfloat16),   # width 256: 64-key tiles and items
+    (2, 333, 300, 2, 192, ((256, 300), 40), torch.bfloat16),
+    (2, 333, 77, 2, 256, (77, 0), torch.float32),
+    (2, 1000, 1008, 2, 250, None, torch.bfloat16),   # padded to 256
+    (2, 200, 130, 2, 256, None, torch.bfloat16),     # three key items, the last of two keys
 ])
 def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32 inputs: the plain version gets q, k, v and dO rounded to bf16, as
@@ -333,7 +357,7 @@ def test_backward_gradients_past_the_caption_extent_are_zero(cuda):
     assert bool((dk[2, 256:] != 0).any()) and bool((dv[2, 256:] != 0).any())
 
 
-@pytest.mark.parametrize("Dh", [72, 128, 36])
+@pytest.mark.parametrize("Dh", [72, 128, 36, 192])
 def test_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through both forward kernels' autograd Functions on the card
     against torch's autograd of the plain math (f32 inputs, the kernels round
@@ -370,6 +394,8 @@ def test_autograd_runs_the_kernels(cuda, Dh):
     (2, 1000, 8200, 1, 128, None, torch.float32),         # width 128
     (2, 900, 2500, 2, 128, (2500, 0), torch.bfloat16),
     (2, 900, 2500, 1, 36, (1700, 0), torch.float32),      # padded to 40
+    (2, 1000, 8200, 1, 256, None, torch.float32),         # width 256
+    (2, 900, 2500, 2, 192, (2500, 0), torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32: the plain version gets the scaled q rounded to bf16, as the
@@ -393,7 +419,7 @@ def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
     _assert_close(got[:, rows], flash_reference_with_lse(q[:, rows], k, v)[0])
 
 
-@pytest.mark.parametrize("Dh", [72, 128, 36])
+@pytest.mark.parametrize("Dh", [72, 128, 36, 192])
 def test_flash_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through the flash Function on the card against torch's
     autograd of the plain version (f32 inputs, rounded to bf16 inside)."""
@@ -426,6 +452,10 @@ def test_flash_autograd_runs_the_kernels(cuda, Dh):
     (2, 333, 77, 2, (77, 5), torch.float32, 512, 128),
     (4, 1000, 300, 12, (300, (256, 300), 77, 0), torch.bfloat16, 256, 96),
     (4, 1000, 300, 32, (300, 120, 77, 1), torch.bfloat16, 256, 36),
+    (4, 4096, 300, 8, (300, 120, 77, 1), torch.bfloat16, 256, 144),  # width 256
+    (2, 333, 77, 2, (77, 5), torch.float32, 512, 256),
+    (4, 1000, 300, 6, (300, (256, 300), 77, 0), torch.bfloat16, 256, 192),
+    (4, 1000, 300, 5, (300, 120, 77, 1), torch.bfloat16, 256, 250),
 ])
 def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q, Dh):
     rng = np.random.RandomState(10)
