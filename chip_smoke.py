@@ -4,7 +4,7 @@
 encoders, the turbo serving modes and the HTTP server, the training CLI,
 the fine-tuning and distillation loops, the evaluation (bits/dim, FID,
 LPIPS), the VAE trainer and the offline toy workflow, and the attention
-kernels at every head dim up to 128, on one CUDA card.
+kernels at every head dim (past 256 their wide form), on one CUDA card.
 
 Run from the root of the repository, with no arguments:
 
@@ -12,7 +12,7 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines:
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: the four CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
+2. build: the six CUDA sources of pixart_sigma_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, with ptxas register, spill and shared-memory use
    and each kernel's keys per tile, which the planted skipped tile, the
    extent fault and the spike inputs below follow;
@@ -225,27 +225,32 @@ Phases, each printing its own lines:
    at full width, depth 2, against one process (fault: the gradients
    averaged over seq, not summed); (d) each rank's launches against the
    single-card reckoning at its shard;
-34. every head dim up to 256 (run after phase 5b): (a) each of the six
-   kernels at Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128 and width
-   256's 136, 144, 192, 200, 250, 256 with H = floor(1152 / Dh) heads at
-   the 1024px shapes, masked and unmasked, bf16 and f32 (flash also at
-   N = M = 16384 at Dh = 192), held to its plain version on three picked
-   heads under phase 3's limits (the backward pair after the onepass
-   forward), with planted faults: a key tile skipped, K's columns [64,
-   128), [128, 192) and [192, 256) dropped (each where Dh reaches it), the
-   padded head dim's logit scale (a head dim off a multiple of 8), lse + 1
-   and a query tile skipped (backward); each kernel's time at Dh = 128, 96,
-   144, 192 and 256 beside its plain version, `sdpa` and the bound; (b) the
-   5-step 1024px DPM-Solver++ trajectory of XL-2 at full width and depth
-   with 9 heads (Dh = 128, self-attention on flash), 12 (Dh = 96), 8 (Dh =
-   144) and 6 (Dh = 192) against plain attention on the card (fault: K's
-   columns [64, 128) dropped in plain attention, [128, 256) at width 256),
-   launches against `forward_launches`, and one 2K model call of the
-   6-head model (flash at width 256 in layers 0-13); (c) one 1024px
-   training step of the 9-head and of the 6-head model at depth 4 (B = 2),
-   its gradients per 128-row tile against plain attention (faults: dK's
-   columns [64, 128) zeroed, [128, 256) at width 256; dQ scaled by
-   1 / ln 2);
+34. every head dim (run after phase 5b): (a) each of the six kernels at
+   Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, width 256's 136, 144,
+   192, 200, 250, 256 and the wide form's 264, 288, 320, 384, 448, 512,
+   576, 1152 with H = floor(1152 / Dh) heads at the 1024px shapes, masked
+   and unmasked, bf16 and f32 (flash also at N = M = 16384 at Dh = 192),
+   held to its plain version on three picked heads under phase 3's limits
+   (the backward pair after the onepass forward), with planted faults: a
+   key tile skipped, K's columns [64, 128), [128, 192), [192, 256) and
+   [256, 320) dropped (each where Dh reaches it), the padded head dim's
+   logit scale (a head dim off a multiple of 8), the wide form's second
+   column group from the first group's columns, lse + 1 and a query tile
+   skipped (backward); past 256 the lse of every column group of onepass
+   and flash equal bit for bit; each kernel's time at Dh = 128, 96, 144,
+   192, 256, 288, 384, 576 and 1152 beside its plain version, `sdpa` (and
+   the backend it picks) and the bound; (b) the 5-step 1024px DPM-Solver++
+   trajectory of XL-2 at full width and depth with 9 heads (Dh = 128,
+   self-attention on flash), 12 (Dh = 96), 8 (Dh = 144), 6 (Dh = 192), 4
+   (Dh = 288, the wide onepass; once more with headsmajor forced) and 3
+   (Dh = 384, the wide flash) against plain attention on the card (fault:
+   K's columns [64, 128) dropped in plain attention, [128, 256) past 128),
+   launches against `forward_launches` (past 256 every one the wide
+   form's), and one 2K model call each of the 6- and 3-head models (flash
+   in layers 0-13); (c) one 1024px training step of the 9-, 6-, 4- and
+   3-head models at depth 4 (B = 2), its gradients per 128-row tile
+   against plain attention (faults: dK's columns [64, 128) zeroed, [128,
+   256) past 128; dQ scaled by 1 / ln 2);
 35. the JAX trainer's orbax checkpoints, from the committed fixture
    tests/fixtures/orbax_small (written by the JAX package; its config.py is
    a 3-block, 32-wide model of the 1024px KV-compress config): (a) every
@@ -275,8 +280,9 @@ Phases, each printing its own lines:
    columns); each rank's launches against `step_launches` at its token
    shard; s/step beside one process's, and the staged transports per step.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
+The line before the last is a JSON object with one entry per kernel (the
+wide form's six with the suffix `_wide`); the last line is {"ok": true,
+"device": {...}}. Exits non-zero, printing no
 result, without a card or outside the repository, or if any phase fails.
 """
 
@@ -870,11 +876,17 @@ TRAIN_COUNTERS = {"onepass": "onepass_attention", "allheads": "crossattn_allhead
 
 def reset_train_counts(fa) -> None:
     for attr in TRAIN_COUNTERS.values():
-        getattr(fa, attr).launches = 0
+        getattr(fa, attr).launches = getattr(fa, attr).wide_launches = 0
 
 
 def train_counts(fa) -> dict:
     return {name: getattr(fa, attr).launches for name, attr in TRAIN_COUNTERS.items()}
+
+
+def wide_counts(fa) -> dict:
+    """The launches of each wrapper's wide form (head dims past 256) since
+    `reset_train_counts`."""
+    return {name: getattr(fa, attr).wide_launches for name, attr in TRAIN_COUNTERS.items()}
 
 
 def step_launches(mc, hw) -> dict:
@@ -1013,7 +1025,7 @@ def run_training(dev, card, fa, config: str, sizes, resolution: int, steps: int,
 
 
 def step_gradients(dev, fa, model_kw: dict, hw, lengths, t, drop, faults=None,
-                   watch=()) -> tuple:
+                   watch=(), counts=train_counts) -> tuple:
     """One training step's gradients (bf16 compute, f32 weights, seeded
     random weights and inputs) through the kernels and through plain
     attention (attn_impl="reference"), with the same t, noise and drops.
@@ -1023,7 +1035,8 @@ def step_gradients(dev, fa, model_kw: dict, hw, lengths, t, drop, faults=None,
     L2 over all parameters, the worst parameter's (reading, name), and for
     the blocks of `watch` the worst (reading, where) of the gradient of the
     self-attention's q, k and v (the qkv projection's output), taken per
-    image and per 128-row tile of tokens, so that one tile's fault shows."""
+    image and per 128-row tile of tokens, so that one tile's fault shows.
+    The launches are `counts(fa)` after the kernel run."""
     import torch
 
     from pixart_sigma_tpu_torch.diffusion.factory import IDDPM
@@ -1084,7 +1097,7 @@ def step_gradients(dev, fa, model_kw: dict, hw, lengths, t, drop, faults=None,
     want, want_qkv = grads("reference")
     reset_train_counts(fa)
     got = grads("auto")
-    launches = train_counts(fa)
+    launches = counts(fa)
     sound = readings(got)
     del got
     faulty = {}
@@ -1120,7 +1133,7 @@ def output_fault(fa, attr: str, keys: int, edit):
             got = orig(q, k, *args, **kwargs)
             return edit(got) if k.shape[1] == keys else got
 
-        faulty.launches = 0  # the wrapper counts on the module's name
+        faulty.launches = faulty.wide_launches = 0  # the wrapper counts on the module's name
         setattr(fa, attr, faulty)
         try:
             yield
@@ -5022,20 +5035,39 @@ def run_seq_tensor(dev, card, fa, ref: dict = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 34: every head dim up to 256. The kernels run a head dim at the padded
-# width 64, 80, 128 or 256 (csrc/hopper_common.cuh); one off a multiple of 8
-# is zero-padded by the wrapper, with the true head dim's softmax scale.
+# Phase 34: every head dim. The kernels run a head dim up to 256 at the padded
+# width 64, 80, 128 or 256 of their narrow forms (csrc/hopper_common.cuh), and
+# one past 256 in their wide form (csrc/wide_attention.cu, wide_backward.cu:
+# the head dim streamed in 64-column atoms, the outputs in 128-column groups,
+# each group recomputing the logits); one off a multiple of 8 is zero-padded
+# by the wrapper, with the true head dim's softmax scale.
 
 HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, 136, 144, 192, 200, 250, 256)
+WIDE_HEAD_DIMS = (264, 288, 320, 384, 448, 512, 576, 1152)
 # (b): XL-2 at its published width of 1152 with 9 heads (Dh = 128: its
 # self-attention runs flash, past the onepass gate), 12 (Dh = 96), 8 (Dh =
-# 144) and 6 (Dh = 192, width 256)
-HEAD_DIM_MODELS = (9, 12, 8, 6)
-# (b)'s 2K model call and (c)'s training steps: these head counts
-HEAD_DIM_2K_HEADS = 6
-HEAD_DIM_STEP_HEADS = (9, 6)
+# 144), 6 (Dh = 192, width 256), 4 (Dh = 288, the wide form: onepass) and 3
+# (Dh = 384, the wide form: flash)
+HEAD_DIM_MODELS = (9, 12, 8, 6, 4, 3)
+# (b) runs this model's trajectory once more with headsmajor forced
+# (PIXART_CROSSATTN_IMPL), the path of the wide headsmajor
+HEAD_DIM_HEADSMAJOR = 4
+# (b)'s 2K model calls and (c)'s training steps: these head counts
+HEAD_DIM_2K_HEADS = (6, 3)
+HEAD_DIM_STEP_HEADS = (9, 6, 4, 3)
 # the times of (a) at these head dims
-HEAD_DIM_TIMED = (128, 96, 144, 192, 256)
+HEAD_DIM_TIMED = (128, 96, 144, 192, 256, 288, 384, 576, 1152)
+# the wide kernels' entries in the kernels line: the head dim of their path
+# (4 heads; flash runs at 3) whose times they carry, and the TPU kernel each
+# replaces (pixart_sigma_tpu/ops/flash_attention.py)
+WIDE_KERNELS = {  # kernel (TRAIN_COUNTERS' name) -> (source, TPU kernel line, Dh)
+    "onepass": ("wide_attention.cu", 179, 288),
+    "flash_forward": ("wide_attention.cu", 64, 384),
+    "allheads": ("wide_attention.cu", 587, 288),
+    "headsmajor": ("wide_attention.cu", 646, 288),
+    "flash_bwd_dkv": ("wide_backward.cu", 282, 288),
+    "flash_bwd_dq": ("wide_backward.cu", 326, 288),
+}
 # (b)'s limit, relative L2 of the 1024px latents (and of the 2K call's
 # output) through the kernels against plain attention on the card; the
 # planted fault, K's columns [64, 128) (at width 256 [128, 256)) dropped in
@@ -5085,9 +5117,21 @@ def self_attention_kernel(keys: int, dh: int) -> str:
 
 # the column faults: K's (or dK's) columns [lo, hi) dropped, each planted
 # where the head dim reaches past lo: the second atom of widths 128 and 256
-# (past 80), and the third and fourth atoms, which only width 256 has
-COLUMN_SPANS = ((64, 128), (128, 192), (192, 256))
+# (past 80), the third and fourth atoms, which only width 256 has, and the
+# fifth, which only the wide form has
+COLUMN_SPANS = ((64, 128), (128, 192), (192, 256), (256, 320))
 COLUMNS_FAULT = "K columns [{}, {}) dropped"
+# the wide form's group fault: an output's second column group computed from
+# the first group's columns (of V in the forward; the gradients' own in the
+# backward)
+GROUP_FAULT = "second column group from the first group's columns"
+
+
+def second_group_from_first(x):
+    """x with its columns [128, 256) replaced by its columns [0, 128)."""
+    x = x.clone()
+    x[..., 128:256] = x[..., :128]
+    return x
 
 
 def head_dim_faults(dh: int) -> dict:
@@ -5117,14 +5161,19 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
     else:
         q, k, v = cases.onepass(B, N, M, H, dh, dtype=dtype)
         mask = None if lengths is None else cases.lengths_mask(lengths, M)
-    lse = None
+    lse = group_lse = None
+    wide = dh > fa.WIDTHS[-1]
     if name == "onepass":
-        out, lse = fa._onepass_forward(q, k, v, None if mask is None else fa.mask_bias(mask),
-                                       with_lse=True)
+        madd = None if mask is None else fa.mask_bias(mask)
+        out, lse = fa._onepass_forward(q, k, v, madd, with_lse=True)
+        if wide:  # every column group's lse, to be equal bit for bit
+            group_lse = fa._onepass_forward(q, k, v, madd, False, group_lse=True)[1]
     elif name == "flash":
         q = fa._flash_scale_q(q)  # the plain versions below take the pre-scaled q
-        out, lse = fa._flash_forward(q, k, v, fa._flash_madd(mask, dtype),
-                                     fa._flash_tail(M, None), with_lse=True)
+        flash_args = (q, k, v, fa._flash_madd(mask, dtype), fa._flash_tail(M, None))
+        out, lse = fa._flash_forward(*flash_args, with_lse=True)
+        if wide:
+            group_lse = fa._flash_forward(*flash_args, False, group_lse=True)[1]
     elif name == "allheads":
         out = fa.crossattn_allheads(qf, kf, vf, mask, H).unflatten(-1, (H, dh))
     else:
@@ -5133,14 +5182,14 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
     pick = lambda x: x[:, :, heads]
     pq, pk, pv = (pick(x).to(torch_.bfloat16).to(dtype) for x in (q, k, v))
 
-    def plain(q_, k_, keep=None):
+    def plain(q_, k_, keep=None, v_=pv):
         m = mask if keep is None else (keep if mask is None else keep & mask)
         if name == "onepass":
-            return fa._plain_forward(q_, k_, pv, None if m is None else fa.mask_bias(m))
+            return fa._plain_forward(q_, k_, v_, None if m is None else fa.mask_bias(m))
         if name == "flash":
-            return flash_plain(fa, q_, k_, pv, fa._flash_madd(m, dtype))
+            return flash_plain(fa, q_, k_, v_, fa._flash_madd(m, dtype))
         ref = fa.attention_reference if name == "allheads" else fa.headsmajor_reference
-        return ref(q_, k_, pv, m), None
+        return ref(q_, k_, v_, m), None
 
     want, lse_want = plain(pq, pk)
     faults = {}
@@ -5151,6 +5200,8 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
     padded_scale = ((pq.float() * (dh / (dh + (-dh % 8))) ** 0.5).to(dtype), pk)
     for fault, span in head_dim_faults(dh).items():
         faults[fault] = plain(*((pq, drop_columns(pk, *span)) if span else padded_scale))[0]
+    if wide:  # O's second column group from the first group's V columns
+        faults[GROUP_FAULT] = plain(pq, pk, v_=second_group_from_first(pv))[0]
     label = (f"Dh={dh} {name} B={B} H={H} N={N} M={M}"
              f"{'' if lengths is None else f' valid={lengths}'}"
              f"{' f32' if dtype == torch_.float32 else ''}, heads {heads}")
@@ -5160,6 +5211,11 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
         finite = torch_.isfinite(lse_want)
         ok &= bool(torch_.equal(finite, torch_.isfinite(got)))
         ok &= check_lse(label, got[finite], lse_want[finite])
+    if group_lse is not None:
+        equal = all(torch_.equal(g, lse) for g in group_lse)
+        log(f"  {label}: the lse of all {group_lse.shape[0]} column groups "
+            f"{'equal bit for bit' if equal else 'DIFFER'}")
+        ok &= equal
     return err, ok
 
 
@@ -5199,6 +5255,8 @@ def check_head_dim_backward(fa, cases, dh, B, N, M, lengths, dtype) -> tuple[dic
     for fault, span in head_dim_faults(dh).items():
         faults[fault] = (ref(k_=drop_columns(pk, *span)) if span else
                          ref(scales=(dp**-0.5 * fa.LOG2E, dp**-0.5)))
+    if dh > fa.WIDTHS[-1]:
+        faults[GROUP_FAULT] = tuple(second_group_from_first(g) for g in want)
     label = (f"Dh={dh} backward B={B} H={H} N={N} M={M}"
              f"{'' if lengths is None else f' valid={lengths}'}"
              f"{' f32' if dtype == torch_.float32 else ''}, heads {heads}")
@@ -5211,27 +5269,42 @@ def check_head_dim_backward(fa, cases, dh, B, N, M, lengths, dtype) -> tuple[dic
     return errs, ok
 
 
+def sdpa_backend(q, k, v, attn_mask=None) -> str:
+    """The backend `scaled_dot_product_attention` picks for these [B, H, N,
+    Dh] inputs (its flash backend stops at a head dim of 256)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=attn_mask)).name
+
+
 def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
     """At head dim dh, H = 1152 / dh: each kernel's time at the 1024px shapes
     (onepass at N = M = 4096 and M = 1024, flash at N = M = 4096, allheads and
     headsmajor on the trajectory's captions, dkv and dq at N = M = 4096),
     its plain version's, `scaled_dot_product_attention`'s (forward, or its
-    backward for dkv and dq; timed only) and the bound, which H * Dh = 1152
-    makes the Dh = 72 rows' bound. Returns {kernel: [row]}."""
+    backward for dkv and dq; timed only) with the backend it picks, and the
+    bound, which H * Dh = 1152 makes the Dh = 72 rows' bound. Past 256 the
+    wide form recomputes the logits once per column group
+    (`fa.wide_groups`), its factor on the S work. Returns {kernel: [row]}."""
     import torch
     import torch.nn.functional as F
 
     H, B = 1152 // dh, 4
     rows = {}
+    recompute = fa.wide_groups(dh) if dh > fa.WIDTHS[-1] else 1
 
-    def row(name, N, M, valid, ms, plain_ms, lib_ms, flops, nbytes, extra=""):
+    def row(name, N, M, valid, ms, plain_ms, lib_ms, backend, flops, nbytes, extra=""):
         b_ms, by = bound_ms(flops, nbytes)
-        log(f"[time] {card}: Dh={dh} {name} B={B} H={H} N={N} M={M}{extra}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+        log(f"[time] {card}: Dh={dh} {name} B={B} H={H} N={N} M={M}{extra}: kernel {ms:.4f} ms"
+            f"{f' (S recomputed {recompute}x)' if recompute > 1 else ''}, plain {plain_ms:.4f} "
+            f"ms, sdpa {lib_ms:.4f} ms ({backend}), bound {b_ms:.4f} ms ({by}; "
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}")
         rows.setdefault(name, []).append(dict(head_dim=dh, heads=H, B=B, N=N, M=M,
                                               valid_keys=valid, ms=ms, plain_ms=plain_ms,
-                                              bound_ms=b_ms, bound_by=by, library_ms=lib_ms))
+                                              bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+                                              library_backend=backend,
+                                              s_recompute_factor=recompute))
 
     for name, N, M, mask in (("onepass", 4096, 4096, None), ("onepass", 4096, 1024, None),
                              ("flash_forward", 4096, 4096, None),
@@ -5258,7 +5331,8 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
         am = None if mask is None else mask[:, None, None, :]
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
         ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1), cuda_ms(lib)
-        row(name, N, M, valid, ms, plain_ms, lib_ms, 4.0 * H * N * valid * dh,
+        row(name, N, M, valid, ms, plain_ms, lib_ms, sdpa_backend(qt, kt, vt, am),
+            4.0 * H * N * valid * dh,
             2.0 * (2 * B * N * H * dh + 2 * valid * H * dh),
             "" if mask is None else f" ({valid} valid keys of {B * M})")
         del q, k, v, qt, kt, vt
@@ -5270,6 +5344,7 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
     out_t = F.scaled_dot_product_attention(qt, kt, vt)
     do_t = do.transpose(1, 2).contiguous()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t, retain_graph=True))
+    backend = sdpa_backend(qt, kt, vt)
     del qt, kt, vt, out_t, do_t
     q, lse, delta, scales, *_ = backward_launch(fa, q, k, v, do, False)
     args = (q, k, v, do, None, lse, delta, *scales)
@@ -5278,7 +5353,7 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
     io = 2.0 * 4 * B * N * H * dh + 4.0 * 2 * B * H * N
     for name, products in (("flash_bwd_dkv", 4), ("flash_bwd_dq", 3)):
         fn = getattr(fa, name)
-        row(name, N, M, B * M, cuda_ms(lambda: fn(*args)), plain_ms, lib_ms,
+        row(name, N, M, B * M, cuda_ms(lambda: fn(*args)), plain_ms, lib_ms, backend,
             products * 2.0 * H * N * B * M * dh, io + 2.0 * (2 if products == 4 else 1) * B * N * H * dh)
     del q, k, v, do, lse, delta, args
     torch.cuda.empty_cache()
@@ -5325,15 +5400,28 @@ def xl2_heads(dev, heads: int, input_size: int = 128, pe_interpolation: float = 
     return model
 
 
+def check_wide(tag: str, dh: int, counts: dict, wides: dict) -> None:
+    """Past a head dim of 256 every launch of a run is the wide form's, and
+    below it none."""
+    want = counts if dh > 256 else dict.fromkeys(counts, 0)
+    log(f"[{tag}] wide-form launches {wides}")
+    if wides != want:
+        raise SystemExit(f"{tag}: wide-form launches {wides} at Dh = {dh}, expected {want}")
+
+
 def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
     """(b): the 1024px DPM-Solver++ trajectory (HEAD_DIM_PATH_STEPS) with CFG
     4.5 of XL-2 at full width and depth with each head count of
     HEAD_DIM_MODELS (`xl2_heads`), through the kernels against plain
-    attention on the card; the launches against `forward_launches`, and the
-    planted fault (`path_fault_span`). Returns {heads: launches}."""
+    attention on the card; the launches against `forward_launches` (past a
+    head dim of 256 all of them the wide form's), and the planted fault
+    (`path_fault_span`). The HEAD_DIM_HEADSMAJOR model runs through the
+    kernels once more with headsmajor forced for its captions. Returns
+    {run: (launches, wide-form launches)}."""
     import numpy as np
     import torch
 
+    from pixart_sigma_tpu_torch.ops.attention import CROSSATTN_ENV
     from pixart_sigma_tpu_torch.pipelines import PixArtPipeline
 
     call = dict(num_inference_steps=HEAD_DIM_PATH_STEPS, guidance_scale=4.5,
@@ -5345,10 +5433,29 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         pipe = PixArtPipeline(model, t5=t5, vae=vae, device=dev)
         dh = model.cfg.hidden_size // heads
         span = path_fault_span(dh)
-        t0 = time.perf_counter()
-        reset_train_counts(fa)
-        lat_k = pipe(prompts, **call)
-        counts = train_counts(fa)
+        want = forward_launches(model.cfg, (128, 128), HEAD_DIM_PATH_STEPS)
+
+        def through_kernels(tag, forced=None):
+            """The trajectory through the kernels (`forced`: the caption
+            kernel PIXART_CROSSATTN_IMPL names), its seconds and launches."""
+            if forced:
+                os.environ[CROSSATTN_ENV] = forced
+            try:
+                t0 = time.perf_counter()
+                reset_train_counts(fa)
+                lat = pipe(prompts, **call)
+                counts, wides = train_counts(fa), wide_counts(fa)
+            finally:
+                if forced:
+                    del os.environ[CROSSATTN_ENV]
+            expect = dict(want)
+            if forced:
+                expect[forced], expect["allheads"] = expect["allheads"], 0
+            check_launches(tag, counts, expect)
+            check_wide(tag, dh, counts, wides)
+            return lat, time.perf_counter() - t0, counts, wides
+
+        lat_k, t_k, counts, wides = through_kernels("heads")
         t1 = time.perf_counter()
         set_attn_impl(model, "reference")
         lat_r = pipe(prompts, **call)
@@ -5358,33 +5465,41 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         set_attn_impl(model, "auto")
         rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
         rel_f = float(np.linalg.norm(lat_f - lat_r) / np.linalg.norm(lat_r))
-        want = forward_launches(model.cfg, (128, 128), HEAD_DIM_PATH_STEPS)
         log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}, width "
             f"{fa.head_dim_width(dh)}), {HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
             f"latents {tuple(lat_k.shape)}, kernels vs plain attention on the card: relative L2 "
             f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [{span[0]}, {span[1]}) "
             f"dropped in plain attention: {rel_f:.3e} "
             f"{'rejected' if rel_f > HEAD_DIM_PATH_TOL else 'NOT REJECTED'}; trajectory through "
-            f"the kernels {t1 - t0:.2f} s, through plain attention {t2 - t1:.2f} s")
-        check_launches("heads", counts, want)
+            f"the kernels {t_k:.2f} s, through plain attention {t2 - t1:.2f} s")
         if not np.isfinite(lat_k).all() or lat_k.std() == 0 or lat_k.shape != (2, 128, 128, 4):
             raise SystemExit(f"{heads}-head trajectory latents are wrong or not finite")
         if not rel <= HEAD_DIM_PATH_TOL < rel_f:
             raise SystemExit(f"{heads}-head trajectory: the kernels disagree with plain "
                              "attention, or the gate misses the planted fault")
-        out[heads] = counts
+        out[f"{heads} heads"] = (counts, wides)
+        if heads == HEAD_DIM_HEADSMAJOR:
+            lat_h, t_h, counts_h, wides_h = through_kernels("heads", "headsmajor")
+            rel_h = float(np.linalg.norm(lat_h - lat_r) / np.linalg.norm(lat_r))
+            log(f"[heads] the {heads}-head trajectory with {CROSSATTN_ENV}=headsmajor: relative "
+                f"L2 {rel_h:.3e} against plain attention (limit {HEAD_DIM_PATH_TOL}), {t_h:.2f} s")
+            if not np.isfinite(lat_h).all() or not rel_h <= HEAD_DIM_PATH_TOL:
+                raise SystemExit(f"{heads}-head trajectory with headsmajor: the kernels "
+                                 "disagree with plain attention")
+            out[f"{heads} heads, headsmajor forced"] = (counts_h, wides_h)
         del pipe, model
         torch.cuda.empty_cache()
     return out
 
 
-def head_dim_call_2k(dev, fa, heads: int = HEAD_DIM_2K_HEADS) -> dict:
+def head_dim_call_2k(dev, fa, heads: int) -> tuple:
     """(b) at 2K: one model call of XL-2 with `heads` heads at 2048px (a
-    256 x 256 latent, 16384 tokens; flash in layers 0-13, onepass over the
-    4096 compressed keys of 14-27), one image with a 120-token caption,
-    through the kernels against plain attention on the card (relative L2
-    of the output, HEAD_DIM_PATH_TOL), with (b)'s planted fault; the
-    launches against `forward_launches`. Returns the launches."""
+    256 x 256 latent, 16384 tokens; flash in layers 0-13, onepass or flash,
+    by the kernels' gates, over the 4096 compressed keys of 14-27), one
+    image with a 120-token caption, through the kernels against plain
+    attention on the card (relative L2 of the output, HEAD_DIM_PATH_TOL),
+    with (b)'s planted fault; the launches against `forward_launches`.
+    Returns the launches and the wide form's."""
     import torch
 
     model = xl2_heads(dev, heads, input_size=256, pe_interpolation=4.0)
@@ -5397,7 +5512,7 @@ def head_dim_call_2k(dev, fa, heads: int = HEAD_DIM_2K_HEADS) -> dict:
         reset_train_counts(fa)
         got = model(x, t, y, mask)
         torch.cuda.synchronize()
-        counts = train_counts(fa)
+        counts, wides = train_counts(fa), wide_counts(fa)
         set_attn_impl(model, "reference")
         want = model(x, t, y, mask)
         with k_columns_dropped(*span):
@@ -5411,6 +5526,7 @@ def head_dim_call_2k(dev, fa, heads: int = HEAD_DIM_2K_HEADS) -> dict:
         f"dropped in plain attention: {err_f:.3e} "
         f"{'rejected' if err_f > HEAD_DIM_PATH_TOL else 'NOT REJECTED'}; launches {counts}")
     check_launches("heads", counts, expect)
+    check_wide("heads", dh, counts, wides)
     if counts["flash_forward"] == 0 or not bool(torch.isfinite(got).all()):
         raise SystemExit(f"{heads}-head 2K call: no flash launch, or an output not finite")
     if not err <= HEAD_DIM_PATH_TOL < err_f:
@@ -5418,19 +5534,20 @@ def head_dim_call_2k(dev, fa, heads: int = HEAD_DIM_2K_HEADS) -> dict:
                          "the gate misses the planted fault")
     del model, got, want, faulty
     torch.cuda.empty_cache()
-    return counts
+    return counts, wides
 
 
-def head_dim_gradients(dev, fa, heads: int) -> dict:
+def head_dim_gradients(dev, fa, heads: int) -> tuple:
     """(c): one 1024px training step of the `heads`-head model (9: Dh = 128,
-    self-attention on flash at width 128; 6: Dh = 192, onepass at width 256)
+    self-attention on flash at width 128; 6: Dh = 192, onepass at width 256;
+    4: Dh = 288, onepass, and 3: Dh = 384, flash, both in the wide form)
     cut to depth 4 (KV compression on layers 2-3, B = 2, 4096 tokens),
     through the kernels against plain attention: the parameters' gradients
     (GRAD_REL_TOL over all and for the worst) and the gradient of q, k and v
     of layers 0-1 per image and 128-row tile (GRAD_TILE_TOL). Planted faults
     in the self-attention's backward: dK's columns [64, 128) zeroed ([128,
-    256) at width 256), and dQ scaled by 1 / ln 2 (flash's dQ without its
-    ln 2 chain factor). Returns the launches."""
+    256) past 128), and dQ scaled by 1 / ln 2 (flash's dQ without its ln 2
+    chain factor). Returns the launches and the wide form's."""
     n = 64 * 64
 
     def fails(r) -> bool:
@@ -5453,7 +5570,8 @@ def head_dim_gradients(dev, fa, heads: int) -> dict:
         {f"dK columns [{span[0]}, {span[1]}) zeroed": output_fault(fa, "flash_bwd_dkv", n, dk_columns),
          "dQ without the ln 2 chain factor": output_fault(fa, "flash_bwd_dq", n,
                                                           lambda dq: dq / fa.LN2)},
-        watch=(0, 1))
+        watch=(0, 1), counts=lambda fa: (train_counts(fa), wide_counts(fa)))
+    launches, wides = launches
     expect = step_launches(mc, hw)
     log(f"[heads] (c) {heads}-head model (Dh = {dh}), depth 4, B = 2, latents {hw} ({n} tokens, "
         f"1024 compressed): launches {launches}, reckoned {expect}")
@@ -5466,31 +5584,61 @@ def head_dim_gradients(dev, fa, heads: int) -> dict:
     self_kernel = self_attention_kernel(n, dh)
     if launches != expect or launches[self_kernel] == 0:
         raise SystemExit(f"head-dim gradient gate launches {launches}, reckoned {expect}")
+    check_wide("heads", dh, launches, wides)
     if fails(sound):
         raise SystemExit(f"Dh = {dh} training gradients disagree with plain attention")
     if not all(fails(r) for r in faulty.values()):
         raise SystemExit(f"the Dh = {dh} gradient gate missed a planted fault")
-    return launches
+    return launches, wides
+
+
+def wide_entries(fa, errs: dict, times_: dict, wide_launches: dict) -> list:
+    """The kernels line's entries of the wide form: each kernel's source, the
+    TPU kernel it replaces, its launches on phase 34's 4- and 3-head paths,
+    its worst reading at WIDE_HEAD_DIMS, and its time, plain and `sdpa` times
+    and bound at the head dim its path runs it (WIDE_KERNELS)."""
+    out = []
+    for name, (source, line, dh) in WIDE_KERNELS.items():
+        rows = [r for r in times_[name] if r["head_dim"] > fa.WIDTHS[-1]]
+        head = next(r for r in rows if r["head_dim"] == dh and r["M"] in (4096, 300))
+        out.append({
+            "name": f"{name}_wide", "route": "cuda",
+            "source": f"pixart_sigma_tpu_torch/csrc/{source}",
+            "replaces": f"pixart_sigma_tpu/ops/flash_attention.py:{line}",
+            "launches": wide_launches[name],
+            "max_abs_err": max(errs[name][d] for d in WIDE_HEAD_DIMS),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_backend": head["library_backend"],
+            "s_recompute_factor": head["s_recompute_factor"], "head_dim": dh,
+            "shapes": rows,
+        })
+    return out
 
 
 def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -> dict:
-    """Phase 34: (a) each kernel at every head dim of HEAD_DIMS against its
-    plain version, with the planted faults; (b) the 1024px trajectories of
-    HEAD_DIM_MODELS and the 6-head 2K model call; (c) the 9- and 6-head
-    training steps' gradients; and the times at HEAD_DIM_TIMED. Returns
-    {"errs": {kernel: {dh: max |err|}}, "launches": {run: ...}, "train":
-    {heads: launches}, "times": {kernel: rows}}."""
+    """Phase 34: (a) each kernel at every head dim of HEAD_DIMS and
+    WIDE_HEAD_DIMS against its plain version, with the planted faults; (b)
+    the 1024px trajectories of HEAD_DIM_MODELS and the 2K model calls of
+    HEAD_DIM_2K_HEADS; (c) the training steps' gradients of
+    HEAD_DIM_STEP_HEADS; and the times at HEAD_DIM_TIMED. Returns {"errs":
+    {kernel: {dh: max |err|}}, "launches": {run: ...}, "train": {heads:
+    launches}, "times": {kernel: rows}, "wide": the wide form's entries of
+    the kernels line}."""
     import torch
 
     t_phase = time.perf_counter()
-    log(f"[heads] (a) every kernel at head dims {HEAD_DIMS}, H = floor(1152 / Dh) heads, the "
+    dims = HEAD_DIMS + WIDE_HEAD_DIMS
+    log(f"[heads] (a) every kernel at head dims {dims}, H = floor(1152 / Dh) heads, the "
         "1024px shapes, bf16 and f32; the widths the kernels run them at: "
-        f"{ {dh: fa.head_dim_width(dh + (-dh % 8)) for dh in HEAD_DIMS} }")
+        f"{ {dh: fa.head_dim_width(dh + (-dh % 8)) for dh in dims} } (past 256 the wide "
+        f"form, {fa.WIDE_GROUP_COLS}-column groups: "
+        f"{ {dh: fa.wide_groups(dh) for dh in WIDE_HEAD_DIMS} })")
     errs = {name: {} for name in ("onepass", "flash_forward", "allheads", "headsmajor",
                                   "flash_bwd_dkv", "flash_bwd_dq")}
     ok = True
     bf16, f32 = torch.bfloat16, torch.float32
-    for dh in HEAD_DIMS:
+    for dh in dims:
         # flash at the 2K shape where width 256's 2K path runs it (Dh = 192)
         long = (("flash", 1, 16384, 16384, None, bf16),) if dh == 192 else ()
         for name, B, N, M, lengths, dtype in (
@@ -5526,14 +5674,26 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
         for name, rows in head_dim_times(fa, cases, card, dh, mask_path).items():
             times_.setdefault(name, []).extend(rows)
     t_b = time.perf_counter()
-    launches = {f"{h} heads": c
-                for h, c in head_dim_paths(dev, card, fa, t5, vae, prompts, negative).items()}
-    launches[f"{HEAD_DIM_2K_HEADS}-head 2K model call"] = head_dim_call_2k(dev, fa)
+    runs = head_dim_paths(dev, card, fa, t5, vae, prompts, negative)
+    for h in HEAD_DIM_2K_HEADS:
+        runs[f"{h}-head 2K model call"] = head_dim_call_2k(dev, fa, h)
     log(f"[heads] (b): {time.perf_counter() - t_b:.1f} s")
-    train = {h: head_dim_gradients(dev, fa, h) for h in HEAD_DIM_STEP_HEADS}
+    for h in HEAD_DIM_STEP_HEADS:
+        runs[f"{h}-head training step"] = head_dim_gradients(dev, fa, h)
     torch.cuda.empty_cache()
+    # the wide form's launches over (b) and (c): the runs past Dh = 256
+    wide_launches = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for counts, wides in runs.values():
+        for name, n in wides.items():
+            wide_launches[name] += n
+    log(f"[heads] the wide form's launches over (b) and (c): {wide_launches}")
     log(f"[heads] phase 34: {time.perf_counter() - t_phase:.1f} s")
-    return dict(errs=errs, launches=launches, train=train, times=times_)
+    wide = wide_entries(fa, errs, times_, wide_launches)
+    for entry, name in zip(wide, WIDE_KERNELS):
+        entry["launches_head_dims"] = {run: w[name] for run, (_, w) in runs.items()}
+    # the narrow forms' launches per run
+    narrow = {run: {k: c[k] - w[k] for k in c} for run, (c, w) in runs.items()}
+    return dict(errs=errs, launches=narrow, times=times_, wide=wide)
 
 
 def orbax_chunk_ok(zstd, raw: bytes, want_sha: str) -> bool:
@@ -5780,13 +5940,19 @@ def main() -> int:
             f"{_build.load('cross_attention').cross_attention_smem_bytes(width)} B, dkv "
             f"{bwd.flash_bwd_dkv_smem_bytes(width)} B, dq {bwd.flash_bwd_dq_smem_bytes(width)} B, "
             f"flash {_build.load('flash_forward').flash_forward_smem_bytes(width)} B")
-    # each checks its key tile and stages against the wrapper's
+    wide, wide_bwd = _build.load("wide_attention"), _build.load("wide_backward")
+    log(f"  dynamic shared memory per block of the wide form (head dims past 256): forwards "
+        f"{wide.wide_attention_smem_bytes()} B, dkv {wide_bwd.wide_bwd_dkv_smem_bytes()} B, "
+        f"dq {wide_bwd.wide_bwd_dq_smem_bytes()} B")
+    # each checks its key tile and stages (the wide form: tile and group) against the wrapper's
     fa._onepass_lib(), fa._flash_lib(), fa._cross_lib(), fa._backward_lib()
+    fa._wide_lib(), fa._wide_backward_lib()
     log(f"  keys per tile: onepass and flash {fa.KEY_TILE} (a ring of {fa.KEY_STAGES} K/V "
         f"stages by width), allheads and headsmajor {fa.CROSS_KEY_TILE} (an extent of up to "
         f"{fa.CROSS_KEY_STAGES} tiles resident, longer ones streamed), dkv and dq "
         f"{fa.BWD_KEY_TILE} (dq's ring {fa.BWD_KEY_STAGES} stages); the planted skipped "
-        "tile, the extent faults and the spike inputs follow them")
+        "tile, the extent faults and the spike inputs follow them; the wide form "
+        f"{fa.WIDE_KEY_TILE}-key tiles, {fa.WIDE_GROUP_COLS}-column groups")
 
     # ---- 3. kernels against their plain versions ------------------------
     log("[kernels] seeded inputs at the path shapes (B = 2 prompts x CFG), bf16 "
@@ -6131,7 +6297,7 @@ def main() -> int:
     del pipe, model
     torch.cuda.empty_cache()
 
-    # ---- 34. every head dim up to 128 ----------------------------------------
+    # ---- 34. every head dim: the narrow forms up to 256, the wide form past --
     head_dims = run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path)
 
     # ---- 6.-8. the 2K and 4K paths, the flash kernel's times ----------------
@@ -6237,16 +6403,19 @@ def main() -> int:
     for entry in entries:
         name = entry["name"]
         entry["widths"] = list(fa.WIDTHS)
-        entry["head_dims_max_abs_err"] = head_dims["errs"][name]
+        entry["head_dims_max_abs_err"] = {dh: e for dh, e in head_dims["errs"][name].items()
+                                          if dh <= fa.WIDTHS[-1]}
         entry["launches_head_dims"] = {run: c[name] for run, c in head_dims["launches"].items()}
-        for h, c in head_dims["train"].items():
-            entry["launches_head_dims"][f"{h}-head training step"] = c[name]
-        entry["head_dim_shapes"] = head_dims["times"].get(name, [])
+        entry["head_dim_shapes"] = [r for r in head_dims["times"].get(name, [])
+                                    if r["head_dim"] <= fa.WIDTHS[-1]]
 
     # ---- 35. the JAX trainer's orbax checkpoints: decode, load, sample, resume ----
     launches_orbax = run_orbax(dev, card, fa)
     for entry in entries:
         entry["launches_orbax"] = {run: c[entry["name"]] for run, c in launches_orbax.items()}
+    # the wide form's six kernels (head dims past 256), after every loop above,
+    # which reads the narrow kernels' launches by name
+    entries += head_dims["wide"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": entries}))

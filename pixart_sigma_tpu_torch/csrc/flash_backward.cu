@@ -1116,7 +1116,7 @@ inline attn::Strides strided(const long long* strides, int i) {
 }
 
 inline bool valid_shape(int N, int M, int dh) {
-  return N >= 1 && M >= 1 && dh >= 1 && dh % 8 == 0 && dh <= hopper::kMaxHeadDim;
+  return N >= 1 && M >= 1 && dh >= 1 && dh % 8 == 0 && dh <= hopper::kNarrowMaxHeadDim;
 }
 
 template <typename TOut, int W>

@@ -734,7 +734,7 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
                    const attn::Strides& qs, const attn::Strides& ks, const attn::Strides& vs,
                    const attn::Strides& os, float scale, float m0, int tail,
                    bool cross = false, bool o_maps = false) {
-  if (N < 1 || M < 1 || tail < 0 || dh < 1 || dh % 8 || dh > kMaxHeadDim)
+  if (N < 1 || M < 1 || tail < 0 || dh < 1 || dh % 8 || dh > kNarrowMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   l = Launch{};
   const int keys = keys_of(width_of(dh));

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks that the attention forward body
-// (hopper_attention.cuh) and the attention backward (flash_backward.cu)
-// share: mbarriers, TMA copies (bulk and tensor, load and store), named
+// (hopper_attention.cuh), the attention backward (flash_backward.cu) and
+// their wide forms past a head dim of 256 (wide_attention.cu,
+// wide_backward.cu, which stream the head dim in 64-column atoms) share:
+// mbarriers, TMA copies (bulk and tensor, load and store), named
 // barriers, wgmma (fence, commit, wait, shared-memory descriptors, the
 // products the kernels issue) and the encoding of 4D TMA tensor maps over
 // strided bf16 [B, rows, H, dh] views.
@@ -38,7 +40,9 @@ namespace hopper {
 constexpr int kMainCols = 64;  // head-dim columns [0, 64): 128-byte rows, 128B swizzle
 constexpr int kTailCols = 16;  // columns [64, 80) of a K-major operand: 32-byte rows, 32B swizzle
 constexpr int kEncodeError = 10000;  // + CUresult of a failed tensor-map encode
-constexpr int kMaxHeadDim = 256;
+// The widest head dim of these forms; wider ones run the wide form, which
+// streams the head dim (wide_attention.cu, wide_backward.cu).
+constexpr int kNarrowMaxHeadDim = 256;
 // The TPU kernels pad K/V to a multiple of 128 keys, and the onepass and
 // flash wrappers pad the mask bias rows to it: a whole number of key tiles
 // at every width.

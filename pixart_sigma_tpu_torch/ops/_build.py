@@ -27,7 +27,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("onepass_attention", "cross_attention", "flash_backward", "flash_forward")
+KERNELS = ("onepass_attention", "cross_attention", "flash_backward", "flash_forward",
+           "wide_attention", "wide_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

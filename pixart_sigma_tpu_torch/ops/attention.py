@@ -97,9 +97,12 @@ def choose_impl(n: int, m: int, dh: int, masked: bool, needs_grad: bool = False)
     does: it must name a kernel, and a forced "headsmajor" gives way to the
     differentiable kernels when a gradient is needed, as JAX training falls
     back to allheads. Then "allheads" (masked, <= 512 padded keys), "onepass"
-    (<= 4096 padded keys), and "flash" for everything longer, masked or not.
-    The TPU gates would pick XLA for short sequences; the port has no XLA and
-    runs the kernels there too."""
+    (<= 4096 padded keys, a head dim below its 128-lane padding), and "flash"
+    for everything longer, masked or not, and for head dims on a multiple of
+    128. The TPU gates would pick XLA for short sequences; the port has no
+    XLA and runs the kernels there too. Every head dim runs: up to 256 the
+    kernels' narrow forms, past it their wide form (Dh 288 onepass, 384
+    flash, as the gates say)."""
     if masked and onepass_supported(n, m, dh):
         forced = os.environ.get(CROSSATTN_ENV)
         if forced and forced not in KERNEL_IMPLS:

@@ -40,12 +40,18 @@ PyTorch version (`onepass_reference_with_lse`, `flash_reference_with_lse`,
 launches its kernel or raises. Each wrapper counts its launches in
 `<wrapper>.launches`.
 
-The kernels take every head dim up to 256 (MAX_HEAD_DIM), each run at the
-padded width 64, 80, 128 or 256 (`head_dim_width`); a head dim that is not a
-multiple of 8 is zero-padded to one by the wrapper (`pad_head_dim`), with the
-softmax scale kept the true head dim's, and the outputs and gradients are
-sliced back. Width 256 streams 64-key tiles (and the backward 64-key dK/dV
-items), 128 keys the narrower widths. A wider head dim raises a ValueError.
+The kernels take every head dim from 1 up. A head dim that is not a multiple
+of 8 is zero-padded to one by the wrapper (`pad_head_dim`), with the softmax
+scale kept the true head dim's, and the outputs and gradients are sliced
+back. Up to 256 it runs at the padded width 64, 80, 128 or 256 of the narrow
+forms (`head_dim_width`; width 256 streams 64-key tiles, and the backward
+64-key dK/dV items, 128 keys the narrower widths). Past 256 every wrapper
+launches the wide form instead (`csrc/wide_attention.cu`,
+`csrc/wide_backward.cu`, counted also in `<wrapper>.wide_launches`): the head
+dim streams through the ring in 64-column atoms (TMA zero-fills past it) and
+the outputs and gradients go in groups of WIDE_GROUP_COLS columns, a grid axis
+of the one launch, each group recomputing the logits. Only a head dim below 1
+is refused.
 """
 
 from __future__ import annotations
@@ -65,10 +71,15 @@ ONEPASS_MAX_KV = 4096  # padded keys, as the TPU gate (onepass_supported)
 ALLHEADS_MAX_KV = 512  # caption keys the allheads kernel takes
 HEADSMAJOR_MAX_KV = 512  # caption keys the headsmajor kernel takes
 HEADSMAJOR_ROWS = 128  # unit of headsmajor's block_q (the kernel's query tile)
-MAX_HEAD_DIM = 256  # the widest head dim the kernels take
-# The padded head dims the kernels are built for (csrc/hopper_common.cuh):
-# a head dim runs at the first that holds it
+# The padded head dims the narrow forms are built for (csrc/hopper_common.cuh):
+# a head dim runs at the first that holds it; past the last, the wide form
 WIDTHS = (64, 80, 128, 256)
+# The wide form: 64-column atoms of the head dim, keys per K/V tile (the unit
+# of its key extent, and the keys of one dK/dV block) and output columns per
+# group; the last two are checked against the libraries at load
+WIDE_ATOM = 64
+WIDE_KEY_TILE = 64
+WIDE_GROUP_COLS = 128
 # Keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
 # and the depth of their K/V ring, at each width; both are checked against
 # the library at load
@@ -125,12 +136,19 @@ def caption_key_extent(key_mask: torch.Tensor, tile: int = CROSS_KEY_TILE[128]) 
     no valid key keeps every key, M rounded up to `tile`: it averages all of
     V (sum(V) / pad128(M)). The last index, not the count, as masks need not
     be prefixes. The backward kernels (dkv, dq) apply the same rule to the
-    mask bias row in tiles of BWD_KEY_TILE."""
+    mask bias row in tiles of BWD_KEY_TILE; the wide form (head dims past
+    256) in tiles of WIDE_KEY_TILE."""
     M = key_mask.shape[-1]
     keys = torch.arange(1, M + 1, device=key_mask.device)
     last = torch.where(key_mask.bool(), keys, 0).amax(-1)
     last = torch.where(last > 0, last, M)
     return -(-last // tile) * tile
+
+
+def wide_groups(dh: int) -> int:
+    """Column groups the wide form splits a head dim of dh into: each
+    recomputes the logits, so this is its factor on the work of Q.K^T."""
+    return -(-dh // WIDE_GROUP_COLS)
 
 
 def _logits(q, k, madd, scale: Optional[float] = None):
@@ -260,13 +278,22 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_head_dim(name: str, dh: int) -> None:
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take 1 to {MAX_HEAD_DIM}")
+    if dh < 1:
+        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take every head dim from 1")
 
 
 def head_dim_width(dh: int) -> int:
-    """The padded width (WIDTHS) a head dim of dh runs at."""
-    return next(w for w in WIDTHS if dh <= w)
+    """The padded width a head dim of dh runs at: the first of WIDTHS that
+    holds it, or past the last, the wide form's whole 64-column atoms."""
+    _check_head_dim("head_dim_width", dh)
+    if dh <= WIDTHS[-1]:
+        return next(w for w in WIDTHS if dh <= w)
+    return -(-dh // WIDE_ATOM) * WIDE_ATOM
+
+
+def _is_wide(dp: int) -> bool:
+    """Whether a head dim padded to 8, dp, runs the wide form."""
+    return dp > WIDTHS[-1]
 
 
 def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
@@ -354,6 +381,16 @@ def _check_key_geometry(lib, name: str, tile=KEY_TILE, stages=KEY_STAGES):
     return lib
 
 
+def _check_wide_geometry(lib, name: str):
+    """`lib` (wide_attention or wide_backward), once its keys per tile and
+    columns per group are found to be WIDE_KEY_TILE and WIDE_GROUP_COLS."""
+    got = (getattr(lib, f"{name}_key_tile")(), getattr(lib, f"{name}_group_cols")())
+    if got != (WIDE_KEY_TILE, WIDE_GROUP_COLS):
+        raise RuntimeError(f"{name}: the library takes {got[0]}-key tiles and {got[1]}-column "
+                           f"groups, the wrapper expects {WIDE_KEY_TILE} and {WIDE_GROUP_COLS}")
+    return lib
+
+
 @functools.cache
 def _onepass_lib() -> ctypes.CDLL:
     lib = _check_key_geometry(_build.load("onepass_attention"), "onepass_attention")
@@ -392,6 +429,31 @@ def _backward_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _wide_lib() -> ctypes.CDLL:
+    """The wide form of onepass, flash, allheads and headsmajor."""
+    lib = _check_wide_geometry(_build.load("wide_attention"), "wide_attention")
+    lib.wide_onepass_attention.argtypes = [_P] * 6 + [_L] + [_I] * 6 + [_L] * 12 + [_F, _P]
+    lib.wide_flash_forward.argtypes = [_P] * 6 + [_L] + [_I] * 7 + [_L] * 12 + [_F, _P]
+    for fn in (lib.wide_allheads_attention, lib.wide_headsmajor_attention):
+        fn.argtypes = [_P] * 4 + [_L, _P] + [_I] * 6 + [_L] * 12 + [_F, _P]
+    for fn in (lib.wide_onepass_attention, lib.wide_flash_forward, lib.wide_allheads_attention,
+               lib.wide_headsmajor_attention):
+        fn.restype = _I
+    return lib
+
+
+@functools.cache
+def _wide_backward_lib() -> ctypes.CDLL:
+    """The wide form of dkv and dq."""
+    lib = _check_wide_geometry(_build.load("wide_backward"), "wide_backward")
+    strides = ctypes.POINTER(_L)
+    lib.wide_bwd_dkv.argtypes = [_P] * 9 + [_I] * 6 + [strides, _F, _F, _P]
+    lib.wide_bwd_dq.argtypes = [_P] * 8 + [_I] * 6 + [strides, _F, _F, _P]
+    lib.wide_bwd_dkv.restype = lib.wide_bwd_dq.restype = _I
+    return lib
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -407,9 +469,25 @@ def _grad_needed(*tensors: torch.Tensor) -> bool:
 # ---------------------------------------------------------------- onepass
 
 
-def _onepass_forward(q, k, v, madd, with_lse: bool):
+def _lse_buffer(B: int, H: int, N: int, dp: int, with_lse: bool, group_lse: bool, device):
+    """The forward's lse output and the elements between its groups' rows:
+    [B, H, N] f32 (only the wide form's group 0 writes it), or with
+    `group_lse` [groups, B, H, N], every group of the wide form writing its
+    own (a check that the groups agree bit for bit); None when not wanted."""
+    if group_lse:
+        if not _is_wide(dp):
+            raise ValueError(f"group_lse: head dim {dp} runs the narrow form, which has no groups")
+        G = wide_groups(dp)
+        return torch.empty((G, B, H, N), dtype=torch.float32, device=device), B * H * N
+    if not with_lse:
+        return None, 0
+    return torch.empty((B, H, N), dtype=torch.float32, device=device), 0
+
+
+def _onepass_forward(q, k, v, madd, with_lse: bool, group_lse: bool = False):
     """(out, lse or None) of the onepass kernel, or of its plain version on
-    CPU tensors (which always gives the lse)."""
+    CPU tensors (which always gives the lse). `group_lse` (the wide form):
+    every column group's lse, [groups, B, H, N]."""
     if q.device.type == "cpu":
         return _plain_forward(q, k, v, madd)
     B, N, H, Dh = q.shape
@@ -420,15 +498,19 @@ def _onepass_forward(q, k, v, madd, with_lse: bool):
     q, k, v = (_tma_operand(pad_head_dim(x)) for x in (q, k, v))
     Dp = q.shape[-1]
     madd = _tile_bias(madd, B, M, "onepass_attention madd")
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
-    err = _onepass_lib().onepass_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        out.dtype == torch.float32, B, H, N, M, Dp, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q),
-    )
+    lse, lse_gs = _lse_buffer(B, H, N, Dp, with_lse, group_lse, q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse))
+    rest = (out.dtype == torch.float32, B, H, N, M, Dp, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], Dh**-0.5 * LOG2E, _stream(q))
+    wide = _is_wide(Dp)
+    if wide:
+        err = _wide_lib().wide_onepass_attention(*args, lse_gs, *rest)
+    else:
+        err = _onepass_lib().onepass_attention(*args, *rest)
     if err:
         raise RuntimeError(f"onepass_attention kernel launch failed: {_hopper_error(err)}")
     onepass_attention.launches += 1
+    onepass_attention.wide_launches += wide
     return _unpad(out, Dh), lse
 
 
@@ -453,6 +535,7 @@ def onepass_attention(
 
 
 onepass_attention.launches = 0
+onepass_attention.wide_launches = 0
 
 
 # ---------------------------------------------------------------- allheads
@@ -484,14 +567,16 @@ def _key_bytes(key_mask: torch.Tensor, device: torch.device, name: str) -> torch
 
 def _cross_launch(name: str, q, k, v, key_mask, out, dh: int) -> None:
     """One launch of the allheads or headsmajor kernel (`name`, an entry
-    point of the cross_attention library) on [B, rows, H, Dp] views from
-    `_cross_operands`, writing out, a [B, N, H, Dp] view of bf16 or f32;
+    point of the cross_attention library, or past a Dp of 256 that of the
+    wide_attention library with `wide_` before it) on [B, rows, H, Dp] views
+    from `_cross_operands`, writing out, a [B, N, H, Dp] view of bf16 or f32;
     key_mask is the [B, M] mask (True = valid). The logit scale is that of
     the true head dim dh (Dp is dh padded to a multiple of 8)."""
     B, N, H, Dp = q.shape
     M = k.shape[1]
     mask = _key_bytes(key_mask, q.device, name)
-    err = getattr(_cross_lib(), name)(
+    fn = getattr(_wide_lib(), f"wide_{name}") if _is_wide(Dp) else getattr(_cross_lib(), name)
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask.stride(0),
         out.data_ptr(), out.dtype == torch.float32, B, H, N, M, Dp, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], dh**-0.5 * LOG2E, _stream(q),
@@ -514,6 +599,7 @@ def _allheads_forward(q, k, v, key_mask, n_heads: int):
     out = torch.empty((B, N, n_heads, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
     _cross_launch("allheads_attention", *_cross_operands(q, k, v, n_heads), key_mask, out, Dh)
     crossattn_allheads.launches += 1
+    crossattn_allheads.wide_launches += _is_wide(out.shape[-1])
     return _unpad(out, Dh).flatten(2)
 
 
@@ -539,6 +625,7 @@ def crossattn_allheads(
 
 
 crossattn_allheads.launches = 0
+crossattn_allheads.wide_launches = 0
 
 
 # ---------------------------------------------------------------- backward
@@ -593,7 +680,9 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     M = k.shape[1]
     dk = torch.empty((B, M, H, Dp), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
-    err = _backward_lib().flash_bwd_dkv(
+    wide = _is_wide(Dp)
+    fn = _wide_backward_lib().wide_bwd_dkv if wide else _backward_lib().flash_bwd_dkv
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dtype == torch.float32,
         B, H, N, M, Dp, _strides(q, k, v, do, None, dk, dv),
@@ -602,10 +691,12 @@ def flash_bwd_dkv(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     if err:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.wide_launches += wide
     return _unpad(dk, Dh), _unpad(dv, Dh)
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.wide_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
@@ -619,7 +710,9 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     B, N, H, Dp = q.shape
     M = k.shape[1]
     dq = torch.empty((B, N, H, Dp), dtype=dtype, device=q.device)
-    err = _backward_lib().flash_bwd_dq(
+    wide = _is_wide(Dp)
+    fn = _wide_backward_lib().wide_bwd_dq if wide else _backward_lib().flash_bwd_dq
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(madd), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dtype == torch.float32,
         B, H, N, M, Dp, _strides(q, k, v, do, dq, None, None),
@@ -628,10 +721,12 @@ def flash_bwd_dq(q, k, v, do, madd, lse, delta, scale: Optional[float] = None,
     if err:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: {_hopper_error(err)}")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.wide_launches += wide
     return _unpad(dq, Dh)
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.wide_launches = 0
 
 
 def _flash_backward(q, k, v, madd, out, lse, do, scale=None, ds_scale=None):
@@ -706,9 +801,10 @@ class _AllheadsAttention(torch.autograd.Function):
 # ---------------------------------------------------------------- flash
 
 
-def _flash_forward(q, k, v, madd, tail: int, with_lse: bool):
+def _flash_forward(q, k, v, madd, tail: int, with_lse: bool, group_lse: bool = False):
     """(out, lse or None) of the flash kernel on pre-scaled q, or of its plain
-    version on CPU tensors (which always gives the lse)."""
+    version on CPU tensors (which always gives the lse); `group_lse` as in
+    `_onepass_forward`."""
     if q.device.type == "cpu":
         return _softmax_pv(_logits(q, k, madd, scale=1.0), v, tail, q.dtype)
     B, N, H, Dh = q.shape
@@ -717,16 +813,21 @@ def _flash_forward(q, k, v, madd, tail: int, with_lse: bool):
     _check_head_dim("flash_attention", Dh)
     out = torch.empty((B, N, H, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
     q, k, v = (_tma_operand(pad_head_dim(x)) for x in (q, k, v))
+    Dp = q.shape[-1]
     madd = _tile_bias(madd, B, M, "flash_attention madd")
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
-    err = _flash_lib().flash_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse),
-        out.dtype == torch.float32, B, H, N, M, q.shape[-1], tail, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q),
-    )
+    lse, lse_gs = _lse_buffer(B, H, N, Dp, with_lse, group_lse, q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(madd), out.data_ptr(), _ptr(lse))
+    rest = (out.dtype == torch.float32, B, H, N, M, Dp, tail, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], 1.0, _stream(q))
+    wide = _is_wide(Dp)
+    if wide:
+        err = _wide_lib().wide_flash_forward(*args, lse_gs, *rest)
+    else:
+        err = _flash_lib().flash_forward(*args, *rest)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {_hopper_error(err)}")
     flash_attention.launches += 1
+    flash_attention.wide_launches += wide
     return _unpad(out, Dh), lse
 
 
@@ -774,6 +875,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -832,7 +934,9 @@ def crossattn_headsmajor(
     out = torch.empty((B, N, H, Dh + (-Dh % 8)), dtype=q.dtype, device=q.device)
     _cross_launch("headsmajor_attention", *_cross_operands(q, k, v), key_mask, out, Dh)
     crossattn_headsmajor.launches += 1
+    crossattn_headsmajor.wide_launches += _is_wide(out.shape[-1])
     return _unpad(out, Dh)
 
 
 crossattn_headsmajor.launches = 0
+crossattn_headsmajor.wide_launches = 0

@@ -12,8 +12,11 @@ width there (a spare lane of the padding to a multiple of 128 lanes: Dh <
 128, or 129-255 padded to 256), and flash takes Dh = 128 and 256 only
 without a key mask. Then the wrapper's pad-to-8 helper, which the CUDA path
 runs for a head dim off a multiple of 8, against the unpadded plain
-version. The gradients are in tests/test_torch_head_dims_grads.py and a
-small PixArt at Dh = 128, 36 and 192 in tests/test_torch_head_dims_model.py.
+version, and the padded width each head dim runs at on the card (past 256
+the wide form's 64-column atoms; only a head dim below 1 is refused). The
+gradients are in tests/test_torch_head_dims_grads.py, a small PixArt at Dh
+= 128, 36 and 192 in tests/test_torch_head_dims_model.py, and the head dims
+past 256 in tests/test_torch_wide_head_dims.py.
 
 Tolerances are those of the 72-wide tests: f32 2e-5, bf16 2e-2 (the JAX
 kernel tests' own); against the XLA route f32 1e-4 (another summation
@@ -235,11 +238,18 @@ def test_head_dims_run_at_their_width(Dh, width):
     assert tfa.head_dim_width(Dh + (-Dh % 8)) == width
 
 
-def test_head_dims_past_128_are_refused():
-    """Since width 256, the kernels take every head dim up to 256: the
-    refusal starts at 257 and names the limit."""
-    for dh in (257, 384, 0):
-        with pytest.raises(ValueError, match="256"):
-            tfa._check_head_dim("onepass_attention", dh)
-    for dh in (1, 36, 128, 129, 200, 256):
-        tfa._check_head_dim("onepass_attention", dh)
+@pytest.mark.parametrize("Dh,width", [(257, 320), (384, 384), (1152, 1152), (2048, 2048),
+                                      (0, None)])
+def test_head_dims_past_256_run_at_their_atom_width(Dh, width):
+    """Past 256 the kernels take every head dim in their wide form, at whole
+    64-column atoms of the head dim padded to 8; only a head dim below 1 is
+    refused."""
+    if width is None:
+        with pytest.raises(ValueError, match="from 1"):
+            tfa._check_head_dim("onepass_attention", Dh)
+        with pytest.raises(ValueError, match="from 1"):
+            tfa.head_dim_width(Dh)
+        return
+    tfa._check_head_dim("onepass_attention", Dh)
+    assert tfa.head_dim_width(Dh + (-Dh % 8)) == width
+    assert width % tfa.WIDE_ATOM == 0 and tfa._is_wide(Dh + (-Dh % 8))

@@ -41,14 +41,14 @@ SMALL = {  # hidden, heads: Dh = 128 (XL-2's 1152 with 9 heads), 36 (32 heads), 
 
 
 @functools.cache
-def _jax_small(dh):
+def _jax_small(hidden_size, num_heads):
     """(JAX model, its perturbed params, the inputs): the JAX init is the
-    slow part, so both tests of a head dim share it."""
+    slow part, so both tests of a size share it."""
     cfg = dict(input_size=16, depth=2, caption_channels=32, model_max_length=12,
                kv_compress_sampling="conv", kv_compress_scale=2, kv_compress_layers=(1,),
-               **SMALL[dh])
+               hidden_size=hidden_size, num_heads=num_heads)
     jm = JaxPixArt(JaxConfig(**cfg, dtype=jnp.float32, scan_blocks=False))
-    rng = np.random.RandomState(dh)
+    rng = np.random.RandomState(hidden_size // num_heads)
     x0 = rng.randn(2, 16, 16, 4).astype(np.float32)
     y = rng.randn(2, 12, 32).astype(np.float32)
     mask = (np.arange(12)[None] < np.asarray([[12], [5]])).astype(np.int32)
@@ -60,10 +60,10 @@ def _jax_small(dh):
     return jm, params, (x0, y, mask)
 
 
-def _small(dh):
+def _small(hidden_size, num_heads):
     """(JAX model, params, a fresh port training model with those weights,
     its config, the inputs)."""
-    jm, params, inputs = _jax_small(dh)
+    jm, params, inputs = _jax_small(hidden_size, num_heads)
     kw = {f.name: getattr(jm.cfg, f.name) for f in dataclasses.fields(jm.cfg)
           if f.name != "dtype"}
     pcfg = PixArtConfig(**kw, dtype=torch.float32)
@@ -75,8 +75,19 @@ def _small(dh):
 
 @pytest.mark.parametrize("dh", sorted(SMALL))
 def test_small_pixart_forward_matches_jax(dh):
-    jm, params, tm, _, (x0, y, mask) = _small(dh)
-    assert tm.cfg.hidden_size // tm.cfg.num_heads == dh
+    check_forward(**SMALL[dh])
+
+
+@pytest.mark.parametrize("dh", sorted(SMALL))
+def test_small_pixart_training_step_matches_jax(dh):
+    check_training_step(**SMALL[dh])
+
+
+def check_forward(hidden_size, num_heads):
+    """The port's forward of the small PixArt at this width and head count
+    against the JAX model's."""
+    jm, params, tm, _, (x0, y, mask) = _small(hidden_size, num_heads)
+    assert tm.cfg.hidden_size // tm.cfg.num_heads == hidden_size // num_heads
     t = np.asarray([10.0, 700.0], np.float32)
     want = jm.apply({"params": params}, jnp.asarray(x0), jnp.asarray(t), jnp.asarray(y),
                     jnp.asarray(mask))
@@ -86,11 +97,11 @@ def test_small_pixart_forward_matches_jax(dh):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dh", sorted(SMALL))
-def test_small_pixart_training_step_matches_jax(dh):
+def check_training_step(hidden_size, num_heads):
     """One training step's loss and every parameter's gradient (relative L2
     per parameter), the iDDPM losses with the learned-range term."""
-    jm, params, tm, pcfg, (x0, y, mask) = _small(dh)
+    jm, params, tm, pcfg, (x0, y, mask) = _small(hidden_size, num_heads)
+    dh = hidden_size // num_heads
     noise = np.random.RandomState(dh + 1).randn(*x0.shape).astype(np.float32)
     t, drop = np.asarray([3, 731], np.int32), np.asarray([0, 1], np.int32)
     jd = JaxIDDPM(timestep_respacing=[1000], learn_sigma=True, rescale_learned_sigmas=True)

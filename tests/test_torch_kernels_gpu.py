@@ -33,6 +33,8 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     CROSS_KEY_TILE,
     KEY_STAGES,
     KEY_TILE,
+    WIDE_GROUP_COLS,
+    WIDE_KEY_TILE,
     _flash_forward,
     _flash_madd,
     _flash_scale_q,
@@ -52,6 +54,7 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     headsmajor_reference,
     mask_bias,
     onepass_attention,
+    wide_groups,
 )
 
 pytestmark = pytest.mark.gpu
@@ -154,6 +157,14 @@ HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 333, 500, 2, 256, (500, 77)),               # the widest head dim, masked
     (2, 333, 500, 3, 250, (500, 77)),               # padded to 256
     (2, 200, 300, 2, 136, None),                    # the narrowest of width 256
+    # the wide form: 64-column atoms, 128-column groups, 64-key tiles
+    (2, 200, WIDE_KEY_TILE + 1, 2, 264, None),      # the narrowest: 5 atoms, 3 groups
+    (2, 1000, 1008, 4, 288, None),                  # XL-2 with 4 heads
+    (2, 333, 500, 3, 384, (500, 77)),               # 3 heads, masked
+    (2, 300, 333, 2, 576, (333, 100)),              # 2 heads: 9 atoms, 5 groups
+    (1, 130, 77, 1, 1152, None),                    # 1 head: 18 atoms, 9 groups
+    (1, 130, 200, 1, 2048, (200,)),                 # no upper limit
+    (2, 200, 300, 2, 260, None),                    # padded to 264
 ]
 
 
@@ -224,6 +235,11 @@ CROSS_CASES = [  # B, N, M, H, lengths
      ((CROSS_RESIDENT_256, CROSS_RESIDENT_256 + 1), 0), 256),  # streamed at width 256
     (3, 130, 512, 2, (512, (CROSS_RESIDENT_256 - 1, CROSS_RESIDENT_256), 0), 256),
     (4, 1000, 300, 4, (300, 120, 77, 1), 250),  # padded heads-major copies
+    (4, 4096, 300, 4, (300, 40, 5, 0), 288),  # XL-2 with 4 heads: the wide form
+    (4, 1000, 300, 3, (19, (256, 300), 77, 3), 384),  # 3 heads
+    (3, 130, 512, 2, (512, (WIDE_KEY_TILE - 1, WIDE_KEY_TILE), 0), 576),  # a long extent
+    (2, 200, 77, 1, (77, 9), 1152),
+    (2, 333, 300, 2, (300, (100, 200)), 260),  # padded heads-major copies
 ])
 def test_allheads_kernel_matches_plain(cuda, B, N, M, H, lengths, Dh):
     rng = np.random.RandomState(2)
@@ -273,19 +289,48 @@ def test_kernels_refuse_other_dtypes(cuda):
         onepass_attention(q.bfloat16(), q.float(), q.float())
 
 
-def test_kernels_refuse_head_dims_past_128(cuda):
-    """Every kernel takes head dims 1 to 256 (since width 256) and names the
-    limit past it."""
-    q = torch.zeros((1, 16, 2, 264), device=cuda, dtype=torch.bfloat16)
+def test_kernels_take_head_dims_past_256(cuda):
+    """Every kernel launches its wide form past a head dim of 256, with no
+    upper limit, and refuses only a head dim below 1."""
     mask = torch.ones((1, 16), device=cuda, dtype=torch.bool)
     lse = torch.zeros((1, 2, 16), device=cuda)
-    for call in (lambda: onepass_attention(q, q, q), lambda: flash_attention(q, q, q),
-                 lambda: crossattn_allheads(q.flatten(2), q.flatten(2), q.flatten(2), mask, 2),
-                 lambda: crossattn_headsmajor(q, q, q, mask, 128),
-                 lambda: flash_bwd_dkv(q, q, q, q, None, lse, lse),
-                 lambda: flash_bwd_dq(q, q, q, q, None, lse, lse)):
-        with pytest.raises(ValueError, match="256"):
+    for dh in (264, 4096):
+        q = torch.zeros((1, 16, 2, dh), device=cuda, dtype=torch.bfloat16)
+        for fn, call in (
+                (onepass_attention, lambda: onepass_attention(q, q, q)),
+                (flash_attention, lambda: flash_attention(q, q, q)),
+                (crossattn_allheads,
+                 lambda: crossattn_allheads(q.flatten(2), q.flatten(2), q.flatten(2), mask, 2)),
+                (crossattn_headsmajor, lambda: crossattn_headsmajor(q, q, q, mask, 128)),
+                (flash_bwd_dkv, lambda: flash_bwd_dkv(q, q, q, q, None, lse, lse)),
+                (flash_bwd_dq, lambda: flash_bwd_dq(q, q, q, q, None, lse, lse))):
+            before = (fn.launches, fn.wide_launches)
             call()
+            torch.cuda.synchronize()
+            assert (fn.launches, fn.wide_launches) == (before[0] + 1, before[1] + 1)
+    q = torch.zeros((1, 16, 2, 0), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="every head dim from 1"):
+        onepass_attention(q, q, q)
+
+
+@pytest.mark.parametrize("Dh,lengths", [(288, None), (384, (300, 40)), (1152, None)])
+def test_wide_groups_share_their_lse(cuda, Dh, lengths):
+    """The wide form's column groups compute the same row max, sum and lse
+    bit for bit (group 0 alone writes it on the path)."""
+    rng = np.random.RandomState(18)
+    B, N, M, H = 2, 333, 300, 2
+    q, k, v = (_randn(rng, (B, n, H, Dh), cuda) for n in (N, M, M))
+    mask = None if lengths is None else _lengths_mask(lengths, M, cuda)
+    madd = None if mask is None else mask_bias(mask)
+    _, lse = _onepass_forward(q, k, v, madd, with_lse=True)
+    _, groups = _onepass_forward(q, k, v, madd, with_lse=False, group_lse=True)
+    qs, fm, tail = _flash_scale_q(q), _flash_madd(mask, q.dtype), _flash_tail(M, None)
+    _, flse = _flash_forward(qs, k, v, fm, tail, with_lse=True)
+    _, fgroups = _flash_forward(qs, k, v, fm, tail, with_lse=False, group_lse=True)
+    torch.cuda.synchronize()
+    assert groups.shape == (wide_groups(Dh), B, H, N) == fgroups.shape
+    assert all(torch.equal(g, lse) for g in groups)
+    assert all(torch.equal(g, flse) for g in fgroups)
 
 
 # ---------------------------------------------------------------- training
@@ -317,6 +362,11 @@ def _backward_case(dev, B, N, M, H, Dh, lengths, dtype, seed=5):
     (2, 333, 77, 2, 256, (77, 0), torch.float32),
     (2, 1000, 1008, 2, 250, None, torch.bfloat16),   # padded to 256
     (2, 200, 130, 2, 256, None, torch.bfloat16),     # three key items, the last of two keys
+    (2, 1000, 1008, 2, 288, None, torch.bfloat16),   # the wide form: 64-key blocks, 3 groups
+    (2, 333, 300, 2, 384, ((256, 300), 40), torch.bfloat16),
+    (2, 333, 77, 1, 576, (77, 0), torch.float32),
+    (1, 200, 130, 1, 1152, None, torch.bfloat16),
+    (2, 200, 130, 2, 260, None, torch.bfloat16),     # padded to 264
 ])
 def test_backward_kernels_match_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32 inputs: the plain version gets q, k, v and dO rounded to bf16, as
@@ -357,7 +407,7 @@ def test_backward_gradients_past_the_caption_extent_are_zero(cuda):
     assert bool((dk[2, 256:] != 0).any()) and bool((dv[2, 256:] != 0).any())
 
 
-@pytest.mark.parametrize("Dh", [72, 128, 36, 192])
+@pytest.mark.parametrize("Dh", [72, 128, 36, 192, 288, 384])
 def test_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through both forward kernels' autograd Functions on the card
     against torch's autograd of the plain math (f32 inputs, the kernels round
@@ -396,6 +446,8 @@ def test_autograd_runs_the_kernels(cuda, Dh):
     (2, 900, 2500, 1, 36, (1700, 0), torch.float32),      # padded to 40
     (2, 1000, 8200, 1, 256, None, torch.float32),         # width 256
     (2, 900, 2500, 2, 192, (2500, 0), torch.bfloat16),
+    (2, 1000, 8200, 1, 384, None, torch.float32),         # the wide form
+    (2, 900, 2500, 1, 288, (2500, 0), torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     """f32: the plain version gets the scaled q rounded to bf16, as the
@@ -419,7 +471,7 @@ def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
     _assert_close(got[:, rows], flash_reference_with_lse(q[:, rows], k, v)[0])
 
 
-@pytest.mark.parametrize("Dh", [72, 128, 36, 192])
+@pytest.mark.parametrize("Dh", [72, 128, 36, 192, 288, 384])
 def test_flash_autograd_runs_the_kernels(cuda, Dh):
     """Gradients through the flash Function on the card against torch's
     autograd of the plain version (f32 inputs, rounded to bf16 inside)."""
@@ -456,6 +508,9 @@ def test_flash_autograd_runs_the_kernels(cuda, Dh):
     (2, 333, 77, 2, (77, 5), torch.float32, 512, 256),
     (4, 1000, 300, 6, (300, (256, 300), 77, 0), torch.bfloat16, 256, 192),
     (4, 1000, 300, 5, (300, 120, 77, 1), torch.bfloat16, 256, 250),
+    (4, 4096, 300, 4, (300, 120, 77, 1), torch.bfloat16, 256, 288),  # the wide form
+    (2, 333, 77, 2, (77, 5), torch.float32, 512, 384),
+    (4, 1000, 300, 1, (300, (256, 300), 77, 0), torch.bfloat16, 256, 1152),
 ])
 def test_headsmajor_kernel_matches_plain(cuda, B, N, M, H, lengths, dtype, block_q, Dh):
     rng = np.random.RandomState(10)
@@ -511,6 +566,18 @@ def test_forward_key_tile_is_the_librarys(cuda):
     assert _check_key_geometry(lib, "cross_attention", CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
     lib = _build.load("flash_backward")
     assert _check_key_geometry(lib, "flash_backward", BWD_KEY_TILE, BWD_KEY_STAGES) is lib
+
+
+def test_wide_geometry_is_the_librarys(cuda):
+    """The wide form's keys per tile and columns per group are the wrapper's
+    WIDE_KEY_TILE and WIDE_GROUP_COLS."""
+    from pixart_sigma_tpu_torch.ops import _build
+    from pixart_sigma_tpu_torch.ops.flash_attention import _check_wide_geometry
+
+    for name in ("wide_attention", "wide_backward"):
+        lib = _build.load(name)
+        assert _check_wide_geometry(lib, name) is lib
+        assert getattr(lib, f"{name}_group_cols")() == WIDE_GROUP_COLS
 
 
 @pytest.mark.parametrize("M", [4096, 1024])
