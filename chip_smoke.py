@@ -226,13 +226,15 @@ Phases, each printing its own lines:
    averaged over seq, not summed); (d) each rank's launches against the
    single-card reckoning at its shard;
 34. every head dim (run after phase 5b): (a) each of the six kernels at
-   Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, width 256's 136, 144,
-   192, 200, 250, 256 and the wide form's 264, 288, 320, 384, 448, 512,
+   Dh = 1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, 136, 144, 192 (the
+   forwards at width 192, the others at 256), 200, 250, 256 (width 256) and
+   the wide form's 264, 288, 320, 384, 448, 512,
    576, 1152 with H = floor(1152 / Dh) heads at the 1024px shapes, masked
    and unmasked, bf16 and f32 (flash also at N = M = 16384 at Dh = 192),
    held to its plain version on three picked heads under phase 3's limits
    (the backward pair after the onepass forward), with planted faults: a
-   key tile skipped, K's columns [64, 128), [128, 192), [192, 256) and
+   key tile skipped (the forwards' own tile at the width), K's columns
+   [64, 128), [128, 192), [192, 256) and
    [256, 320) dropped (each where Dh reaches it), the padded head dim's
    logit scale (a head dim off a multiple of 8), the wide form's second
    column group from the first group's columns, lse + 1 and a query tile
@@ -389,6 +391,42 @@ SERVE_WINDOW = 16
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def check_forward_ptxas(logs: dict) -> None:
+    """Phase 2's check of ptxas's report (`-Xptxas -v`) on the onepass and
+    flash instantiations at widths 192 and 256 (bf16 and f32 output, masked
+    and not): each must spill no byte, and ptxas must not have serialized its
+    wgmma (C7512), or S and P.V are not in flight together. Skipped when the
+    libraries were built by an earlier run (no compiler output)."""
+    import re
+
+    rows = []
+    for name in ("onepass_attention", "flash_forward"):
+        text = logs.get(name)
+        if text is None:
+            log(f"  ptxas of {name}: not compiled in this run, not checked")
+            continue
+        serialized = set(re.findall(r"C7512\).*?function '(\S+)'", text))
+        fn = None  # the function whose properties ptxas reports next
+        for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            w = re.search(r"_kernel\w*Li(\d+)EEv", fn or "")
+            if m and w and int(w.group(1)) in (192, 256):
+                rows.append((name, int(w.group(1)), "f32" if "IfLb" in fn else "bf16",
+                             "masked" if "Lb1E" in fn else "unmasked",
+                             int(m.group(1)) + int(m.group(2)), fn in serialized))
+            fn = None
+    for name, width, out, mask, spill, serial in rows:
+        log(f"  ptxas {name} width {width} {out} {mask}: {spill} bytes spilled (stores + loads), "
+            f"wgmma {'SERIALIZED' if serial else 'in flight'}")
+    bad = [r for r in rows if r[4] or r[5]]
+    if bad or (logs.get("onepass_attention") is not None and len(rows) < 8):
+        raise SystemExit(f"the forwards at widths 192 and 256 spill or serialize their wgmma: {bad}")
 
 
 def card_line() -> str:
@@ -5046,7 +5084,8 @@ HEAD_DIMS = (1, 8, 18, 36, 64, 72, 80, 88, 96, 120, 128, 136, 144, 192, 200, 250
 WIDE_HEAD_DIMS = (264, 288, 320, 384, 448, 512, 576, 1152)
 # (b): XL-2 at its published width of 1152 with 9 heads (Dh = 128: its
 # self-attention runs flash, past the onepass gate), 12 (Dh = 96), 8 (Dh =
-# 144), 6 (Dh = 192, width 256), 4 (Dh = 288, the wide form: onepass) and 3
+# 144), 6 (Dh = 192; both at width 192 in onepass and flash, 256 in the
+# others), 4 (Dh = 288, the wide form: onepass) and 3
 # (Dh = 384, the wide form: flash)
 HEAD_DIM_MODELS = (9, 12, 8, 6, 4, 3)
 # (b) runs this model's trajectory once more with headsmajor forced
@@ -5070,7 +5109,7 @@ WIDE_KERNELS = {  # kernel (TRAIN_COUNTERS' name) -> (source, TPU kernel line, D
 }
 # (b)'s limit, relative L2 of the 1024px latents (and of the 2K call's
 # output) through the kernels against plain attention on the card; the
-# planted fault, K's columns [64, 128) (at width 256 [128, 256)) dropped in
+# planted fault, K's columns [64, 128) (past Dh 128 [128, 256)) dropped in
 # every attention call of the plain run, must read above it (readings in
 # PERF.md)
 HEAD_DIM_PATH_TOL = 3e-2
@@ -5116,9 +5155,10 @@ def self_attention_kernel(keys: int, dh: int) -> str:
 
 
 # the column faults: K's (or dK's) columns [lo, hi) dropped, each planted
-# where the head dim reaches past lo: the second atom of widths 128 and 256
-# (past 80), the third and fourth atoms, which only width 256 has, and the
-# fifth, which only the wide form has
+# where the head dim reaches past lo: the second atom of widths 128, 192 and
+# 256 (past 80), the third, which widths 192 and 256 have (the forwards run
+# 129-192 at 192), the fourth, which only width 256 has, and the fifth,
+# which only the wide form has
 COLUMN_SPANS = ((64, 128), (128, 192), (192, 256), (256, 320))
 COLUMNS_FAULT = "K columns [{}, {}) dropped"
 # the wide form's group fault: an output's second column group computed from
@@ -5149,8 +5189,9 @@ def head_dim_faults(dh: int) -> dict:
 def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tuple[float, bool]:
     """One forward kernel (`name`) at head dim dh, H = heads_of(dh), on every
     head, held to its plain version on the picked heads (q/k/v rounded to
-    bf16 as the kernel reads them), and the planted faults: key tile
-    [128, 256) skipped and those of `head_dim_faults`; onepass and flash
+    bf16 as the kernel reads them), and the planted faults: the second key
+    tile skipped (onepass and flash: their KEY_TILE at the head dim's width;
+    the others [128, 256)) and those of `head_dim_faults`; onepass and flash
     also their lse."""
     torch_ = sys.modules["torch"]
     H = heads_of(dh)
@@ -5193,10 +5234,15 @@ def check_head_dim_forward(fa, cases, name, dh, B, N, M, lengths, dtype) -> tupl
 
     want, lse_want = plain(pq, pk)
     faults = {}
-    if M > 256:
+    # the skipped tile: the forwards' own at the head dim's width (64 keys at
+    # widths 192 and 256), [128, 256) for the cross kernels and the wide form
+    dp = dh + (-dh % 8)
+    tile = fa.KEY_TILE[fa.forward_head_dim_width(dp)] if name in ("onepass", "flash") and not wide \
+        else 128
+    if M > 2 * tile:
         keep = torch_.ones((B, M), dtype=torch_.bool, device=q.device)
-        keep[:, 128:256] = False
-        faults["key tile [128, 256) skipped"] = plain(pq, pk, keep)[0]
+        keep[:, tile:2 * tile] = False
+        faults[f"key tile [{tile}, {2 * tile}) skipped"] = plain(pq, pk, keep)[0]
     padded_scale = ((pq.float() * (dh / (dh + (-dh % 8))) ** 0.5).to(dtype), pk)
     for fault, span in head_dim_faults(dh).items():
         faults[fault] = plain(*((pq, drop_columns(pk, *span)) if span else padded_scale))[0]
@@ -5296,14 +5342,18 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
 
     def row(name, N, M, valid, ms, plain_ms, lib_ms, backend, flops, nbytes, extra=""):
         b_ms, by = bound_ms(flops, nbytes)
+        width = (fa.forward_head_dim_width(dh) if name in ("onepass", "flash_forward")
+                 else fa.head_dim_width(dh)) if dh <= fa.WIDTHS[-1] else None
         log(f"[time] {card}: Dh={dh} {name} B={B} H={H} N={N} M={M}{extra}: kernel {ms:.4f} ms"
             f"{f' (S recomputed {recompute}x)' if recompute > 1 else ''}, plain {plain_ms:.4f} "
-            f"ms, sdpa {lib_ms:.4f} ms ({backend}), bound {b_ms:.4f} ms ({by}; "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share of bound {b_ms / ms:.3f}")
+            f"ms, sdpa {lib_ms:.4f} ms ({backend}), port / sdpa {ms / lib_ms:.2f}, bound "
+            f"{b_ms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share of "
+            f"bound {b_ms / ms:.3f}{f', width {width}' if width else ''}")
         rows.setdefault(name, []).append(dict(head_dim=dh, heads=H, B=B, N=N, M=M,
                                               valid_keys=valid, ms=ms, plain_ms=plain_ms,
                                               bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
                                               library_backend=backend,
+                                              port_over_library=ms / lib_ms, width=width,
                                               s_recompute_factor=recompute))
 
     for name, N, M, mask in (("onepass", 4096, 4096, None), ("onepass", 4096, 1024, None),
@@ -5362,7 +5412,7 @@ def head_dim_times(fa, cases, card, dh: int, mask_path) -> dict:
 
 def path_fault_span(dh: int) -> tuple:
     """The K columns (b) drops in plain attention: the second 64-column atom,
-    or at width 256 the two atoms only it has."""
+    or past a head dim of 128 the atoms past the second."""
     return (128, 256) if dh > 128 else (64, 128)
 
 
@@ -5466,7 +5516,8 @@ def head_dim_paths(dev, card, fa, t5, vae, prompts, negative) -> dict:
         rel = float(np.linalg.norm(lat_k - lat_r) / np.linalg.norm(lat_r))
         rel_f = float(np.linalg.norm(lat_f - lat_r) / np.linalg.norm(lat_r))
         log(f"[heads] XL-2 1024px, 28 blocks x 1152, {heads} heads (Dh = {dh}, width "
-            f"{fa.head_dim_width(dh)}), {HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
+            f"{fa.forward_head_dim_width(dh)} in onepass and flash, {fa.head_dim_width(dh)} in "
+            f"the others), {HEAD_DIM_PATH_STEPS} steps CFG 4.5: "
             f"latents {tuple(lat_k.shape)}, kernels vs plain attention on the card: relative L2 "
             f"{rel:.3e} (limit {HEAD_DIM_PATH_TOL}); planted fault, K columns [{span[0]}, {span[1]}) "
             f"dropped in plain attention: {rel_f:.3e} "
@@ -5539,7 +5590,8 @@ def head_dim_call_2k(dev, fa, heads: int) -> tuple:
 
 def head_dim_gradients(dev, fa, heads: int) -> tuple:
     """(c): one 1024px training step of the `heads`-head model (9: Dh = 128,
-    self-attention on flash at width 128; 6: Dh = 192, onepass at width 256;
+    self-attention on flash at width 128; 6: Dh = 192, onepass at width 192
+    and the backward at 256;
     4: Dh = 288, onepass, and 3: Dh = 384, flash, both in the wide form)
     cut to depth 4 (KV compression on layers 2-3, B = 2, 4096 tokens),
     through the kernels against plain attention: the parameters' gradients
@@ -5630,7 +5682,8 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
     t_phase = time.perf_counter()
     dims = HEAD_DIMS + WIDE_HEAD_DIMS
     log(f"[heads] (a) every kernel at head dims {dims}, H = floor(1152 / Dh) heads, the "
-        "1024px shapes, bf16 and f32; the widths the kernels run them at: "
+        "1024px shapes, bf16 and f32; the widths onepass and flash run them at: "
+        f"{ {dh: fa.forward_head_dim_width(dh + (-dh % 8)) for dh in dims} }, the others: "
         f"{ {dh: fa.head_dim_width(dh + (-dh % 8)) for dh in dims} } (past 256 the wide "
         f"form, {fa.WIDE_GROUP_COLS}-column groups: "
         f"{ {dh: fa.wide_groups(dh) for dh in WIDE_HEAD_DIMS} })")
@@ -5639,7 +5692,7 @@ def run_head_dims(dev, card, fa, cases, t5, vae, prompts, negative, mask_path) -
     ok = True
     bf16, f32 = torch.bfloat16, torch.float32
     for dh in dims:
-        # flash at the 2K shape where width 256's 2K path runs it (Dh = 192)
+        # flash at the 2K shape where the 6-head 2K path runs it (Dh = 192)
         long = (("flash", 1, 16384, 16384, None, bf16),) if dh == 192 else ()
         for name, B, N, M, lengths, dtype in (
                 ("onepass", 4, 4096, 4096, None, bf16),
@@ -5930,8 +5983,9 @@ def main() -> int:
         log(f"[build] nothing to compile: libraries for these sources are in {_build.BUILD_DIR}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("Compiling entry", "Used", "spill", "C7514", "arning")):
+            if any(w in line for w in ("Compiling entry", "Used", "spill", "C751", "arning")):
                 log(f"  {name}: {line.strip()}")
+    check_forward_ptxas(logs)
     bwd = _build.load("flash_backward")
     for width in fa.WIDTHS:
         log(f"  dynamic shared memory per block at width {width}: onepass "
@@ -5940,6 +5994,10 @@ def main() -> int:
             f"{_build.load('cross_attention').cross_attention_smem_bytes(width)} B, dkv "
             f"{bwd.flash_bwd_dkv_smem_bytes(width)} B, dq {bwd.flash_bwd_dq_smem_bytes(width)} B, "
             f"flash {_build.load('flash_forward').flash_forward_smem_bytes(width)} B")
+    log(f"  dynamic shared memory per block of the forwards' width 192 (head dims 129-192; "
+        f"allheads, headsmajor, dkv and dq run them at 256): onepass "
+        f"{_build.load('onepass_attention').onepass_attention_smem_bytes(192)} B, flash "
+        f"{_build.load('flash_forward').flash_forward_smem_bytes(192)} B")
     wide, wide_bwd = _build.load("wide_attention"), _build.load("wide_backward")
     log(f"  dynamic shared memory per block of the wide form (head dims past 256): forwards "
         f"{wide.wide_attention_smem_bytes()} B, dkv {wide_bwd.wide_bwd_dkv_smem_bytes()} B, "
@@ -6402,7 +6460,8 @@ def main() -> int:
                                         for run, c in launches_seqtp.items()}
     for entry in entries:
         name = entry["name"]
-        entry["widths"] = list(fa.WIDTHS)
+        entry["widths"] = list(fa.FORWARD_WIDTHS if name in ("onepass", "flash_forward")
+                               else fa.WIDTHS)
         entry["head_dims_max_abs_err"] = {dh: e for dh, e in head_dims["errs"][name].items()
                                           if dh <= fa.WIDTHS[-1]}
         entry["launches_head_dims"] = {run: c[name] for run, c in head_dims["launches"].items()}

@@ -40,12 +40,12 @@
 // head's K/V (4.7 MB at 16384 keys) in the 50 MB L2 instead of reading it
 // from HBM once per query tile.
 //
-// Head dims up to 256, at the padded width 64, 80, 128 or 256 as in
-// onepass_attention.cu. Reads bf16 q/k/v in place through their strides;
-// the Python wrapper rounds f32 inputs to bf16 first and pads a head dim
-// that is not a multiple of 8 with zero columns. Needs dh % 8 == 0,
-// dh <= 256 and 16-byte aligned strides, which TMA requires and the
-// wrapper checks.
+// Head dims up to 256, at the padded width 64, 80, 128, 192 or 256 as in
+// onepass_attention.cu (64-key tiles past 128). Reads bf16 q/k/v in place
+// through their strides; the Python wrapper rounds f32 inputs to bf16 first
+// and pads a head dim that is not a multiple of 8 with zero columns. Needs
+// dh % 8 == 0, dh <= 256 and 16-byte aligned strides, which TMA requires
+// and the wrapper checks.
 
 #include "hopper_attention.cuh"
 
@@ -84,9 +84,11 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, const 
                                   scale, attn::kMaskedLogit, tail);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hopper::width_of(dh)) {
+  switch (hopper::forward_width_of(dh)) {
     case 256:
       return flash_run<256>(l, f32, madd, s);
+    case 192:
+      return flash_run<192>(l, f32, madd, s);
     case 128:
       return flash_run<128>(l, f32, madd, s);
     default:
@@ -95,8 +97,8 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v, const 
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
-// ring's depth at the padded width `width` (64, 80, 128 or 256; the wrapper
-// checks the last two against its own).
+// ring's depth at the padded width `width` (64, 80, 128, 192 or 256; the
+// wrapper checks the last two against its own).
 extern "C" int flash_forward_smem_bytes(int width) {
   return hopper::with_ring<false>(width, [](auto r) { return decltype(r)::smem_bytes; });
 }

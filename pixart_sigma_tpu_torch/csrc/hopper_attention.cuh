@@ -52,29 +52,47 @@
 // turns (kPingPong).
 //
 // The head dim (a multiple of 8 up to 256) is split in column chunks, as
-// a 128-byte TMA swizzle row holds 64 bf16, and runs at one of four padded
-// widths (hopper_common.cuh): columns [0, 64) in 128-byte rows with the
-// 128B swizzle; for V (MN-major, whose swizzle atom is 64 columns wide)
-// every further 64 columns as one more 128B atom, so P.V is one N = 80,
-// 128 or 256 product per 16 keys. For Q and K (K-major), at width 80
-// columns [64, 80) in 32-byte rows with the 32B swizzle, so Q.K^T runs
-// 4 + 1 k-steps of 16; at width 128 columns [64, 128) as a second 128B
-// atom, 4 + 4 k-steps; at width 256 four atoms, 4 x 4 k-steps. At width 64
-// the second chunks are skipped. TMA zero-fills the columns past dh and
-// the rows past N or M, so the padding never reaches device memory, and
-// clips a stored box to the same bounds. The shared-memory layout is
-// Ring<kCross, kRing>: widths 64 and 80 share one (kRing 80); width 128's
-// K/V stage is 64 KB, so its self-attention ring holds three stages beside
-// one Q buffer and its cross mode's two stages beside three Q buffers.
-// Width 256 streams 64-key tiles (keys_of): a stage is K and V as four
-// 8 KB atoms each, 64 KB, and the Q buffer 64 KB, so both modes hold two
-// stages beside one Q buffer (192 KB; three stages would not fit), S is a
-// m64n64 product (32 registers beside O's 128), and the cross mode stores
-// a bf16 output directly, as an f32 one, since its one Q buffer cannot wait
-// for a TMA store before the next item's Q. There P.V of tile j - 1 and S
-// of tile j go out in two turns of their own rather than together: with
-// O, S and P in flight at once ptxas spilled 904 bytes and the kernel took
-// 1.6 times as long on the card (PERF.md).
+// a 128-byte TMA swizzle row holds 64 bf16, and runs at one of five padded
+// widths (hopper_common.cuh; width 192 in self-attention only): columns
+// [0, 64) in 128-byte rows with the 128B swizzle; for V (MN-major, whose
+// swizzle atom is 64 columns wide) every further 64 columns as one more
+// 128B atom, so P.V is one N = 80, 128, 192 or 256 product per 16 keys. For
+// Q and K (K-major), at width 80 columns [64, 80) in 32-byte rows with the
+// 32B swizzle, so Q.K^T runs 4 + 1 k-steps of 16; at width 128 columns
+// [64, 128) as a second 128B atom, 4 + 4 k-steps; at widths 192 and 256
+// three or four atoms, 3 x 4 or 4 x 4 k-steps. At width 64 the second
+// chunks are skipped. TMA zero-fills the columns past dh and the rows past
+// N or M, so the padding never reaches device memory, and clips a stored
+// box to the same bounds. The shared-memory layout is Ring<kCross, kRing>:
+// widths 64 and 80 share one (kRing 80); width 128's K/V stage is 64 KB, so
+// its self-attention ring holds three stages beside one Q buffer and its
+// cross mode's two stages beside three Q buffers.
+//
+// Head dims 129-256 of the onepass and flash forwards (kSelfWide). They
+// replace a width-256 form that took 2.4-3.1 times `sdpa`'s time: ptxas had
+// serialized every one of its wgmma and spilled 396-464 bytes (PERF.md).
+// They stream 64-key tiles (keys_of), as a 128-row tile is 48 or 64 KB and O
+// a 96- or 128-register accumulator: dh <= 192 at width 192 (three atoms; at
+// width 256, issuing up to 1.78 times the useful products, they took 1.2-1.4
+// times as long: chip_ab_forwards.py), three 48 KB K/V stages beside one
+// 48 KB Q buffer, S of tile j (m64n64, 12 k-steps) and P.V of tile j - 1 in
+// flight together as at the narrower widths; dh <= 256 at width 256, two
+// 64 KB stages beside one 64 KB Q buffer (three would not fit), P.V of tile
+// j - 1 and S of tile j in turns of their own, so that tile j - 1's stage is
+// free before S of tile j goes out (issued together they took 1.25-1.44
+// times as long, the two-stage ring the likely cause: PERF.md). What made
+// both fast is the registers: O, S and P fit the consumers' 232 of
+// setmaxnreg (the producer keeps 40; at 24 it spilled with a mask) only
+// because no consumer code traps inline. Their mbarrier waits trap through
+// trap_call, since ptxas holds code that may trap inline to the launch
+// bound's 168 registers, where it spilled and serialized the wgmma. What
+// bounds them then is the tensor cores and the L2: each 128-row item reads
+// K/V at 32 bytes a clock an SM at the full tensor rate, and S reads both
+// operands from shared memory (16 MACs a byte at m64n64, the SM's limit).
+// The cross mode keeps width 256 for dh 129-256 (64-key tiles, two stages
+// beside one Q buffer, in turns) and stores a bf16 output directly, as an
+// f32 one, since its one Q buffer cannot wait for a TMA store before the
+// next item's Q.
 //
 // The softmax runs in f32 in log2 units: one FFMA folds the logit scale and
 // the running max into each exponent (exp2(s * scale - m)). With a key mask
@@ -104,32 +122,37 @@ constexpr int kTailTile = kRows * kTailCols * 2;  // 4096 B
 constexpr int kCrossMaxKeys = 512;   // caption keys the cross mode takes
 
 // The block's shared memory at ring width kRing (80: widths 64 and 80; 128;
-// 256): the Q buffers (atom a of columns [64 a, 64 a + 64) at a * kMainTile;
-// width 80's columns [64, 80) as a 32B-swizzled tail there instead), the
-// K/V stages, each stage's mask biases, then the barriers full[stages],
-// empty[stages], qfull[qbufs] and qempty[qbufs]; 1024 bytes of slack to
-// align the base. A stage (each part 1024-byte aligned) at widths 80 and
-// 128: K main, V main, V columns [64, 128) as a second 128B atom right
-// after V main (TMA zero-fills the columns past dh), so that one wgmma of
-// N = 80 or 128 reads both, and K's columns past 64 (a 32B-swizzled tail at
-// width 80, a second 128B atom at width 128). At width 256: K's four atoms,
-// then V's four.
+// 192, the forwards' only; 256): the Q buffers (atom a of columns
+// [64 a, 64 a + 64) at a * kMainTile; width 80's columns [64, 80) as a
+// 32B-swizzled tail there instead), the K/V stages, each stage's mask
+// biases, then the barriers full[stages], empty[stages], qfull[qbufs] and
+// qempty[qbufs]; 1024 bytes of slack to align the base. A stage (each part
+// 1024-byte aligned) at widths 80 and 128: K main, V main, V columns
+// [64, 128) as a second 128B atom right after V main (TMA zero-fills the
+// columns past dh), so that one wgmma of N = 80 or 128 reads both, and K's
+// columns past 64 (a 32B-swizzled tail at width 80, a second 128B atom at
+// width 128). At widths 192 and 256 (64-key tiles): K's three or four
+// atoms, then V's. Width 192's stage is 48 KB and its Q buffer 48 KB, so
+// three stages fit beside one Q buffer (192 KB); width 256's are 64 KB, two
+// stages beside one Q buffer (three would not fit).
 template <bool kCross, int kRing>
 struct Ring {
-  static_assert(kRing == 80 || kRing == 128 || kRing == 256, "a ring width");
+  static_assert(kRing == 80 || kRing == 128 || kRing == 256 || (kRing == 192 && !kCross),
+                "a ring width");
   static constexpr int keys = keys_of(kRing);  // keys per K/V tile, the wgmma N of S = Q.K^T
   static constexpr int kv_atom = keys * 128;   // one 64-column 128B atom of a K or V tile
-  static constexpr int v_off = kRing == 256 ? 4 * kv_atom : kv_atom;  // V's first atom
-  static constexpr int k_hi = kRing == 256 ? kv_atom : 3 * kv_atom;   // K past column 64
-  static constexpr int stage_bytes = kRing == 256   ? 8 * kv_atom
+  static constexpr int atoms = kRing / kMainCols;  // 64-column atoms at widths 192 and 256
+  static constexpr int v_off = kRing >= 192 ? atoms * kv_atom : kv_atom;  // V's first atom
+  static constexpr int k_hi = kRing >= 192 ? kv_atom : 3 * kv_atom;       // K past column 64
+  static constexpr int stage_bytes = kRing >= 192   ? 2 * atoms * kv_atom
                                      : kRing == 128 ? 4 * kv_atom
                                                     : 3 * kv_atom + kTailTile;
-  static constexpr int q_bytes = kRing == 256   ? 4 * kMainTile
+  static constexpr int q_bytes = kRing >= 192   ? atoms * kMainTile
                                  : kRing == 128 ? 2 * kMainTile
                                                 : kMainTile + kTailTile;
   // K/V tiles in flight (cross: resident)
   static constexpr int stages = kCross || kRing == 256 ? 2 : 3;
-  static constexpr int qbufs = kRing == 256 ? 1
+  static constexpr int qbufs = kRing >= 192 ? 1
                                : kCross     ? (kRing == 128 ? 3 : 5)
                                             : (kRing == 128 ? 1 : 2);
   static constexpr int bias_bytes = keys * 4;
@@ -271,8 +294,9 @@ constexpr bool kTmaStoreOf = kCross && kRing != 256 && std::is_same<TOut, attn::
 
 // The consumer warpgroup `wg` (0 or 1): its 64 query rows of each item
 // against the item's keys, at width W: 64 (columns [0, 64)), 80 (also the
-// 32B-swizzled columns [64, 80)), 128 (also the atom of columns [64, 128))
-// or 256 (four atoms, 64-key tiles).
+// 32B-swizzled columns [64, 80)), 128 (also the atom of columns [64, 128)),
+// 192 (three atoms, 64-key tiles; self-attention only) or 256 (four atoms,
+// 64-key tiles).
 template <typename TOut, bool kMask, int W, bool kCross>
 __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_t base, int wg,
                                         const Work& wk) {
@@ -286,6 +310,13 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   // the cross mode's short ones the turns would chain each warpgroup's
   // epilogue to the other's next products
   constexpr bool kPingPong = !kCross;
+  // The forwards at widths 192 and 256, whose waits trap out of line
+  // (trap_call: see mbar_wait)
+  constexpr bool kSelfWide = !kCross && W >= 192;
+  // P.V of tile j - 1 and S of tile j in turns of their own (width 256,
+  // whose ring of two 64 KB stages gets each stage back before the next S
+  // goes out; together they took 1.25-1.44 times as long), or together
+  constexpr bool kInTurn = W == 256;
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -301,12 +332,12 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
 #pragma unroll
   for (int i = 0; i < kSteps; ++i) p[i][0] = p[i][1] = p[i][2] = p[i][3] = 0u;
   float m_0, m_1, l_0, l_1;
-  uint64_t dq, dq_tail;  // Q columns [0, 64) and past 64 (width 256: atom a at dq + a * 1024)
+  uint64_t dq, dq_tail;  // Q columns [0, 64) and past 64 (widths 192, 256: atom a at dq + a * 1024)
   const float sc = kMask ? 1.f : a.scale;  // the scale left after the mask step
 
   // Tile j has arrived and it is this warpgroup's turn on the tensor cores.
   auto acquire = [&](int j) {
-    mbar_wait(R::full(base, slot(j)), ((it + j) / R::stages) & 1);
+    mbar_wait<!kSelfWide>(R::full(base, slot(j)), ((it + j) / R::stages) & 1);
     if (kPingPong) bar_sync(1 + wg);
     wgmma_fence();
   };
@@ -321,9 +352,9 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
   auto issue_s = [&](int j) {
     const uint32_t st = stage(j);
     const uint64_t dk = smem_desc(st, 1024, kSwizzle128);
-    if constexpr (W == 256) {
+    if constexpr (W >= 192) {
 #pragma unroll
-      for (int at = 0; at < 4; ++at) {
+      for (int at = 0; at < R::atoms; ++at) {
         const uint64_t da = dq + at * (kMainTile >> 4), db = dk + (R::k_atom(at) >> 4);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, da + 2 * kk, db + 2 * kk, at + kk > 0);
@@ -452,7 +483,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       l_0 = l_1 = 0.f;
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
-      mbar_wait(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q
+      mbar_wait<!kSelfWide>(R::qfull(base, qi), (n / R::qbufs) & 1);  // this item's Q
 
       float mn0, mn1, ls0, ls1;
       acquire(0);
@@ -463,7 +494,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
       softmax(0, mn0, mn1, ls0, ls1);
       rescale_pack(mn0, mn1, ls0, ls1);
       for (int j = 1; j < ntiles; ++j) {
-        if constexpr (W == 256) {
+        if constexpr (kInTurn) {
           // P.V of tile j - 1, then S of tile j, each in a turn of its own,
           // so that O's 128 registers are not in flight beside S's; tile
           // j's softmax runs while the other warpgroup's products are
@@ -588,7 +619,8 @@ __device__ __forceinline__ void consume(const Maps& maps, const Args& a, uint32_
 // The kernel's body: the producer's loads, or a consumer's rows. The grid
 // is persistent (block_work), and the producer loads the next items' Q and
 // K/V tiles while the consumers finish the current one. kRing: 256
-// (128 < dh <= 256), 128 (80 < dh <= 128), or 80: widths 64 and 80, told
+// (192 < dh <= 256; the cross mode from 128 on), 192 (128 < dh <= 192,
+// self-attention), 128 (80 < dh <= 128), or 80: widths 64 and 80, told
 // apart at run time.
 template <typename TOut, bool kMask, bool kCross, int kRing>
 __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) {
@@ -600,6 +632,13 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
   const Work wk = block_work<kKeys>(a);
   const bool has_tail = a.dh > kMainCols;
   const int wg = threadIdx.x >> 7;
+  // Registers a thread after setmaxnreg, the launch's 384 x 168 shared out
+  // as 128 x producer + 256 x consumer: 24 and 240, or for the forwards at
+  // widths 192 and 256 40 and 232, as their producer spills at 24 with a
+  // mask and their consumers need at most 230 (PERF.md).
+  constexpr bool kSelfWide = !kCross && kRing >= 192;
+  constexpr int kProducerRegs = kSelfWide ? 40 : 24, kConsumerRegs = kSelfWide ? 232 : 240;
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs == kThreads * 168, "the launch's pool");
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::stages; ++s) {
@@ -617,7 +656,7 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
   __syncthreads();
 
   if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
     // one thread loads; in the cross mode its whole warp finds the extents
     if (kCross ? threadIdx.x < 2 * 128 + 32 : threadIdx.x == 2 * 128) {
       const bool issue = !kCross || threadIdx.x == 2 * 128;
@@ -642,8 +681,8 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
             const uint32_t qbuf = base + qi * R::q_bytes;
             mbar_expect_tx(R::qfull(base, qi), chunk);
             tma_load(qbuf, &maps.q, R::qfull(base, qi), 0, h, q0, b);
-            if (kRing == 256) {
-              for (int at = 1; at < 4; ++at)
+            if (kRing >= 192) {
+              for (int at = 1; at < R::atoms; ++at)
                 tma_load(qbuf + at * kMainTile, &maps.q, R::qfull(base, qi), at * kMainCols, h,
                          q0, b);
             } else if (has_tail) {
@@ -676,8 +715,8 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
               }
               tma_load(st, &maps.k, full, 0, h, key0, b);
               tma_load(st + R::v_off, &maps.v, full, 0, h, key0, b);
-              if (kRing == 256) {
-                for (int at = 1; at < 4; ++at) {
+              if (kRing >= 192) {
+                for (int at = 1; at < R::atoms; ++at) {
                   tma_load(st + R::k_atom(at), &maps.k, full, at * kMainCols, h, key0, b);
                   tma_load(st + R::v_off + at * R::kv_atom, &maps.v, full, at * kMainCols, h,
                            key0, b);
@@ -706,9 +745,11 @@ __device__ __forceinline__ void attention_body(const Maps& maps, const Args& a) 
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
     if constexpr (kRing == 256) {
       consume<TOut, kMask, 256, kCross>(maps, a, base, wg, wk);
+    } else if constexpr (kRing == 192) {
+      consume<TOut, kMask, 192, kCross>(maps, a, base, wg, wk);
     } else if constexpr (kRing == 128) {
       consume<TOut, kMask, 128, kCross>(maps, a, base, wg, wk);
     } else if (has_tail) {
@@ -737,7 +778,7 @@ inline int prepare(Launch& l, const void* q, const void* k, const void* v, const
   if (N < 1 || M < 1 || tail < 0 || dh < 1 || dh % 8 || dh > kNarrowMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   l = Launch{};
-  const int keys = keys_of(width_of(dh));
+  const int keys = keys_of(cross ? width_of(dh) : forward_width_of(dh));
   struct View {
     CUtensorMap *main, *rest;
     const void* ptr;
@@ -806,10 +847,16 @@ inline int prepare_cross(Launch& l, const void* q, const void* k, const void* v,
 }
 
 // The ring Ring<kCross, ring_of(width)> of padded width `width` (64, 80,
-// 128 or 256) given to `f`, for the libraries' geometry queries.
+// 128, 192 or 256) given to `f`, for the libraries' geometry queries; -1 at
+// width 192 in the cross mode, which is not built for it.
 template <bool kCross, typename F>
 int with_ring(int width, F f) {
   if (width == 256) return f(Ring<kCross, 256>{});
+  if constexpr (!kCross) {
+    if (width == 192) return f(Ring<false, 192>{});
+  } else if (width == 192) {
+    return -1;
+  }
   if (width == 128) return f(Ring<kCross, 128>{});
   return f(Ring<kCross, 80>{});
 }

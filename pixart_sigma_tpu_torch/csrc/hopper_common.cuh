@@ -9,23 +9,26 @@
 //
 // Operand layouts in shared memory: a 128-byte TMA swizzle row holds 64
 // bf16, so the head dim (a multiple of 8 up to 256) is split in column
-// chunks, and the kernels are built for four padded widths (width_of):
-// 64 (dh <= 64), 80 (dh <= 80), 128 (dh <= 128) and 256 (dh <= 256). A
-// K-major operand (the product's reduction runs along the head dim) takes
-// columns [0, 64) as 128-byte rows with the 128B swizzle, one k-step of 16
-// columns 32 bytes further on; columns [64, 80) (width 80) either as
-// 32-byte rows with the 32B swizzle or as the first 16 columns of a second
-// 128B-swizzled 64-column atom, and every further 64 columns (widths 128
-// and 256) as one more such atom: 4 + 4 k-steps at width 128, 4 x 4 at
-// width 256. An MN-major operand (the head dim is the product's N) takes
-// two or four 128B atoms, the leading byte offset of its descriptor
-// pointing from each to the next. A tile stored as 128B atoms is therefore
-// readable both ways. TMA zero-fills columns past dh (a box wholly past it
-// too) and rows past the view, so the padding never reaches device memory.
+// chunks, and the kernels are built for padded widths: 64 (dh <= 64), 80
+// (dh <= 80), 128 (dh <= 128) and 256 (dh <= 256) (width_of: the cross
+// mode and the backward), and for the onepass and flash forwards also 192
+// (128 < dh <= 192; forward_width_of). A K-major operand (the product's
+// reduction runs along the head dim) takes columns [0, 64) as 128-byte rows
+// with the 128B swizzle, one k-step of 16 columns 32 bytes further on;
+// columns [64, 80) (width 80) either as 32-byte rows with the 32B swizzle
+// or as the first 16 columns of a second 128B-swizzled 64-column atom, and
+// every further 64 columns (widths 128, 192 and 256) as one more such atom:
+// 4 + 4 k-steps at width 128, 3 x 4 at 192, 4 x 4 at 256. An MN-major
+// operand (the head dim is the product's N) takes two, three or four 128B
+// atoms, the leading byte offset of its descriptor pointing from each to the
+// next. A tile stored as 128B atoms is therefore readable both ways. TMA
+// zero-fills columns past dh (a box wholly past it too) and rows past the
+// view, so the padding never reaches device memory.
 //
-// At width 256 a 128-row tile is 64 KB and a wgmma m64n256 accumulator 128
-// registers a thread, so the key tiles (and the backward's dK/dV items) are
-// 64 keys there (keys_of), 128 at the narrower widths.
+// At widths 192 and 256 a 128-row tile is 48 or 64 KB and a wgmma m64n192
+// or m64n256 accumulator 96 or 128 registers a thread, so the key tiles (and
+// the backward's dK/dV items) are 64 keys there (keys_of), 128 at the
+// narrower widths.
 #pragma once
 
 #include <cuda.h>
@@ -48,16 +51,23 @@ constexpr int kNarrowMaxHeadDim = 256;
 // at every width.
 constexpr int kPadKeys = 128;
 
-// The padded width a head dim of dh runs at, the f32 registers of a wgmma
-// m64nW accumulator row pair per thread at that width (widths 64 and 80
-// share one layout: 10 column chunks of 8), and the keys of one K/V tile.
+// The padded width a head dim of dh runs at in the cross mode and the
+// backward (width_of) and in the onepass and flash forwards
+// (forward_width_of: three 64-column atoms for 128 < dh <= 192, where width
+// 256 would issue up to 1.78 times the useful products), the f32 registers
+// of a wgmma m64nW accumulator row pair per thread at that width (widths 64
+// and 80 share one layout: 10 column chunks of 8), and the keys of one K/V
+// tile.
 __host__ __device__ constexpr int width_of(int dh) {
   return dh <= 64 ? 64 : dh <= 80 ? 80 : dh <= 128 ? 128 : 256;
 }
-__host__ __device__ constexpr int acc_regs(int width) {
-  return width == 256 ? 128 : width == 128 ? 64 : 40;
+__host__ __device__ constexpr int forward_width_of(int dh) {
+  return dh <= 128 ? width_of(dh) : dh <= 192 ? 192 : 256;
 }
-__host__ __device__ constexpr int keys_of(int width) { return width == 256 ? 64 : 128; }
+__host__ __device__ constexpr int acc_regs(int width) {
+  return width == 256 ? 128 : width == 192 ? 96 : width == 128 ? 64 : 40;
+}
+__host__ __device__ constexpr int keys_of(int width) { return width >= 192 ? 64 : 128; }
 // The shared-memory layout a padded width runs on: widths 64 and 80 share
 // one (80).
 __host__ __device__ constexpr int ring_of(int width) { return width == 64 ? 80 : width; }
@@ -83,14 +93,29 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// Traps, from a function of its own: ptxas holds code that may trap inline
+// to the launch bound's registers (168 a thread at 384 threads) even after
+// setmaxnreg has raised them, and with O, S and P in flight the consumers of
+// the forwards at widths 192 and 256 then spill and have their wgmma
+// serialized; a call on the cold path leaves them the 232 of setmaxnreg.
+__device__ __noinline__ void trap_call() { __trap(); }
+
 // Spins until the barrier's phase of `parity` completes. A wait that lasts
-// 2^28 polls (many seconds) traps, so a pipeline fault ends the launch with
-// an error instead of hanging the card.
+// 2^28 polls (many seconds) traps, inline or (kInline false) through
+// trap_call, so a pipeline fault ends the launch with an error instead of
+// hanging the card.
+template <bool kInline = true>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   uint32_t polls = 0;
   do {
-    if (++polls == (1u << 28)) __trap();
+    if (++polls == (1u << 28)) {
+      if constexpr (kInline) {
+        __trap();
+      } else {
+        trap_call();
+      }
+    }
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -349,13 +374,49 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] . B[16 x 192]: as wgmma_rs_n64, B three
+// 64-column swizzle atoms, the descriptor's leading byte offset apart.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (+)= A[64 x 16] . B[16 x W] at width W: A from registers, B MN-major
-// in shared memory (two 64-column atoms past width 64, four at 256).
+// in shared memory (two 64-column atoms past width 64, three at 192, four at
+// 256).
 template <int W>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[acc_regs(W)], const uint32_t (&a)[4],
                                             uint64_t desc_b) {
   if constexpr (W == 256) {
     wgmma_rs_n256(d, a, desc_b);
+  } else if constexpr (W == 192) {
+    wgmma_rs_n192(d, a, desc_b);
   } else if constexpr (W == 128) {
     wgmma_rs_n128(d, a, desc_b);
   } else if constexpr (W == 80) {

@@ -24,10 +24,17 @@
 // (one FFMA and one ex2 per logit, the scale and max folded together) runs
 // while the other warpgroup's products, and its own P.V, are in flight.
 //
-// Head dims up to 256: dh runs at the padded width 64, 80, 128 or 256
-// (hopper_common.cuh), each its own instantiation; at width 128 a K/V stage
-// is 64 KB, so the ring holds three stages beside one Q buffer; at width
-// 256 the tiles are 64 keys (a 64 KB stage) and the ring holds two.
+// Head dims up to 256: dh runs at the padded width 64, 80, 128, 192 or 256
+// (forward_width_of, hopper_common.cuh), each its own instantiation; at
+// width 128 a K/V stage is 64 KB, so the ring holds three stages beside one
+// Q buffer. Past 128 the tiles are 64 keys: at width 192 (dh <= 192) a
+// 48 KB stage, three beside a 48 KB Q buffer, S and P.V in flight together;
+// at width 256 a 64 KB stage, two beside a 64 KB Q buffer, S and P.V in
+// turns so that the ring keeps a tile ahead. There O is 96 or 128
+// registers a thread, which the consumers hold beside S and P only with
+// the 232 registers of setmaxnreg (no inline trap: hopper_attention.cuh);
+// what bounds them is then the tensor cores and the L2's K/V reads, with
+// dh = 144 at width 192 issuing 1.33 times its useful products.
 //
 // Reads bf16 q/k/v in place through their strides (the qkv projection's
 // output, with no transpose or copy); the Python wrapper rounds f32 inputs
@@ -74,9 +81,11 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
                                   scale, -std::numeric_limits<float>::infinity(), tail);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hopper::width_of(dh)) {
+  switch (hopper::forward_width_of(dh)) {
     case 256:
       return onepass_run<256>(l, f32, madd, s);
+    case 192:
+      return onepass_run<192>(l, f32, madd, s);
     case 128:
       return onepass_run<128>(l, f32, madd, s);
     default:
@@ -85,8 +94,8 @@ extern "C" int onepass_attention(const void* q, const void* k, const void* v, co
 }
 
 // Dynamic shared memory of one block (bytes), keys per tile and the K/V
-// ring's depth at the padded width `width` (64, 80, 128 or 256; the wrapper
-// checks the last two against its own).
+// ring's depth at the padded width `width` (64, 80, 128, 192 or 256; the
+// wrapper checks the last two against its own).
 extern "C" int onepass_attention_smem_bytes(int width) {
   return hopper::with_ring<false>(width, [](auto r) { return decltype(r)::smem_bytes; });
 }

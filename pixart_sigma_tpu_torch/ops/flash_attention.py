@@ -45,7 +45,9 @@ of 8 is zero-padded to one by the wrapper (`pad_head_dim`), with the softmax
 scale kept the true head dim's, and the outputs and gradients are sliced
 back. Up to 256 it runs at the padded width 64, 80, 128 or 256 of the narrow
 forms (`head_dim_width`; width 256 streams 64-key tiles, and the backward
-64-key dK/dV items, 128 keys the narrower widths). Past 256 every wrapper
+64-key dK/dV items, 128 keys the narrower widths); the onepass and flash
+forwards also have width 192, three 64-column atoms with 64-key tiles, for
+head dims 129-192 (`forward_head_dim_width`). Past 256 every wrapper
 launches the wide form instead (`csrc/wide_attention.cu`,
 `csrc/wide_backward.cu`, counted also in `<wrapper>.wide_launches`): the head
 dim streams through the ring in 64-column atoms (TMA zero-fills past it) and
@@ -72,8 +74,11 @@ ALLHEADS_MAX_KV = 512  # caption keys the allheads kernel takes
 HEADSMAJOR_MAX_KV = 512  # caption keys the headsmajor kernel takes
 HEADSMAJOR_ROWS = 128  # unit of headsmajor's block_q (the kernel's query tile)
 # The padded head dims the narrow forms are built for (csrc/hopper_common.cuh):
-# a head dim runs at the first that holds it; past the last, the wide form
+# a head dim runs at the first that holds it; past the last, the wide form.
+# WIDTHS are those of allheads, headsmajor, dkv and dq; FORWARD_WIDTHS those
+# of onepass and flash, which also run 129-192 at 192
 WIDTHS = (64, 80, 128, 256)
+FORWARD_WIDTHS = (64, 80, 128, 192, 256)
 # The wide form: 64-column atoms of the head dim, keys per K/V tile (the unit
 # of its key extent, and the keys of one dK/dV block) and output columns per
 # group; the last two are checked against the libraries at load
@@ -83,8 +88,8 @@ WIDE_GROUP_COLS = 128
 # Keys per tile of the onepass and flash kernels (csrc/hopper_attention.cuh)
 # and the depth of their K/V ring, at each width; both are checked against
 # the library at load
-KEY_TILE = {64: 128, 80: 128, 128: 128, 256: 64}
-KEY_STAGES = {64: 3, 80: 3, 128: 3, 256: 2}
+KEY_TILE = {64: 128, 80: 128, 128: 128, 192: 64, 256: 64}
+KEY_STAGES = {64: 3, 80: 3, 128: 3, 192: 3, 256: 2}
 # The onepass and flash mask bias rows are padded to a multiple of this many
 # keys: whole tiles at every width
 MASK_PAD = 128
@@ -282,13 +287,20 @@ def _check_head_dim(name: str, dh: int) -> None:
         raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take every head dim from 1")
 
 
-def head_dim_width(dh: int) -> int:
-    """The padded width a head dim of dh runs at: the first of WIDTHS that
-    holds it, or past the last, the wide form's whole 64-column atoms."""
+def head_dim_width(dh: int, widths: Tuple[int, ...] = WIDTHS) -> int:
+    """The padded width a head dim of dh runs at in allheads, headsmajor,
+    dkv and dq: the first of `widths` that holds it, or past the last, the
+    wide form's whole 64-column atoms."""
     _check_head_dim("head_dim_width", dh)
-    if dh <= WIDTHS[-1]:
-        return next(w for w in WIDTHS if dh <= w)
+    if dh <= widths[-1]:
+        return next(w for w in widths if dh <= w)
     return -(-dh // WIDE_ATOM) * WIDE_ATOM
+
+
+def forward_head_dim_width(dh: int) -> int:
+    """The padded width a head dim of dh runs at in onepass and flash: as
+    `head_dim_width`, but 192 for 128 < dh <= 192."""
+    return head_dim_width(dh, FORWARD_WIDTHS)
 
 
 def _is_wide(dp: int) -> bool:
@@ -369,12 +381,13 @@ def _check_key_geometry(lib, name: str, tile=KEY_TILE, stages=KEY_STAGES):
     """`lib` (onepass_attention or flash_forward with KEY_TILE and KEY_STAGES;
     cross_attention with CROSS_KEY_TILE and CROSS_KEY_STAGES; flash_backward
     with BWD_KEY_TILE and BWD_KEY_STAGES), once its keys per tile and its K/V
-    stages at each width of WIDTHS are found to be `tile` and `stages` (each
-    {width: count}), by which `_tile_bias` pads the mask of onepass and
+    stages at each of its widths (the keys of `tile`: FORWARD_WIDTHS for the
+    forwards, WIDTHS for the others) are found to be `tile` and `stages`
+    (each {width: count}), by which `_tile_bias` pads the mask of onepass and
     flash (MASK_PAD, a multiple of every tile), and the tests and the
     planted faults pick their key counts."""
-    got = ({w: getattr(lib, f"{name}_key_tile")(w) for w in WIDTHS},
-           {w: getattr(lib, f"{name}_key_stages")(w) for w in WIDTHS})
+    got = ({w: getattr(lib, f"{name}_key_tile")(w) for w in tile},
+           {w: getattr(lib, f"{name}_key_stages")(w) for w in tile})
     if got != (tile, stages) or any(MASK_PAD % t for t in got[0].values()):
         raise RuntimeError(f"{name}: the library streams {got[0]}-key tiles through "
                            f"{got[1]} stages by width, the wrapper expects {tile} and {stages}")

@@ -238,6 +238,21 @@ def test_head_dims_run_at_their_width(Dh, width):
     assert tfa.head_dim_width(Dh + (-Dh % 8)) == width
 
 
+@pytest.mark.parametrize("Dh,width", [(1, 64), (72, 80), (80, 80), (88, 128), (128, 128),
+                                      (129, 192), (136, 192), (144, 192), (192, 192),
+                                      (193, 256), (200, 256), (250, 256), (256, 256),
+                                      (257, 320), (384, 384)])
+def test_forward_head_dims_run_at_their_width(Dh, width):
+    """onepass and flash run head dims 129-192 at width 192 (three 64-column
+    atoms); allheads, headsmajor, dkv and dq keep width 256 for them."""
+    dp = Dh + (-Dh % 8)
+    assert tfa.forward_head_dim_width(dp) == width
+    assert tfa.head_dim_width(dp) == (256 if 128 < dp <= 256 else width)
+    if dp <= 256:
+        assert width in tfa.FORWARD_WIDTHS and width in tfa.KEY_TILE
+        assert tfa.head_dim_width(dp) in tfa.WIDTHS
+
+
 @pytest.mark.parametrize("Dh,width", [(257, 320), (384, 384), (1152, 1152), (2048, 2048),
                                       (0, None)])
 def test_head_dims_past_256_run_at_their_atom_width(Dh, width):

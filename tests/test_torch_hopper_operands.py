@@ -18,6 +18,7 @@ from pixart_sigma_tpu_torch.ops.flash_attention import (
     BWD_KEY_TILE,
     CROSS_KEY_STAGES,
     CROSS_KEY_TILE,
+    FORWARD_WIDTHS,
     KEY_STAGES,
     KEY_TILE,
     MASK_PAD,
@@ -45,8 +46,10 @@ def _shift(stages: dict, d: int, widths=WIDTHS) -> dict:
 
 def _tiles(tile) -> dict:
     """Per-width keys per tile: a dict as it is; an int n as the kernels
-    scale it, n below width 256 and n / 2 at 256."""
-    return tile if isinstance(tile, dict) else {w: tile // 2 if w == 256 else tile for w in WIDTHS}
+    scale it, n up to width 128 and n / 2 at 192 (the forwards') and 256."""
+    if isinstance(tile, dict):
+        return tile
+    return {w: tile // 2 if w >= 192 else tile for w in FORWARD_WIDTHS}
 
 
 def _geometry_lib(name: str, tile, stages: dict):
@@ -99,10 +102,11 @@ def test_unreadable_views_are_copied(make):
 @pytest.mark.parametrize("M", [1, 127, 128, 129, 300, 1020])
 def test_mask_bias_is_padded_to_whole_key_tiles(M):
     """Rows padded to MASK_PAD keys, whole tiles at every width, so each
-    tile's biases are one copy of 512 (width 256: 256) bytes; keys past M
+    tile's biases are one copy of 512 (widths 192 and 256: 256) bytes; keys past M
     read -inf, which drops them from every row as the kernels' bounds test
     did."""
     assert all(MASK_PAD % tile == 0 for tile in KEY_TILE.values())
+    assert sorted(KEY_TILE) == sorted(KEY_STAGES) == list(FORWARD_WIDTHS)
     lengths = torch.tensor([M, M // 2, 0])
     madd = mask_bias(torch.arange(M)[None] < lengths[:, None])
     got = _tile_bias(madd, 3, M, "test")
@@ -131,6 +135,10 @@ def test_launch_errors_name_their_cause():
     ({**KEY_TILE, 256: 128}, KEY_STAGES, False),  # width 256 at the narrow widths' tile
     (KEY_TILE[128], _shift(KEY_STAGES, 1, (256,)), False),  # three 64 KB stages do not fit
     ({**KEY_TILE, 256: 256}, KEY_STAGES, False),  # a tile MASK_PAD is no multiple of
+    ({**KEY_TILE, 192: 128}, KEY_STAGES, False),  # width 192 at the narrow widths' tile
+    ({**KEY_TILE, 192: 96}, KEY_STAGES, False),  # a tile MASK_PAD is no multiple of
+    (KEY_TILE[128], _shift(KEY_STAGES, 1, (192,)), False),  # four 48 KB stages do not fit
+    (KEY_TILE[128], _shift(KEY_STAGES, -1, (192,)), False),  # width 192's ring alone
 ])
 def test_library_key_geometry_is_checked(name, tile, stages, ok):
     lib = _geometry_lib(name, tile, stages)
@@ -139,6 +147,32 @@ def test_library_key_geometry_is_checked(name, tile, stages, ok):
     else:
         with pytest.raises(RuntimeError, match=name):
             _check_key_geometry(lib, name)
+
+
+@pytest.mark.parametrize("name,tile,stages", [
+    ("cross_attention", CROSS_KEY_TILE, CROSS_KEY_STAGES),
+    ("flash_backward", BWD_KEY_TILE, BWD_KEY_STAGES),
+])
+def test_cross_and_backward_libraries_are_not_asked_for_width_192(name, tile, stages):
+    """Width 192 is the forwards' alone: the cross and backward libraries,
+    which run head dims 129-256 at width 256, are checked at WIDTHS, and
+    the forwards at FORWARD_WIDTHS."""
+    assert 192 not in tile and 192 not in stages and 192 in KEY_TILE
+
+    def at(table):
+        def query(width):
+            if width == 192:
+                raise AssertionError(f"{name} asked for width 192")
+            return table[width]
+        return query
+
+    lib = types.SimpleNamespace(**{f"{name}_key_tile": at(tile), f"{name}_key_stages": at(stages)})
+    assert _check_key_geometry(lib, name, tile, stages) is lib
+    forward = _geometry_lib("onepass_attention", KEY_TILE[128], KEY_STAGES)
+    asked = []
+    forward.onepass_attention_key_tile = lambda width: asked.append(width) or KEY_TILE[width]
+    assert _check_key_geometry(forward, "onepass_attention") is forward
+    assert asked == list(FORWARD_WIDTHS)
 
 
 @pytest.mark.parametrize("heads,dh", [(16, 72), (2, 64), (3, 80), (1, 8), (12, 96), (9, 128),

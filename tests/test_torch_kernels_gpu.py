@@ -127,9 +127,9 @@ def _check_forward(kernel, q, k, v, mask=None):
 # The onepass and flash kernels (csrc/hopper_attention.cuh) stream keys in
 # tiles of KEY_TILE[width] through a ring of KEY_STAGES[width] stages, and
 # split the head dim into columns [0, 64) and [64, 80) (width 80), [64, 128)
-# (width 128) or three more 64-column atoms (width 256); a head dim off a
-# multiple of 8 is padded by the wrapper: the cases below sit on either side
-# of each.
+# (width 128), or two or three more 64-column atoms (widths 192 and 256); a
+# head dim off a multiple of 8 is padded by the wrapper: the cases below sit
+# on either side of each.
 HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 200, 1, 2, 72, None),                       # one key
     (2, 200, KEY_TILE[80] - 1, 2, 72, None),
@@ -156,7 +156,11 @@ HOPPER_CASES = [  # B, N, M, H, Dh, lengths
     (2, 333, 500, 3, 192, (500, 77)),               # 6 heads at XL-2's width, masked
     (2, 333, 500, 2, 256, (500, 77)),               # the widest head dim, masked
     (2, 333, 500, 3, 250, (500, 77)),               # padded to 256
-    (2, 200, 300, 2, 136, None),                    # the narrowest of width 256
+    (2, 200, 300, 2, 136, None),                    # the narrowest of width 192
+    (2, 200, KEY_TILE[192] - 1, 2, 192, None),      # width 192: 64-key tiles
+    (2, 200, KEY_TILE[192] * KEY_STAGES[192] - 1, 2, 144, None),  # its ring's wrap
+    (2, 200, KEY_TILE[192] * KEY_STAGES[192] + 1, 2, 136, None),
+    (2, 200, 300, 2, 200, None),                    # the narrowest of the forwards' width 256
     # the wide form: 64-column atoms, 128-column groups, 64-key tiles
     (2, 200, WIDE_KEY_TILE + 1, 2, 264, None),      # the narrowest: 5 atoms, 3 groups
     (2, 1000, 1008, 4, 288, None),                  # XL-2 with 4 heads
@@ -460,6 +464,23 @@ def test_flash_kernel_matches_plain(cuda, B, N, M, H, Dh, lengths, dtype):
     _check_forward("flash", q, k, v, mask)
 
 
+@pytest.mark.parametrize("kernel", ["onepass", "flash"])
+@pytest.mark.parametrize("Dh", [136, 144, 192])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_width_192_forwards_match_plain(cuda, kernel, Dh, dtype):
+    """The forwards' width-192 form (head dims 129-192: three 64-column
+    atoms, 64-key tiles through three stages, S and P.V in flight together)
+    with a key mask, M off the tile and N off the 128-row item; f32 inputs
+    are rounded to bf16 as the kernel reads them."""
+    rng = np.random.RandomState(23)
+    t = lambda shape, scale=1.0: torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(cuda, dtype)
+    B, N, H = 2, 1000, 3
+    M = 2 * KEY_TILE[192] * KEY_STAGES[192] + KEY_TILE[192] // 2 + 5  # 421: past two ring turns
+    q, k, v = t((B, N, H, Dh), 2.0), t((B, M, H, Dh)), t((B, M, H, Dh))
+    _check_forward(kernel, q, k, v, _lengths_mask((M, (100, 300)), M, cuda))
+
+
 def test_flash_reads_strided_qkv_at_the_2k_width(cuda):
     """q/k/v as column slices of one qkv projection output, 16 heads."""
     rng = np.random.RandomState(8)
@@ -554,14 +575,19 @@ def test_auto_dispatch_takes_flash_and_the_crossattn_override(cuda, monkeypatch)
 
 def test_forward_key_tile_is_the_librarys(cuda):
     """The libraries' keys per tile and ring depth are the wrapper's
-    KEY_TILE and KEY_STAGES (CROSS_KEY_TILE and CROSS_KEY_STAGES for
-    allheads and headsmajor), which the cases above are built from."""
+    KEY_TILE and KEY_STAGES at every width of the forwards, 192 included
+    (CROSS_KEY_TILE and CROSS_KEY_STAGES for allheads and headsmajor), which
+    the cases above are built from."""
     from pixart_sigma_tpu_torch.ops import _build
-    from pixart_sigma_tpu_torch.ops.flash_attention import _check_key_geometry
+    from pixart_sigma_tpu_torch.ops.flash_attention import FORWARD_WIDTHS, _check_key_geometry
 
     for name in ("onepass_attention", "flash_forward"):
         lib = _build.load(name)
         assert _check_key_geometry(lib, name) is lib
+        assert [getattr(lib, f"{name}_key_tile")(w) for w in FORWARD_WIDTHS] == [
+            KEY_TILE[w] for w in FORWARD_WIDTHS]
+        assert (getattr(lib, f"{name}_key_tile")(192), getattr(lib, f"{name}_key_stages")(192)) == (
+            64, 3)
     lib = _build.load("cross_attention")
     assert _check_key_geometry(lib, "cross_attention", CROSS_KEY_TILE, CROSS_KEY_STAGES) is lib
     lib = _build.load("flash_backward")
